@@ -1,0 +1,93 @@
+"""Global configuration tier: namespaced knobs with env-var overrides.
+
+The PyTorch port's own copy of ``mmlspark_tpu/utils/config.py``. Every key
+resolves, in order: programmatic ``set()`` > environment variable
+``MMLSPARK_TPU_TORCH_<NAMESPACE>_<KEY>`` (upper-cased) > registered
+default. Only the keys the port reads are registered; later slices add
+theirs as they port the modules that read them.
+
+``runtime.device`` names the torch device every entry point runs on. It
+defaults to ``"cuda"``; when CUDA is missing the entry points raise
+(:func:`resolve_device`) instead of carrying on on the CPU, so a run never
+reports host numbers as device numbers. Tests and CPU users set it to
+``"cpu"`` explicitly.
+"""
+from __future__ import annotations
+
+import os
+import threading
+from typing import Any, Dict
+
+_DEFAULTS: Dict[str, Any] = {
+    "runtime.device": "cuda",         # torch device of every entry point
+    "runtime.device_cache_mb": 1024,  # device-memory budget for resident
+                                      # scoring inputs (models/residency.py)
+}
+
+_lock = threading.Lock()
+_overrides: Dict[str, Any] = {}
+
+
+def _env_key(key: str) -> str:
+    return "MMLSPARK_TPU_TORCH_" + key.replace(".", "_").upper()
+
+
+def get(key: str, default: Any = None) -> Any:
+    """Resolve a config key (``namespace.name``)."""
+    with _lock:
+        if key in _overrides:
+            return _overrides[key]
+    env = os.environ.get(_env_key(key))
+    if env is not None:
+        base = _DEFAULTS.get(key, default)
+        return _coerce(env, base)
+    if key in _DEFAULTS:
+        return _DEFAULTS[key]
+    if default is not None:
+        return default
+    raise KeyError(f"unknown config key {key!r}; known: {sorted(_DEFAULTS)}")
+
+
+def set(key: str, value: Any) -> None:  # noqa: A001 - mirrors typesafe API
+    """Programmatic override (highest precedence). Unknown keys are allowed
+    so applications can park their own knobs in the same tree."""
+    with _lock:
+        _overrides[key] = value
+
+
+def unset(key: str) -> None:
+    with _lock:
+        _overrides.pop(key, None)
+
+
+def snapshot() -> Dict[str, Any]:
+    """Fully-resolved view of every known key (for logs / debugging)."""
+    merged = dict(_DEFAULTS)
+    with _lock:
+        merged.update(_overrides)
+    return {k: get(k, merged[k]) for k in sorted(merged)}
+
+
+def resolve_device():
+    """The ``torch.device`` named by ``runtime.device``.
+
+    Raises ``RuntimeError`` when it names CUDA and CUDA is not available:
+    the port never falls back to the CPU on its own."""
+    import torch
+    device = torch.device(str(get("runtime.device")))
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"runtime.device is {str(device)!r} but torch.cuda.is_available() "
+            "is False; set runtime.device='cpu' (config.set or "
+            "MMLSPARK_TPU_TORCH_RUNTIME_DEVICE=cpu) to run on the CPU")
+    return device
+
+
+def _coerce(text: str, like: Any) -> Any:
+    if isinstance(like, bool):
+        return text.lower() in ("1", "true", "yes", "on")
+    if isinstance(like, int):
+        return int(text)
+    if isinstance(like, float):
+        return float(text)
+    return text
