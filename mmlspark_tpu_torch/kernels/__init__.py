@@ -8,11 +8,18 @@ takes the plain version only for a CPU tensor.
 """
 from __future__ import annotations
 
-from ctypes import c_int, c_void_p
+from ctypes import c_int, c_longlong, c_void_p
 
 from mmlspark_tpu_torch.kernels.build import (  # noqa: F401
     KERNELS, Kernel, build_all, reset_launches,
 )
+
+# K1: mmlspark_tpu/ops/pallas_preprocess.py::fused_normalize.
+# (src, dst, mean, inv_std, total, c, out_bf16, stream); wrapper:
+# ops/preprocess.py::fused_normalize
+FUSED_NORMALIZE = Kernel(
+    "fused_normalize", "fused_normalize.cu",
+    [c_void_p] * 4 + [c_longlong, c_int, c_int, c_void_p])
 
 # K2: mmlspark_tpu/ops/pallas_preprocess.py::_fused_crop_resize_normalize.
 # (src, dst, y0, y1, fy, x0, x1, fx, mean, istd, b, hs, ws, hd, wd, c,

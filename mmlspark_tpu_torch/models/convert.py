@@ -35,7 +35,10 @@ def _convert_leaf(leaf: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
 
 def from_jax_params(tree: Mapping) -> Dict[str, np.ndarray]:
     """Flax parameter tree (with or without the ``"params"`` collection
-    key) -> the port's state dict of contiguous numpy arrays."""
+    key) -> the port's state dict of contiguous numpy arrays, copied, so
+    the result is writable and shares no memory with the tree. Covers
+    every leaf the zoo holds: the convs and GroupNorms of the ResNets and
+    the Dense layers of the ResNet head and of the MLP."""
     if "params" in tree:
         tree = tree["params"]
     out: Dict[str, np.ndarray] = {}
@@ -46,6 +49,6 @@ def from_jax_params(tree: Mapping) -> Dict[str, np.ndarray]:
                 walk(f"{prefix}{key}.", value)
             else:
                 name, arr = _convert_leaf(key, np.asarray(value))
-                out[prefix + name] = np.ascontiguousarray(arr)
+                out[prefix + name] = np.array(arr, order="C")
     walk("", tree)
     return out

@@ -215,10 +215,7 @@ class TorchModel(HasInputCol, HasOutputCol, Model):
         if not node:
             forward = module
         else:
-            from mmlspark_tpu_torch.models.zoo.resnet import (
-                apply_with_intermediates,
-            )
-            forward = lambda x: apply_with_intermediates(module, x)[1][node]  # noqa: E731
+            forward = lambda x: module.forward_with_intermediates(x)[1][node]  # noqa: E731
 
         @torch.inference_mode()
         def apply(x: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,7 @@ architecture registers under the same stable name with the same spec dict
 ``layer_names``), so stages and saved state name models the same way in
 both packages. ``module`` is an ``nn.Module`` whose parameters are
 allocated but not initialized; :func:`init_state` fills a state dict from a
-seed. This slice registers the ResNets only.
+seed. Registered so far: the ResNets and the tabular MLP.
 """
 from __future__ import annotations
 
@@ -75,5 +75,21 @@ def init_state(module: torch.nn.Module, seed: int = 0) -> Dict[str, np.ndarray]:
     return state
 
 
+class PooledHead(torch.nn.Module):
+    """Base of the zoo modules: ``forward_features`` yields the ``pool``
+    layer and ``head`` maps it to the output, the two names every spec's
+    ``layer_names`` lists."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.head(self.forward_features(x))
+
+    def forward_with_intermediates(self, x: torch.Tensor):
+        """``(output, {"pool": features, "head": output})``."""
+        pool = self.forward_features(x)
+        out = self.head(pool)
+        return out, {"pool": pool, "head": out}
+
+
 # populate the registry
 from mmlspark_tpu_torch.models.zoo import resnet as _resnet  # noqa: E402,F401
+from mmlspark_tpu_torch.models.zoo import mlp as _mlp  # noqa: E402,F401

@@ -17,7 +17,8 @@ from_jax_params` maps a flax parameter tree onto these modules one to one:
   features and the head run in float32; the residual is cast to the
   block's float32 output.
 - the layer-name contract: ``pool`` (the pooled features) and ``head``
-  (the logits), returned by :func:`apply_with_intermediates`.
+  (the logits), returned by ``forward_with_intermediates``
+  (:class:`mmlspark_tpu_torch.models.zoo.PooledHead`).
 """
 from __future__ import annotations
 
@@ -27,7 +28,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mmlspark_tpu_torch.models.zoo import register_model, resolve_dtype
+from mmlspark_tpu_torch.models.zoo import (
+    PooledHead, register_model, resolve_dtype,
+)
 
 Padding = Union[str, Tuple[Tuple[int, int], Tuple[int, int]]]
 
@@ -77,15 +80,18 @@ class GroupNorm(nn.Module):
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense(dtype=float32)``: weight (out, in), float32 math."""
+    """flax ``nn.Dense(dtype=...)``: weight (out, in), the input, weight
+    and bias cast to ``dtype`` at the op (float32 by default)."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, dtype=torch.float32):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(cout, cin))
         self.bias = nn.Parameter(torch.empty(cout))
+        self.dtype = resolve_dtype(dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.float(), self.weight.float(), self.bias.float())
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
+                        self.bias.to(self.dtype))
 
 
 def _max_pool_same(x: torch.Tensor) -> torch.Tensor:
@@ -140,7 +146,7 @@ class BottleneckBlock(nn.Module):
         return F.relu(y + residual.to(y.dtype))
 
 
-class ResNet(nn.Module):
+class ResNet(PooledHead):
     """stage_sizes blocks per stage; CIFAR stem (3x3) or ImageNet stem
     (7x7/2 with explicit (3, 3) padding, then a SAME 3x3/2 max-pool).
     Submodule names are the flax module names (``stem_conv``,
@@ -182,9 +188,6 @@ class ResNet(nn.Module):
             x = getattr(self, name)(x)
         return x.float().mean(dim=(2, 3))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.head(self.forward_features(x))
-
 
 @register_model("resnet20_cifar")
 def resnet20_cifar(num_classes: int = 10, dtype=torch.bfloat16):
@@ -218,6 +221,4 @@ def apply_with_intermediates(module: ResNet, x: torch.Tensor,
         raise NotImplementedError(
             "capturing every submodule output is not ported; select 'pool' "
             "or 'head'")
-    pool = module.forward_features(x)
-    logits = module.head(pool)
-    return logits, {"pool": pool, "head": logits}
+    return module.forward_with_intermediates(x)

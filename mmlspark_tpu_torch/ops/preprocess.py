@@ -1,15 +1,20 @@
-"""Device image preprocessing: center-crop + bilinear resize + normalize.
+"""Device image preprocessing: normalize, and crop + resize + normalize.
 
-The port of ``mmlspark_tpu/ops/pallas_preprocess.py``'s crop-resize path.
-There, uint8 images went through the Pallas TPU kernel
-``_fused_crop_resize_normalize`` (K2). Here they go through a CUDA kernel
-written by hand for Hopper (``kernels/csrc/crop_resize_normalize.cu``),
-behind :func:`crop_resize_normalize`:
+The port of ``mmlspark_tpu/ops/pallas_preprocess.py``. There, uint8 images
+went through two Pallas TPU kernels; here each is a CUDA kernel written by
+hand for Hopper, behind a wrapper beside its plain torch version:
 
-- a CUDA tensor launches the kernel (or raises: there is no fallback);
-- a CPU tensor takes :func:`_crop_resize_normalize_plain`, the same
-  2-tap-per-axis lerp in torch ops. ``chip_smoke.py`` holds the kernel
-  against it on the card.
+- K1, :func:`fused_normalize` (``kernels/csrc/fused_normalize.cu``): the
+  per-channel normalize the training path runs inside its loss, built by
+  :func:`make_preprocess_fn`; plain version :func:`_fused_normalize_plain`;
+- K2, :func:`crop_resize_normalize`
+  (``kernels/csrc/crop_resize_normalize.cu``): the scoring path's
+  crop + resize + normalize; plain version
+  :func:`_crop_resize_normalize_plain`.
+
+A CUDA tensor launches the kernel (or raises: there is no fallback); a CPU
+tensor takes the plain version. ``chip_smoke.py`` holds each kernel
+against its plain version on the card.
 
 The sampling convention is the reference's ``_sampling_matrix``: half-pixel
 centers, the center-crop offset folded into the grid, clamping at the
@@ -29,7 +34,92 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from mmlspark_tpu_torch.kernels import CROP_RESIZE_NORMALIZE
+from mmlspark_tpu_torch.kernels import CROP_RESIZE_NORMALIZE, FUSED_NORMALIZE
+
+
+def _inv_std(std) -> np.ndarray:
+    """fp32 reciprocal of ``std`` as the reference computes it: the
+    division is done once on the host, in float32."""
+    return (1.0 / np.asarray(std, np.float32)).astype(np.float32)
+
+
+def fused_normalize(u8: torch.Tensor, mean: torch.Tensor,
+                    inv_std: torch.Tensor,
+                    out_dtype=torch.bfloat16) -> torch.Tensor:
+    """K1: uint8 ``u8`` whose last axis (or flat index, modulo C) is the
+    channel -> ``(float(u8) - mean[c]) * inv_std[c]`` in ``out_dtype``,
+    same shape. ``mean`` and ``inv_std`` are C-length float32 tensors on
+    ``u8``'s device.
+
+    A CUDA tensor launches the hand-written kernel; a CPU tensor takes the
+    plain version. Anything the kernel does not take raises, before any
+    launch is counted."""
+    if u8.dtype != torch.uint8:
+        raise TypeError(f"fused_normalize wants uint8, got {u8.dtype}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fused_normalize: out_dtype {out_dtype} is neither "
+                        "float32 nor bfloat16")
+    if u8.device.type == "cpu":
+        return _fused_normalize_plain(u8, mean, inv_std, out_dtype)
+    if u8.device.type != "cuda":
+        raise ValueError(f"fused_normalize: no kernel for device {u8.device}")
+    c = mean.numel()
+    for t in (mean, inv_std):
+        if t.device != u8.device or t.dtype != torch.float32 \
+                or t.numel() != c or not t.is_contiguous():
+            raise ValueError("fused_normalize: mean and inv_std must be "
+                             "contiguous float32 of one length on the "
+                             "input's device")
+    if u8.numel() % c or (u8.dim() > 1 and u8.shape[-1] % c):
+        raise ValueError(f"fused_normalize: {tuple(u8.shape)} does not hold "
+                         f"whole groups of {c} channels")
+    if not u8.is_contiguous():
+        raise ValueError("fused_normalize wants a contiguous batch")
+    out = torch.empty(u8.shape, dtype=out_dtype, device=u8.device)
+    with torch.cuda.device(u8.device):
+        stream = torch.cuda.current_stream(u8.device).cuda_stream
+        FUSED_NORMALIZE(u8.data_ptr(), out.data_ptr(), mean.data_ptr(),
+                        inv_std.data_ptr(), u8.numel(), c,
+                        int(out_dtype == torch.bfloat16), stream)
+    return out
+
+
+def _fused_normalize_plain(u8: torch.Tensor, mean: torch.Tensor,
+                           inv_std: torch.Tensor,
+                           out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The kernel's function in plain torch ops, with its two roundings:
+    fp32 subtract, fp32 multiply, then the cast."""
+    c = mean.numel()
+    x = u8.reshape(-1, c).float()
+    return ((x - mean) * inv_std).to(out_dtype).reshape(u8.shape)
+
+
+def make_preprocess_fn(image_shape: Tuple[int, int, int],
+                       mean: Sequence[float] = (127.5, 127.5, 127.5),
+                       std: Sequence[float] = (127.5, 127.5, 127.5),
+                       out_dtype=torch.bfloat16):
+    """``fn(u8 (B, H*W*C) or (B, H, W, C)) -> (B, H, W, C)`` normalized
+    ``out_dtype`` activations, through K1 on a card. Call it inside the
+    loss, ahead of the first layer: only uint8 crosses to the device.
+    Input of another dtype is cast to uint8 first, as the reference does.
+    No gradient flows into the input, so K1 needs no backward."""
+    h, w, c = (int(v) for v in image_shape)
+    mean_h = np.asarray(mean, np.float32).ravel()
+    istd_h = _inv_std(std).ravel()
+    if mean_h.size != c or istd_h.size != c:
+        raise ValueError(f"mean/std of length {mean_h.size}/{istd_h.size} "
+                         f"for {c} channels")
+    consts = {}
+
+    def preprocess(u8: torch.Tensor) -> torch.Tensor:
+        if u8.dtype != torch.uint8:
+            u8 = u8.to(torch.uint8)
+        if u8.device not in consts:
+            consts[u8.device] = tuple(torch.from_numpy(a).to(u8.device)
+                                      for a in (mean_h, istd_h))
+        out = fused_normalize(u8.contiguous(), *consts[u8.device], out_dtype)
+        return out.reshape(u8.shape[0], h, w, c)
+    return preprocess
 
 
 def _taps(src: int, dst: int, crop_off: float = 0.0,

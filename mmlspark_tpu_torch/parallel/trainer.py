@@ -1,0 +1,415 @@
+"""DistributedTrainer and DeviceEpochCache: the training step on one device.
+
+The port of ``mmlspark_tpu/parallel/trainer.py``. There, one jitted XLA
+program ran forward, backward, allreduce and optimizer over a device mesh;
+here the step is eager PyTorch on ``runtime.device`` (one card), with the
+same contracts:
+
+- **state**: :meth:`DistributedTrainer.init` returns ``{"module",
+  "optimizer", "step"}``: the ``nn.Module`` with fp32 master parameters,
+  the built optimizer (``parallel/optim.py``), and a device int32 step
+  counter. Steps update all three in place (PyTorch's way; JAX returned
+  new arrays) and return the same dict.
+- **loss**: ``loss_fn(module, batch, gen) -> scalar fp32 tensor``, where
+  ``gen`` is a ``torch.Generator`` on the device, seeded once from the
+  ``rng`` the caller passes and advancing with every draw.
+- **no host read in the step**: the loss lands in a device-resident
+  metrics ring at slot ``step % train.metrics_flush_steps`` with a device
+  index, and the ring is read once per flush interval (one counted sync,
+  ``trainer.flush``) so no step's loss is overwritten unread. Nothing in
+  the step calls ``.item()``, ``float()`` or ``bool()`` on a device
+  tensor. The reference also used the flush to bound the dispatch depth
+  of the multi-device CPU runtime; CUDA bounds its own launch queue, so
+  here the flush is only the ring's read.
+- **FLOPs per step** come from ``torch.utils.flop_counter.FlopCounterMode``
+  on the first step (the reference read XLA's cost analysis).
+- ``accum_steps`` splits a batch into microbatches whose gradients are
+  summed and divided by the count, as the reference's scan did; ``remat``
+  recomputes the forward in the backward (``torch.utils.checkpoint``).
+
+Meshes, sharding rules, a sequence axis and multi-process training raise
+``NotImplementedError``: they are ROADMAP slice 6.
+"""
+from __future__ import annotations
+
+import warnings
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from mmlspark_tpu_torch.data.prefetch import DevicePrefetcher
+from mmlspark_tpu_torch.observability import events as obsevents
+from mmlspark_tpu_torch.observability import metrics as obsmetrics
+from mmlspark_tpu_torch.observability import syncs as obssyncs
+from mmlspark_tpu_torch.reliability import watchdog as _watchdog
+from mmlspark_tpu_torch.reliability.faults import fault_site
+from mmlspark_tpu_torch.utils import config as mmlconfig
+from mmlspark_tpu_torch.utils.logging import MetricLogger
+
+LossFn = Callable[[torch.nn.Module, Dict[str, torch.Tensor],
+                   torch.Generator], torch.Tensor]
+
+
+def _not_ported(what: str) -> None:
+    raise NotImplementedError(
+        f"{what} is not ported yet: meshes, sharding and multi-process "
+        "training are ROADMAP slice 6; the port trains on one device")
+
+
+def _device(device) -> torch.device:
+    if device is None:
+        return mmlconfig.resolve_device()
+    return torch.device(device)
+
+
+def _fold_in(seed: int, epoch: int) -> int:
+    """One generator seed per (seed, epoch): a fixed 64-bit mix, so an
+    epoch's permutation is the same in every run and differs across
+    epochs."""
+    return (int(seed) * 0x9E3779B97F4A7C15 + int(epoch) + 1) % (1 << 63)
+
+
+def to_device(x, device: torch.device) -> torch.Tensor:
+    """Host array -> tensor on ``device``. To a card it is staged in
+    pinned memory and copied with ``non_blocking=True``, so the copy
+    overlaps the work already queued on the stream."""
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(x))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+class DeviceEpochCache:
+    """Device-resident epoch: one host->device transfer, batches sliced on
+    the device.
+
+    Each column is reshaped on the host to ``(steps, batch, ...)`` and
+    uploaded once; an epoch's batches are then views ``epoch[i]`` of the
+    resident tensor, with zero steady-state transfer. Rows beyond
+    ``steps * batch_size`` are dropped with a warning: callers that need
+    the tail pad and mask it first (``train/learners.py::_pad_xyw``).
+
+    ``shuffle=True`` permutes the rows once per epoch on the device with a
+    permutation drawn from a ``torch.Generator`` seeded from ``(seed,
+    epoch)``: the same seed and epoch give the same order in every run
+    (the reference's ``fold_in(seed, epoch)`` contract; the orders
+    themselves differ from ``jax.random``'s).
+    """
+
+    def __init__(self, data: Dict[str, np.ndarray], batch_size: int,
+                 mesh=None, seq_axis: Optional[str] = None,
+                 shuffle: bool = False, seed: int = 0, device=None):
+        if mesh is not None:
+            _not_ported("DeviceEpochCache over a mesh")
+        if seq_axis is not None:
+            _not_ported("a sequence-sharded DeviceEpochCache")
+        self.device = _device(device)
+        self.batch_size = int(batch_size)
+        n = next(iter(data.values())).shape[0]
+        self.steps_per_epoch = n // self.batch_size
+        if self.steps_per_epoch < 1:
+            raise ValueError(f"epoch of {n} rows is smaller than the batch "
+                             f"{self.batch_size}")
+        self.shuffle = shuffle
+        self.seed = seed
+        self._epoch: Optional[int] = None
+        keep = self.steps_per_epoch * self.batch_size
+        if keep < n:
+            warnings.warn(
+                f"DeviceEpochCache drops {n - keep} of {n} rows beyond "
+                f"steps*batch_size ({self.steps_per_epoch}*{self.batch_size})"
+                "; pad-and-mask the tail first (learners._pad_xyw) to train "
+                "on every row", stacklevel=2)
+        shape = (self.steps_per_epoch, self.batch_size)
+        self._base = {
+            k: torch.from_numpy(np.ascontiguousarray(
+                np.asarray(v)[:keep].reshape(shape + np.asarray(v).shape[1:])
+            )).to(self.device)
+            for k, v in data.items()}
+        self._nbytes = sum(t.numel() * t.element_size()
+                           for t in self._base.values())
+        self._batches = None if shuffle else self._split(self._base)
+
+    @property
+    def nbytes(self) -> int:
+        return self._nbytes
+
+    @staticmethod
+    def fits(data: Dict[str, np.ndarray], budget_mb: Optional[float] = None,
+             shuffle: bool = False) -> bool:
+        """Would this host epoch fit ``runtime.device_cache_mb``? ``data``
+        may hold shape/dtype stand-ins (``np.broadcast_to`` views), so
+        callers budget without materializing. Charged as the reference
+        does: 3x shuffled (base, permuted copy, batches), 2x unshuffled."""
+        if budget_mb is None:
+            budget_mb = float(mmlconfig.get("runtime.device_cache_mb"))
+        total = sum(np.asarray(v).nbytes for v in data.values())
+        return total * (3 if shuffle else 2) <= budget_mb * 1e6
+
+    def _split(self, epoch: Dict[str, torch.Tensor]
+               ) -> List[Dict[str, torch.Tensor]]:
+        return [{k: v[i] for k, v in epoch.items()}
+                for i in range(self.steps_per_epoch)]
+
+    def _permutation(self, epoch: int) -> torch.Tensor:
+        """The row order of ``epoch`` (host int64 tensor)."""
+        gen = torch.Generator().manual_seed(_fold_in(self.seed, epoch))
+        return torch.randperm(self.steps_per_epoch * self.batch_size,
+                              generator=gen)
+
+    def batches(self, epoch: int = 0):
+        """Device batch dicts for one epoch (shuffled iff ``shuffle``)."""
+        if self.shuffle and self._epoch != epoch:
+            perm = self._permutation(epoch).to(self.device, non_blocking=True)
+            m = perm.numel()
+            permuted = {
+                k: v.reshape((m,) + v.shape[2:]).index_select(0, perm)
+                .reshape(v.shape) for k, v in self._base.items()}
+            self._batches = self._split(permuted)
+            self._epoch = epoch
+        yield from self._batches
+
+
+class DistributedTrainer:
+    """Train steps of ``loss_fn`` on one device; see the module docstring
+    for the state and loss contracts."""
+
+    def __init__(self, loss_fn: LossFn, optimizer, mesh=None, rules=None,
+                 accum_steps: int = 1, seq_axis: Optional[str] = None,
+                 remat: bool = False, device=None):
+        for name, value in (("mesh", mesh), ("rules", rules),
+                            ("seq_axis", seq_axis)):
+            if value is not None:
+                _not_ported(f"DistributedTrainer({name}=...)")
+        self.loss_fn = loss_fn
+        self.optimizer = optimizer
+        self.device = _device(device)
+        self.accum_steps = int(accum_steps)
+        self.remat = remat
+        self._ring: Optional[Dict[str, torch.Tensor]] = None
+        self._flush_steps: Optional[int] = None
+        self._steps_since_flush = 0
+        self._flops_per_step: Optional[float] = None
+        self._gens: Dict[int, torch.Generator] = {}
+        self.last_flush: Optional[Dict[str, np.ndarray]] = None
+
+    # -- state -------------------------------------------------------------
+    def init(self, init_fn: Callable[[], torch.nn.Module]) -> Dict[str, Any]:
+        """``init_fn()`` returns the module with its initial parameters
+        (float32 master weights); it is moved to the device (channels-last
+        on a card, the layout the convs run in) and the optimizer is built
+        over its parameters."""
+        module = init_fn()
+        if not isinstance(module, torch.nn.Module):
+            raise TypeError("init_fn must return an nn.Module, got "
+                            f"{type(module).__name__}")
+        module = module.to(self.device).train()
+        if self.device.type == "cuda":
+            module = module.to(memory_format=torch.channels_last)
+        return {"module": module,
+                "optimizer": self.optimizer.init(module.parameters()),
+                "step": torch.zeros((), dtype=torch.int32,
+                                    device=self.device)}
+
+    # -- steps -------------------------------------------------------------
+    def flush_steps(self) -> int:
+        """Steps between ring reads (``train.metrics_flush_steps``, read
+        once: it is the ring's length)."""
+        if self._flush_steps is None:
+            self._flush_steps = max(
+                1, int(mmlconfig.get("train.metrics_flush_steps")))
+        return self._flush_steps
+
+    @property
+    def flops_per_step(self) -> Optional[float]:
+        """FLOPs of one train step, counted on the first step; None
+        before it."""
+        return self._flops_per_step
+
+    def _generator(self, rng) -> torch.Generator:
+        if isinstance(rng, torch.Generator):
+            return rng
+        seed = 0 if rng is None else int(rng)
+        gen = self._gens.get(seed)
+        if gen is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            self._gens[seed] = gen
+        return gen
+
+    def _loss(self, module, batch, gen) -> torch.Tensor:
+        if self.remat:
+            from torch.utils.checkpoint import checkpoint
+            return checkpoint(self.loss_fn, module, batch, gen,
+                              use_reentrant=False)
+        return self.loss_fn(module, batch, gen)
+
+    def _forward_backward(self, module, batch, gen) -> torch.Tensor:
+        accum = self.accum_steps
+        if accum == 1:
+            loss = self._loss(module, batch, gen)
+            loss.backward()
+            return loss.detach()
+        micro = {k: v.reshape((accum, v.shape[0] // accum) + v.shape[1:])
+                 for k, v in batch.items()}
+        total = None
+        for i in range(accum):
+            loss = self._loss(module, {k: v[i] for k, v in micro.items()},
+                              gen)
+            loss.backward()       # gradients sum into .grad
+            total = loss.detach() if total is None else total + loss.detach()
+        for p in module.parameters():
+            if p.grad is not None:
+                p.grad.div_(accum)
+        return total / accum
+
+    def train_step(self, state: Dict[str, Any], batch: Dict[str, torch.Tensor],
+                   rng=None) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
+        """One step: forward, backward, optimizer update, ring write. Runs
+        asynchronously on a card; returns ``(state, {"loss": device
+        scalar})``."""
+        fault_site("trainer.train_step")
+        module, opt = state["module"], state["optimizer"]
+        gen = self._generator(rng)
+        flush = self.flush_steps()
+        if self._ring is None:
+            self._ring = {
+                "loss": torch.zeros(flush, dtype=torch.float32,
+                                    device=self.device),
+                "step": torch.zeros((), dtype=torch.int32,
+                                    device=self.device)}
+        if self._flops_per_step is None:
+            from torch.utils.flop_counter import FlopCounterMode
+            counter = FlopCounterMode(display=False)
+            with counter:
+                loss = self._forward_backward(module, batch, gen)
+            self._flops_per_step = float(counter.get_total_flops())
+        else:
+            loss = self._forward_backward(module, batch, gen)
+        opt.step()
+        opt.zero_grad()
+        # the ring slot is computed on the device: no host read
+        slot = torch.remainder(state["step"], flush).long().view(1)
+        self._ring["loss"].index_copy_(0, slot, loss.float().view(1))
+        state["step"].add_(1)
+        self._ring["step"].copy_(state["step"])
+        self._steps_since_flush += 1
+        if self._steps_since_flush >= flush:
+            self.flush_metrics()
+        return state, {"loss": loss}
+
+    def flush_metrics(self) -> Optional[Dict[str, np.ndarray]]:
+        """Read the device metrics ring: ONE counted host sync
+        (``trainer.flush``). Returns ``{"loss": (flush_steps,) float32,
+        "step": int32}`` (also kept as ``last_flush``), or None before the
+        first step."""
+        if self._ring is None:
+            return None
+        self.last_flush = obssyncs.device_get(self._ring, "trainer.flush")
+        self._steps_since_flush = 0
+        return self.last_flush
+
+    def eval_step(self, state: Dict[str, Any], batch: Dict[str, torch.Tensor],
+                  rng=None) -> torch.Tensor:
+        """The loss without gradients (a device scalar)."""
+        with torch.no_grad():
+            return self.loss_fn(state["module"], batch, self._generator(rng))
+
+    # -- data --------------------------------------------------------------
+    def put_batch(self, batch: Dict[str, np.ndarray]
+                  ) -> Dict[str, torch.Tensor]:
+        return {k: to_device(v, self.device) for k, v in batch.items()}
+
+    # -- telemetry ---------------------------------------------------------
+    def _finish_epoch_telemetry(self, steps: int, rows: int,
+                                wall_s: float) -> None:
+        """End-of-epoch gauges and the ``train.fit`` event: examples/s,
+        achieved TFLOP/s and, on a card, MFU against the H100 SXM data
+        sheet's dense bf16 peak."""
+        eps = rows / max(wall_s, 1e-9)
+        obsmetrics.gauge("trainer.examples_per_sec").set(eps)
+        mfu = None
+        if self._flops_per_step:
+            achieved = self._flops_per_step * steps / max(wall_s, 1e-9) / 1e12
+            obsmetrics.gauge("trainer.achieved_tflops").set(achieved)
+            if self.device.type == "cuda":
+                mfu = achieved * 1e12 / obsmetrics.H100_SXM_BF16_DENSE_FLOPS
+                obsmetrics.gauge("trainer.mfu").set(mfu)
+        if obsevents.events_enabled():
+            fields = dict(steps=steps, rows=rows, wall_s=round(wall_s, 6),
+                          examples_per_sec=round(eps, 3))
+            if mfu is not None:
+                fields["mfu"] = round(mfu, 4)
+            obsevents.emit("event", "train.fit", **fields)
+
+    def fit(self, state: Dict[str, Any],
+            batches: Iterable[Dict[str, np.ndarray]], rng=None,
+            log_every: int = 0, log_fn: Callable[[int, float], None] = None,
+            prefetch: Optional[int] = None,
+            collect_losses: bool = True) -> Tuple[Dict[str, Any], list]:
+        """Drive an epoch of host batches through the step.
+
+        A :class:`DevicePrefetcher` assembles host batches ahead of the
+        loop and each :meth:`put_batch` copies without blocking, so the
+        copy overlaps the running step. ``log_every`` > 0 logs through a
+        :class:`MetricLogger` (or calls ``log_fn(step, loss)``), each a
+        counted sync. Returns ``(state, per-step losses)``, the losses
+        fetched in one transfer at the end (an empty list with
+        ``collect_losses=False``)."""
+        losses: List[torch.Tensor] = []
+        metric_log = (MetricLogger(every=log_every)
+                      if log_every and log_fn is None else None)
+        # telemetry is decided once per fit: with it off the loop pays one
+        # falsy check per step
+        telemetry = obsmetrics.metrics_enabled() or obsevents.events_enabled()
+        steps = rows_total = 0
+        if telemetry:
+            step_hist = obsmetrics.histogram("trainer.step_time_seconds")
+            t_start = t_prev = obsevents.perf()
+            sync_t0 = obssyncs.total()
+            flush_t0 = obsmetrics.counter(
+                "observability.sync_points.trainer.flush").value
+        prefetcher = DevicePrefetcher(batches, self.put_batch, depth=prefetch)
+        hb = _watchdog.register("trainer.fit")
+        try:
+            for i, batch in enumerate(prefetcher):
+                hb.beat()
+                rows = next(iter(batch.values())).shape[0] if batch else 0
+                state, metrics = self.train_step(state, batch, rng)
+                losses.append(metrics["loss"])
+                if telemetry:
+                    # dispatch-to-dispatch wall time: the loop's sustained
+                    # rate, read without waiting on the device
+                    now = obsevents.perf()
+                    step_hist.observe(now - t_prev)
+                    t_prev = now
+                    steps += 1
+                    rows_total += rows
+                if log_fn is not None and log_every and i % log_every == 0:
+                    log_fn(i, float(obssyncs.device_get(losses[-1],
+                                                        "train.log")))
+                elif metric_log is not None:
+                    metric_log(i, {"loss": losses[-1]}, batch_rows=rows)
+        finally:
+            hb.close()
+            prefetcher.close()
+        if telemetry and steps:
+            # steady-state syncs per step, net of the ring reads (amortized
+            # bookkeeping, not per-step stalls), sampled before the
+            # epoch-end wait below
+            flush_delta = (obsmetrics.counter(
+                "observability.sync_points.trainer.flush").value - flush_t0)
+            obsmetrics.gauge("train.sync_points_per_step").set(
+                max(0.0, obssyncs.total() - sync_t0 - flush_delta) / steps)
+            obssyncs.block_until_ready(losses[-1], "trainer.epoch_telemetry")
+            self._finish_epoch_telemetry(steps, rows_total,
+                                         obsevents.perf() - t_start)
+        if not losses:
+            return state, []
+        if not collect_losses:
+            obssyncs.block_until_ready(losses[-1], "trainer.fit_exit")
+            return state, []
+        host = obssyncs.device_get(torch.stack(losses),
+                                   "trainer.collect_losses")
+        return state, [float(v) for v in host]

@@ -3,8 +3,11 @@
 The PyTorch port's own copy of ``mmlspark_tpu/utils/config.py``. Every key
 resolves, in order: programmatic ``set()`` > environment variable
 ``MMLSPARK_TPU_TORCH_<NAMESPACE>_<KEY>`` (upper-cased) > registered
-default. Only the keys the port reads are registered; later slices add
-theirs as they port the modules that read them.
+default. Only the keys the port reads are registered, with the JAX
+package's defaults; later slices add theirs as they port the modules that
+read them. The JAX package's ``observability.peak_tflops`` is a TPU peak
+and is not carried: the port's MFU divides by the H100 data-sheet peak
+``observability.metrics.H100_SXM_BF16_DENSE_FLOPS``.
 
 ``runtime.device`` names the torch device every entry point runs on. It
 defaults to ``"cuda"``; when CUDA is missing the entry points raise
@@ -21,7 +24,18 @@ from typing import Any, Dict
 _DEFAULTS: Dict[str, Any] = {
     "runtime.device": "cuda",         # torch device of every entry point
     "runtime.device_cache_mb": 1024,  # device-memory budget for resident
-                                      # scoring inputs (models/residency.py)
+                                      # scoring inputs and epoch caches
+    "runtime.prefetch_depth": 2,      # host->device prefetch queue depth
+    "train.metrics_flush_steps": 16,  # steps between reads of the trainer's
+                                      # device-resident metrics ring
+    "evaluate.device_rows": 1_000_000,  # rows from which
+                                        # ComputeModelStatistics runs on
+                                        # the device
+    "logging.level": "INFO",
+    "logging.metrics_every": 0,       # default train-metric log cadence
+    "logging.history_max": 1000,      # MetricLogger history cap (entries)
+    "observability.metrics": False,   # hot-path (per-step) metric collection
+    "observability.events_path": "",  # non-empty = append JSONL events here
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,277 @@
+"""The port's DeepClassifier / DeepRegressor, optimizers and schedules,
+against the JAX package's on the CPU.
+
+The JAX side runs on a one-device mesh so its sums run in one order; both
+sides start from the JAX init (the port's ``_init_params`` seam returns
+it, converted by ``from_jax_params``) and, with ``deviceCache="off"``,
+see the same rows in the same numpy-shuffled order. Tolerances are stated
+at each test.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from mmlspark_tpu.core.frame import Frame as JaxFrame
+from mmlspark_tpu.models.zoo import build_model as jax_build_model
+from mmlspark_tpu.parallel.mesh import data_parallel_mesh
+from mmlspark_tpu.train.deep import DeepClassifier as JaxDeepClassifier
+from mmlspark_tpu_torch.core.frame import Frame
+from mmlspark_tpu_torch.core.serialization import load_stage, save_stage
+from mmlspark_tpu_torch.models.convert import from_jax_params
+from mmlspark_tpu_torch.models.torch_model import TorchModel
+from mmlspark_tpu_torch.models.zoo import build_model
+from mmlspark_tpu_torch.parallel import optim
+from mmlspark_tpu_torch.train import deep as tdeep
+from mmlspark_tpu_torch.train.deep import (
+    DeepClassifier, DeepClassifierModel, DeepRegressor, DeepRegressorModel,
+)
+from mmlspark_tpu_torch.utils import config as tconfig
+
+
+@pytest.fixture(autouse=True)
+def on_cpu():
+    tconfig.set("runtime.device", "cpu")
+    yield
+    tconfig.unset("runtime.device")
+
+
+def _xor(n=256, seed=11, d=6):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    y = ((X[:, 0] > 0) ^ (X[:, 1] > 0)).astype(np.int64)
+    return X, y
+
+
+def _learner(cls=DeepClassifier, **kw):
+    kw.setdefault("architecture", "mlp_tabular")
+    kw.setdefault("architectureArgs", {"hidden": [16]})
+    kw.setdefault("batchSize", 32)
+    kw.setdefault("epochs", 2)
+    kw.setdefault("learningRate", 3e-3)
+    learner = cls(**kw)
+    learner.set_params(featuresCol="features", labelCol="label")
+    return learner
+
+
+def _jax_init(d, seed=0, **arch):
+    spec = jax_build_model("mlp_tabular", input_dim=d, **arch)
+    params = spec["module"].init(jax.random.PRNGKey(seed), jnp.zeros((1, d)))
+    return jax.tree_util.tree_map(np.asarray, params)
+
+
+@pytest.mark.parametrize("cache", ["off", "on"])
+def test_deep_classifier_tracks_jax_epoch_by_epoch(monkeypatch, cache):
+    """Two epochs of adamw, fp32, held-out quarter: the per-epoch
+    validation loss and accuracy against the JAX package's DeepClassifier
+    from the same init. With deviceCache 'off' both stream the same rows
+    in the same order (rtol 1e-4: CPU matmuls sum in other orders). With
+    'on' each package shuffles its resident epoch with its own generator,
+    so the batches differ and only the fit's quality is compared."""
+    X, y = _xor()
+    kw = dict(architecture="mlp_tabular", architectureArgs={"hidden": [16]},
+              batchSize=32, epochs=2, learningRate=3e-3, validationSplit=0.25,
+              trainDtype="float32", deviceCache=cache)
+    jl = JaxDeepClassifier(meshSpec=data_parallel_mesh(jax.devices()[:1]),
+                           **kw)
+    jl.set_params(featuresCol="features", labelCol="label")
+    jmodel = jl.fit(JaxFrame.from_dict({"features": X, "label": y}))
+    jparams = _jax_init(6, hidden=[16], num_classes=2, dtype="float32")
+    monkeypatch.setattr(tdeep._DeepEstimatorBase, "_init_params",
+                        lambda self, module, seed: from_jax_params(jparams))
+    tl = DeepClassifier(**kw)
+    tl.set_params(featuresCol="features", labelCol="label")
+    tmodel = tl.fit(Frame.from_dict({"features": X, "label": y}))
+    want, got = jmodel.validation_history, tmodel.validation_history
+    assert [h["epoch"] for h in got] == [h["epoch"] for h in want] == [1, 2]
+    if cache == "off":
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g["val_loss"], w["val_loss"],
+                                       rtol=1e-4)
+            assert g["val_accuracy"] == pytest.approx(w["val_accuracy"],
+                                                      abs=1 / 64 + 1e-9)
+        np.testing.assert_allclose(float(tmodel._state["final_loss"]),
+                                   float(jmodel._state["final_loss"]),
+                                   rtol=1e-4)
+    else:
+        assert abs(got[-1]["val_loss"] - want[-1]["val_loss"]) < 0.05
+
+
+def test_from_jax_params_loads_a_fitted_jax_model():
+    """A fitted JAX DeepClassifierModel's flax params load into the port's
+    MLP (strict), and the port scores the same logits (fp32, atol 1e-5)."""
+    X, y = _xor(n=96, seed=2)
+    jl = JaxDeepClassifier(architecture="mlp_tabular",
+                           architectureArgs={"hidden": [16, 8]},
+                           batchSize=32, epochs=3, trainDtype="float32",
+                           meshSpec=data_parallel_mesh(jax.devices()[:1]))
+    jl.set_params(featuresCol="features", labelCol="label")
+    jm = jl.fit(JaxFrame.from_dict({"features": X, "label": y}))
+    sd = from_jax_params(jm._state["params"])
+    module = build_model("mlp_tabular", **jm.get("architectureArgs"))["module"]
+    module.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()},
+                           strict=True)
+    mu, sigma = jm._state["mu"], jm._state["sigma"]
+    with torch.no_grad():
+        got = module(torch.from_numpy((X - mu) / sigma)).numpy()
+    want, _ = jm._cached_jit(jm.scores_fn)(X)
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-5, rtol=0)
+
+
+# -- optimizers and schedules against optax ---------------------------------
+
+@pytest.mark.parametrize("opt", ["adamw", "adam", "sgd"])
+@pytest.mark.parametrize("sched", ["constant", "cosine", "linear"])
+def test_optimizer_and_schedule_track_optax(opt, sched):
+    """The two packages' DeepClassifier optimizer builders on one
+    2-parameter quadratic for 10 updates, 3 of them warm-up, over a
+    10-update fit: same rule, same schedule at the count before each
+    update. The optimum is far from the start, so every gradient keeps
+    its sign and rounding is not amplified; torch and optax round the
+    same fp32 operations in other orders, so sgd's parameters are held at
+    rtol 1e-6. adam and adamw at rtol 1e-5: optax computes the bias
+    correction 1 - b2**t in float32 (1.3e-5 off at t = 1, where 0.999
+    rounds to 0.99900001), torch in float64, so each update differs by up
+    to ~7e-6 relative."""
+    c = np.asarray([0.5, 1.5], np.float32)
+    t = np.asarray([2.0, -3.0], np.float32)
+    kw = dict(optimizer=opt, lrSchedule=sched, warmupSteps=3,
+              learningRate=0.05)
+    tx = JaxDeepClassifier(**kw)._build_optimizer(10)
+    p = jnp.asarray([0.3, -0.7], jnp.float32)
+    s = tx.init(p)
+    grad = jax.jit(jax.grad(lambda p: (c * (p - t) ** 2).sum()))
+    want = []
+    for _ in range(10):
+        u, s = tx.update(grad(p), s, p)
+        p = optax.apply_updates(p, u)
+        want.append(np.asarray(p))
+
+    w = torch.nn.Parameter(torch.tensor([0.3, -0.7]))
+    st = DeepClassifier(**kw)._build_optimizer(10).init([w])
+    ct, tt = torch.from_numpy(c), torch.from_numpy(t)
+    got = []
+    for _ in range(10):
+        (ct * (w - tt) ** 2).sum().backward()
+        st.step()
+        st.zero_grad()
+        got.append(w.detach().numpy().copy())
+    np.testing.assert_allclose(np.stack(got), np.stack(want),
+                               rtol=1e-6 if opt == "sgd" else 1e-5)
+    assert st.count == 10
+
+
+def _optax_schedule(kind, lr, warm, total):
+    """The schedule the JAX DeepClassifier builds
+    (``mmlspark_tpu/train/deep.py:229-244``), from optax."""
+    total = max(total, warm + 1)
+    if kind == "cosine":
+        return optax.warmup_cosine_decay_schedule(
+            0.0 if warm else lr, lr, warm, total, end_value=0.0)
+    if kind == "linear":
+        return optax.join_schedules(
+            [optax.linear_schedule(0.0, lr, max(warm, 1)),
+             optax.linear_schedule(lr, 0.0, total - warm)], [warm])
+    if warm:
+        return optax.join_schedules(
+            [optax.linear_schedule(0.0, lr, warm),
+             optax.constant_schedule(lr)], [warm])
+    return lambda count: lr
+
+
+@pytest.mark.parametrize("kind", ["constant", "cosine", "linear"])
+@pytest.mark.parametrize("warm", [0, 4])
+def test_schedules_match_optax_values(kind, warm):
+    """Each schedule's value at every count of a 12-update fit, and past
+    it, against optax's (rtol 1e-6: the port computes in float64, optax in
+    float32)."""
+    want = _optax_schedule(kind, 0.1, warm, 12)
+    got = optim.warmup_schedule(kind, 0.1, warm, 12)
+    for count in range(14):
+        value = got(count) if callable(got) else got
+        np.testing.assert_allclose(value, float(want(count)), rtol=1e-6,
+                                   atol=1e-9)
+
+
+def test_lamb_adafactor_checkpoint_and_mesh_raise():
+    X, y = _xor(n=64)
+    frame = Frame.from_dict({"features": X, "label": y})
+    for name in ("lamb", "adafactor"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            _learner(optimizer=name).fit(frame)
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        _learner(checkpointDir="/nonexistent/ck").fit(frame)
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        _learner(meshSpec={"data": 2}).fit(frame)
+    with pytest.raises(ValueError, match="validationSplit"):
+        _learner(earlyStoppingPatience=2).fit(frame)
+
+
+# -- the fitted models -------------------------------------------------------
+
+def test_deep_classifier_fits_scores_and_round_trips(tmp_path):
+    """bf16 MLP (the architecture's default), resident epoch: it learns
+    the XOR problem, scores every row once (the tail batch is padded and
+    masked), and a saved model scores identically after loading."""
+    X, y = _xor(n=333, seed=1)
+    frame = Frame.from_dict({"features": X, "label": y})
+    model = _learner(architectureArgs={"hidden": [32]}, epochs=40,
+                     deviceCache="on").fit(frame)
+    scored = model.transform(frame)
+    pred = scored.column("prediction")
+    assert len(pred) == 333
+    assert (pred.astype(int) == y).mean() > 0.9
+    probs = scored.column("probability")
+    np.testing.assert_allclose(probs.sum(axis=1), 1.0, rtol=1e-5)
+    assert scored.column("rawPrediction").shape == (333, 2)
+    save_stage(model, str(tmp_path / "m"))
+    loaded = load_stage(str(tmp_path / "m"))
+    assert isinstance(loaded, DeepClassifierModel)
+    np.testing.assert_array_equal(loaded.transform(frame).column("prediction"),
+                                  pred)
+    assert loaded.get("architectureArgs") == model.get("architectureArgs")
+
+
+def test_deep_regressor_unscales_and_round_trips(tmp_path):
+    rng = np.random.default_rng(8)
+    X = rng.normal(size=(96, 5)).astype(np.float32)
+    y = (X @ np.arange(1, 6)).astype(np.float64) + 100.0
+    frame = Frame.from_dict({"features": X, "label": y})
+    model = _learner(DeepRegressor, epochs=30).fit(frame)
+    p1 = model.transform(frame).column("prediction")
+    assert abs(np.mean(p1) - 100.0) < 10
+    save_stage(model, str(tmp_path / "r"))
+    loaded = load_stage(str(tmp_path / "r"))
+    assert isinstance(loaded, DeepRegressorModel)
+    np.testing.assert_allclose(loaded.transform(frame).column("prediction"),
+                               p1)
+
+
+def test_to_torch_model_extracts_the_pool_features():
+    """The TorchModel hand-off scores the same activations the model
+    does, standardization included: head(pool) == the model's logits."""
+    X, y = _xor(n=64, seed=4, d=8)
+    frame = Frame.from_dict({"features": X, "label": y})
+    model = _learner(epochs=5, trainDtype="float32").fit(frame)
+    tm = model.to_torch_model(output_node="pool", mini_batch_size=32)
+    assert isinstance(tm, TorchModel)
+    feats = tm.transform(frame).column("features")
+    assert feats.shape == (64, 16)
+    sd = model._state["params"]
+    logits_from_feats = feats @ sd["head.weight"].T + sd["head.bias"]
+    logits, _ = model._cached_build(model.scores_fn)(torch.from_numpy(X))
+    np.testing.assert_allclose(logits_from_feats, logits.numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_early_stopping_stops():
+    """learningRate 0 never improves the validation loss after epoch 1:
+    the fit stops after 1 + patience epochs, not all 50."""
+    X, y = _xor()
+    learner = _learner(epochs=50, learningRate=0.0, optimizer="sgd",
+                       validationSplit=0.25, earlyStoppingPatience=2)
+    model = learner.fit(Frame.from_dict({"features": X, "label": y}))
+    assert len(learner.validation_history) == 3
+    assert model.validation_history == learner.validation_history

@@ -13,10 +13,19 @@ import numpy as np
 import pytest
 import torch
 
-from mmlspark_tpu_torch.kernels import CROP_RESIZE_NORMALIZE, KERNELS, build
+from mmlspark_tpu_torch.kernels import (
+    CROP_RESIZE_NORMALIZE, FUSED_NORMALIZE, KERNELS, build,
+)
 from mmlspark_tpu_torch.ops import preprocess as tpre
 
 MEAN, STD = (123.675, 116.28, 103.53), (58.395, 57.12, 57.375)
+CIFAR_MEAN, CIFAR_STD = (125.3, 123.0, 113.9), (63.0, 62.1, 66.7)
+# K1 at the shapes the port's paths give it: the CIFAR train step (bf16 and
+# f32) and the 224x224 train lane's input, with mean = std = 127.5
+K1_SHAPES = [((256, 32 * 32 * 3), torch.bfloat16, CIFAR_MEAN, CIFAR_STD),
+             ((256, 32 * 32 * 3), torch.float32, CIFAR_MEAN, CIFAR_STD),
+             ((128, 224 * 224 * 3), torch.bfloat16, (127.5,) * 3,
+              (127.5,) * 3)]
 
 
 def _u8(seed, shape):
@@ -80,7 +89,8 @@ def test_build_is_keyed_by_source_and_flags(tmp_path, monkeypatch):
 
 
 def test_every_kernel_is_registered_once_with_a_source():
-    assert [k.name for k in KERNELS] == ["crop_resize_normalize"]
+    assert [k.name for k in KERNELS] == ["fused_normalize",
+                                         "crop_resize_normalize"]
     for k in KERNELS:
         assert k.source.exists()
         assert k.launches >= 0
@@ -88,8 +98,44 @@ def test_every_kernel_is_registered_once_with_a_source():
 
 def test_reset_launches_zeroes_every_count():
     CROP_RESIZE_NORMALIZE.launches = 5
+    FUSED_NORMALIZE.launches = 3
     build.reset_launches()
     assert all(k.launches == 0 for k in KERNELS)
+
+
+def _k1_consts(mean, std, device="cpu"):
+    return (torch.tensor(mean, dtype=torch.float32, device=device),
+            torch.from_numpy(tpre._inv_std(std)).to(device))
+
+
+def test_k1_wrapper_refuses_meta_and_non_uint8_without_counting():
+    """No silent fallback for K1 either: a tensor on a device without a
+    kernel, and a tensor of another dtype, raise before any launch."""
+    mean, istd = _k1_consts(CIFAR_MEAN, CIFAR_STD)
+    before = FUSED_NORMALIZE.launches
+    with pytest.raises(ValueError, match="no kernel"):
+        tpre.fused_normalize(torch.empty((2, 12), dtype=torch.uint8,
+                                         device="meta"), mean, istd)
+    with pytest.raises(TypeError, match="uint8"):
+        tpre.fused_normalize(torch.zeros((2, 12)), mean, istd)
+    with pytest.raises(TypeError, match="out_dtype"):
+        tpre.fused_normalize(torch.zeros((2, 12), dtype=torch.uint8), mean,
+                             istd, torch.float16)
+    assert FUSED_NORMALIZE.launches == before
+
+
+def test_k1_cpu_tensor_takes_the_plain_version_without_counting():
+    mean, istd = _k1_consts(CIFAR_MEAN, CIFAR_STD)
+    u8 = torch.from_numpy(_u8(3, (4, 8, 8, 3)))
+    before = FUSED_NORMALIZE.launches
+    for dt in (torch.bfloat16, torch.float32):
+        got = tpre.fused_normalize(u8, mean, istd, dt)
+        assert got.dtype == dt and got.shape == u8.shape
+        assert torch.equal(got, ((u8.float() - mean) * istd).to(dt))
+    flat = tpre.make_preprocess_fn((8, 8, 3), CIFAR_MEAN, CIFAR_STD)(
+        u8.reshape(4, -1))
+    assert tuple(flat.shape) == (4, 8, 8, 3)
+    assert FUSED_NORMALIZE.launches == before
 
 
 @pytest.mark.cuda
@@ -137,3 +183,36 @@ def test_kernel_refuses_bad_inputs_on_the_card(card):
         tpre.crop_resize_normalize(
             torch.zeros((1, 8, 8, 3), dtype=torch.uint8, device=card), plan,
             torch.float16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,out_dtype,mean,std", K1_SHAPES)
+def test_k1_is_bit_equal_to_plain_on_the_card(card, shape, out_dtype, mean,
+                                              std):
+    """K1 and its plain version run the same two fp32 roundings and the
+    same round-to-nearest-even cast: bit-equal (tolerance 0)."""
+    u8 = torch.from_numpy(_u8(11, shape)).to(card)
+    consts = _k1_consts(mean, std, card)
+    before = FUSED_NORMALIZE.launches
+    got = tpre.fused_normalize(u8, *consts, out_dtype)
+    assert FUSED_NORMALIZE.launches == before + 1
+    want = tpre._fused_normalize_plain(u8, *consts, out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_k1_misaligned_and_ragged_inputs_on_the_card(card):
+    """A view that starts off a 16-byte boundary takes the one-element
+    variant, and a length that is not a multiple of 16 ends in the scalar
+    tail; both stay bit-equal to the plain version."""
+    consts = _k1_consts(CIFAR_MEAN, CIFAR_STD, card)
+    base = torch.from_numpy(_u8(12, (3 * 1000 + 3,))).to(card)
+    for u8 in (base[3:].reshape(1000, 3), base[:3 * 999].reshape(999, 3)):
+        got = tpre.fused_normalize(u8, *consts, torch.float32)
+        want = tpre._fused_normalize_plain(u8, *consts, torch.float32)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="channels"):
+        tpre.fused_normalize(base[:10], *consts)

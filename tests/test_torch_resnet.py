@@ -138,7 +138,8 @@ def test_from_jax_params_layout_rules():
 
 def test_zoo_registry_and_specs_match_the_jax_zoo():
     from mmlspark_tpu.models.zoo import build_model as jbuild
-    assert available_models() == ["resnet20_cifar", "resnet50"]
+    assert available_models() == ["mlp_tabular", "resnet20_cifar",
+                                  "resnet50"]
     for name in available_models():
         t, j = build_model(name), jbuild(name)
         for key in ("input_shape", "feature_layer", "feature_dim",
