@@ -4,7 +4,7 @@
     python3 chip_smoke.py                      # as the chip check runs it
     python3 chip_smoke.py --profile <dir>      # plus profiled warm passes
 
-Two paths, each through the entry points a user calls:
+Three paths, each through the entry points a user calls:
 
 - serving, the README's transfer-learning quickstart: an
   ``ImageFeaturizer`` with a ResNet-50 (random weights from a seed) scores
@@ -17,7 +17,13 @@ Two paths, each through the entry points a user calls:
   batch normalized inside the loss by the hand-written kernel K1
   (``mmlspark_tpu_torch/kernels/csrc/fused_normalize.cu``); then
   ``DeepClassifier`` fits an MLP on a tabular frame and
-  ``ComputeModelStatistics`` scores it on its device path.
+  ``ComputeModelStatistics`` scores it on its device path;
+- attention models: ``TorchModel`` scores token ids through
+  ``transformer_lm`` at the zoo's width (vocab 32000, dim 512, depth 6,
+  8 heads, L 2048; bf16, random weights from a seed) for its ``hidden``
+  layer, every block's causal attention running the hand-written kernel K3
+  (``mmlspark_tpu_torch/kernels/csrc/flash_attention.cu``); then the MoE
+  LM the same way, and ``ImageFeaturizer`` with ViT-B/16 (K2, no K3).
 
 The script:
 
@@ -25,7 +31,8 @@ The script:
 2. ``build``: builds every kernel from the sources in the checkout (nvcc,
    one process per source, all at once) and times it;
 3. ``kernel_check``: holds each kernel against its plain PyTorch version on
-   the same card tensors at the shapes its path gives it, and times the
+   the same card tensors at the shapes its path gives it (K3 also at the
+   JAX bench's ``longctx`` shape and at head dims 16 and 512), and times the
    kernel, the plain version, one PyTorch library call as a yardstick
    where one computes the same function (each as device time, replayed
    from a CUDA graph; the kernel also as back-to-back eager calls), and
@@ -45,8 +52,20 @@ The script:
 6. ``deep``: fits ``DeepClassifier`` on 65,536 rows of 128 features,
    scores them, and checks that ``ComputeModelStatistics``'s device path
    gives the host path's metrics with one counted sync;
-7. prints the kernel table line, the card's name and power limit, and last
-   ``{"ok": true, "device": {...}}``.
+7. ``lm_score``: zeroes the counts, scores 64 rows of 2048 ids (batch 8),
+   reads the counts (K3 6 layers x 8 batches = 48 times, K1 and K2
+   never), times 3 warm passes (tokens/s, each pass 48 K3 launches), and
+   holds ``hidden`` against the same module and weights with the
+   reference attention (``use_flash="never"``) in bf16 and in fp32 (TF32
+   off); one logits pass checks the default output;
+8. ``moe_score``: ``transformer_lm_moe`` over 16 rows (K3 6 times a
+   batch), against its reference-attention route;
+9. ``featurize_vit``: ViT-B/16 features of 128 uint8 images 256x256x3
+   through ``ImageFeaturizer`` (resized to 224 by K2) and through
+   ``TorchModel`` center-cropping to 224 on the card (K2), each against
+   the plain-preprocess route;
+10. prints the kernel table line, the card's name and power limit, and
+    last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the exit code is nonzero and no result line is
 printed. Without CUDA, or outside a checkout of the repository, it fails
@@ -78,10 +97,33 @@ TRAIN_ROWS, TRAIN_BATCH, TRAIN_SHAPE = 4096, 256, (32, 32, 3)
 TRAIN_WARMUP, TRAIN_STEPS, PARITY_STEPS, PARITY_F32_STEPS = 3, 40, 60, 20
 TRAIN_WINDOWS = 5
 DEEP_ROWS, DEEP_FEATURES = 65536, 128
+# the zoo's transformer_lm (vocab 32000, dim 512, depth 6, 8 heads, L 2048):
+# 64 rows of ids scored at batch 8; the MoE LM over 16 rows
+LM_ROWS, LM_BATCH, LM_LEN, LM_VOCAB, LM_DEPTH = 64, 8, 2048, 32000, 6
+MOE_ROWS, LM_F32_ROWS = 16, 16
+# ViT-B/16 as the JAX bench's vit_preprocess lane feeds it: 256x256 uint8,
+# 224 on the card, mean = std = 127.5, batch 32
+VIT_IMAGES, VIT_BATCH = 128, 32
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s
-# outside the tensor cores
+# outside the tensor cores, dense bf16 tensor-core FLOP/s
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
+PEAK_BF16_S = 989e12
+# K3 against its plain version: fp32 sums in another order (2e-5), and in
+# bf16 one bf16 step of the value beyond that
+K3_F32_TOL = 2e-5
+# the LM's hidden (unit-variance final-norm output, |x| up to ~5), K3 route
+# against the reference-attention route. bf16: the reference rounds p to
+# bf16 before p.v and K3 does not, so attention outputs differ by about one
+# bf16 step, which the bf16 residual sums of 6 blocks carry on (one step at
+# magnitude 4 is 0.016): max 0.1, mean 0.01. fp32 (TF32 off): 1e-3.
+LM_BF16_MAX, LM_BF16_MEAN, LM_F32_MAX = 1e-1, 1e-2, 1e-3
+# the MoE LM: a token whose top-2 gates nearly tie may take another expert
+# when attention rounds differently, and then moves by O(1); rounding alone
+# moves a token by at most ~0.1 (CPU rehearsal at L=512). So: the mean as
+# the LM's, and at most 1% of tokens moved by more than 0.25, not a bound
+# on the worst token
+MOE_MEAN, MOE_MOVED, MOE_SHARE_MOVED = 1e-2, 0.25, 0.01
 # fp32 operations per output element of the crop-resize-normalize kernel:
 # two row lerps (3 each), one column lerp (3), rint, clamp (2), subtract,
 # multiply
@@ -155,10 +197,10 @@ def _smi() -> str:
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
-def _bound(nbytes: int, ops: int):
-    """(bound ms, what bounds it) from the bytes moved and the fp32
-    operations done, at the card's published peaks."""
-    bytes_ms, ops_ms = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_FP32_S * 1e3
+def _bound(nbytes: int, ops: int, peak_ops_s: float = PEAK_FP32_S):
+    """(bound ms, what bounds it) from the bytes moved and the operations
+    done, at the card's published peaks (fp32 unless ``peak_ops_s``)."""
+    bytes_ms, ops_ms = nbytes / PEAK_BYTES_S * 1e3, ops / peak_ops_s * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms \
         else "operations"
 
@@ -271,6 +313,80 @@ def phase_kernel_check(torch, tpre, kernel, card):
         rows.append(row)
     _line(phase="kernel_check", kernel=kernel.name, shape=[BATCH, SRC, SRC, 3],
           launches_while_checking=kernel.launches, variants=rows)
+    return main
+
+
+def _bf16_steps(got, want):
+    """The largest |got - want| beyond K3_F32_TOL, in bf16 steps (ulps) of
+    the larger magnitude: at most 1 passes."""
+    g, w = got.float(), want.float()
+    mag = g.abs().maximum(w.abs())
+    ulp = (mag.log2().floor() - 7).exp2().clamp(min=2.0 ** -133)
+    return (((g - w).abs() - K3_F32_TOL).clamp(min=0) / ulp).max().item()
+
+
+def phase_kernel_check_k3(torch, tatt, kernel, card):
+    """K3 against its plain version at the LM's shape (bf16 and f32), the
+    JAX bench's longctx shape and two other head dims; times, the library
+    call's time and the bound at each. Returns the LM bf16 shape's row."""
+    import torch.nn.functional as F
+    torch.backends.cuda.matmul.allow_tf32 = False     # fp32 products in fp32
+    lm = (LM_BATCH, LM_LEN, 8, 64)
+    variants = [("lm_bf16", lm, torch.bfloat16, True),
+                ("lm_f32", lm, torch.float32, True),
+                ("longctx_bf16", (1, 8192, 8, 64), torch.bfloat16, True),
+                ("d16_bf16", (8, 512, 8, 16), torch.bfloat16, False),
+                ("d512_f32", (2, 512, 4, 512), torch.float32, True)]
+    rows, main = [], None
+    for name, shape, dt, causal in variants:
+        rng = np.random.default_rng(8)
+        q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                   .to(card, dt) for _ in range(3))
+        got = tatt.flash_attention(q, k, v, causal=causal)
+        want = tatt.flash_attention_plain(q, k, v, causal)
+        torch.cuda.synchronize()
+        max_err = (got.float() - want.float()).abs().max().item()
+        steps = _bf16_steps(got, want)
+        ok = max_err <= K3_F32_TOL if dt == torch.float32 else steps <= 1.0
+        _check(ok and got.dtype == dt and bool(torch.isfinite(
+            got.float()).all()), f"K3 {name}: max err {max_err} "
+                                 f"({steps} bf16 steps) against its plain "
+                                 "version")
+        b, L, h, d = shape
+        plain_iters = 2 if L >= 8192 else 5
+        kernel_ms = _graph_ms(
+            torch, lambda: tatt.flash_attention(q, k, v, causal=causal))
+        plain_ms = _graph_ms(
+            torch, lambda: tatt.flash_attention_plain(q, k, v, causal),
+            iters=plain_iters, reps=3)
+        qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+        library_ms = _graph_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=causal))
+        eager_ms = _median_ms(
+            torch, lambda: tatt.flash_attention(q, k, v, causal=causal))
+        # the causal-useful FLOPs (bench.py's longctx count): two products
+        # of 2 D operations per (query, key) pair the mask keeps
+        pairs = L * (L + 1) // 2 if causal else L * L
+        flops = 4 * b * h * d * pairs
+        nbytes = 4 * q.numel() * q.element_size()
+        bound_ms, bound_by = _bound(
+            nbytes, flops, PEAK_BF16_S if dt == torch.bfloat16
+            else PEAK_FP32_S)
+        row = dict(variant=name, shape=list(shape), causal=causal,
+                   dtype=str(dt).replace("torch.", ""), max_abs_err=max_err,
+                   bf16_steps_beyond_f32_tol=steps, ms=kernel_ms,
+                   eager_ms=eager_ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, flops=flops, bytes=nbytes,
+                   tflops=flops / kernel_ms / 1e9,
+                   bound_share=bound_ms / kernel_ms)
+        rows.append(row)
+        if main is None:
+            main = row
+    _line(phase="kernel_check", kernel=kernel.name,
+          launches_while_checking=kernel.launches, variants=rows,
+          library="F.scaled_dot_product_attention on (B, H, L, D) views, "
+                  "a yardstick the port never calls", tf32="off")
     return main
 
 
@@ -648,6 +764,259 @@ def phase_deep(torch, card):
           confusion_matrix=cm_dev.tolist(), evaluate_finalize_syncs=finalize)
 
 
+def _lm_reference(torch, card, name, state, ids, batch, **arch):
+    """``hidden`` of the same module and weights with the reference
+    attention (``full_attention(use_flash="never")``), scored batch by batch
+    on the card: float32 numpy."""
+    from functools import partial
+
+    from mmlspark_tpu_torch.models.zoo import build_model
+    from mmlspark_tpu_torch.parallel.sequence import full_attention
+    module = build_model(name, attention_fn=partial(
+        full_attention, use_flash="never"), **arch)["module"]
+    module.load_state_dict({k: torch.from_numpy(np.asarray(v))
+                            for k, v in state.items()})
+    module = module.to(card).eval()
+    out = []
+    with torch.inference_mode():
+        for i in range(0, len(ids), batch):
+            x = torch.from_numpy(ids[i:i + batch]).to(card)
+            _, inters = module.forward_with_intermediates(
+                x, layers=("hidden",))
+            out.append(inters["hidden"].float().cpu().numpy())
+    return np.concatenate(out)
+
+
+def _lm_scorer(name, node, batch, **arch):
+    from mmlspark_tpu_torch.models.torch_model import TorchModel
+    tm = TorchModel(inputCol="ids", outputCol="h", outputNodeName=node,
+                    miniBatchSize=batch, deviceCache="on")
+    return tm.set_model(name, seed=0, **arch)
+
+
+def _diff_stats(got, want):
+    """|got - want| over (rows, L, dim): max, mean, and the share of tokens
+    whose largest difference exceeds 5e-2 and MOE_MOVED."""
+    d = np.abs(got - want)
+    token = d.max(axis=-1)
+    return dict(max_abs=float(d.max()), mean_abs=float(d.mean()),
+                share_tokens_over_5e_2=float((token > 5e-2).mean()),
+                share_tokens_moved=float((token > MOE_MOVED).mean()))
+
+
+def phase_lm_score(torch, kernels, card, profile_dir=None):
+    """The attention path through the public entry point: TorchModel scores
+    token ids through transformer_lm for ``hidden`` (the counts zeroed just
+    before, read just after), its tokens/s over 3 warm passes, and its
+    agreement with the reference-attention route in bf16 and fp32."""
+    from mmlspark_tpu_torch.core.frame import Frame
+    torch.backends.cuda.matmul.allow_tf32 = False     # fp32 products in fp32
+    ids = np.random.default_rng(0).integers(
+        0, LM_VOCAB, (LM_ROWS, LM_LEN)).astype(np.int32)
+    frame = Frame.from_dict({"ids": ids})
+    batches = math.ceil(LM_ROWS / LM_BATCH)
+    k3 = kernels.FLASH_ATTENTION
+
+    def want_launches(n):
+        want = {k.name: 0 for k in kernels.KERNELS}
+        want[k3.name] = n
+        return want
+
+    # the main path: counts zeroed just before, read just after
+    tm = _lm_scorer("transformer_lm", "hidden", LM_BATCH)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    hidden = np.asarray(tm.transform(frame).column("h"))
+    first_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    _check(launches == want_launches(LM_DEPTH * batches),
+           f"kernels launched {launches} times on the lm_score path, want "
+           f"K3 {LM_DEPTH} layers x {batches} batches and no other kernel")
+    _check(hidden.shape == (LM_ROWS, LM_LEN, 512)
+           and bool(np.isfinite(hidden).all()),
+           f"hidden {hidden.shape} not finite or of the wrong shape")
+
+    pass_s, repeat_diff = [], 0.0
+    for _ in range(3):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        again = np.asarray(tm.transform(frame).column("h"))
+        pass_s.append(time.perf_counter() - t0)
+        _check({k.name: k.launches for k in kernels.KERNELS}
+               == want_launches(LM_DEPTH * batches),
+               "a warm pass did not launch K3 once per layer and batch")
+        repeat_diff = max(repeat_diff, float(np.abs(again - hidden).max()))
+    _check(repeat_diff <= 1e-5, f"a repeat pass moved hidden by {repeat_diff}")
+    if profile_dir:
+        _profile_pass(torch, lambda: tm.transform(frame), profile_dir,
+                      "lm_score")
+    tokens_s = [LM_ROWS * LM_LEN / s for s in pass_s]
+
+    ref = _lm_reference(torch, card, "transformer_lm", tm._state["params"],
+                        ids, LM_BATCH)
+    bf16 = _diff_stats(hidden, ref)
+    _check(bf16["max_abs"] <= LM_BF16_MAX and bf16["mean_abs"] <= LM_BF16_MEAN,
+           f"bf16 hidden vs the reference-attention route: {bf16}")
+
+    # fp32 (dtype=float32, TF32 off): both routes compute in fp32
+    ids32 = ids[:LM_F32_ROWS]
+    tm32 = _lm_scorer("transformer_lm", "hidden", LM_BATCH, dtype="float32")
+    kernels.reset_launches()
+    h32 = np.asarray(tm32.transform(Frame.from_dict({"ids": ids32}))
+                     .column("h"))
+    _check(k3.launches == LM_DEPTH * LM_F32_ROWS // LM_BATCH,
+           f"fp32 pass: {k3.launches} K3 launches")
+    ref32 = _lm_reference(torch, card, "transformer_lm", tm32._state["params"],
+                          ids32, LM_BATCH, dtype="float32")
+    f32 = _diff_stats(h32, ref32)
+    _check(f32["max_abs"] <= LM_F32_MAX,
+           f"fp32 hidden vs the reference-attention route: {f32}")
+
+    # the default output (logits) on 2 rows: the tied fp32 head of the same
+    # hidden
+    lg_tm = _lm_scorer("transformer_lm", "", 2)
+    logits = np.asarray(lg_tm.transform(Frame.from_dict({"ids": ids[:2]}))
+                        .column("h"))
+    table = torch.from_numpy(np.asarray(
+        tm._state["params"]["token_embedding.embedding"])).to(card)
+    with torch.inference_mode():
+        want_lg = torch.einsum("bld,vd->blv", torch.from_numpy(
+            hidden[:2]).to(card), table).cpu().numpy()
+    lg_err = float(np.abs(logits - want_lg).max() / np.abs(want_lg).max())
+    _check(logits.shape == (2, LM_LEN, LM_VOCAB)
+           and bool(np.isfinite(logits).all()) and lg_err <= 1e-5,
+           f"logits {logits.shape}: rel err {lg_err} against the head of "
+           "the scored hidden")
+
+    _line(phase="lm_score", card=_smi(), model="transformer_lm",
+          rows=LM_ROWS, length=LM_LEN, batch=LM_BATCH, compute="bfloat16",
+          launches_main_path=launches, k3_launches_per_pass=LM_DEPTH * batches,
+          first_pass_s=first_s, timed_pass_s=pass_s,
+          tokens_per_s=statistics.median(tokens_s),
+          tokens_per_s_min=min(tokens_s), tokens_per_s_max=max(tokens_s),
+          repeat_max_abs_diff=repeat_diff, bf16_vs_reference=bf16,
+          bf16_limits=dict(max_abs=LM_BF16_MAX, mean_abs=LM_BF16_MEAN),
+          fp32_rows=LM_F32_ROWS, fp32_vs_reference=f32,
+          fp32_limit=LM_F32_MAX,
+          logits_rel_err=lg_err, tf32="off")
+    return launches
+
+
+def phase_moe_score(torch, kernels, card):
+    """transformer_lm_moe at the zoo's defaults over 16 rows at batch 8,
+    untimed: K3 once per layer and batch, ``hidden`` against the
+    reference-attention route."""
+    from mmlspark_tpu_torch.core.frame import Frame
+    ids = np.random.default_rng(0).integers(
+        0, LM_VOCAB, (MOE_ROWS, LM_LEN)).astype(np.int32)
+    tm = _lm_scorer("transformer_lm_moe", "hidden", LM_BATCH)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    hidden = np.asarray(tm.transform(Frame.from_dict({"ids": ids}))
+                        .column("h"))
+    pass_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    want = {k.name: 0 for k in kernels.KERNELS}
+    want[kernels.FLASH_ATTENTION.name] = LM_DEPTH * MOE_ROWS // LM_BATCH
+    _check(launches == want, f"kernels launched {launches} times on the "
+                             f"moe_score path, want {want}")
+    _check(hidden.shape == (MOE_ROWS, LM_LEN, 512)
+           and bool(np.isfinite(hidden).all()), "MoE hidden shape/finite")
+    ref = _lm_reference(torch, card, "transformer_lm_moe", tm._state["params"],
+                        ids, LM_BATCH)
+    stats = _diff_stats(hidden, ref)
+    _check(stats["mean_abs"] <= MOE_MEAN
+           and stats["share_tokens_moved"] <= MOE_SHARE_MOVED,
+           f"MoE bf16 hidden vs the reference-attention route: {stats}")
+    _line(phase="moe_score", card=_smi(), model="transformer_lm_moe",
+          rows=MOE_ROWS, length=LM_LEN, batch=LM_BATCH,
+          launches_main_path=launches, pass_s=pass_s,
+          tokens_per_s_untimed_pass=MOE_ROWS * LM_LEN / pass_s,
+          bf16_vs_reference=stats,
+          limits=dict(mean_abs=MOE_MEAN, moved_over=MOE_MOVED,
+                      share_tokens_moved=MOE_SHARE_MOVED))
+
+
+def phase_featurize_vit(torch, kernels, card):
+    """ViT-B/16 features of 128 uint8 images, untimed: ImageFeaturizer
+    (K2 resizes 256 -> 224) and TorchModel with a center crop to 224 on the
+    card (K2), each against the plain-preprocess route."""
+    from mmlspark_tpu_torch.core.frame import Frame
+    from mmlspark_tpu_torch.core.schema import ColumnSchema, DType, ImageValue
+    from mmlspark_tpu_torch.image.featurizer import ImageFeaturizer
+    from mmlspark_tpu_torch.models.torch_model import TorchModel
+    from mmlspark_tpu_torch.models.zoo import build_model
+    from mmlspark_tpu_torch.ops.preprocess import (
+        CropResizePlan, _crop_resize_normalize_plain,
+    )
+
+    raw = np.random.default_rng(7).integers(
+        0, 256, size=(VIT_IMAGES, SRC, SRC, 3), dtype=np.uint8)
+    imgs = np.empty(VIT_IMAGES, dtype=object)
+    for i in range(VIT_IMAGES):
+        imgs[i] = ImageValue(path=f"mem://vit/{i}", data=raw[i])
+    frame = Frame.from_dict({"row": np.arange(VIT_IMAGES)}).with_column_values(
+        ColumnSchema("image", DType.IMAGE), imgs)
+    flat = Frame.from_dict({"u8": raw.reshape(VIT_IMAGES, -1)})
+    batches = math.ceil(VIT_IMAGES / VIT_BATCH)
+    norm = dict(input_mean=(127.5,) * 3, input_std=(127.5,) * 3)
+
+    def route(run):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        feats = np.asarray(run())
+        seconds = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+        want = {k.name: 0 for k in kernels.KERNELS}
+        want[kernels.CROP_RESIZE_NORMALIZE.name] = batches
+        _check(launches == want, f"featurize_vit: kernels launched "
+                                 f"{launches} times, want {want}")
+        _check(feats.shape == (VIT_IMAGES, 768)
+               and bool(np.isfinite(feats).all()), "ViT features")
+        return feats, seconds, launches
+
+    fz = ImageFeaturizer(inputCol="image", outputCol="f", cutOutputLayers=1,
+                         miniBatchSize=VIT_BATCH)
+    fz.set_model("vit_b16", seed=0, **norm)
+    resized, resize_s, launches = route(
+        lambda: fz.transform(frame).column("f"))
+    tm = TorchModel(inputCol="u8", outputCol="f", outputNodeName="pool",
+                    miniBatchSize=VIT_BATCH, devicePreprocess={
+                        "srcShape": [SRC, SRC, 3], "crop": [DST, DST]})
+    tm.set_model("vit_b16", params=fz._state["params"], **norm)
+    cropped, crop_s, _ = route(lambda: tm.transform(flat).column("f"))
+
+    module = build_model("vit_b16")["module"]
+    module.load_state_dict({k: torch.from_numpy(np.asarray(v))
+                            for k, v in fz._state["params"].items()})
+    module = module.to(card).eval()
+
+    def plain(resize, crop):
+        plan = CropResizePlan((SRC, SRC, 3), resize=resize, crop=crop,
+                              mean=(127.5,) * 3, std=(127.5,) * 3)
+        out = []
+        with torch.inference_mode():
+            for i in range(0, VIT_IMAGES, VIT_BATCH):
+                x = _crop_resize_normalize_plain(
+                    torch.from_numpy(raw[i:i + VIT_BATCH]).to(card), plan)
+                out.append(module.forward_features(x).float().cpu().numpy())
+        return np.concatenate(out)
+
+    errs = {}
+    for name, got, want in (("resize", resized, plain((DST, DST), None)),
+                            ("crop", cropped, plain(None, (DST, DST)))):
+        errs[name] = float(np.abs(got - want).max() / np.abs(want).max())
+        # the featurize phase's bf16 limit: 2% of the features' scale
+        _check(errs[name] <= 0.02, f"ViT {name} features vs the plain-"
+                                   f"preprocess route: rel err {errs[name]}")
+    _line(phase="featurize_vit", card=_smi(), model="vit_b16",
+          images=VIT_IMAGES, batch=VIT_BATCH, src=[SRC, SRC, 3],
+          dst=[DST, DST], launches_main_path=launches,
+          rel_err_vs_plain_preprocess=errs, limit=0.02,
+          images_per_s_untimed=dict(resize=VIT_IMAGES / resize_s,
+                                    crop=VIT_IMAGES / crop_s))
+
+
 def _profile_pass(torch, run, out_dir, name) -> None:
     """One warm ``run()`` under torch.profiler: the device time by kernel
     (top 25) and the device's busy share of the run, as a JSON line; the
@@ -682,6 +1051,7 @@ def main() -> int:
               "runs on a CUDA card", file=sys.stderr)
         return 2
     from mmlspark_tpu_torch import kernels
+    from mmlspark_tpu_torch.ops import attention as tatt
     from mmlspark_tpu_torch.ops import preprocess as tpre
 
     smi = _smi()
@@ -700,14 +1070,19 @@ def main() -> int:
     card = torch.device("cuda", 0)
     k1 = phase_kernel_check_k1(torch, tpre, kernels.FUSED_NORMALIZE, card)
     k2 = phase_kernel_check(torch, tpre, kernels.CROP_RESIZE_NORMALIZE, card)
+    k3 = phase_kernel_check_k3(torch, tatt, kernels.FLASH_ATTENTION, card)
     profile_dir = None
     if "--profile" in sys.argv[1:]:
         profile_dir = sys.argv[sys.argv.index("--profile") + 1]
     featurize = phase_featurize(torch, kernels, card, profile_dir)
     train = phase_train(torch, kernels, card, profile_dir)
     phase_deep(torch, card)
+    lm = phase_lm_score(torch, kernels, card, profile_dir)
+    phase_moe_score(torch, kernels, card)
+    phase_featurize_vit(torch, kernels, card)
 
     k1k, k2k = kernels.FUSED_NORMALIZE, kernels.CROP_RESIZE_NORMALIZE
+    k3k = kernels.FLASH_ATTENTION
     _line(kernels=[{
         "name": k1k.name, "route": "cuda",
         "source": "mmlspark_tpu_torch/kernels/csrc/fused_normalize.cu",
@@ -723,7 +1098,16 @@ def main() -> int:
         "launches": featurize[k2k.name], "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
-        "library_ms": k2["library_ms"]}])
+        "library_ms": k2["library_ms"]}, {
+        "name": k3k.name, "route": "cuda",
+        "source": "mmlspark_tpu_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "mmlspark_tpu/ops/pallas_attention.py:109",
+        "launches": lm[k3k.name], "max_abs_err": k3["max_abs_err"],
+        "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+        "library_ms": k3["library_ms"],
+        "library_note": "F.scaled_dot_product_attention(is_causal=True), "
+                        "bf16 (B=8, L=2048, H=8, D=64)"}])
     print(_smi(), flush=True)
     _line(ok=True, device={"platform": "gpu",
                            "kind": torch.cuda.get_device_name(0),

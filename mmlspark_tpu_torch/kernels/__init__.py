@@ -8,7 +8,7 @@ takes the plain version only for a CPU tensor.
 """
 from __future__ import annotations
 
-from ctypes import c_int, c_longlong, c_void_p
+from ctypes import c_float, c_int, c_longlong, c_void_p
 
 from mmlspark_tpu_torch.kernels.build import (  # noqa: F401
     KERNELS, Kernel, build_all, reset_launches,
@@ -27,3 +27,11 @@ FUSED_NORMALIZE = Kernel(
 CROP_RESIZE_NORMALIZE = Kernel(
     "crop_resize_normalize", "crop_resize_normalize.cu",
     [c_void_p] * 10 + [c_int] * 7 + [c_void_p])
+
+# K3: mmlspark_tpu/ops/pallas_attention.py::flash_attention (forward).
+# (q, k, v, out, b, l, h, d, q/k/v strides over (b, l, h) in elements,
+#  scale, causal, bf16, stream); wrapper: ops/attention.py::flash_attention
+FLASH_ATTENTION = Kernel(
+    "flash_attention", "flash_attention.cu",
+    [c_void_p] * 4 + [c_int] * 4 + [c_longlong] * 9
+    + [c_float, c_int, c_int, c_void_p])

@@ -17,7 +17,11 @@ Params and the same behaviour:
   float input through the plain torch route;
 - ``computeDtype='bfloat16'`` casts float params and activations to
   bfloat16 AFTER the float32 preprocess;
-- ``outputNodeName`` selects a named layer (``pool``, ``head``).
+- ``outputNodeName`` selects a named layer (``pool``, ``head``; the LMs'
+  ``hidden``, ``logits``);
+- token models (``input_dtype="int32"``, the transformer LMs) take an ids
+  column, coerced to int32 on the host even from float64; a (B, L, dim)
+  output keeps the JAX package's column quirk: its ``dim`` is L.
 
 Everything runs on ``runtime.device`` (``utils/config.py``), which raises
 when it names CUDA and there is none. Left for later slices: scoring over
@@ -215,7 +219,10 @@ class TorchModel(HasInputCol, HasOutputCol, Model):
         if not node:
             forward = module
         else:
-            forward = lambda x: module.forward_with_intermediates(x)[1][node]  # noqa: E731
+            # naming the one layer read lets a model skip what follows it
+            # (the LMs' vocab-wide head when only ``hidden`` is asked for)
+            forward = lambda x: module.forward_with_intermediates(  # noqa: E731
+                x, layers=(node,))[1][node]
 
         @torch.inference_mode()
         def apply(x: torch.Tensor) -> torch.Tensor:

@@ -38,24 +38,53 @@ def test_importing_every_port_module_loads_no_jax_and_no_jax_package():
     assert bad == "[]", bad
 
 
-def test_port_sources_name_no_jax_import():
-    """No source file of the port spells an import of JAX, flax, optax,
-    orbax or the JAX package (a lazy import would escape the subprocess
-    check above)."""
+def _port_sources():
+    """Every Python source of the port, and ``chip_smoke.py``."""
     root = os.path.join(REPO, "mmlspark_tpu_torch")
-    offenders = []
+    paths = [os.path.join(REPO, "chip_smoke.py")]
     for dirpath, _, files in os.walk(root):
-        for f in files:
-            if not f.endswith(".py"):
-                continue
-            with open(os.path.join(dirpath, f)) as fh:
-                for i, line in enumerate(fh, 1):
-                    words = line.split()
-                    if words[:1] in (["import"], ["from"]) and len(words) > 1:
-                        mod = words[1].split(".")[0].rstrip(",")
-                        if mod in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                   "mmlspark_tpu"):
-                            offenders.append(f"{f}:{i}")
+        paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    return paths
+
+
+def test_port_sources_name_no_jax_import():
+    """No source file of the port, nor ``chip_smoke.py``, spells an import
+    of JAX, flax, optax, orbax or the JAX package (a lazy import would
+    escape the subprocess check above)."""
+    offenders = []
+    for path in _port_sources():
+        with open(path) as fh:
+            for i, line in enumerate(fh, 1):
+                words = line.split()
+                if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                    mod = words[1].split(".")[0].rstrip(",")
+                    if mod in ("jax", "jaxlib", "flax", "optax", "orbax",
+                               "mmlspark_tpu"):
+                        offenders.append(f"{os.path.basename(path)}:{i}")
+    assert len(_port_sources()) >= 40
+    assert offenders == []
+
+
+def test_chip_smoke_loads_no_jax_and_no_jax_package():
+    """Importing ``chip_smoke`` and the port modules it drives loads no
+    JAX: the card's machine has none."""
+    code = _IMPORT_ALL.replace("import mmlspark_tpu_torch as pkg",
+                               "import chip_smoke\nimport mmlspark_tpu_torch as pkg")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().split(" ", 1)[1] == "[]"
+
+
+def test_no_port_module_calls_a_library_attention_kernel():
+    """The port's attention is K3 and plain torch ops: no module of the
+    package calls PyTorch's fused attention (``chip_smoke.py`` times it
+    as a yardstick only)."""
+    root = os.path.join(REPO, "mmlspark_tpu_torch")
+    offenders = [p for p in _port_sources() if p.startswith(root)
+                 and "scaled_dot_product_attention" in open(p).read()]
     assert offenders == []
 
 

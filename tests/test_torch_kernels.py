@@ -14,8 +14,9 @@ import pytest
 import torch
 
 from mmlspark_tpu_torch.kernels import (
-    CROP_RESIZE_NORMALIZE, FUSED_NORMALIZE, KERNELS, build,
+    CROP_RESIZE_NORMALIZE, FLASH_ATTENTION, FUSED_NORMALIZE, KERNELS, build,
 )
+from mmlspark_tpu_torch.ops import attention as tatt
 from mmlspark_tpu_torch.ops import preprocess as tpre
 
 MEAN, STD = (123.675, 116.28, 103.53), (58.395, 57.12, 57.375)
@@ -90,7 +91,8 @@ def test_build_is_keyed_by_source_and_flags(tmp_path, monkeypatch):
 
 def test_every_kernel_is_registered_once_with_a_source():
     assert [k.name for k in KERNELS] == ["fused_normalize",
-                                         "crop_resize_normalize"]
+                                         "crop_resize_normalize",
+                                         "flash_attention"]
     for k in KERNELS:
         assert k.source.exists()
         assert k.launches >= 0
@@ -99,6 +101,7 @@ def test_every_kernel_is_registered_once_with_a_source():
 def test_reset_launches_zeroes_every_count():
     CROP_RESIZE_NORMALIZE.launches = 5
     FUSED_NORMALIZE.launches = 3
+    FLASH_ATTENTION.launches = 48
     build.reset_launches()
     assert all(k.launches == 0 for k in KERNELS)
 
@@ -216,3 +219,102 @@ def test_k1_misaligned_and_ragged_inputs_on_the_card(card):
         assert torch.equal(got, want)
     with pytest.raises(ValueError, match="channels"):
         tpre.fused_normalize(base[:10], *consts)
+
+
+# K3: (B, L, H, D) shapes that supports() admits, from the smallest head dim
+# to the D = 2048 corner (L * D = 2**20 at L = 512), and the LM's own shape
+K3_SHAPES = [(2, 512, 2, 8), (2, 512, 2, 16), (1, 2048, 2, 64),
+             (2, 512, 2, 128), (1, 512, 2, 512), (1, 512, 1, 2048)]
+
+
+def _qkv(seed, shape, dtype=torch.float32, device="cpu"):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                 .to(device=device, dtype=dtype) for _ in range(3))
+
+
+K3_F32_TOL = 2e-5
+
+
+def _within_one_bf16_ulp(got, want):
+    """|got - want| at most one bf16 step of the larger magnitude beyond
+    the fp32 disagreement: the kernel and the plain version round to bf16
+    fp32 values that differ by up to K3_F32_TOL (the order of their fp32
+    sums), and near zero that difference is many bf16 steps of the value."""
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs())
+    ulp = torch.where(mag > 0, torch.exp2(torch.floor(torch.log2(mag)) - 7),
+                      torch.zeros_like(mag))
+    return bool(((g - w).abs() <= ulp + K3_F32_TOL).all())
+
+
+def test_k3_cpu_tensor_takes_the_plain_version_without_counting():
+    q, k, v = _qkv(20, (1, 512, 2, 16))
+    before = FLASH_ATTENTION.launches
+    for causal in (False, True):
+        got = tatt.flash_attention(q, k, v, causal=causal)
+        assert torch.equal(got, tatt.flash_attention_plain(q, k, v, causal))
+    assert FLASH_ATTENTION.launches == before
+
+
+def test_k3_wrapper_refuses_a_device_without_a_kernel():
+    q = torch.empty((1, 512, 2, 16), device="meta")
+    before = FLASH_ATTENTION.launches
+    with pytest.raises(ValueError, match="no kernel"):
+        tatt.flash_attention(q, q, q)
+    assert FLASH_ATTENTION.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K3_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_matches_plain_on_the_card(card, shape, causal, dtype):
+    """K3 against its plain version on the same card tensors: both compute
+    in fp32 (TF32 off) and differ in the order of their sums, so f32 holds
+    to 2e-5 and bf16 to one bf16 step beyond that."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _qkv(21, shape, dtype, card)
+    before = FLASH_ATTENTION.launches
+    got = tatt.flash_attention(q, k, v, causal=causal)
+    assert FLASH_ATTENTION.launches == before + 1
+    want = tatt.flash_attention_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got.float()).all())
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= K3_F32_TOL
+    else:
+        assert _within_one_bf16_ulp(got, want)
+
+
+@pytest.mark.cuda
+def test_k3_reads_strided_views_in_place_on_the_card(card):
+    """q, k and v as views of one fused (B, L, 3, H, D) projection: the
+    kernel reads them through their strides, no copy."""
+    qkv = torch.from_numpy(np.random.default_rng(22).normal(
+        size=(2, 512, 3, 4, 64)).astype(np.float32)).to(card, torch.bfloat16)
+    q, k, v = qkv.unbind(dim=2)
+    assert not q.is_contiguous()
+    got = tatt.flash_attention(q, k, v, causal=True)
+    want = tatt.flash_attention_plain(q, k, v, True)
+    torch.cuda.synchronize()
+    assert _within_one_bf16_ulp(got, want)
+
+
+@pytest.mark.cuda
+def test_k3_refuses_what_it_does_not_take_on_the_card(card):
+    q, k, v = _qkv(23, (1, 512, 2, 64), device=card)
+    before = FLASH_ATTENTION.launches
+    with pytest.raises(TypeError):
+        tatt.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        tatt.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="supports"):
+        tatt.flash_attention(q[:, :256], k[:, :256], v[:, :256])
+    with pytest.raises(ValueError, match="contiguous"):
+        t = q.transpose(1, 3).contiguous().transpose(1, 3)
+        tatt.flash_attention(t, t, t)
+    with pytest.raises(ValueError, match="shape"):
+        tatt.flash_attention(q, k[:, :, :1], v)
+    assert FLASH_ATTENTION.launches == before

@@ -138,15 +138,19 @@ def test_from_jax_params_layout_rules():
 
 def test_zoo_registry_and_specs_match_the_jax_zoo():
     from mmlspark_tpu.models.zoo import build_model as jbuild
-    assert available_models() == ["mlp_tabular", "resnet20_cifar",
-                                  "resnet50"]
+    assert available_models() == [
+        "mlp_tabular", "resnet20_cifar", "resnet50", "transformer_lm",
+        "transformer_lm_moe", "transformer_lm_moe_tiny",
+        "transformer_lm_tiny", "vit_b16", "vit_tiny"]
     for name in available_models():
         t, j = build_model(name), jbuild(name)
         for key in ("input_shape", "feature_layer", "feature_dim",
                     "layer_names"):
             assert tuple(np.atleast_1d(t[key])) == tuple(np.atleast_1d(j[key]))
+        for key in ("input_dtype", "seq_attention"):
+            assert t.get(key) == j.get(key)
     with pytest.raises(KeyError):
-        build_model("vit_tiny")
+        build_model("textcnn")        # slice 3 of the port
 
 
 def test_resnet50_parameter_names_and_shapes_match_flax():
