@@ -22,8 +22,10 @@ Three paths, each through the entry points a user calls:
   ``transformer_lm`` at the zoo's width (vocab 32000, dim 512, depth 6,
   8 heads, L 2048; bf16, random weights from a seed) for its ``hidden``
   layer, every block's causal attention running the hand-written kernel K3
-  (``mmlspark_tpu_torch/kernels/csrc/flash_attention.cu``); then the MoE
-  LM the same way, and ``ImageFeaturizer`` with ViT-B/16 (K2, no K3).
+  on the tensor cores (``mmlspark_tpu_torch/kernels/csrc/
+  flash_attention_wgmma.cu``; f32 takes the CUDA-core
+  ``flash_attention.cu``); then the MoE LM the same way, and
+  ``ImageFeaturizer`` with ViT-B/16 (K2, no K3).
 
 The script:
 
@@ -32,7 +34,10 @@ The script:
    one process per source, all at once) and times it;
 3. ``kernel_check``: holds each kernel against its plain PyTorch version on
    the same card tensors at the shapes its path gives it (K3 also at the
-   JAX bench's ``longctx`` shape and at head dims 16 and 512), and times the
+   JAX bench's ``longctx`` shape and at head dims 16, 128 and 512, each
+   variant through the route its dtype and head dim pick, with both K3
+   kernels' launches counted across the kernel call and the plain call),
+   and times the
    kernel, the plain version, one PyTorch library call as a yardstick
    where one computes the same function (each as device time, replayed
    from a CUDA graph; the kernel also as back-to-back eager calls), and
@@ -53,13 +58,15 @@ The script:
    scores them, and checks that ``ComputeModelStatistics``'s device path
    gives the host path's metrics with one counted sync;
 7. ``lm_score``: zeroes the counts, scores 64 rows of 2048 ids (batch 8),
-   reads the counts (K3 6 layers x 8 batches = 48 times, K1 and K2
-   never), times 3 warm passes (tokens/s, each pass 48 K3 launches), and
+   reads the counts (K3's tensor-core kernel 6 layers x 8 batches = 48
+   times, no other kernel), times 3 warm passes (tokens/s, each pass 48
+   launches), and
    holds ``hidden`` against the same module and weights with the
    reference attention (``use_flash="never"``) in bf16 and in fp32 (TF32
-   off); one logits pass checks the default output;
-8. ``moe_score``: ``transformer_lm_moe`` over 16 rows (K3 6 times a
-   batch), against its reference-attention route;
+   off; the fp32 pass launches K3's CUDA-core kernel instead); one logits
+   pass checks the default output;
+8. ``moe_score``: ``transformer_lm_moe`` over 16 rows (K3's tensor-core
+   kernel 6 times a batch), against its reference-attention route;
 9. ``featurize_vit``: ViT-B/16 features of 128 uint8 images 256x256x3
    through ``ImageFeaturizer`` (resized to 224 by K2) and through
    ``TorchModel`` center-cropping to 224 on the card (K2), each against
@@ -110,12 +117,22 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
 PEAK_BF16_S = 989e12
 # K3 against its plain version: fp32 sums in another order (2e-5), and in
-# bf16 one bf16 step of the value beyond that
+# bf16 on the CUDA-core route (D > 128) one bf16 step of the value beyond
+# that
 K3_F32_TOL = 2e-5
+# K3's tensor-core route (bf16, D <= 128) against its plain version, which
+# keeps p in fp32: rounding each p_j to bf16 moves it by at most bf16's unit
+# roundoff 2^-8 of itself, so an output moves by at most 2^-8 max|v|; plus
+# K3_F32_TOL and one bf16 step of the output. The mean |difference| is held
+# to 2^-8 of the mean |output|: a CPU emulation of the route's arithmetic
+# (tests/test_torch_attention.py, L = 512, D 16/64/128, causal or not)
+# reads 0.32-0.38 of that ceiling and at most 0.50 of the bound
+TC_P_ROUNDING, TC_MEAN_CEILING = 2.0 ** -8, 2.0 ** -8
 # the LM's hidden (unit-variance final-norm output, |x| up to ~5), K3 route
-# against the reference-attention route. bf16: the reference rounds p to
-# bf16 before p.v and K3 does not, so attention outputs differ by about one
-# bf16 step, which the bf16 residual sums of 6 blocks carry on (one step at
+# against the reference-attention route. bf16: the reference rounds the
+# normalized p to bf16 before p.v, K3's tensor-core route the p of its
+# running max, so attention outputs differ by about one bf16 step, which
+# the bf16 residual sums of 6 blocks carry on (one step at
 # magnitude 4 is 0.016): max 0.1, mean 0.01. fp32 (TF32 off): 1e-3.
 LM_BF16_MAX, LM_BF16_MEAN, LM_F32_MAX = 1e-1, 1e-2, 1e-3
 # the MoE LM: a token whose top-2 gates nearly tie may take another expert
@@ -325,34 +342,72 @@ def _bf16_steps(got, want):
     return (((g - w).abs() - K3_F32_TOL).clamp(min=0) / ulp).max().item()
 
 
-def phase_kernel_check_k3(torch, tatt, kernel, card):
+def _tc_gate(got, want, v):
+    """(worst |got - want| over its bound, mean |got - want| over its
+    ceiling) for K3's tensor-core route: both at most 1 pass."""
+    g, w = got.float(), want.float()
+    mag = g.abs().maximum(w.abs())
+    step = (mag.log2().floor() - 7).exp2().clamp(min=2.0 ** -133)
+    diff = (g - w).abs()
+    bound = TC_P_ROUNDING * v.float().abs().max() + K3_F32_TOL + step
+    return ((diff / bound).max().item(),
+            (diff.mean() / (TC_MEAN_CEILING * w.abs().mean())).item())
+
+
+def phase_kernel_check_k3(torch, tatt, kernels, card):
     """K3 against its plain version at the LM's shape (bf16 and f32), the
-    JAX bench's longctx shape and two other head dims; times, the library
-    call's time and the bound at each. Returns the LM bf16 shape's row."""
+    JAX bench's longctx shape and three other head dims, each through the
+    route ``_route`` picks; both K3 kernels' launches are counted across the
+    routed call (the route's kernel once, the other never) and across the
+    plain call (neither). Times, the library call's time and the bound at
+    each. Returns the LM shape's row of each route."""
     import torch.nn.functional as F
     torch.backends.cuda.matmul.allow_tf32 = False     # fp32 products in fp32
+    ks = {"tc": kernels.FLASH_ATTENTION_TC, "f32": kernels.FLASH_ATTENTION}
     lm = (LM_BATCH, LM_LEN, 8, 64)
     variants = [("lm_bf16", lm, torch.bfloat16, True),
                 ("lm_f32", lm, torch.float32, True),
                 ("longctx_bf16", (1, 8192, 8, 64), torch.bfloat16, True),
                 ("d16_bf16", (8, 512, 8, 16), torch.bfloat16, False),
+                ("lm_d128_bf16", (LM_BATCH, LM_LEN, 4, 128), torch.bfloat16,
+                 True),
                 ("d512_f32", (2, 512, 4, 512), torch.float32, True)]
-    rows, main = [], None
+
+    def counted(fn):
+        before = {r: k.launches for r, k in ks.items()}
+        out = fn()
+        return out, {r: k.launches - before[r] for r, k in ks.items()}
+
+    rows, main = [], {}
     for name, shape, dt, causal in variants:
         rng = np.random.default_rng(8)
         q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
                    .to(card, dt) for _ in range(3))
-        got = tatt.flash_attention(q, k, v, causal=causal)
-        want = tatt.flash_attention_plain(q, k, v, causal)
+        b, L, h, d = shape
+        route = tatt._route(dt, d)
+        got, got_launches = counted(
+            lambda: tatt.flash_attention(q, k, v, causal=causal))
+        want, want_launches = counted(
+            lambda: tatt.flash_attention_plain(q, k, v, causal))
         torch.cuda.synchronize()
+        _check(got_launches == {r: int(r == route) for r in ks}
+               and want_launches == {r: 0 for r in ks},
+               f"K3 {name}: route {route}, launches {got_launches} across "
+               f"the kernel call and {want_launches} across the plain call")
         max_err = (got.float() - want.float()).abs().max().item()
         steps = _bf16_steps(got, want)
-        ok = max_err <= K3_F32_TOL if dt == torch.float32 else steps <= 1.0
+        gate = None
+        if dt == torch.float32:
+            ok = max_err <= K3_F32_TOL
+        elif route == "tc":
+            gate = _tc_gate(got, want, v)
+            ok = gate[0] <= 1.0 and gate[1] <= 1.0
+        else:
+            ok = steps <= 1.0
         _check(ok and got.dtype == dt and bool(torch.isfinite(
-            got.float()).all()), f"K3 {name}: max err {max_err} "
-                                 f"({steps} bf16 steps) against its plain "
-                                 "version")
-        b, L, h, d = shape
+            got.float()).all()), f"K3 {name} ({route}): max err {max_err} "
+                                 f"({steps} bf16 steps, gate {gate}) against "
+                                 "its plain version")
         plain_iters = 2 if L >= 8192 else 5
         kernel_ms = _graph_ms(
             torch, lambda: tatt.flash_attention(q, k, v, causal=causal))
@@ -372,19 +427,26 @@ def phase_kernel_check_k3(torch, tatt, kernel, card):
         bound_ms, bound_by = _bound(
             nbytes, flops, PEAK_BF16_S if dt == torch.bfloat16
             else PEAK_FP32_S)
-        row = dict(variant=name, shape=list(shape), causal=causal,
-                   dtype=str(dt).replace("torch.", ""), max_abs_err=max_err,
-                   bf16_steps_beyond_f32_tol=steps, ms=kernel_ms,
-                   eager_ms=eager_ms, plain_ms=plain_ms,
-                   library_ms=library_ms, bound_ms=bound_ms,
+        row = dict(variant=name, route=route, kernel=ks[route].name,
+                   shape=list(shape), causal=causal,
+                   dtype=str(dt).replace("torch.", ""),
+                   launches_kernel_call=got_launches,
+                   launches_plain_call=want_launches, max_abs_err=max_err,
+                   mean_abs_err=(got.float() - want.float()).abs().mean()
+                   .item(), bf16_steps_beyond_f32_tol=steps,
+                   tc_gate_worst_over_bound=None if gate is None else gate[0],
+                   tc_gate_mean_over_ceiling=None if gate is None
+                   else gate[1], ms=kernel_ms, eager_ms=eager_ms,
+                   plain_ms=plain_ms, library_ms=library_ms,
+                   over_library=kernel_ms / library_ms, bound_ms=bound_ms,
                    bound_by=bound_by, flops=flops, bytes=nbytes,
                    tflops=flops / kernel_ms / 1e9,
                    bound_share=bound_ms / kernel_ms)
         rows.append(row)
-        if main is None:
-            main = row
-    _line(phase="kernel_check", kernel=kernel.name,
-          launches_while_checking=kernel.launches, variants=rows,
+        main.setdefault(route, row)
+    _line(phase="kernel_check", kernel="flash_attention (both routes)",
+          launches_while_checking={r: k.launches for r, k in ks.items()},
+          variants=rows,
           library="F.scaled_dot_product_attention on (B, H, L, D) views, "
                   "a yardstick the port never calls", tf32="off")
     return main
@@ -815,11 +877,12 @@ def phase_lm_score(torch, kernels, card, profile_dir=None):
         0, LM_VOCAB, (LM_ROWS, LM_LEN)).astype(np.int32)
     frame = Frame.from_dict({"ids": ids})
     batches = math.ceil(LM_ROWS / LM_BATCH)
-    k3 = kernels.FLASH_ATTENTION
 
-    def want_launches(n):
+    def want_launches(n, kernel=kernels.FLASH_ATTENTION_TC):
+        """n launches of one K3 route (bf16: the tensor cores), none of any
+        other kernel"""
         want = {k.name: 0 for k in kernels.KERNELS}
-        want[k3.name] = n
+        want[kernel.name] = n
         return want
 
     # the main path: counts zeroed just before, read just after
@@ -831,7 +894,8 @@ def phase_lm_score(torch, kernels, card, profile_dir=None):
     launches = {k.name: k.launches for k in kernels.KERNELS}
     _check(launches == want_launches(LM_DEPTH * batches),
            f"kernels launched {launches} times on the lm_score path, want "
-           f"K3 {LM_DEPTH} layers x {batches} batches and no other kernel")
+           f"K3's tensor-core kernel {LM_DEPTH} layers x {batches} batches "
+           "and no other kernel")
     _check(hidden.shape == (LM_ROWS, LM_LEN, 512)
            and bool(np.isfinite(hidden).all()),
            f"hidden {hidden.shape} not finite or of the wrong shape")
@@ -844,7 +908,8 @@ def phase_lm_score(torch, kernels, card, profile_dir=None):
         pass_s.append(time.perf_counter() - t0)
         _check({k.name: k.launches for k in kernels.KERNELS}
                == want_launches(LM_DEPTH * batches),
-               "a warm pass did not launch K3 once per layer and batch")
+               "a warm pass did not launch K3's tensor-core kernel once per "
+               "layer and batch")
         repeat_diff = max(repeat_diff, float(np.abs(again - hidden).max()))
     _check(repeat_diff <= 1e-5, f"a repeat pass moved hidden by {repeat_diff}")
     if profile_dir:
@@ -858,14 +923,18 @@ def phase_lm_score(torch, kernels, card, profile_dir=None):
     _check(bf16["max_abs"] <= LM_BF16_MAX and bf16["mean_abs"] <= LM_BF16_MEAN,
            f"bf16 hidden vs the reference-attention route: {bf16}")
 
-    # fp32 (dtype=float32, TF32 off): both routes compute in fp32
+    # fp32 (dtype=float32, TF32 off): both routes compute in fp32, K3 on
+    # its CUDA-core kernel
     ids32 = ids[:LM_F32_ROWS]
     tm32 = _lm_scorer("transformer_lm", "hidden", LM_BATCH, dtype="float32")
     kernels.reset_launches()
     h32 = np.asarray(tm32.transform(Frame.from_dict({"ids": ids32}))
                      .column("h"))
-    _check(k3.launches == LM_DEPTH * LM_F32_ROWS // LM_BATCH,
-           f"fp32 pass: {k3.launches} K3 launches")
+    launches32 = {k.name: k.launches for k in kernels.KERNELS}
+    _check(launches32 == want_launches(LM_DEPTH * LM_F32_ROWS // LM_BATCH,
+                                       kernels.FLASH_ATTENTION),
+           f"fp32 pass: kernels launched {launches32} times, want K3's "
+           "CUDA-core kernel once per layer and batch and no other kernel")
     ref32 = _lm_reference(torch, card, "transformer_lm", tm32._state["params"],
                           ids32, LM_BATCH, dtype="float32")
     f32 = _diff_stats(h32, ref32)
@@ -891,6 +960,7 @@ def phase_lm_score(torch, kernels, card, profile_dir=None):
     _line(phase="lm_score", card=_smi(), model="transformer_lm",
           rows=LM_ROWS, length=LM_LEN, batch=LM_BATCH, compute="bfloat16",
           launches_main_path=launches, k3_launches_per_pass=LM_DEPTH * batches,
+          launches_fp32_pass=launches32,
           first_pass_s=first_s, timed_pass_s=pass_s,
           tokens_per_s=statistics.median(tokens_s),
           tokens_per_s_min=min(tokens_s), tokens_per_s_max=max(tokens_s),
@@ -899,7 +969,7 @@ def phase_lm_score(torch, kernels, card, profile_dir=None):
           fp32_rows=LM_F32_ROWS, fp32_vs_reference=f32,
           fp32_limit=LM_F32_MAX,
           logits_rel_err=lg_err, tf32="off")
-    return launches
+    return launches, launches32
 
 
 def phase_moe_score(torch, kernels, card):
@@ -917,7 +987,7 @@ def phase_moe_score(torch, kernels, card):
     pass_s = time.perf_counter() - t0
     launches = {k.name: k.launches for k in kernels.KERNELS}
     want = {k.name: 0 for k in kernels.KERNELS}
-    want[kernels.FLASH_ATTENTION.name] = LM_DEPTH * MOE_ROWS // LM_BATCH
+    want[kernels.FLASH_ATTENTION_TC.name] = LM_DEPTH * MOE_ROWS // LM_BATCH
     _check(launches == want, f"kernels launched {launches} times on the "
                              f"moe_score path, want {want}")
     _check(hidden.shape == (MOE_ROWS, LM_LEN, 512)
@@ -1066,23 +1136,30 @@ def main() -> int:
           ptxas={k.name: [ln.strip() for ln in k.build_log.splitlines()
                           if "registers" in ln or "spill" in ln]
                  for k in kernels.KERNELS})
+    # every instantiation of the tensor-core kernel keeps its scores, P and
+    # O in registers (the CUDA-core kernel spills at D = 2048, PERF.md)
+    spills = [ln.strip() for ln in
+              kernels.FLASH_ATTENTION_TC.build_log.splitlines()
+              if "spill" in ln and " 0 bytes spill stores, 0 bytes spill "
+              "loads" not in ln]
+    _check(not spills, f"flash_attention_tc spills: {spills}")
 
     card = torch.device("cuda", 0)
     k1 = phase_kernel_check_k1(torch, tpre, kernels.FUSED_NORMALIZE, card)
     k2 = phase_kernel_check(torch, tpre, kernels.CROP_RESIZE_NORMALIZE, card)
-    k3 = phase_kernel_check_k3(torch, tatt, kernels.FLASH_ATTENTION, card)
+    k3 = phase_kernel_check_k3(torch, tatt, kernels, card)
     profile_dir = None
     if "--profile" in sys.argv[1:]:
         profile_dir = sys.argv[sys.argv.index("--profile") + 1]
     featurize = phase_featurize(torch, kernels, card, profile_dir)
     train = phase_train(torch, kernels, card, profile_dir)
     phase_deep(torch, card)
-    lm = phase_lm_score(torch, kernels, card, profile_dir)
+    lm, lm32 = phase_lm_score(torch, kernels, card, profile_dir)
     phase_moe_score(torch, kernels, card)
     phase_featurize_vit(torch, kernels, card)
 
     k1k, k2k = kernels.FUSED_NORMALIZE, kernels.CROP_RESIZE_NORMALIZE
-    k3k = kernels.FLASH_ATTENTION
+    tc, f32 = kernels.FLASH_ATTENTION_TC, kernels.FLASH_ATTENTION
     _line(kernels=[{
         "name": k1k.name, "route": "cuda",
         "source": "mmlspark_tpu_torch/kernels/csrc/fused_normalize.cu",
@@ -1099,15 +1176,28 @@ def main() -> int:
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
         "library_ms": k2["library_ms"]}, {
-        "name": k3k.name, "route": "cuda",
+        "name": tc.name, "route": "cuda",
+        "source": "mmlspark_tpu_torch/kernels/csrc/flash_attention_wgmma.cu",
+        "replaces": "mmlspark_tpu/ops/pallas_attention.py:109",
+        "launches": lm[tc.name], "max_abs_err": k3["tc"]["max_abs_err"],
+        "ms": k3["tc"]["ms"], "plain_ms": k3["tc"]["plain_ms"],
+        "bound_ms": k3["tc"]["bound_ms"], "bound_by": k3["tc"]["bound_by"],
+        "library_ms": k3["tc"]["library_ms"],
+        "library_note": "F.scaled_dot_product_attention(is_causal=True), "
+                        "bf16 (B=8, L=2048, H=8, D=64)"}, {
+        "name": f32.name, "route": "cuda",
         "source": "mmlspark_tpu_torch/kernels/csrc/flash_attention.cu",
         "replaces": "mmlspark_tpu/ops/pallas_attention.py:109",
-        "launches": lm[k3k.name], "max_abs_err": k3["max_abs_err"],
-        "ms": k3["ms"], "plain_ms": k3["plain_ms"],
-        "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
-        "library_ms": k3["library_ms"],
+        "launches": lm32[f32.name],
+        "launches_note": "lm_score's fp32 pass (16 rows): f32 is this "
+                         "route's input; the bf16 main path launches it 0 "
+                         "times",
+        "max_abs_err": k3["f32"]["max_abs_err"],
+        "ms": k3["f32"]["ms"], "plain_ms": k3["f32"]["plain_ms"],
+        "bound_ms": k3["f32"]["bound_ms"], "bound_by": k3["f32"]["bound_by"],
+        "library_ms": k3["f32"]["library_ms"],
         "library_note": "F.scaled_dot_product_attention(is_causal=True), "
-                        "bf16 (B=8, L=2048, H=8, D=64)"}])
+                        "f32, TF32 off (B=8, L=2048, H=8, D=64)"}])
     print(_smi(), flush=True)
     _line(ok=True, device={"platform": "gpu",
                            "kind": torch.cuda.get_device_name(0),

@@ -28,10 +28,15 @@ CROP_RESIZE_NORMALIZE = Kernel(
     "crop_resize_normalize", "crop_resize_normalize.cu",
     [c_void_p] * 10 + [c_int] * 7 + [c_void_p])
 
-# K3: mmlspark_tpu/ops/pallas_attention.py::flash_attention (forward).
+# K3: mmlspark_tpu/ops/pallas_attention.py::flash_attention (forward), two
+# routes chosen by ops/attention.py::_route from dtype and head dim.
 # (q, k, v, out, b, l, h, d, q/k/v strides over (b, l, h) in elements,
 #  scale, causal, bf16, stream); wrapper: ops/attention.py::flash_attention
-FLASH_ATTENTION = Kernel(
-    "flash_attention", "flash_attention.cu",
-    [c_void_p] * 4 + [c_int] * 4 + [c_longlong] * 9
-    + [c_float, c_int, c_int, c_void_p])
+_K3_ARGTYPES = ([c_void_p] * 4 + [c_int] * 4 + [c_longlong] * 9
+                + [c_float, c_int, c_int, c_void_p])
+# the fp32 CUDA-core route: f32, and bf16 with D > 128
+FLASH_ATTENTION = Kernel("flash_attention", "flash_attention.cu",
+                         _K3_ARGTYPES)
+# the tensor-core route (wgmma, TMA): bf16 with D <= 128; same signature
+FLASH_ATTENTION_TC = Kernel("flash_attention_tc", "flash_attention_wgmma.cu",
+                            _K3_ARGTYPES)

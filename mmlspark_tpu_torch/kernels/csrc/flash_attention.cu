@@ -3,7 +3,8 @@
 //
 // Replaces the Pallas TPU kernel
 // mmlspark_tpu/ops/pallas_attention.py::flash_attention (forward
-// _flash_forward, body _flash_kernel). What it computes is the same: q cast
+// _flash_forward, body _flash_kernel :38-82, pl.pallas_call :109) for f32
+// inputs and bf16 with D > 128. What it computes is the same: q cast
 // to fp32 and scaled by 1/sqrt(D), the fp32 scores q.k, masked with -1e30
 // under the causal mask (never -inf, so a partly masked tile gives no NaN),
 // an online max m and sum l per query row in fp32 with the accumulator
@@ -34,9 +35,11 @@
 // work at 0.51 ms; the design aims at that: each thread holds a register
 // tile of scores (rows x columns) and of accumulators (rows x head dims),
 // so every shared-memory load feeds several FMAs, and the softmax row
-// reductions are warp shuffles. Tensor cores (mma or wgmma on bf16 tiles,
-// TMA loads) are later work; they change the arithmetic and need their own
-// tolerance.
+// reductions are warp shuffles. This kernel serves the inputs the tensor
+// cores do not: f32 q, k, v (the only route that holds the plain version's
+// fp32 arithmetic to 2e-5) and bf16 with D > 128. bf16 with D <= 128 goes
+// to flash_attention_wgmma.cu (wgmma with TMA-fed K/V tiles, p rounded to
+// bf16 before p.v); ops/attention.py::_route picks the kernel.
 
 #include <cstdint>
 

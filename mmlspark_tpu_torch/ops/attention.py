@@ -1,12 +1,19 @@
 """Flash attention: K3, its plain version, and its plain-torch backward.
 
 The port of ``mmlspark_tpu/ops/pallas_attention.py``. There the forward was
-a Pallas TPU kernel; here it is a CUDA kernel written by hand for Hopper
-(``kernels/csrc/flash_attention.cu``), behind :func:`flash_attention`:
+a Pallas TPU kernel; here it is one of two CUDA kernels written by hand for
+Hopper, behind :func:`flash_attention`:
 
-- a CUDA tensor launches the kernel, or raises for a dtype, shape or
-  layout it does not take (there is no fallback);
-- a CPU tensor takes :func:`flash_attention_plain`, the kernel's own
+- a CUDA tensor launches the kernel :func:`_route` names from its dtype and
+  head dim alone, or raises for a dtype, shape or layout that kernel does
+  not take (there is no fallback, from one route to the other or to the
+  plain version):
+  - "tc", bf16 with D <= 128: ``kernels/csrc/flash_attention_wgmma.cu``,
+    wgmma on the tensor cores with TMA-fed K/V tiles; it rounds the
+    probabilities to bf16 before p.v, as the reference path does;
+  - "f32", f32 and bf16 with D > 128: ``kernels/csrc/flash_attention.cu``,
+    the JAX kernel's fp32 arithmetic on the CUDA cores;
+- a CPU tensor takes :func:`flash_attention_plain`, the JAX kernel's
   algorithm in plain torch (fp32 online softmax over key blocks of 256,
   masked with -1e30, the causal loop cut at the query block).
 
@@ -24,7 +31,7 @@ import math
 
 import torch
 
-from mmlspark_tpu_torch.kernels import FLASH_ATTENTION
+from mmlspark_tpu_torch.kernels import FLASH_ATTENTION, FLASH_ATTENTION_TC
 
 _NEG_INF = -1e30
 BLOCK_Q = 256
@@ -92,10 +99,33 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.permute(0, 2, 1, 3).contiguous()
 
 
+def _route(dtype: torch.dtype, d: int) -> str:
+    """Which K3 kernel a CUDA tensor launches: "tc" (tensor cores) for bf16
+    with a head dim up to 128, "f32" (the CUDA-core kernel, the only one
+    that holds the plain version's fp32 arithmetic to 2e-5) otherwise."""
+    return "tc" if dtype == torch.bfloat16 and d <= 128 else "f32"
+
+
+def _tma_ready(t: torch.Tensor) -> bool:
+    """Whether TMA can read ``t`` in place: a 16-byte-aligned base and
+    (b, l, h) strides of 16-byte multiples (a dim of size 1 never steps)."""
+    step = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        n == 1 or s % step == 0 for n, s in zip(t.shape[:3], t.stride()[:3]))
+
+
+def _strides(t: torch.Tensor):
+    """(b, l, h) strides in elements; a dim of size 1 gets its contiguous
+    stride, since a view may give it any."""
+    _, L, h, d = t.shape
+    return [s if n != 1 else c for n, s, c in
+            zip(t.shape[:3], t.stride()[:3], (L * h * d, h * d, d))]
+
+
 def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    causal: bool) -> torch.Tensor:
     """K3 on a CUDA tensor, the plain version on a CPU tensor; anything the
-    kernel does not take raises before any launch is counted."""
+    routed kernel does not take raises before any launch is counted."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal)
     if q.device.type != "cuda":
@@ -121,13 +151,22 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b > 65535 or h > 65535:
         raise ValueError(f"flash_attention: batch {b} or heads {h} over the "
                          "grid's 65535")
+    if _route(q.dtype, d) == "tc":
+        if not all(_tma_ready(t) for t in (q, k, v)):
+            raise ValueError("flash_attention's tensor-core route (bf16, D <= "
+                             "128) reads q, k, v by TMA: it wants 16-byte-"
+                             "aligned base addresses and (b, l, h) strides "
+                             "that are multiples of 16 bytes")
+        kernel = FLASH_ATTENTION_TC
+    else:
+        kernel = FLASH_ATTENTION
     out = torch.empty((b, L, h, d), dtype=q.dtype, device=q.device)
-    strides = [s for t in (q, k, v) for s in t.stride()[:3]]
+    strides = [s for t in (q, k, v) for s in _strides(t)]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        FLASH_ATTENTION(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), b, L, h, d, *strides, _scale(d),
-                        int(causal), int(q.dtype == torch.bfloat16), stream)
+        kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, L,
+               h, d, *strides, _scale(d), int(causal),
+               int(q.dtype == torch.bfloat16), stream)
     return out
 
 

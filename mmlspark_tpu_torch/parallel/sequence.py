@@ -29,8 +29,9 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``use_flash``: "auto" (K3 on a CUDA tensor that ``supports()`` admits)
     or "never" (the reference path, which the parity checks use). The
     reference: scores in fp32, a -inf causal mask, the softmax in fp32,
-    the probabilities cast to v's dtype before the second product (the
-    kernel does not round them), the result cast to q's dtype."""
+    the probabilities cast to v's dtype before the second product (so does
+    K3's bf16 tensor-core route; its f32 CUDA-core route keeps them fp32),
+    the result cast to q's dtype."""
     if use_flash == "auto" and q.device.type == "cuda" \
             and _attention.supports(q.shape):
         return _attention.flash_attention(q, k, v, causal=causal)

@@ -15,8 +15,19 @@ version, the same algorithm. Tolerances:
   kernel's custom VJP: the same two blockwise passes in fp32, 1e-5
   (measured: 8e-7 at gradients of magnitude up to 3) where
   ``tests/test_sequence.py`` holds the flash gradient to the reference
-  path's at 3e-2.
+  path's at 3e-2;
+- the tensor-core route's arithmetic (bf16 q.k summed in fp32, exp2 with
+  the scale folded into the score, an online max per key tile, p rounded
+  to bf16 before p.v), emulated here in plain torch, against the plain
+  version and the interpreted kernel: each p_j is off by at most bf16's
+  unit roundoff 2^-8 of itself, so ``|dO| <= 2^-8 max|v|``, plus the fp32
+  sum-order tolerance 2e-5 and one bf16 step of the output; and the mean
+  ``|dO|`` at most 2^-8 of the mean ``|O|`` (this rehearsal reads
+  0.0013-0.0015 of it at L = 512). ``chip_smoke.py`` and the card tests
+  hold the kernel itself to the same gate.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +36,7 @@ import torch
 
 from mmlspark_tpu.ops import pallas_attention as jatt
 from mmlspark_tpu.parallel import sequence as jseq
-from mmlspark_tpu_torch.kernels import FLASH_ATTENTION
+from mmlspark_tpu_torch.kernels import FLASH_ATTENTION, FLASH_ATTENTION_TC
 from mmlspark_tpu_torch.ops import attention as tatt
 from mmlspark_tpu_torch.parallel import sequence as tseq
 
@@ -125,6 +136,96 @@ def test_full_attention_auto_takes_the_reference_path_on_the_cpu():
     assert torch.equal(got, tseq.full_attention(q, k, v, True,
                                                 use_flash="never"))
     assert FLASH_ATTENTION.launches == before
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    *((torch.bfloat16, d, "tc") for d in (8, 16, 24, 64, 128)),
+    *((torch.float32, d, "f32") for d in (8, 64, 128, 512)),
+    *((torch.bfloat16, d, "f32") for d in (136, 512, 2048))])
+def test_route_is_fixed_by_dtype_and_head_dim(dtype, d, route):
+    assert tatt._route(dtype, d) == route
+
+
+def test_cpu_bf16_takes_the_plain_version_and_launches_neither_route():
+    q, k, v = _torch(*_qkv(6, (1, 512, 2, 64)), dtype=torch.bfloat16)
+    before = (FLASH_ATTENTION.launches, FLASH_ATTENTION_TC.launches)
+    for causal in (False, True):
+        assert torch.equal(tatt.flash_attention(q, k, v, causal=causal),
+                           tatt.flash_attention_plain(q, k, v, causal))
+    assert (FLASH_ATTENTION.launches, FLASH_ATTENTION_TC.launches) == before
+
+
+# the tensor-core route's gate (module docstring): p rounded to bf16 moves
+# each output by at most bf16's unit roundoff of max|v|; fp32 sums in
+# another order by K3_F32_TOL; the bf16 output by one step; and on average
+# by at most 2^-8 of the output's mean magnitude
+TC_P_ROUNDING, K3_F32_TOL, TC_MEAN_CEILING = 2.0 ** -8, 2e-5, 2.0 ** -8
+
+
+def _tc_gate(got, want, v):
+    """(worst |dO| over its bound, mean |dO| over its ceiling): both <= 1
+    pass."""
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs())
+    step = torch.where(mag > 0, torch.exp2(torch.floor(torch.log2(mag)) - 7),
+                       torch.zeros_like(mag))
+    diff = (g - w).abs()
+    bound = TC_P_ROUNDING * v.float().abs().max() + K3_F32_TOL + step
+    return ((diff / bound).max().item(),
+            (diff.mean() / (TC_MEAN_CEILING * w.abs().mean())).item())
+
+
+def _tc_emulation(q, k, v, causal):
+    """The tensor-core kernel's arithmetic in plain torch: 128 query rows a
+    block, key tiles of 128 (64 at D > 64), bf16 products summed in fp32,
+    -1e30 under the causal mask, a per-tile online max of the scores times
+    one fp32 factor c = 1/sqrt(D) * log2(e), p = exp2(s c - m) with one
+    rounding (the kernel's FMA), l summing the fp32 p and p rounded to bf16
+    for p.v; acc / max(l, 1e-30) in bf16."""
+    b, L, h, d = q.shape
+    bk = 128 if d <= 64 else 64
+    scale_log2 = torch.tensor(float(np.float32(1 / math.sqrt(d)))
+                              * math.log2(math.e), dtype=torch.float32)
+    qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))
+    out = torch.empty((b, h, L, d), dtype=torch.bfloat16)
+    for q0 in range(0, L, 128):
+        rows = q0 + torch.arange(128)[:, None]
+        m = torch.full((b, h, 128, 1), -1e30)
+        l = torch.zeros((b, h, 128, 1))
+        acc = torch.zeros((b, h, 128, d))
+        for k0 in range(0, q0 + 128 if causal else L, bk):
+            s = qf[:, :, q0:q0 + 128] @ kf[:, :, k0:k0 + bk].transpose(-1, -2)
+            if causal:
+                s = torch.where(k0 + torch.arange(bk)[None, :] > rows,
+                                torch.full_like(s, -1e30), s)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True) * scale_log2)
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2((s.double() * scale_log2.double()
+                            - m_new.double()).float())
+            l = l * corr + p.sum(dim=-1, keepdim=True)
+            pv = p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + bk]
+            acc = acc * corr + pv
+            m = m_new
+        out[:, :, q0:q0 + 128] = (acc / l.clamp(min=1e-30)).to(torch.bfloat16)
+    return out.permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_tensor_core_arithmetic_is_within_its_gate(d, causal):
+    """The gate, rehearsed: the emulated tensor-core route against the plain
+    version and against the interpreted JAX kernel, on bf16-valued inputs
+    (the rehearsal reads at most 0.50 of the bound and 0.38 of the mean
+    ceiling)."""
+    q, k, v = _torch(*_qkv(7, (2, 512, 2, d)), dtype=torch.bfloat16)
+    got = _tc_emulation(q, k, v, causal)
+    plain = tatt.flash_attention_plain(q, k, v, causal)
+    interpreted = torch.from_numpy(np.array(jatt.flash_attention(
+        *(jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (q, k, v)),
+        causal=causal).astype(jnp.float32)))
+    for want in (plain, interpreted):
+        worst, mean = _tc_gate(got, want, v)
+        assert worst <= 1.0 and mean <= 1.0, (worst, mean)
 
 
 def test_make_attention_fn_gives_full_attention_and_refuses_meshes():

@@ -14,7 +14,8 @@ import pytest
 import torch
 
 from mmlspark_tpu_torch.kernels import (
-    CROP_RESIZE_NORMALIZE, FLASH_ATTENTION, FUSED_NORMALIZE, KERNELS, build,
+    CROP_RESIZE_NORMALIZE, FLASH_ATTENTION, FLASH_ATTENTION_TC,
+    FUSED_NORMALIZE, KERNELS, build,
 )
 from mmlspark_tpu_torch.ops import attention as tatt
 from mmlspark_tpu_torch.ops import preprocess as tpre
@@ -92,7 +93,8 @@ def test_build_is_keyed_by_source_and_flags(tmp_path, monkeypatch):
 def test_every_kernel_is_registered_once_with_a_source():
     assert [k.name for k in KERNELS] == ["fused_normalize",
                                          "crop_resize_normalize",
-                                         "flash_attention"]
+                                         "flash_attention",
+                                         "flash_attention_tc"]
     for k in KERNELS:
         assert k.source.exists()
         assert k.launches >= 0
@@ -102,6 +104,7 @@ def test_reset_launches_zeroes_every_count():
     CROP_RESIZE_NORMALIZE.launches = 5
     FUSED_NORMALIZE.launches = 3
     FLASH_ATTENTION.launches = 48
+    FLASH_ATTENTION_TC.launches = 48
     build.reset_launches()
     assert all(k.launches == 0 for k in KERNELS)
 
@@ -234,6 +237,28 @@ def _qkv(seed, shape, dtype=torch.float32, device="cpu"):
 
 
 K3_F32_TOL = 2e-5
+# the tensor-core route (bf16, D <= 128) against the plain version: p
+# rounded to bf16 moves each output by at most bf16's unit roundoff 2^-8 of
+# max|v|, beyond the fp32 sum order (K3_F32_TOL) and one bf16 step of the
+# output; the mean |difference| stays within 2^-8 of the mean |output|
+# (a CPU emulation of its arithmetic reads at most 0.50 of the bound and
+# 0.38 of the mean ceiling, tests/test_torch_attention.py)
+TC_P_ROUNDING, TC_MEAN_CEILING = 2.0 ** -8, 2.0 ** -8
+
+
+def _bf16_step(g, w):
+    mag = torch.maximum(g.abs(), w.abs())
+    return torch.where(mag > 0, torch.exp2(torch.floor(torch.log2(mag)) - 7),
+                       torch.zeros_like(mag))
+
+
+def _within_tc_gate(got, want, v):
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    bound = TC_P_ROUNDING * v.float().abs().max() + K3_F32_TOL \
+        + _bf16_step(g, w)
+    return bool((diff <= bound).all()) \
+        and diff.mean().item() <= TC_MEAN_CEILING * w.abs().mean().item()
 
 
 def _within_one_bf16_ulp(got, want):
@@ -242,27 +267,48 @@ def _within_one_bf16_ulp(got, want):
     fp32 values that differ by up to K3_F32_TOL (the order of their fp32
     sums), and near zero that difference is many bf16 steps of the value."""
     g, w = got.float(), want.float()
-    mag = torch.maximum(g.abs(), w.abs())
-    ulp = torch.where(mag > 0, torch.exp2(torch.floor(torch.log2(mag)) - 7),
-                      torch.zeros_like(mag))
-    return bool(((g - w).abs() <= ulp + K3_F32_TOL).all())
+    return bool(((g - w).abs() <= _bf16_step(g, w) + K3_F32_TOL).all())
+
+
+def _launches():
+    return FLASH_ATTENTION.launches, FLASH_ATTENTION_TC.launches
 
 
 def test_k3_cpu_tensor_takes_the_plain_version_without_counting():
-    q, k, v = _qkv(20, (1, 512, 2, 16))
-    before = FLASH_ATTENTION.launches
-    for causal in (False, True):
-        got = tatt.flash_attention(q, k, v, causal=causal)
-        assert torch.equal(got, tatt.flash_attention_plain(q, k, v, causal))
-    assert FLASH_ATTENTION.launches == before
+    before = _launches()
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _qkv(20, (1, 512, 2, 16), dtype)
+        for causal in (False, True):
+            got = tatt.flash_attention(q, k, v, causal=causal)
+            assert torch.equal(got, tatt.flash_attention_plain(q, k, v,
+                                                               causal))
+    assert _launches() == before
+
+
+def test_k3_tma_rule_on_views():
+    """The tensor-core route reads q, k, v by TMA in place: a 16-byte-
+    aligned base and (b, l, h) strides of 16-byte multiples. A fused qkv
+    unbind passes; a view one element in, or with a 68-element row, does
+    not. A dim of size 1 is passed with its contiguous stride."""
+    qkv = torch.zeros((2, 512, 3, 4, 64), dtype=torch.bfloat16)
+    assert all(tatt._tma_ready(t) for t in qkv.unbind(dim=2))
+    flat = torch.zeros(512 * 2 * 64 + 1, dtype=torch.bfloat16)
+    assert not tatt._tma_ready(flat[1:].view(1, 512, 2, 64))
+    wide = torch.zeros((1, 512, 2, 68), dtype=torch.bfloat16)[..., :64]
+    assert not tatt._tma_ready(wide)
+    one = torch.zeros((1, 512, 1, 64), dtype=torch.bfloat16).as_strided(
+        (1, 512, 1, 64), (3, 64, 5, 1))
+    assert tatt._tma_ready(one)
+    assert tatt._strides(one) == [512 * 64, 64, 64]
 
 
 def test_k3_wrapper_refuses_a_device_without_a_kernel():
-    q = torch.empty((1, 512, 2, 16), device="meta")
-    before = FLASH_ATTENTION.launches
-    with pytest.raises(ValueError, match="no kernel"):
-        tatt.flash_attention(q, q, q)
-    assert FLASH_ATTENTION.launches == before
+    before = _launches()
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.empty((1, 512, 2, 16), dtype=dtype, device="meta")
+        with pytest.raises(ValueError, match="no kernel"):
+            tatt.flash_attention(q, q, q)
+    assert _launches() == before
 
 
 @pytest.mark.cuda
@@ -270,22 +316,63 @@ def test_k3_wrapper_refuses_a_device_without_a_kernel():
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k3_matches_plain_on_the_card(card, shape, causal, dtype):
-    """K3 against its plain version on the same card tensors: both compute
-    in fp32 (TF32 off) and differ in the order of their sums, so f32 holds
-    to 2e-5 and bf16 to one bf16 step beyond that."""
+    """K3 against its plain version on the same card tensors, through the
+    route ``_route`` names. The CUDA-core route computes in fp32 as the
+    plain version does (TF32 off) and differs in the order of its sums, so
+    f32 holds to 2e-5 and bf16 (D > 128) to one bf16 step beyond that; the
+    tensor-core route (bf16, D <= 128) holds to its own gate."""
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v = _qkv(21, shape, dtype, card)
-    before = FLASH_ATTENTION.launches
+    tc = tatt._route(dtype, shape[3]) == "tc"
+    before = _launches()
     got = tatt.flash_attention(q, k, v, causal=causal)
-    assert FLASH_ATTENTION.launches == before + 1
+    assert _launches() == (before[0] + (not tc), before[1] + tc)
     want = tatt.flash_attention_plain(q, k, v, causal)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == want.shape
     assert bool(torch.isfinite(got.float()).all())
     if dtype == torch.float32:
         assert (got - want).abs().max().item() <= K3_F32_TOL
+    elif tc:
+        assert _within_tc_gate(got, want, v)
     else:
         assert _within_one_bf16_ulp(got, want)
+
+
+# the tensor-core route at every K3_SHAPES head dim it takes, a head dim
+# that is no multiple of 16, and one long sequence of the JAX bench's
+# longctx length
+K3_TC_SHAPES = [s for s in K3_SHAPES if s[3] <= 128] + [(2, 512, 2, 24),
+                                                        (1, 8192, 1, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K3_TC_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("causal", [False, True])
+def test_k3_tensor_cores_match_plain_on_the_card(card, shape, causal):
+    q, k, v = _qkv(24, shape, torch.bfloat16, card)
+    before = _launches()
+    got = tatt.flash_attention(q, k, v, causal=causal)
+    assert _launches() == (before[0], before[1] + 1)
+    want = tatt.flash_attention_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert bool(torch.isfinite(got.float()).all())
+    assert _within_tc_gate(got, want, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,tc", [(torch.bfloat16, 64, True),
+                                        (torch.bfloat16, 128, True),
+                                        (torch.float32, 64, False),
+                                        (torch.bfloat16, 512, False)])
+def test_k3_launches_exactly_its_route_on_the_card(card, dtype, d, tc):
+    q, k, v = _qkv(25, (1, 512, 2, d), dtype, card)
+    before = _launches()
+    tatt.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert _launches() == (before[0] + (not tc), before[1] + tc)
 
 
 @pytest.mark.cuda
@@ -296,16 +383,33 @@ def test_k3_reads_strided_views_in_place_on_the_card(card):
         size=(2, 512, 3, 4, 64)).astype(np.float32)).to(card, torch.bfloat16)
     q, k, v = qkv.unbind(dim=2)
     assert not q.is_contiguous()
+    before = _launches()
     got = tatt.flash_attention(q, k, v, causal=True)
+    assert _launches() == (before[0], before[1] + 1)    # the tensor cores
     want = tatt.flash_attention_plain(q, k, v, True)
     torch.cuda.synchronize()
-    assert _within_one_bf16_ulp(got, want)
+    assert _within_tc_gate(got, want, v)
+
+
+@pytest.mark.cuda
+def test_k3_tensor_cores_refuse_misaligned_views_on_the_card(card):
+    """TMA reads 16-byte-aligned rows: a bf16 view one element in, or with
+    rows 68 elements apart, raises before any launch is counted."""
+    flat = torch.zeros(512 * 2 * 64 + 1, dtype=torch.bfloat16, device=card)
+    shifted = flat[1:].view(1, 512, 2, 64)
+    wide = torch.zeros((1, 512, 2, 68), dtype=torch.bfloat16,
+                       device=card)[..., :64]
+    before = _launches()
+    for t in (shifted, wide):
+        with pytest.raises(ValueError, match="16-byte"):
+            tatt.flash_attention(t, t, t, causal=True)
+    assert _launches() == before
 
 
 @pytest.mark.cuda
 def test_k3_refuses_what_it_does_not_take_on_the_card(card):
     q, k, v = _qkv(23, (1, 512, 2, 64), device=card)
-    before = FLASH_ATTENTION.launches
+    before = _launches()
     with pytest.raises(TypeError):
         tatt.flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(TypeError):
@@ -317,4 +421,4 @@ def test_k3_refuses_what_it_does_not_take_on_the_card(card):
         tatt.flash_attention(t, t, t)
     with pytest.raises(ValueError, match="shape"):
         tatt.flash_attention(q, k[:, :, :1], v)
-    assert FLASH_ATTENTION.launches == before
+    assert _launches() == before
