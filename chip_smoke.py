@@ -31,10 +31,12 @@ The script:
 
 1. ``device``: names the card (``nvidia-smi`` name and power limit);
 2. ``build``: builds every kernel from the sources in the checkout (nvcc,
-   one process per source, all at once) and times it;
+   one process per source, all at once), times it, prints ptxas's
+   registers and spill bytes for every compiled function, and fails if an
+   instantiation of either K3 kernel spills;
 3. ``kernel_check``: holds each kernel against its plain PyTorch version on
    the same card tensors at the shapes its path gives it (K3 also at the
-   JAX bench's ``longctx`` shape and at head dims 16, 128 and 512, each
+   JAX bench's ``longctx`` shape and at head dims 16, 128, 256 and 512, each
    variant through the route its dtype and head dim pick, with both K3
    kernels' launches counted across the kernel call and the plain call),
    and times the
@@ -63,8 +65,8 @@ The script:
    launches), and
    holds ``hidden`` against the same module and weights with the
    reference attention (``use_flash="never"``) in bf16 and in fp32 (TF32
-   off; the fp32 pass launches K3's CUDA-core kernel instead); one logits
-   pass checks the default output;
+   off; the fp32 pass launches K3's CUDA-core kernel instead, and one warm
+   fp32 pass is timed); one logits pass checks the default output;
 8. ``moe_score``: ``transformer_lm_moe`` over 16 rows (K3's tensor-core
    kernel 6 times a batch), against its reference-attention route;
 9. ``featurize_vit``: ViT-B/16 features of 128 uint8 images 256x256x3
@@ -356,7 +358,7 @@ def _tc_gate(got, want, v):
 
 def phase_kernel_check_k3(torch, tatt, kernels, card):
     """K3 against its plain version at the LM's shape (bf16 and f32), the
-    JAX bench's longctx shape and three other head dims, each through the
+    JAX bench's longctx shape and other head dims, each through the
     route ``_route`` picks; both K3 kernels' launches are counted across the
     routed call (the route's kernel once, the other never) and across the
     plain call (neither). Times, the library call's time and the bound at
@@ -371,7 +373,12 @@ def phase_kernel_check_k3(torch, tatt, kernels, card):
                 ("d16_bf16", (8, 512, 8, 16), torch.bfloat16, False),
                 ("lm_d128_bf16", (LM_BATCH, LM_LEN, 4, 128), torch.bfloat16,
                  True),
-                ("d512_f32", (2, 512, 4, 512), torch.float32, True)]
+                ("d512_f32", (2, 512, 4, 512), torch.float32, True),
+                ("lm_d128_f32", (LM_BATCH, LM_LEN, 4, 128), torch.float32,
+                 True),
+                # the CUDA-core route's bf16 input; SDPA runs it on the
+                # tensor cores
+                ("d256_bf16", (2, LM_LEN, 4, 256), torch.bfloat16, True)]
 
     def counted(fn):
         before = {r: k.launches for r, k in ks.items()}
@@ -927,14 +934,23 @@ def phase_lm_score(torch, kernels, card, profile_dir=None):
     # its CUDA-core kernel
     ids32 = ids[:LM_F32_ROWS]
     tm32 = _lm_scorer("transformer_lm", "hidden", LM_BATCH, dtype="float32")
+    frame32 = Frame.from_dict({"ids": ids32})
+    want32 = want_launches(LM_DEPTH * LM_F32_ROWS // LM_BATCH,
+                           kernels.FLASH_ATTENTION)
     kernels.reset_launches()
-    h32 = np.asarray(tm32.transform(Frame.from_dict({"ids": ids32}))
-                     .column("h"))
+    h32 = np.asarray(tm32.transform(frame32).column("h"))
     launches32 = {k.name: k.launches for k in kernels.KERNELS}
-    _check(launches32 == want_launches(LM_DEPTH * LM_F32_ROWS // LM_BATCH,
-                                       kernels.FLASH_ATTENTION),
+    _check(launches32 == want32,
            f"fp32 pass: kernels launched {launches32} times, want K3's "
            "CUDA-core kernel once per layer and batch and no other kernel")
+    # one warm fp32 pass, timed
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    again32 = np.asarray(tm32.transform(frame32).column("h"))
+    pass32_s = time.perf_counter() - t0
+    _check({k.name: k.launches for k in kernels.KERNELS} == want32
+           and float(np.abs(again32 - h32).max()) <= 1e-5,
+           "the warm fp32 pass launched other kernels or moved hidden")
     ref32 = _lm_reference(torch, card, "transformer_lm", tm32._state["params"],
                           ids32, LM_BATCH, dtype="float32")
     f32 = _diff_stats(h32, ref32)
@@ -967,7 +983,8 @@ def phase_lm_score(torch, kernels, card, profile_dir=None):
           repeat_max_abs_diff=repeat_diff, bf16_vs_reference=bf16,
           bf16_limits=dict(max_abs=LM_BF16_MAX, mean_abs=LM_BF16_MEAN),
           fp32_rows=LM_F32_ROWS, fp32_vs_reference=f32,
-          fp32_limit=LM_F32_MAX,
+          fp32_limit=LM_F32_MAX, fp32_warm_pass_s=pass32_s,
+          fp32_tokens_per_s=LM_F32_ROWS * LM_LEN / pass32_s,
           logits_rel_err=lg_err, tf32="off")
     return launches, launches32
 
@@ -1131,18 +1148,20 @@ def main() -> int:
 
     t0 = time.perf_counter()
     status = kernels.build_all()
+    ptxas = {}
+    for k in kernels.KERNELS:
+        report = kernels.build.ptxas_report(k.build_log)
+        ptxas[k.name] = dict(zip(kernels.build.demangle(list(report)),
+                                 report.values()))
     _line(phase="build", seconds=time.perf_counter() - t0, status=status,
-          cache_hit=all(v == "hit" for v in status.values()),
-          ptxas={k.name: [ln.strip() for ln in k.build_log.splitlines()
-                          if "registers" in ln or "spill" in ln]
-                 for k in kernels.KERNELS})
-    # every instantiation of the tensor-core kernel keeps its scores, P and
-    # O in registers (the CUDA-core kernel spills at D = 2048, PERF.md)
-    spills = [ln.strip() for ln in
-              kernels.FLASH_ATTENTION_TC.build_log.splitlines()
-              if "spill" in ln and " 0 bytes spill stores, 0 bytes spill "
-              "loads" not in ln]
-    _check(not spills, f"flash_attention_tc spills: {spills}")
+          cache_hit=all(v == "hit" for v in status.values()), ptxas=ptxas)
+    # every instantiation of both K3 kernels keeps its tiles in registers
+    for k in (kernels.FLASH_ATTENTION, kernels.FLASH_ATTENTION_TC):
+        _check(bool(ptxas[k.name]), f"{k.name}: no ptxas report in its "
+                                    "build log")
+        spills = {fn: r for fn, r in ptxas[k.name].items()
+                  if r["spill_stores"] or r["spill_loads"]}
+        _check(not spills, f"{k.name} spills: {spills}")
 
     card = torch.device("cuda", 0)
     k1 = phase_kernel_check_k1(torch, tpre, kernels.FUSED_NORMALIZE, card)

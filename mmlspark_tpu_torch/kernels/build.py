@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -39,7 +40,8 @@ class Kernel:
     pointer and the stream, ``c_int`` for ints. The entry point returns
     ``cudaGetLastError()``, and a nonzero value raises. ``build_log`` holds
     what nvcc printed (registers, shared memory and spills per kernel, from
-    ``-Xptxas=-v``) when this process built the library."""
+    ``-Xptxas=-v``) when the library was built, kept beside it as
+    ``<library>.log``; :func:`ptxas_report` reads it."""
 
     def __init__(self, name: str, source: str, argtypes: Sequence):
         self.name = name
@@ -104,6 +106,8 @@ def build_all(kernels: Sequence[Kernel] = None) -> Dict[str, str]:
         lib = k.library()
         if lib.exists():
             status[k.name] = "hit"
+            log = lib.with_suffix(".log")
+            k.build_log = log.read_text() if log.exists() else ""
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
@@ -114,15 +118,62 @@ def build_all(kernels: Sequence[Kernel] = None) -> Dict[str, str]:
     for k, lib, tmp, proc in procs:
         out, _ = proc.communicate()
         if proc.returncode == 0:
+            k.build_log = out.decode(errors="replace")
+            lib.with_suffix(".log").write_text(k.build_log)
             os.replace(tmp, lib)
             status[k.name] = "built"
-            k.build_log = out.decode(errors="replace")
         else:
             os.unlink(tmp)
             failures.append(f"{k.source.name}:\n{out.decode(errors='replace')}")
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
     return status
+
+
+_PTXAS_FUNCTION = re.compile(
+    r"(?:Compiling entry function|Function properties for) '?([\w$.]+)'?")
+_PTXAS_SPILLS = re.compile(
+    r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_REGISTERS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_report(build_log: str) -> Dict[str, Dict[str, int]]:
+    """What ``-Xptxas=-v`` says of each compiled function, from nvcc's
+    output: ``{function: {"registers": n, "spill_stores": bytes,
+    "spill_loads": bytes}}``, keyed by the (mangled) name that ptxas's
+    "Compiling entry function '...'" or "Function properties for ..." line
+    gives the numbers that follow it."""
+    report: Dict[str, Dict[str, int]] = {}
+    current = None
+    for line in build_log.splitlines():
+        found = _PTXAS_FUNCTION.search(line)
+        if found:
+            current = report.setdefault(found.group(1), {
+                "registers": 0, "spill_stores": 0, "spill_loads": 0})
+            continue
+        if current is None:
+            continue
+        spills = _PTXAS_SPILLS.search(line)
+        if spills:
+            current["spill_stores"] = int(spills.group(1))
+            current["spill_loads"] = int(spills.group(2))
+        registers = _PTXAS_REGISTERS.search(line)
+        if registers:
+            current["registers"] = int(registers.group(1))
+    return report
+
+
+def demangle(names: Sequence[str]) -> List[str]:
+    """C++ names as the CUDA toolkit's ``cu++filt`` spells them, without
+    their argument lists (the names unchanged where it fails)."""
+    names = list(names)
+    tool = os.path.join(os.path.dirname(nvcc()), "cu++filt")
+    if not names or not os.path.exists(tool):
+        return names
+    done = subprocess.run([tool, "-p", *names], capture_output=True,
+                          text=True, timeout=60)
+    out = done.stdout.splitlines()
+    return out if done.returncode == 0 and len(out) == len(names) else names
 
 
 def reset_launches() -> None:

@@ -7,7 +7,8 @@ machine with a card and without JAX:
 
 Without a card those tests skip (a CUDA kernel has no CPU mode); the
 others check, on the CPU, what surrounds the kernels: the wrappers'
-refusals, the build's cache key and the byte counts the bounds use.
+refusals, the build's cache key, the reading of ptxas's report and the
+byte counts the bounds use.
 """
 import numpy as np
 import pytest
@@ -98,6 +99,61 @@ def test_every_kernel_is_registered_once_with_a_source():
     for k in KERNELS:
         assert k.source.exists()
         assert k.launches >= 0
+
+
+# what nvcc -Xptxas=-v prints for two functions, one of which spills
+_PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z6kernelILi64EEvPf' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelILi64EEvPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 472 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z6kernelILi2048EEvPf' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelILi2048EEvPf
+    176 bytes stack frame, 176 bytes spill stores, 172 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 176 bytes cumulative stack size
+"""
+
+
+def test_ptxas_report_pairs_each_function_with_its_numbers():
+    assert build.ptxas_report(_PTXAS_LOG) == {
+        "_Z6kernelILi64EEvPf": {"registers": 168, "spill_stores": 0,
+                                "spill_loads": 0},
+        "_Z6kernelILi2048EEvPf": {"registers": 255, "spill_stores": 176,
+                                  "spill_loads": 172}}
+    assert build.ptxas_report("") == {}
+
+
+def test_a_cached_build_keeps_its_ptxas_log(tmp_path, monkeypatch):
+    """A library built earlier is a hit, and its nvcc output is read back
+    from beside it, so the spill check sees every build."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    k = build.Kernel("k", "flash_attention.cu", [])
+    KERNELS.remove(k)
+    k.library().write_bytes(b"")
+    k.library().with_suffix(".log").write_text(_PTXAS_LOG)
+    assert build.build_all([k]) == {"k": "hit"}
+    assert build.ptxas_report(k.build_log)["_Z6kernelILi2048EEvPf"][
+        "spill_stores"] == 176
+
+
+def test_k3_variants_replace_only_the_named_tile_configs(monkeypatch):
+    """``k3_variants.py`` builds the committed source with some K3_CONFIG
+    lines replaced, and refuses a head dim the source has no line for."""
+    monkeypatch.syspath_prepend(str(FLASH_ATTENTION.source.parents[3]))
+    import k3_variants
+    source = FLASH_ATTENTION.source.read_text()
+    got = k3_variants.variant_source(
+        source, "64:128,16,16,64,1;512:16,4,32,128,1")
+    assert "K3_CONFIG(64, 128, 16, 16, 64, 1)" in got
+    assert "K3_CONFIG(512, 16, 4, 32, 128, 1)" in got
+    assert len(got.splitlines()) == len(source.splitlines())
+    changed = [a for a, b in zip(source.splitlines(), got.splitlines())
+               if a != b]
+    assert all(line.startswith(("K3_CONFIG(64,", "K3_CONFIG(512,"))
+               for line in changed)
+    with pytest.raises(ValueError, match="D = 96"):
+        k3_variants.variant_source(source, "96:64,8,16,64,1")
 
 
 def test_reset_launches_zeroes_every_count():
@@ -321,9 +377,55 @@ def test_k3_matches_plain_on_the_card(card, shape, causal, dtype):
     plain version does (TF32 off) and differs in the order of its sums, so
     f32 holds to 2e-5 and bf16 (D > 128) to one bf16 step beyond that; the
     tensor-core route (bf16, D <= 128) holds to its own gate."""
+    _check_k3_against_plain(*_qkv(21, shape, dtype, card), causal)
+
+
+# head dims that are no power of two, so the CUDA-core route's tiles carry
+# zero padding columns (bf16 at 24 and 72 takes the tensor cores)
+K3_ODD_DIMS = [24, 72, 136, 264, 520]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", K3_ODD_DIMS)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_odd_head_dims_match_plain_on_the_card(card, d, causal, dtype):
+    _check_k3_against_plain(*_qkv(26, (1, 512, 2, d), dtype, card), causal)
+
+
+@pytest.mark.cuda
+def test_k3_long_sequence_in_f32_on_the_card(card):
+    """64 key tiles of 64, the heaviest causal query tiles first."""
+    _check_k3_against_plain(*_qkv(27, (1, 4096, 2, 64), device=card), True)
+
+
+@pytest.mark.cuda
+def test_k3_f32_reads_fused_qkv_views_in_place_on_the_card(card):
+    qkv = torch.from_numpy(np.random.default_rng(28).normal(
+        size=(2, 512, 3, 4, 64)).astype(np.float32)).to(card)
+    q, k, v = qkv.unbind(dim=2)
+    assert not q.is_contiguous()
+    _check_k3_against_plain(q, k, v, True)
+
+
+@pytest.mark.cuda
+def test_k3_f32_reads_views_off_16_byte_alignment_on_the_card(card):
+    """A view one float in: the CUDA-core route reads K and V one element
+    at a time instead of 16 bytes, within the same 2e-5."""
+    flat = torch.from_numpy(np.random.default_rng(29).normal(
+        size=3 * 512 * 2 * 64 + 1).astype(np.float32)).to(card)
+    q, k, v = flat[1:].view(3, 1, 512, 2, 64).unbind(dim=0)
+    assert k.data_ptr() % 16 != 0
+    _check_k3_against_plain(q, k, v, True)
+
+
+def _check_k3_against_plain(q, k, v, causal):
+    """One K3 call against the plain version on the same card tensors: the
+    routed kernel launched once and the other never, the output finite, of
+    q's dtype and within the route's gate."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    q, k, v = _qkv(21, shape, dtype, card)
-    tc = tatt._route(dtype, shape[3]) == "tc"
+    dtype = q.dtype
+    tc = tatt._route(dtype, q.shape[3]) == "tc"
     before = _launches()
     got = tatt.flash_attention(q, k, v, causal=causal)
     assert _launches() == (before[0] + (not tc), before[1] + tc)
