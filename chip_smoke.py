@@ -33,7 +33,7 @@ The script:
 2. ``build``: builds every kernel from the sources in the checkout (nvcc,
    one process per source, all at once), times it, prints ptxas's
    registers and spill bytes for every compiled function, and fails if an
-   instantiation of either K3 kernel spills;
+   instantiation of any kernel spills;
 3. ``kernel_check``: holds each kernel against its plain PyTorch version on
    the same card tensors at the shapes its path gives it (K3 also at the
    JAX bench's ``longctx`` shape and at head dims 16, 128, 256 and 512, each
@@ -43,9 +43,15 @@ The script:
    kernel, the plain version, one PyTorch library call as a yardstick
    where one computes the same function (each as device time, replayed
    from a CUDA graph; the kernel also as back-to-back eager calls), and
-   the least time the card could take (its bound);
+   the least time the card could take (its bound); K1 and K2 also beside
+   their launch floor (an empty kernel on the same grid, from their
+   libraries' ``*_empty`` entry points), K1 over the 16 distinct batch
+   slices of a resident epoch, and K2 in bf16 (the featurize path's
+   output) and f32, through each of its variants (staged, direct-load),
+   with ptxas's registers and spills of each kernel's functions;
 4. ``featurize``: zeroes the launch counts, runs the featurizer, reads the
-   counts (K2 once per batch, K1 never), and checks the features against
+   counts (K2's staged variant once per batch, storing bf16; K1 never),
+   and checks the features against
    the same backbone fed by the plain preprocess; then a logits pass and a
    float32 pass with TF32 off;
 5. ``train``: zeroes the counts, runs 3 warm-up steps, one untimed window
@@ -224,16 +230,40 @@ def _bound(nbytes: int, ops: int, peak_ops_s: float = PEAK_FP32_S):
         else "operations"
 
 
+def _ptxas_of(kernel):
+    """ptxas's registers and spill bytes of each function of ``kernel``'s
+    library, demangled, from its build log."""
+    from mmlspark_tpu_torch.kernels import build
+    report = build.ptxas_report(kernel.build_log)
+    return dict(zip(build.demangle(list(report)), report.values()))
+
+
+def _floor_ms(torch, fn):
+    """Device time of an empty kernel on a kernel's grid (``fn(stream)``
+    launches it on the current stream, the one a graph captures): the floor
+    the kernel cannot go below."""
+    def launch():
+        stream = torch.cuda.current_stream().cuda_stream
+        _check(fn(stream) == 0, "an empty floor kernel failed to launch")
+    return _graph_ms(torch, launch)
+
+
 def phase_kernel_check_k1(torch, tpre, kernel, card):
     """K1 against its plain version at its three shapes (bit-equal
-    required); times and bound at each. Returns the train shape's row."""
+    required); times, bound and launch floor (an empty kernel on the same
+    grid) at each, and at the train shape K1 over the 16 distinct batch
+    slices of a resident epoch as the train step reads them. Returns the
+    train shape's bf16 row, with the f32 time beside it."""
+    from ctypes import c_int, c_longlong, c_void_p
+    empty = kernel.symbol("fused_normalize_empty",
+                          [c_longlong, c_int, c_int, c_void_p])
     shapes = [("train_bf16", (TRAIN_BATCH, math.prod(TRAIN_SHAPE)),
                torch.bfloat16, CIFAR_MEAN, CIFAR_STD),
               ("train_f32", (TRAIN_BATCH, math.prod(TRAIN_SHAPE)),
                torch.float32, CIFAR_MEAN, CIFAR_STD),
               ("train_large_bf16", (128, 224 * 224 * 3), torch.bfloat16,
                (127.5,) * 3, (127.5,) * 3)]
-    rows, main = [], None
+    rows = {}
     for name, shape, dt, mean, std in shapes:
         u8 = torch.from_numpy(np.random.default_rng(3).integers(
             0, 256, shape, dtype=np.uint8)).to(card)
@@ -252,40 +282,85 @@ def phase_kernel_check_k1(torch, tpre, kernel, card):
             torch, lambda: tpre._fused_normalize_plain(u8, *consts, dt))
         eager_ms = _median_ms(
             torch, lambda: tpre.fused_normalize(u8, *consts, dt))
+        bf16 = int(dt == torch.bfloat16)
+        floor_ms = _floor_ms(torch, lambda s: empty(u8.numel(), 3, bf16, s))
         out_size = torch.empty((), dtype=dt).element_size()
         nbytes = u8.numel() * (1 + out_size) + sum(
             t.numel() * t.element_size() for t in consts)
         bound_ms, bound_by = _bound(nbytes, K1_OPS_PER_ELEMENT * u8.numel())
-        row = dict(shape=list(shape), out_dtype=str(dt).replace("torch.", ""),
-                   max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms,
-                   eager_ms=eager_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   bytes=nbytes, bound_share=bound_ms / kernel_ms)
-        rows.append(dict(variant=name, **row))
-        if main is None:
-            main = row
+        rows[name] = dict(
+            variant=name, shape=list(shape),
+            out_dtype=str(dt).replace("torch.", ""), max_abs_err=max_err,
+            ms=kernel_ms, plain_ms=plain_ms, eager_ms=eager_ms,
+            floor_ms=floor_ms, bound_ms=bound_ms, bound_by=bound_by,
+            bytes=nbytes, bound_share=bound_ms / kernel_ms,
+            over_floor_ms=kernel_ms - floor_ms)
+
+    # the train step's reads: 16 distinct batch slices of a resident epoch
+    # of 4,096 images, against one slice replayed (the rows above)
+    epoch = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (TRAIN_ROWS, math.prod(TRAIN_SHAPE)), dtype=np.uint8)).to(card)
+    slices = [epoch[i:i + TRAIN_BATCH]
+              for i in range(0, TRAIN_ROWS, TRAIN_BATCH)]
+    consts = (torch.tensor(CIFAR_MEAN, dtype=torch.float32, device=card),
+              torch.from_numpy(tpre._inv_std(CIFAR_STD)).to(card))
+    turn = iter(range(10 ** 9))
+    epoch_ms = _graph_ms(torch, lambda: tpre.fused_normalize(
+        slices[next(turn) % len(slices)], *consts, torch.bfloat16),
+        iters=len(slices))
+    rows["train_bf16"]["epoch_slices_ms"] = epoch_ms
+    ptxas = _ptxas_of(kernel)
     _line(phase="kernel_check", kernel=kernel.name,
-          launches_while_checking=kernel.launches, variants=rows,
+          launches_while_checking=kernel.launches,
+          variant_launches_while_checking=dict(kernel.variant_launches),
+          variants=list(rows.values()),
+          epoch_slices=dict(slices=len(slices), ms=epoch_ms,
+                            one_slice_replayed_ms=rows["train_bf16"]["ms"]),
+          ptxas=ptxas,
           library="none: no single PyTorch call computes a per-channel "
                   "uint8 normalize with a bf16 or f32 store")
+    main = dict(rows["train_bf16"])
+    main.update(ms_f32=rows["train_f32"]["ms"],
+                floor_ms_f32=rows["train_f32"]["floor_ms"],
+                bound_ms_f32=rows["train_f32"]["bound_ms"],
+                ms_large_bf16=rows["train_large_bf16"]["ms"],
+                bound_ms_large_bf16=rows["train_large_bf16"]["bound_ms"],
+                ptxas=ptxas)
     return main
 
 
 def phase_kernel_check(torch, tpre, kernel, card):
-    """K2 against its plain version; times and bound at the main shape."""
+    """K2 against its plain version at the main path's geometries; at the
+    main shape (256² → 224²) in bf16, the featurize path's output, and
+    f32: times, bound, launch floor (an empty kernel on the same grid),
+    the direct-load variant's time beside the staged one, and
+    ``F.interpolate``'s. Returns the bf16 row with the f32 numbers."""
+    from ctypes import c_int, c_void_p
+    empty = kernel.symbol("crop_resize_normalize_empty",
+                          [c_int, c_int, c_int, c_void_p])
     raw = np.random.default_rng(1).integers(
         0, 256, (BATCH, SRC, SRC, 3), dtype=np.uint8)
     u8 = torch.from_numpy(raw).to(card)
     variants = [
-        ("resize", None, (DST, DST), torch.float32),
         ("resize_bf16", None, (DST, DST), torch.bfloat16),
+        ("resize", None, (DST, DST), torch.float32),
         ("crop_resize", (240, 240), (DST, DST), torch.float32),
+        ("crop_resize_bf16", (240, 240), (DST, DST), torch.bfloat16),
         ("crop_only", (DST, DST), None, torch.float32),
+        ("crop_only_bf16", (DST, DST), None, torch.bfloat16),
     ]
-    rows, main = [], None
+    xf = u8.permute(0, 3, 1, 2).float()   # NCHW view, channels-last
+    library_ms = _graph_ms(torch, lambda: torch.nn.functional.interpolate(
+        xf, size=(DST, DST), mode="bilinear", align_corners=False,
+        antialias=False))
+    rows = {}
     for name, crop, resize, dt in variants:
         plan = tpre.CropResizePlan((SRC, SRC, 3), resize=resize, crop=crop,
                                    mean=IMAGENET_MEAN, std=IMAGENET_STD)
+        before = kernel.variant_launches.get("staged", 0)
         got = tpre.crop_resize_normalize(u8, plan, dt)
+        _check(kernel.variant_launches.get("staged", 0) == before + 1,
+               f"K2 {name}: the staged variant did not launch")
         want = tpre._crop_resize_normalize_plain(u8, plan, dt)
         torch.cuda.synchronize()
         diff = (got.float() - want.float()).abs()
@@ -303,35 +378,51 @@ def phase_kernel_check(torch, tpre, kernel, card):
                f"K2 {name}: max err {max_err} (tol {tol}), "
                f"share differing {share}")
         row = dict(variant=name, out_dtype=str(dt).replace("torch.", ""),
+                   band_rows=plan.band_rows, stage_max=plan.stage_max,
+                   smem_bytes=plan.smem_bytes(plan.stage_max),
                    max_abs_err=max_err, max_quanta=quanta,
                    share_differing=share, tolerance=tol)
-        if name == "resize":
-            xf = u8.permute(0, 3, 1, 2).float()   # NCHW view, channels-last
-            f = torch.nn.functional.interpolate
+        if name.startswith("resize"):
+            direct = tpre.CropResizePlan(
+                (SRC, SRC, 3), resize=resize, crop=crop, mean=IMAGENET_MEAN,
+                std=IMAGENET_STD, smem_budget=0)
+            same = tpre.crop_resize_normalize(u8, direct, dt)
+            _check(bool(torch.equal(same, got)),
+                   f"K2 {name}: the direct-load variant differs from the "
+                   "staged one")
             kernel_ms = _graph_ms(
                 torch, lambda: tpre.crop_resize_normalize(u8, plan, dt))
+            direct_ms = _graph_ms(
+                torch, lambda: tpre.crop_resize_normalize(u8, direct, dt))
             plain_ms = _graph_ms(
                 torch, lambda: tpre._crop_resize_normalize_plain(u8, plan, dt))
-            library_ms = _graph_ms(
-                torch, lambda: f(xf, size=(DST, DST), mode="bilinear",
-                                 align_corners=False, antialias=False))
             eager_ms = _median_ms(
                 torch, lambda: tpre.crop_resize_normalize(u8, plan, dt))
+            floor_ms = _floor_ms(
+                torch, lambda s: empty(BATCH, DST, plan.band_rows, s))
             nbytes = plan.bytes_moved(BATCH, dt) + sum(
                 t.numel() * t.element_size() for t in plan.on(card))
             ops = K2_OPS_PER_ELEMENT * BATCH * DST * DST * 3
             bound_ms, bound_by = _bound(nbytes, ops)
-            main = dict(ms=kernel_ms, plain_ms=plain_ms,
-                        library_ms=library_ms, max_abs_err=max_err,
-                        bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                        ops=ops)
-            row.update(kernel_ms=kernel_ms, plain_ms=plain_ms,
+            row.update(ms=kernel_ms, direct_ms=direct_ms, plain_ms=plain_ms,
                        library_ms=library_ms, eager_ms=eager_ms,
-                       bound_us=main["bound_ms"] * 1e3,
-                       bound_share=main["bound_ms"] / kernel_ms)
-        rows.append(row)
+                       floor_ms=floor_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, bytes=nbytes, ops=ops,
+                       bound_share=bound_ms / kernel_ms)
+        rows[name] = row
+    ptxas = _ptxas_of(kernel)
     _line(phase="kernel_check", kernel=kernel.name, shape=[BATCH, SRC, SRC, 3],
-          launches_while_checking=kernel.launches, variants=rows)
+          launches_while_checking=kernel.launches,
+          variant_launches_while_checking=dict(kernel.variant_launches),
+          variants=list(rows.values()), ptxas=ptxas,
+          library="F.interpolate bilinear on the float NCHW view "
+                  "(resample only)")
+    main = dict(rows["resize_bf16"])
+    f32 = rows["resize"]
+    main.update(ms_f32=f32["ms"], direct_ms_f32=f32["direct_ms"],
+                plain_ms_f32=f32["plain_ms"], floor_ms_f32=f32["floor_ms"],
+                bound_ms_f32=f32["bound_ms"],
+                max_abs_err_f32=f32["max_abs_err"], ptxas=ptxas)
     return main
 
 
@@ -525,9 +616,11 @@ def phase_featurize(torch, kernels, card, profile_dir=None):
     _check(bool(np.isfinite(feats).all()), "features not all finite")
     want = {k.name: 0 for k in kernels.KERNELS}
     want[kernels.CROP_RESIZE_NORMALIZE.name] = batches
-    _check(launches == want, f"kernels launched {launches} times on the "
-                             f"featurize path, want {want} (K2 once per "
-                             "batch, no other kernel)")
+    k2_variants = dict(kernels.CROP_RESIZE_NORMALIZE.variant_launches)
+    _check(launches == want and k2_variants == {"staged": batches},
+           f"kernels launched {launches} times on the featurize path "
+           f"(K2's variants {k2_variants}), want {want} (K2's staged "
+           "variant once per batch, no other kernel)")
 
     # timed passes: unroll memo and resident upload are warm, so each is
     # the card's scoring work plus one fetch of the features
@@ -570,7 +663,8 @@ def phase_featurize(torch, kernels, card, profile_dir=None):
     best = min(pass_s)
     _line(phase="featurize", card=_smi(), model="resnet50", images=N_IMAGES,
           batch=BATCH, src=[SRC, SRC, 3], dst=[DST, DST], batches=batches,
-          launches_main_path=launches, first_pass_s=first_s,
+          launches_main_path=launches, k2_variant_launches=k2_variants,
+          k2_out_dtype="bfloat16", first_pass_s=first_s,
           timed_pass_s=pass_s, images_per_s=N_IMAGES / statistics.median(
               pass_s), images_per_s_best=N_IMAGES / best,
           bf16_pool_rel_err=pool_err, bf16_logits_rel_err=logit_err,
@@ -1155,8 +1249,8 @@ def main() -> int:
                                  report.values()))
     _line(phase="build", seconds=time.perf_counter() - t0, status=status,
           cache_hit=all(v == "hit" for v in status.values()), ptxas=ptxas)
-    # every instantiation of both K3 kernels keeps its tiles in registers
-    for k in (kernels.FLASH_ATTENTION, kernels.FLASH_ATTENTION_TC):
+    # every instantiation of every kernel keeps its values in registers
+    for k in kernels.KERNELS:
         _check(bool(ptxas[k.name]), f"{k.name}: no ptxas report in its "
                                     "build log")
         spills = {fn: r for fn, r in ptxas[k.name].items()
@@ -1187,14 +1281,34 @@ def main() -> int:
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
         "library_ms": None,
-        "library_note": "no single PyTorch call computes this function"}, {
+        "library_note": "no single PyTorch call computes this function",
+        "shape": "B=256, 32x32x3 uint8 -> bf16 (the train step's)",
+        "ms_bf16": k1["ms"], "floor_ms": k1["floor_ms"],
+        "ms_f32": k1["ms_f32"], "floor_ms_f32": k1["floor_ms_f32"],
+        "bound_ms_f32": k1["bound_ms_f32"],
+        "epoch_slices_ms": k1["epoch_slices_ms"],
+        "ms_train_large_bf16": k1["ms_large_bf16"],
+        "bound_ms_train_large_bf16": k1["bound_ms_large_bf16"],
+        "registers": {f: r["registers"] for f, r in k1["ptxas"].items()}}, {
         "name": k2k.name, "route": "cuda",
         "source": "mmlspark_tpu_torch/kernels/csrc/crop_resize_normalize.cu",
         "replaces": "mmlspark_tpu/ops/pallas_preprocess.py:147",
         "launches": featurize[k2k.name], "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
-        "library_ms": k2["library_ms"]}, {
+        "library_ms": k2["library_ms"],
+        "library_note": "F.interpolate bilinear on float input, resample "
+                        "only",
+        "shape": "B=128, 256x256x3 uint8 -> 224x224x3 bf16 (the featurize "
+                 "path's)",
+        "ms_bf16": k2["ms"], "floor_ms": k2["floor_ms"],
+        "direct_ms": k2["direct_ms"], "ms_f32": k2["ms_f32"],
+        "direct_ms_f32": k2["direct_ms_f32"],
+        "plain_ms_f32": k2["plain_ms_f32"],
+        "bound_ms_f32": k2["bound_ms_f32"],
+        "max_abs_err_f32": k2["max_abs_err_f32"],
+        "share_differing": k2["share_differing"],
+        "registers": {f: r["registers"] for f, r in k2["ptxas"].items()}}, {
         "name": tc.name, "route": "cuda",
         "source": "mmlspark_tpu_torch/kernels/csrc/flash_attention_wgmma.cu",
         "replaces": "mmlspark_tpu/ops/pallas_attention.py:109",

@@ -22,11 +22,13 @@ FUSED_NORMALIZE = Kernel(
     [c_void_p] * 4 + [c_longlong, c_int, c_int, c_void_p])
 
 # K2: mmlspark_tpu/ops/pallas_preprocess.py::_fused_crop_resize_normalize.
-# (src, dst, y0, y1, fy, x0, x1, fx, mean, istd, b, hs, ws, hd, wd, c,
-#  out_bf16, stream); wrapper: ops/preprocess.py::crop_resize_normalize
+# (src, dst, y0, y1, fy, x0, x1, fx, mean, istd, slots, stage_rows,
+#  stage_n, b, hs, ws, hd, wd, c, band_rows, stage_max, staged, out_bf16,
+#  stream); wrapper: ops/preprocess.py::crop_resize_normalize, which counts
+# its two variants ("staged", "direct")
 CROP_RESIZE_NORMALIZE = Kernel(
     "crop_resize_normalize", "crop_resize_normalize.cu",
-    [c_void_p] * 10 + [c_int] * 7 + [c_void_p])
+    [c_void_p] * 13 + [c_int] * 10 + [c_void_p])
 
 # K3: mmlspark_tpu/ops/pallas_attention.py::flash_attention (forward), two
 # routes chosen by ops/attention.py::_route from dtype and head dim.

@@ -41,13 +41,16 @@ class Kernel:
     ``cudaGetLastError()``, and a nonzero value raises. ``build_log`` holds
     what nvcc printed (registers, shared memory and spills per kernel, from
     ``-Xptxas=-v``) when the library was built, kept beside it as
-    ``<library>.log``; :func:`ptxas_report` reads it."""
+    ``<library>.log``; :func:`ptxas_report` reads it.
+    ``variant_launches`` splits ``launches`` by the variant a wrapper names
+    when it launches one of several kernels behind the entry point."""
 
-    def __init__(self, name: str, source: str, argtypes: Sequence):
+    def __init__(self, name: str, source, argtypes: Sequence):
         self.name = name
-        self.source = CSRC / source
+        self.source = CSRC / source   # a name under csrc/, or a full path
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.variant_launches: Dict[str, int] = {}
         self.build_log = ""
         self._fn = None
         self._lock = threading.Lock()
@@ -62,22 +65,32 @@ class Kernel:
     def _entry(self):
         with self._lock:
             if self._fn is None:
-                build_all([self])
-                lib = ctypes.CDLL(str(self.library()))
-                fn = getattr(lib, self.name)
-                fn.argtypes = self.argtypes
-                fn.restype = ctypes.c_int
-                self._fn = fn
+                self._fn = self.symbol(self.name, self.argtypes)
             return self._fn
 
-    def __call__(self, *args) -> None:
-        """Launch once (asynchronously, on the stream passed in ``args``)."""
+    def symbol(self, name: str, argtypes: Sequence):
+        """The C function ``name`` of this kernel's library (built first if
+        missing), returning an int. Calls through it are not counted: the
+        library's other entry points (an empty kernel on the same grid, to
+        time the launch floor) are measurement aids, not launches."""
+        build_all([self])
+        fn = getattr(ctypes.CDLL(str(self.library())), name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        return fn
+
+    def __call__(self, *args, variant: str = None) -> None:
+        """Launch once (asynchronously, on the stream passed in ``args``),
+        counted under ``variant`` too when one is named."""
         rc = self._entry()(*args)
         if rc != 0:
             raise RuntimeError(
                 f"CUDA kernel {self.name} failed to launch: cudaError {rc}")
         with self._lock:
             self.launches += 1
+            if variant is not None:
+                self.variant_launches[variant] = \
+                    self.variant_launches.get(variant, 0) + 1
 
 
 def nvcc() -> str:
@@ -177,6 +190,7 @@ def demangle(names: Sequence[str]) -> List[str]:
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch counts to 0."""
     for k in KERNELS:
         k.launches = 0
+        k.variant_launches.clear()

@@ -175,10 +175,12 @@ class TorchModel(HasInputCol, HasOutputCol, Model):
             std_a = (np.asarray(self._state["input_sigma"],
                                 np.float32).ravel()
                      if mu is not None else np.ones(1, np.float32))
+            # the kernel stores in the compute dtype itself: its bf16 store
+            # rounds the same fp32 value a cast would, with no second pass
             if mean_a.size in (1, src[2]) and std_a.size in (1, src[2]):
                 fused = make_fused_preprocess_fn(
                     src, resize=dst or None, crop=crop, mean=mean_a,
-                    std=std_a, out_dtype=torch.float32)
+                    std=std_a, out_dtype=cdt or torch.float32)
 
             def base(x):
                 was_u8 = x.dtype == torch.uint8
@@ -210,7 +212,8 @@ class TorchModel(HasInputCol, HasOutputCol, Model):
             # pipeline
             y = fused(x) if fused is not None and x.dtype == torch.uint8 \
                 else norm(x)
-            # bf16 enters HERE, after the full-precision preprocess;
+            # bf16 enters HERE, after the full-precision preprocess (the
+            # fused kernel's output already is; the cast is then a no-op);
             # integer token inputs pass through untouched
             if cdt is not None and y.is_floating_point():
                 y = y.to(cdt)

@@ -80,8 +80,15 @@ def fused_normalize(u8: torch.Tensor, mean: torch.Tensor,
         stream = torch.cuda.current_stream(u8.device).cuda_stream
         FUSED_NORMALIZE(u8.data_ptr(), out.data_ptr(), mean.data_ptr(),
                         inv_std.data_ptr(), u8.numel(), c,
-                        int(out_dtype == torch.bfloat16), stream)
+                        int(out_dtype == torch.bfloat16), stream,
+                        variant=_k1_variant(u8.data_ptr()))
     return out
+
+
+def _k1_variant(data_ptr: int) -> str:
+    """The kernel K1's entry point launches for an input at ``data_ptr``:
+    16-byte groups from an aligned input, else one element per thread."""
+    return "vector" if data_ptr % 16 == 0 else "scalar"
 
 
 def _fused_normalize_plain(u8: torch.Tensor, mean: torch.Tensor,
@@ -147,16 +154,39 @@ def _sampling_matrix(src: int, dst: int, crop_off: float = 0.0,
     return m
 
 
+# K2's shared memory for one block's staged source rows and x-tap tables:
+# within the 48 KB a block gets without an opt-in, so several blocks share
+# an SM and one block's copy-in overlaps another's compute
+K2_SMEM_BUDGET = 48 * 1024
+# output rows per K2 block, at most: 8 rows of 224x3 bf16 are 224 units of
+# 8 pixels (three 16-byte vectors each) for 128 threads (4 or 16 rows ran
+# no faster at 256x256 -> 224x224: preprocess_variants.py on an H100)
+K2_BAND_ROWS = 8
+# K2 indexes an image's bytes and outputs in 32 bits
+_INT32_MAX = 2 ** 31 - 1
+
+
 class CropResizePlan:
     """The per-shape constants of one crop + resize + normalize: taps per
-    axis and per-channel mean and 1/std, as host arrays and, per device, as
-    the small tensors the kernel and the plain version read."""
+    axis, per-channel mean and 1/std, and K2's bands, as host arrays and,
+    per device, as the small tensors the kernel and the plain version read.
+
+    K2 runs one block per (image, band of ``band_rows`` output rows). When
+    ``staged`` is True each band's distinct source rows (``stage_rows[band,
+    :stage_n[band]]``, sorted; ``slots[y]`` gives where y's two taps sit
+    among them) and the x-tap tables fit ``smem_budget`` bytes, and the
+    kernel copies them to shared memory first; ``band_rows`` is then the
+    largest height up to ``K2_BAND_ROWS`` that fits. Otherwise (a source
+    row of ``Ws * C`` bytes that is no multiple of 16, or two rows over the
+    budget) the plan takes the direct-load variant, which reads the source
+    through the cache."""
 
     def __init__(self, src_shape: Tuple[int, int, int],
                  resize: Optional[Tuple[int, int]] = None,
                  crop: Optional[Tuple[int, int]] = None,
                  mean: Sequence[float] = (0.0,),
-                 std: Sequence[float] = (1.0,)):
+                 std: Sequence[float] = (1.0,),
+                 smem_budget: int = K2_SMEM_BUDGET):
         hs, ws, c = (int(v) for v in src_shape)
         ch, cw = (int(v) for v in crop) if crop else (hs, ws)
         if ch > hs or cw > ws:
@@ -171,17 +201,60 @@ class CropResizePlan:
         self.mean = np.broadcast_to(np.asarray(mean, np.float32), (c,)).copy()
         self.istd = (1.0 / np.broadcast_to(np.asarray(std, np.float32), (c,))
                      ).astype(np.float32)
+        self._plan_bands(smem_budget)
         self._on = {}
 
+    def _bands(self, rows: int):
+        """Each band's sorted distinct source rows, for bands of ``rows``."""
+        y0, y1, _ = self.y
+        return [np.union1d(y0[a:a + rows], y1[a:a + rows])
+                for a in range(0, self.dst_hw[0], rows)]
+
+    def smem_bytes(self, stage_max: int) -> int:
+        """Shared memory of a staged K2 block: ``stage_max`` source rows,
+        the x-taps (x0 * C, x1 * C, fx) and mean / 1/std."""
+        hs, ws, c = self.src_shape
+        return stage_max * ws * c + 12 * self.dst_hw[1] + 8 * c
+
+    def _plan_bands(self, budget: int) -> None:
+        hd = self.dst_hw[0]
+        self.staged = False
+        self.band_rows = max(1, min(K2_BAND_ROWS, hd))
+        bands = self._bands(self.band_rows)
+        if self.src_shape[1] * self.src_shape[2] % 16 == 0:
+            for rows in range(self.band_rows, 0, -1):
+                found = self._bands(rows)
+                if self.smem_bytes(max(b.size for b in found)) <= budget:
+                    self.staged, self.band_rows, bands = True, rows, found
+                    break
+        self.stage_max = max(b.size for b in bands)
+        self.stage_n = np.array([b.size for b in bands], np.int32)
+        self.stage_rows = np.stack([np.pad(b, (0, self.stage_max - b.size),
+                                           mode="edge") for b in bands]
+                                   ).astype(np.int32)
+        y0, y1, _ = self.y
+        band = np.arange(hd) // self.band_rows
+        self.slots = np.stack(
+            [np.array([np.searchsorted(bands[b], t[y]) for y, b in
+                       enumerate(band)]) for t in (y0, y1)], axis=1
+        ).astype(np.int32)
+
+    def variant(self, data_ptr: int) -> str:
+        """The K2 variant for a source at ``data_ptr``: "staged" when the
+        plan stages and the source starts on 16 bytes, else "direct"."""
+        return "staged" if self.staged and data_ptr % 16 == 0 else "direct"
+
     def on(self, device) -> Tuple[torch.Tensor, ...]:
-        """(y0, y1, fy, x0, x1, fx, mean, istd) on ``device``; indices
-        int32, weights float32."""
+        """(y0, y1, fy, x0, x1, fx, mean, istd, slots, stage_rows, stage_n)
+        on ``device``; indices int32, weights float32. The plain version
+        reads the first eight."""
         device = torch.device(device)
         if device not in self._on:
             (y0, y1, fy), (x0, x1, fx) = self.y, self.x
             host = [y0.astype(np.int32), y1.astype(np.int32), fy,
                     x0.astype(np.int32), x1.astype(np.int32), fx,
-                    self.mean, self.istd]
+                    self.mean, self.istd, self.slots, self.stage_rows,
+                    self.stage_n]
             self._on[device] = tuple(torch.from_numpy(np.ascontiguousarray(a))
                                      .to(device) for a in host)
         return self._on[device]
@@ -222,13 +295,21 @@ def crop_resize_normalize(u8: torch.Tensor, plan: CropResizePlan,
                         "neither float32 nor bfloat16")
     b, hs, ws, c = u8.shape
     hd, wd = plan.dst_hw
+    bands = -(-hd // plan.band_rows)
+    if max(hs * ws * c, hd * wd * c, b * bands) > _INT32_MAX:
+        raise ValueError(f"crop_resize_normalize: images {tuple(u8.shape)} "
+                         f"-> {plan.dst_hw} overflow the kernel's 32-bit "
+                         "offsets; split the batch or the images")
     consts = plan.on(u8.device)
+    variant = plan.variant(u8.data_ptr())
     out = torch.empty((b, hd, wd, c), dtype=out_dtype, device=u8.device)
     with torch.cuda.device(u8.device):
         stream = torch.cuda.current_stream(u8.device).cuda_stream
         CROP_RESIZE_NORMALIZE(
             u8.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in consts),
-            b, hs, ws, hd, wd, c, int(out_dtype == torch.bfloat16), stream)
+            b, hs, ws, hd, wd, c, plan.band_rows, plan.stage_max,
+            int(variant == "staged"), int(out_dtype == torch.bfloat16),
+            stream, variant=variant)
     return out
 
 
@@ -236,7 +317,7 @@ def _crop_resize_normalize_plain(u8: torch.Tensor, plan: CropResizePlan,
                                  out_dtype=torch.float32) -> torch.Tensor:
     """The kernel's function in plain torch ops, with the kernel's
     operation order: row lerp, then column lerp, in fp32."""
-    y0, y1, fy, x0, x1, fx, mean, istd = plan.on(u8.device)
+    y0, y1, fy, x0, x1, fx, mean, istd = plan.on(u8.device)[:8]
     x = u8.float()
     wy = fy[None, :, None, None]
     rows = x.index_select(1, y0) * (1 - wy) + x.index_select(1, y1) * wy

@@ -204,6 +204,50 @@ def test_bfloat16_compute_matches_jax_loosely(jparams):
     assert np.abs(got - want).max() <= 0.05 * np.abs(want).max()
 
 
+def test_bfloat16_features_take_the_kernels_bf16_store_bit_identically(
+        jparams, monkeypatch):
+    """With computeDtype='bfloat16' the fused preprocess stores bf16 itself
+    (no second pass casting its fp32 output). Its store rounds the same fp32
+    value the cast rounded, so the features equal, bit for bit, those of
+    the route that asks the preprocess for fp32 and casts after it."""
+    from mmlspark_tpu_torch.ops import preprocess as tpre
+    made = []
+    real = tpre.make_fused_preprocess_fn
+
+    def spy(*args, **kw):
+        made.append(kw["out_dtype"])
+        return real(*args, **kw)
+
+    def f32_then_cast(*args, **kw):
+        fn = real(*args, **dict(kw, out_dtype=torch.float32))
+        return lambda u8: fn(u8).to(kw["out_dtype"])
+
+    feats = []
+    for make in (spy, f32_then_cast):
+        monkeypatch.setattr(tpre, "make_fused_preprocess_fn", make)
+        tframe, _ = _frames(_u8_images(12, 5, 40, 40))
+        fz = ImageFeaturizer(cutOutputLayers=1, miniBatchSize=2,
+                             computeDtype="bfloat16")
+        fz.set_model("resnet20_cifar", params=jparams, **ARCH)
+        feats.append(np.asarray(fz.transform(tframe).column("features")))
+    assert made == [torch.bfloat16]
+    assert feats[0].shape == (5, 64)
+    np.testing.assert_array_equal(feats[0], feats[1])
+
+
+def test_bfloat16_real_resize_features_match_jax_loosely(jparams):
+    """The bf16 store on a real resize (40x40 -> 32x32) against the JAX
+    featurizer, which casts after its fp32 preprocess: within the bf16
+    bound of ``test_bfloat16_compute_matches_jax_loosely`` (5% of the
+    features' scale)."""
+    tfz, got, want = _featurize_both(jparams, _u8_images(13, 6, 40, 40), 1,
+                                     computeDtype="bfloat16")
+    assert tfz._tm_cache.get("devicePreprocess") == {
+        "srcShape": [40, 40, 3], "resize": [32, 32]}
+    assert got.shape == want.shape == (6, 64)
+    assert np.abs(got - want).max() <= 0.05 * np.abs(want).max()
+
+
 def test_image_featurizer_save_load_round_trip(jparams, tmp_path):
     tframe, _ = _frames(_u8_images(9, 3, 40, 40))
     fz = ImageFeaturizer(cutOutputLayers=1, miniBatchSize=2)

@@ -39,11 +39,12 @@ def test_importing_every_port_module_loads_no_jax_and_no_jax_package():
 
 
 def _port_sources():
-    """Every Python source of the port, ``chip_smoke.py`` and
-    ``k3_variants.py``."""
+    """Every Python source of the port, ``chip_smoke.py`` and the kernel
+    variant scripts."""
     root = os.path.join(REPO, "mmlspark_tpu_torch")
     paths = [os.path.join(REPO, f) for f in ("chip_smoke.py",
-                                             "k3_variants.py")]
+                                             "k3_variants.py",
+                                             "preprocess_variants.py")]
     for dirpath, _, files in os.walk(root):
         paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return paths
@@ -68,11 +69,12 @@ def test_port_sources_name_no_jax_import():
 
 
 def test_chip_smoke_loads_no_jax_and_no_jax_package():
-    """Importing ``chip_smoke``, ``k3_variants`` and the port modules they
-    drive loads no JAX: the card's machine has none."""
+    """Importing ``chip_smoke``, the kernel variant scripts and the port
+    modules they drive loads no JAX: the card's machine has none."""
     code = _IMPORT_ALL.replace(
         "import mmlspark_tpu_torch as pkg",
-        "import chip_smoke\nimport k3_variants\nimport mmlspark_tpu_torch as pkg")
+        "import chip_smoke\nimport k3_variants\nimport preprocess_variants\n"
+        "import mmlspark_tpu_torch as pkg")
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -156,6 +156,31 @@ def test_k3_variants_replace_only_the_named_tile_configs(monkeypatch):
         k3_variants.variant_source(source, "96:64,8,16,64,1")
 
 
+def test_preprocess_variants_replace_only_the_named_constants(monkeypatch):
+    """``preprocess_variants.py`` builds K1's or K2's committed source with
+    some ``constexpr int`` lines replaced, keeps the Python-side settings
+    apart, and refuses a constant the source does not have."""
+    monkeypatch.syspath_prepend(str(FUSED_NORMALIZE.source.parents[3]))
+    import preprocess_variants
+    source = FUSED_NORMALIZE.source.read_text()
+    got, settings = preprocess_variants.variant_source(
+        source, "kWaves:2,kGroups:8")
+    assert "constexpr int kWaves = 2;" in got
+    assert "constexpr int kGroups = 8;" in got
+    assert settings == {}
+    changed = [a for a, b in zip(source.splitlines(), got.splitlines())
+               if a != b]
+    assert len(changed) == 2 and len(got.splitlines()) == len(
+        source.splitlines())
+    k2 = CROP_RESIZE_NORMALIZE.source.read_text()
+    got, settings = preprocess_variants.variant_source(
+        k2, "kThreads:256,band_rows:16")
+    assert "constexpr int kThreads = 256;" in got
+    assert settings == {"band_rows": "16"}
+    with pytest.raises(ValueError, match="kNothing"):
+        preprocess_variants.variant_source(k2, "kNothing:1")
+
+
 def test_reset_launches_zeroes_every_count():
     CROP_RESIZE_NORMALIZE.launches = 5
     FUSED_NORMALIZE.launches = 3
@@ -279,6 +304,271 @@ def test_k1_misaligned_and_ragged_inputs_on_the_card(card):
     with pytest.raises(ValueError, match="channels"):
         tpre.fused_normalize(base[:10], *consts)
 
+
+# K2's geometries beyond the main path: (src (Hs, Ws, C), crop, resize).
+# Upscaling, heavy downscaling, crop 240 -> 224, crop only, C = 1 and 4
+# (and 2, which takes the kernel's any-C instantiation), and sources whose
+# rows (Ws * C bytes) are no multiple of 16, with an
+# output row whose bytes are no multiple of 16 among them (97 x 3)
+K2_GEOMETRIES = {
+    "main": ((256, 256, 3), None, (224, 224)),
+    "upscale": ((32, 32, 3), None, (224, 224)),
+    "down_1024_32": ((1024, 1024, 3), None, (32, 32)),
+    "crop240": ((256, 256, 3), (240, 240), (224, 224)),
+    "crop_only": ((256, 256, 3), (224, 224), None),
+    "c1": ((64, 64, 1), None, (33, 31)),
+    "c4": ((64, 48, 4), (60, 44), (100, 50)),
+    "c2": ((64, 64, 2), None, (30, 50)),
+    "odd_width": ((37, 41, 3), None, (20, 30)),
+    "odd_c1": ((50, 45, 1), (40, 40), (97, 131)),
+    "ragged_row": ((200, 192, 3), None, (97, 131)),
+}
+
+
+def _k2_plan(name, **kw):
+    src, crop, resize = K2_GEOMETRIES[name]
+    mean = MEAN[:src[2]] if src[2] == 3 else (127.5,) * src[2]
+    std = STD[:src[2]] if src[2] == 3 else (60.0,) * src[2]
+    return tpre.CropResizePlan(src, resize=resize, crop=crop, mean=mean,
+                               std=std, **kw)
+
+
+@pytest.mark.parametrize("name", sorted(K2_GEOMETRIES))
+def test_k2_bands_stage_every_tap_within_the_budget(name):
+    """Every output row's two source rows sit in its band's staged rows
+    (sorted, counted by ``stage_n``), and a staged plan fits its budget at
+    the largest band height that does; a direct plan is one whose rows are
+    no multiple of 16 bytes or whose one-row bands do not fit."""
+    plan = _k2_plan(name)
+    (hs, ws, c), (hd, _) = plan.src_shape, plan.dst_hw
+    y0, y1, _ = plan.y
+    assert 1 <= plan.band_rows <= tpre.K2_BAND_ROWS
+    bands = -(-hd // plan.band_rows)
+    assert plan.stage_rows.shape == (bands, plan.stage_max)
+    assert plan.stage_n.max() == plan.stage_max
+    for band in range(bands):
+        n = plan.stage_n[band]
+        staged = plan.stage_rows[band, :n]
+        assert np.all(np.diff(staged) > 0) and staged.min() >= 0 \
+            and staged.max() < hs
+        ys = range(band * plan.band_rows, min(hd, (band + 1) *
+                                              plan.band_rows))
+        for y in ys:
+            assert 0 <= plan.slots[y].max() < n
+            assert staged[plan.slots[y, 0]] == y0[y]
+            assert staged[plan.slots[y, 1]] == y1[y]
+        # nothing staged that the band's taps do not name
+        assert set(staged) == set(y0[list(ys)]) | set(y1[list(ys)])
+    rows_ok = ws * c % 16 == 0
+    if plan.staged:
+        assert rows_ok
+        assert plan.smem_bytes(plan.stage_max) <= tpre.K2_SMEM_BUDGET
+        if plan.band_rows < min(tpre.K2_BAND_ROWS, hd):
+            taller = max(b.size for b in plan._bands(plan.band_rows + 1))
+            assert plan.smem_bytes(taller) > tpre.K2_SMEM_BUDGET
+    else:
+        one_row = max(b.size for b in plan._bands(1))
+        assert not rows_ok \
+            or plan.smem_bytes(one_row) > tpre.K2_SMEM_BUDGET
+    assert plan.staged == (name not in ("odd_width", "odd_c1"))
+
+
+def test_k2_takes_the_direct_variant_exactly_when_the_plan_says_so():
+    """A staging plan takes the staged variant for a source on 16 bytes and
+    the direct one for a view off it; a plan that cannot stage (rows no
+    multiple of 16 bytes, or a budget below two rows) always goes direct."""
+    plan = _k2_plan("main")
+    assert plan.staged
+    for ptr in range(4096, 4096 + 48):
+        assert plan.variant(ptr) == ("staged" if ptr % 16 == 0
+                                     else "direct")
+    for direct in (_k2_plan("odd_width"),
+                   _k2_plan("main", smem_budget=2 * 768)):
+        assert not direct.staged
+        assert {direct.variant(p) for p in range(4096, 4096 + 48)} == {
+            "direct"}
+    just = _k2_plan("main", smem_budget=_k2_plan("main").smem_bytes(2))
+    assert just.staged and just.band_rows == 1 and just.stage_max == 2
+
+
+@pytest.mark.parametrize("name", sorted(K2_GEOMETRIES))
+def test_k2_staged_rows_reproduce_the_plain_version(name):
+    """The staged variant's arithmetic on its tables, in numpy fp32: each
+    band gathers its staged rows, each row lerps the two its slots name,
+    in the kernel's order. Bit-equal to the plain version."""
+    plan = _k2_plan(name)
+    (hs, ws, c), (hd, wd) = plan.src_shape, plan.dst_hw
+    u8 = _u8(21, (2, hs, ws, c))
+    (_, _, fy), (x0, x1, fx) = plan.y, plan.x
+    one = np.float32(1)
+    out = np.empty((2, hd, wd, c), np.float32)
+    for band in range(plan.stage_rows.shape[0]):
+        staged = u8[:, plan.stage_rows[band, :plan.stage_n[band]]]
+        staged = staged.astype(np.float32)
+        for y in range(band * plan.band_rows,
+                       min(hd, (band + 1) * plan.band_rows)):
+            r0, r1 = staged[:, plan.slots[y, 0]], staged[:, plan.slots[y, 1]]
+            wy1 = fy[y]
+            wy0 = one - wy1
+            left = r0[:, x0] * wy0 + r1[:, x0] * wy1
+            right = r0[:, x1] * wy0 + r1[:, x1] * wy1
+            wx1 = fx[:, None]
+            z = left * (one - wx1) + right * wx1
+            z = np.clip(np.rint(z), 0, 255)
+            out[:, y] = (z - plan.mean) * plan.istd
+    want = tpre._crop_resize_normalize_plain(torch.from_numpy(u8), plan)
+    np.testing.assert_array_equal(out, want.numpy())
+
+
+def test_k1_variant_follows_the_input_alignment():
+    assert [tpre._k1_variant(p) for p in (0, 16, 4096)] == ["vector"] * 3
+    assert {tpre._k1_variant(p) for p in range(4097, 4112)} == {"scalar"}
+
+
+def test_variant_launches_are_reset_with_the_counts():
+    CROP_RESIZE_NORMALIZE.variant_launches["staged"] = 2
+    FUSED_NORMALIZE.variant_launches["scalar"] = 1
+    build.reset_launches()
+    assert all(not k.variant_launches for k in KERNELS)
+
+
+def _k2_gate(got, want, std):
+    """K2 against its plain version: one uint8 quantum (1/std) and, in
+    bf16, one bf16 step of the largest value, on at most 1% of elements.
+    Returns (max |diff|, share differing)."""
+    diff = (got.float() - want.float()).abs()
+    bound = 1.01 / min(std)
+    if got.dtype == torch.bfloat16:
+        bound += 2 ** -7 * want.float().abs().max().item()
+    max_err, share = diff.max().item(), (diff > 0).float().mean().item()
+    assert max_err <= bound and share <= 0.01, (max_err, share)
+    return max_err, share
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(K2_GEOMETRIES))
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_k2_geometries_match_plain_on_the_card(card, name, out_dtype,
+                                               record_testsuite_property):
+    """K2 at each geometry, through the variant its plan names (counted),
+    against its plain version under the gate of
+    ``test_kernel_matches_plain_on_the_card``; the share of elements that
+    differ at all, and the largest difference, are recorded as properties
+    of the test suite (``--junitxml``)."""
+    plan = _k2_plan(name)
+    u8 = torch.from_numpy(_u8(22, (6,) + plan.src_shape)).to(card)
+    variant = plan.variant(u8.data_ptr())
+    assert variant == ("staged" if plan.staged else "direct")
+    build.reset_launches()
+    got = tpre.crop_resize_normalize(u8, plan, out_dtype)
+    assert CROP_RESIZE_NORMALIZE.variant_launches == {variant: 1}
+    want = tpre._crop_resize_normalize_plain(u8, plan, out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == want.shape
+    std = plan.mean.size * [float(1 / plan.istd.max())]
+    max_err, share = _k2_gate(got, want, std)
+    dt = str(out_dtype).replace("torch.", "")
+    record_testsuite_property(f"k2_share_differing[{name}-{dt}]", share)
+    record_testsuite_property(f"k2_max_abs_err[{name}-{dt}]", max_err)
+    if not plan.y[2].any() and not plan.x[2].any():    # a crop alone
+        assert max_err <= 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 3, 8, 15])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_k2_views_off_alignment_take_the_direct_variant_on_the_card(
+        card, offset, out_dtype):
+    """A contiguous view 1-15 bytes past a 16-byte boundary runs the
+    direct-load variant and holds the same gate; the aligned source runs
+    the staged one and gives the same output."""
+    plan = _k2_plan("main")
+    n = 4 * 256 * 256 * 3
+    base = torch.from_numpy(_u8(23, (n + 16,))).to(card)
+    view = base[offset:offset + n].view(4, 256, 256, 3)
+    build.reset_launches()
+    got = tpre.crop_resize_normalize(view, plan, out_dtype)
+    aligned = tpre.crop_resize_normalize(view.clone(), plan, out_dtype)
+    assert CROP_RESIZE_NORMALIZE.variant_launches == {"direct": 1,
+                                                      "staged": 1}
+    want = tpre._crop_resize_normalize_plain(view, plan, out_dtype)
+    torch.cuda.synchronize()
+    _k2_gate(got, want, STD)
+    assert torch.equal(got, aligned)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_k2_staged_and_direct_variants_agree_on_the_card(card, out_dtype):
+    """The main shape through each variant (a zero budget forces the
+    direct one): the same lerps in the same order, so the same bits."""
+    staged, direct = _k2_plan("main"), _k2_plan("main", smem_budget=0)
+    assert staged.staged and not direct.staged
+    u8 = torch.from_numpy(_u8(24, (8, 256, 256, 3))).to(card)
+    build.reset_launches()
+    a = tpre.crop_resize_normalize(u8, staged, out_dtype)
+    b = tpre.crop_resize_normalize(u8, direct, out_dtype)
+    torch.cuda.synchronize()
+    assert CROP_RESIZE_NORMALIZE.variant_launches == {"staged": 1,
+                                                      "direct": 1}
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 3, 4, 5])
+@pytest.mark.parametrize("n", [16 * 60 + 7, 256 * 3072, 1024 * 150528 + 5])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_k1_channel_phase_and_grid_stride_on_the_card(card, c, n, out_dtype):
+    """K1's vector variant keeps each thread on one channel phase and walks
+    inputs larger than one wave: bit-equal at C = 1, 3, 4 and 5, from a
+    short ragged input to one of several passes (154 MB), each a launch of
+    the vector variant."""
+    n -= n % c
+    rng = np.random.default_rng(25)
+    mean = tuple(rng.uniform(0, 255, c).tolist())
+    std = tuple(rng.uniform(20, 80, c).tolist())
+    consts = _k1_consts(mean, std, card)
+    u8 = torch.randint(0, 256, (n,), dtype=torch.uint8, device=card,
+                       generator=torch.Generator(card).manual_seed(c))
+    build.reset_launches()
+    got = tpre.fused_normalize(u8, *consts, out_dtype)
+    assert FUSED_NORMALIZE.variant_launches == {"vector": 1}
+    want = tpre._fused_normalize_plain(u8, *consts, out_dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 7, 15])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_k1_views_off_alignment_take_the_scalar_variant_on_the_card(
+        card, offset, out_dtype):
+    consts = _k1_consts(CIFAR_MEAN, CIFAR_STD, card)
+    base = torch.from_numpy(_u8(26, (256 * 3072 + 16,))).to(card)
+    u8 = base[offset:offset + 256 * 3072].view(256, 3072)
+    build.reset_launches()
+    got = tpre.fused_normalize(u8, *consts, out_dtype)
+    assert FUSED_NORMALIZE.variant_launches == {"scalar": 1}
+    want = tpre._fused_normalize_plain(u8, *consts, out_dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_launch_floor_entry_points_run_uncounted_on_the_card(card):
+    """The empty kernels chip_smoke.py times as K1's and K2's launch floor
+    launch on their kernel's grid and count no launch."""
+    from ctypes import c_int, c_longlong, c_void_p
+    stream = torch.cuda.current_stream(card).cuda_stream
+    build.reset_launches()
+    k1 = FUSED_NORMALIZE.symbol("fused_normalize_empty",
+                                [c_longlong, c_int, c_int, c_void_p])
+    k2 = CROP_RESIZE_NORMALIZE.symbol("crop_resize_normalize_empty",
+                                      [c_int, c_int, c_int, c_void_p])
+    assert k1(256 * 3072, 3, 1, stream) == 0
+    assert k2(128, 224, 8, stream) == 0
+    torch.cuda.synchronize()
+    assert all(k.launches == 0 and not k.variant_launches for k in KERNELS)
 
 # K3: (B, L, H, D) shapes that supports() admits, from the smallest head dim
 # to the D = 2048 corner (L * D = 2**20 at L = 512), and the LM's own shape
