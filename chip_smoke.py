@@ -4,7 +4,7 @@
     python3 chip_smoke.py                      # as the chip check runs it
     python3 chip_smoke.py --profile <dir>      # plus profiled warm passes
 
-Three paths, each through the entry points a user calls:
+Four paths, each through the entry points a user calls:
 
 - serving, the README's transfer-learning quickstart: an
   ``ImageFeaturizer`` with a ResNet-50 (random weights from a seed) scores
@@ -25,7 +25,13 @@ Three paths, each through the entry points a user calls:
   on the tensor cores (``mmlspark_tpu_torch/kernels/csrc/
   flash_attention_wgmma.cu``; f32 takes the CUDA-core
   ``flash_attention.cu``); then the MoE LM the same way, and
-  ``ImageFeaturizer`` with ViT-B/16 (K2, no K3).
+  ``ImageFeaturizer`` with ViT-B/16 (K2, no K3);
+- tabular AutoML, the README's first quickstart: ``TrainClassifier`` fits
+  each of the six learner families on an Adult-census-shaped frame at UCI
+  Adult's size, ``FindBestModel`` picks one and ``ComputeModelStatistics``
+  scores it; ``TrainRegressor`` fits ``LinearRegression``. The JAX package
+  computes these learners with XLA ops, not Pallas, so this path runs no
+  hand-written kernel.
 
 The script:
 
@@ -79,7 +85,26 @@ The script:
    through ``ImageFeaturizer`` (resized to 224 by K2) and through
    ``TorchModel`` center-cropping to 224 on the card (K2), each against
    the plain-preprocess route;
-10. prints the kernel table line, the card's name and power limit, and
+10. ``automl``: 32,561 training and 16,281 test rows of UCI Adult's
+    columns (six numeric, eight strings at UCI's cardinalities, ``income``
+    24% positive), synthesized from a seed. For each learner
+    (LogisticRegression(regParam=0.01) and the golden harness's
+    DecisionTree, RandomForest, GBT, NaiveBayes and MLP) two card fits and
+    a CPU fit through ``TrainClassifier``, each scored on the test rows:
+    (a) card AUC and accuracy within 5e-3 of the CPU fit's; (b) with TF32
+    off, LogisticRegression's and NaiveBayes's parameters within 1e-4
+    (norm-wise) of the CPU fit's; (c) the two card fits of a tree learner
+    split alike; (e) every fit ran on the card (the epoch cache's and the
+    bins' device). Then (d) ``FindBestModel`` by AUC picks the same learner
+    on the card and the CPU (or two whose CPU AUCs lie within 5e-3), and
+    ``TrainRegressor(LinearRegression())`` on a flight-delay frame of the
+    same size matches the CPU fit in its numeric weights and its
+    predictions within 1e-4 (its one-hot blocks and intercept are
+    collinear, so their own weights are not identified; the Gram matrix's
+    condition number is printed); (f) K1, K2 and K3 launch 0 times. Fit
+    and scoring seconds, the host featurize share, syncs per fit and the
+    metrics go on the phase's line;
+11. prints the kernel table line, the card's name and power limit, and
     last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the exit code is nonzero and no result line is
@@ -119,6 +144,11 @@ MOE_ROWS, LM_F32_ROWS = 16, 16
 # ViT-B/16 as the JAX bench's vit_preprocess lane feeds it: 256x256 uint8,
 # 224 on the card, mean = std = 127.5, batch 32
 VIT_IMAGES, VIT_BATCH = 128, 32
+# the automl phase: UCI Adult's train/test split (archive.ics.uci.edu/
+# dataset/2/adult); card against CPU within the golden harness's TOL
+# (tests/test_golden_metrics.py), fp32 parameters within 1e-4 (norm-wise)
+AUTOML_TRAIN_ROWS, AUTOML_TEST_ROWS = 32561, 16281
+AUTOML_TOL, AUTOML_PARAM_RTOL = 5e-3, 1e-4
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s
 # outside the tensor cores, dense bf16 tensor-core FLOP/s
 PEAK_BYTES_S = 3.35e12
@@ -1198,6 +1228,347 @@ def phase_featurize_vit(torch, kernels, card):
                                     crop=VIT_IMAGES / crop_s))
 
 
+# UCI Adult's string columns and their levels (archive.ics.uci.edu/dataset/2/
+# adult; "?" is UCI's missing marker, a level of its own), most common first
+ADULT_LEVELS = {
+    "workclass": ["Private", "Self-emp-not-inc", "Local-gov", "?",
+                  "State-gov", "Self-emp-inc", "Federal-gov", "Without-pay",
+                  "Never-worked"],
+    "education": ["HS-grad", "Some-college", "Bachelors", "Masters",
+                  "Assoc-voc", "11th", "Assoc-acdm", "10th", "7th-8th",
+                  "Prof-school", "9th", "12th", "Doctorate", "5th-6th",
+                  "1st-4th", "Preschool"],
+    "marital-status": ["Married-civ-spouse", "Never-married", "Divorced",
+                       "Separated", "Widowed", "Married-spouse-absent",
+                       "Married-AF-spouse"],
+    "occupation": ["Prof-specialty", "Craft-repair", "Exec-managerial",
+                   "Adm-clerical", "Sales", "Other-service",
+                   "Machine-op-inspct", "?", "Transport-moving",
+                   "Handlers-cleaners", "Farming-fishing", "Tech-support",
+                   "Protective-serv", "Priv-house-serv", "Armed-Forces"],
+    "relationship": ["Husband", "Not-in-family", "Own-child", "Unmarried",
+                     "Wife", "Other-relative"],
+    "race": ["White", "Black", "Asian-Pac-Islander", "Amer-Indian-Eskimo",
+             "Other"],
+    "sex": ["Male", "Female"],
+    "native-country": [
+        "United-States", "Mexico", "?", "Philippines", "Germany", "Canada",
+        "Puerto-Rico", "El-Salvador", "India", "Cuba", "England", "Jamaica",
+        "South", "China", "Italy", "Dominican-Republic", "Vietnam",
+        "Guatemala", "Japan", "Poland", "Columbia", "Taiwan", "Haiti", "Iran",
+        "Portugal", "Nicaragua", "Peru", "France", "Greece", "Ecuador",
+        "Ireland", "Hong", "Cambodia", "Trinadad&Tobago", "Laos", "Thailand",
+        "Yugoslavia", "Outlying-US(Guam-USVI-etc)", "Honduras", "Hungary",
+        "Scotland", "Holand-Netherlands"],
+}
+# UCI's education-num of each education level
+ADULT_EDUCATION_NUM = {
+    "Preschool": 1, "1st-4th": 2, "5th-6th": 3, "7th-8th": 4, "9th": 5,
+    "10th": 6, "11th": 7, "12th": 8, "HS-grad": 9, "Some-college": 10,
+    "Assoc-voc": 11, "Assoc-acdm": 12, "Bachelors": 13, "Masters": 14,
+    "Prof-school": 15, "Doctorate": 16}
+ADULT_POSITIVE = 0.24       # UCI Adult's share of " >50K"
+
+
+def adult_frame(n: int, rng, num_partitions: int = 4):
+    """An Adult-census-shaped Frame of ``n`` rows drawn from ``rng``: UCI
+    Adult's six numeric columns, its eight string columns at UCI's
+    cardinalities (levels drawn with Zipf-like weights, most common first)
+    and the ``income`` label (" >50K" for the top 24% of a noisy linear
+    score of the columns, else " <=50K")."""
+    from mmlspark_tpu_torch.core.frame import Frame
+    cols = {}
+    for name, levels in ADULT_LEVELS.items():
+        p = 1.0 / np.arange(1, len(levels) + 1) ** 1.5
+        cols[name] = np.asarray(levels, object)[
+            rng.choice(len(levels), size=n, p=p / p.sum())]
+    age = np.clip(rng.normal(38.6, 13.6, n), 17, 90).round()
+    fnlwgt = np.clip(rng.lognormal(12.0, 0.5, n), 1.2e4, 1.5e6).round()
+    edu_num = np.asarray([ADULT_EDUCATION_NUM[e] for e in cols["education"]],
+                         np.float64)
+    gain = np.where(rng.random(n) < 0.08,
+                    rng.lognormal(8.5, 1.0, n).clip(0, 99999), 0).round()
+    loss = np.where(rng.random(n) < 0.05, rng.normal(1870, 360, n), 0
+                    ).clip(0, 4356).round()
+    hours = np.clip(rng.normal(40.4, 12.3, n), 1, 99).round()
+    married = np.isin(cols["marital-status"],
+                      ["Married-civ-spouse", "Married-AF-spouse"])
+    skilled = np.isin(cols["occupation"], ["Exec-managerial",
+                                           "Prof-specialty", "Tech-support"])
+    score = (0.04 * (age - 38.6) + 0.35 * (edu_num - 10) + 1.6 * married
+             + 0.9 * skilled + 0.4 * (cols["sex"] == "Male")
+             + 2.5 * (gain > 5000) + 0.8 * (loss > 1500)
+             + 0.03 * (hours - 40) + rng.normal(0, 1.0, n))
+    positive = score > np.quantile(score, 1 - ADULT_POSITIVE)
+    data = {"age": age, "workclass": cols["workclass"], "fnlwgt": fnlwgt,
+            "education": cols["education"], "education-num": edu_num,
+            "marital-status": cols["marital-status"],
+            "occupation": cols["occupation"],
+            "relationship": cols["relationship"], "race": cols["race"],
+            "sex": cols["sex"], "capital-gain": gain, "capital-loss": loss,
+            "hours-per-week": hours,
+            "native-country": cols["native-country"],
+            "income": np.where(positive, " >50K", " <=50K").astype(object)}
+    return Frame.from_dict({k: list(v) if v.dtype == object else v
+                            for k, v in data.items()},
+                           num_partitions=num_partitions)
+
+
+def flight_frame(n: int, rng, num_partitions: int = 4):
+    """A flight-delay-shaped Frame (example 102's columns: Carrier, Origin,
+    DepHour, Distance and the numeric ArrDelay label)."""
+    from mmlspark_tpu_torch.core.frame import Frame
+    carrier = rng.choice(["AA", "DL", "UA", "WN"], n)
+    origin = rng.choice(["SEA", "SFO", "JFK", "ORD"], n)
+    dep_hour = rng.integers(5, 23, n).astype(np.float64)
+    distance = rng.uniform(100, 2800, n)
+    bias = np.select([carrier == "AA", carrier == "DL", carrier == "UA"],
+                     [4.0, -2.0, 6.0], 0.0)
+    delay = bias + 0.9 * dep_hour + distance * 0.004 + rng.normal(0, 1.5, n)
+    return Frame.from_dict(
+        {"Carrier": carrier.tolist(), "Origin": origin.tolist(),
+         "DepHour": dep_hour, "Distance": distance, "ArrDelay": delay},
+        num_partitions=num_partitions)
+
+
+def automl_learners():
+    """The README quickstart's learner and the golden harness's
+    constructors (``tests/test_golden_metrics.py``), by name."""
+    from mmlspark_tpu_torch.train.learners import (
+        LogisticRegression, MLPClassifier, NaiveBayes,
+    )
+    from mmlspark_tpu_torch.train.trees import (
+        DecisionTreeClassifier, GBTClassifier, RandomForestClassifier,
+    )
+    return {
+        "LogisticRegression": lambda: LogisticRegression(regParam=0.01),
+        "DecisionTreeClassifier": lambda: DecisionTreeClassifier(maxDepth=5),
+        "RandomForestClassifier": lambda: RandomForestClassifier(
+            numTrees=16, maxDepth=5, seed=7),
+        "GBTClassifier": lambda: GBTClassifier(maxIter=20, maxDepth=3),
+        "NaiveBayes": lambda: NaiveBayes(),
+        "MLPClassifier": lambda: MLPClassifier(maxIter=200, layers=[16],
+                                               seed=3),
+    }
+
+
+def _max_rel(got, want) -> float:
+    """max |got - want| over max |want|: the norm-wise relative difference
+    of two parameter arrays."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def phase_automl(torch, kernels, card):
+    """The README's first quickstart at UCI Adult's size: TrainClassifier
+    with each of the six learner families fit and scored on the card and on
+    the CPU, FindBestModel over the six, ComputeModelStatistics of the
+    best, and TrainRegressor(LinearRegression()) on a flight-delay frame."""
+    from mmlspark_tpu_torch.evaluate.compute_model_statistics import (
+        ComputeModelStatistics,
+    )
+    from mmlspark_tpu_torch.evaluate.find_best_model import FindBestModel
+    from mmlspark_tpu_torch.observability import syncs
+    from mmlspark_tpu_torch.train.learners import LinearRegression
+    from mmlspark_tpu_torch.train.train_classifier import (
+        TrainClassifier, TrainRegressor,
+    )
+    from mmlspark_tpu_torch.utils import config
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    train = adult_frame(AUTOML_TRAIN_ROWS, rng)
+    test = adult_frame(AUTOML_TEST_ROWS, rng)
+    kernels.reset_launches()
+
+    def on_device(device, fn):
+        config.set("runtime.device", device)
+        try:
+            return fn()
+        finally:
+            config.unset("runtime.device")
+
+    def fit(ctor, frame=train, label="income", cls=TrainClassifier):
+        before = syncs.total()
+        t0 = time.perf_counter()
+        model = cls(model=ctor(), labelCol=label).fit(frame)
+        return model, time.perf_counter() - t0, syncs.total() - before
+
+    def metrics(model, frame=test):
+        row = ComputeModelStatistics().transform(
+            model.transform(frame)).head(1)[0]
+        return {k: float(v) for k, v in row.items()
+                if k in ("AUC", "accuracy", "r2", "rmse")}
+
+    def check_on_card(model, name):
+        on = model.get("learnerModel").fit_device
+        _check(torch.device(on).type == card.type,
+               f"{name}: the fit ran on {on}, not on {card}")
+
+    results, card_models, cpu_models = {}, [], []
+    widths = {}
+    for name, ctor in automl_learners().items():
+        model, first_s, fit_syncs = fit(ctor)
+        check_on_card(model, name)
+        again, warm_s, _ = fit(ctor)
+        check_on_card(again, name)
+        learner, learner2 = (model.get("learnerModel"),
+                             again.get("learnerModel"))
+        if "feats" in learner._state:
+            # (c) deterministic histograms: two card fits, one forest
+            for key in ("feats", "thrs"):
+                _check(np.array_equal(learner._state[key],
+                                      learner2._state[key]),
+                       f"{name}: two card fits differ in {key}")
+        score_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            model.transform(test)
+            score_s.append(time.perf_counter() - t0)
+        split = _split_times(model, ctor, train, test)
+        got = metrics(model)
+        cpu = on_device("cpu", lambda: fit(ctor)[0])
+        want = on_device("cpu", lambda: metrics(cpu))
+        # (a) the card's fit scores as the CPU's, within the golden TOL
+        for k in ("AUC", "accuracy"):
+            _check(abs(got[k] - want[k]) <= AUTOML_TOL,
+                   f"{name}: card {k} {got[k]} vs CPU {want[k]}")
+        # (b) fp32 parameters of the closed-form and convex fits
+        rel = None
+        if name in ("LogisticRegression", "NaiveBayes"):
+            keys = ("w", "b") if name == "LogisticRegression" \
+                else ("log_prior", "log_cond")
+            rel = {k: _max_rel(learner._state[k],
+                               cpu.get("learnerModel")._state[k])
+                   for k in keys}
+            _check(max(rel.values()) <= AUTOML_PARAM_RTOL,
+                   f"{name}: card parameters differ from the CPU fit's by "
+                   f"{rel} (norm-wise relative)")
+        if name in ("LogisticRegression", "DecisionTreeClassifier"):
+            widths["one_hot" if name == "LogisticRegression" else "trees"] = \
+                int(np.asarray(model.get("featurizeModel").transform(
+                    test).head(1)[0][model._state["features_col"]]).size)
+        card_models.append(model)
+        cpu_models.append(cpu)
+        results[name] = dict(
+            fit_s_first=first_s, fit_s_warm=warm_s,
+            score_rows_per_s=AUTOML_TEST_ROWS / statistics.median(score_s),
+            syncs_per_fit=fit_syncs, **split, AUC=got["AUC"],
+            accuracy=got["accuracy"], cpu_AUC=want["AUC"],
+            cpu_accuracy=want["accuracy"], param_rel_diff=rel)
+
+    # (d) model selection on the test rows, on the card and on the CPU
+    t0 = time.perf_counter()
+    best = FindBestModel(models=card_models,
+                         evaluationMetric="AUC").fit(test)
+    select_s = time.perf_counter() - t0
+    best_cpu = on_device("cpu", lambda: FindBestModel(
+        models=cpu_models, evaluationMetric="AUC").fit(test))
+    names = list(results)
+    pick = names[card_models.index(best.get("bestModel"))]
+    pick_cpu = names[cpu_models.index(best_cpu.get("bestModel"))]
+    _check(pick == pick_cpu or abs(results[pick]["cpu_AUC"]
+                                   - results[pick_cpu]["cpu_AUC"])
+           <= AUTOML_TOL,
+           f"FindBestModel picked {pick} on the card, {pick_cpu} on the CPU")
+    best_stats = {k: float(v) for k, v in ComputeModelStatistics().transform(
+        best.scored_dataset).head(1)[0].items()}
+    _check(abs(best_stats["AUC"] - results[pick]["AUC"]) <= 1e-9,
+           "the best model's statistics differ from its own scoring")
+
+    # TrainRegressor(LinearRegression()) on a flight-delay frame: the
+    # normal equations accumulated and solved on the card
+    flights = flight_frame(AUTOML_TRAIN_ROWS, np.random.default_rng(1))
+    reg, reg_first_s, reg_syncs = fit(LinearRegression, flights, "ArrDelay",
+                                      TrainRegressor)
+    check_on_card(reg, "LinearRegression")
+    reg_cpu = on_device("cpu", lambda: fit(LinearRegression, flights,
+                                           "ArrDelay", TrainRegressor)[0])
+    # (b) for LinearRegression: the weights the frame identifies (the
+    # numeric columns') and the fitted function; the one-hot blocks and the
+    # intercept are collinear, so their own weights are fixed only by the
+    # 1e-6 ridge and rounding moves them freely (cond printed below)
+    featurized = reg.get("featurizeModel").transform(flights)
+    X = np.asarray(featurized.column(reg._state["features_col"]), np.float64)
+    Xb = np.concatenate([X, np.ones((len(X), 1))], axis=1)
+    gram_cond = float(np.linalg.cond(Xb.T @ Xb + 1e-6 * np.eye(Xb.shape[1])))
+    sw, cw = (m.get("learnerModel")._state for m in (reg, reg_cpu))
+    slots = featurized.schema[reg._state["features_col"]].metadata
+    numeric = [i for i, n in enumerate(_slot_names(slots))
+               if n in ("DepHour", "Distance")]
+    pred = Xb @ np.append(sw["w"], sw["b"])
+    pred_cpu = Xb @ np.append(cw["w"], cw["b"])
+    reg_rel = {"numeric_w": _max_rel(sw["w"][numeric], cw["w"][numeric]),
+               "prediction": _max_rel(pred, pred_cpu),
+               "all_w_b": _max_rel(np.append(sw["w"], sw["b"]),
+                                   np.append(cw["w"], cw["b"]))}
+    _check(len(numeric) == 2 and reg_rel["numeric_w"] <= AUTOML_PARAM_RTOL
+           and reg_rel["prediction"] <= AUTOML_PARAM_RTOL,
+           f"LinearRegression: card vs CPU {reg_rel}")
+    reg_stats = metrics(reg, flights)
+
+    # (f) this path runs no TPU kernel's counterpart
+    launched = {k.name: k.launches for k in kernels.KERNELS}
+    _check(not any(launched.values()), f"kernels launched: {launched}")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 \
+        = tf32
+    _line(phase="automl", card=_smi(),
+          source="UCI Adult, archive.ics.uci.edu/dataset/2/adult (shape, "
+                 "synthesized from np.random.default_rng(0))",
+          train_rows=AUTOML_TRAIN_ROWS, test_rows=AUTOML_TEST_ROWS,
+          feature_width=widths, learners=results, best=pick,
+          best_cpu=pick_cpu, best_statistics=best_stats,
+          find_best_model_s=select_s, kernel_launches=launched,
+          regressor=dict(learner="LinearRegression", rows=AUTOML_TRAIN_ROWS,
+                         fit_s=reg_first_s, syncs_per_fit=reg_syncs,
+                         card_vs_cpu=reg_rel, gram_condition=gram_cond,
+                         **reg_stats))
+    return results
+
+
+def _split_times(model, ctor, train, test) -> dict:
+    """Where a TrainClassifier fit and a scoring pass spend their time:
+    featurizing the rows on the host (``featurize_s``, a transform of the
+    fitted Featurize model) against the learner's own fit on the featurized
+    frame (``learner_fit_s``, warm) and the learner model's scoring of the
+    featurized test rows (``learner_score_rows_per_s``, median of 3)."""
+    from mmlspark_tpu_torch.feature.value_indexer import ValueIndexer
+    fitted = model.get("learnerModel")
+    label = fitted.labelCol
+    indexed = ValueIndexer(inputCol="income", outputCol=label).fit(
+        train).transform(train)
+    featurizer = model.get("featurizeModel")
+    t0 = time.perf_counter()
+    processed = featurizer.transform(indexed)
+    featurize_s = time.perf_counter() - t0
+    learner = ctor()
+    learner.set_params(featuresCol=fitted.featuresCol, labelCol=label)
+    t0 = time.perf_counter()
+    learner.fit(processed)
+    learner_fit_s = time.perf_counter() - t0
+    featurized_test = featurizer.transform(test)
+    score_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fitted.transform(featurized_test)
+        score_s.append(time.perf_counter() - t0)
+    return dict(featurize_s=featurize_s, learner_fit_s=learner_fit_s,
+                learner_score_rows_per_s=len(featurized_test)
+                / statistics.median(score_s))
+
+
+def _slot_names(metadata) -> list:
+    """The source column(s) of each slot of an assembled features column,
+    from Featurize's ``feature_layout`` metadata."""
+    names = []
+    for name, start, stop, _ in metadata.get("feature_layout", []):
+        names += [name] * (int(stop) - int(start))
+    return names
+
+
 def _profile_pass(torch, run, out_dir, name) -> None:
     """One warm ``run()`` under torch.profiler: the device time by kernel
     (top 25) and the device's busy share of the run, as a JSON line; the
@@ -1270,6 +1641,7 @@ def main() -> int:
     lm, lm32 = phase_lm_score(torch, kernels, card, profile_dir)
     phase_moe_score(torch, kernels, card)
     phase_featurize_vit(torch, kernels, card)
+    phase_automl(torch, kernels, card)
 
     k1k, k2k = kernels.FUSED_NORMALIZE, kernels.CROP_RESIZE_NORMALIZE
     tc, f32 = kernels.FLASH_ATTENTION_TC, kernels.FLASH_ATTENTION

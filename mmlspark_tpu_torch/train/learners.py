@@ -1,28 +1,41 @@
-"""Learner scaffolding shared by the deep Estimators.
+"""The built-in learners and the scaffolding they share with the deep ones.
 
-The part of ``mmlspark_tpu/train/learners.py`` that ``train/deep.py``
-needs: featurize hints, the streaming-statistics base class
-(``JaxEstimator`` there, :class:`TorchEstimator` here), the pad-and-mask
-batch builder, the resident epoch cache constructor, and the scoring
-helpers of fitted models. The linear, naive-Bayes and MLP learners come
-with the tabular slice (ROADMAP slice 3).
+The port of ``mmlspark_tpu/train/learners.py``: featurize hints, the
+streaming-statistics base class (``JaxEstimator`` there,
+:class:`TorchEstimator` here), the pad-and-mask batch maker, the
+resident epoch cache constructor, the minibatch optimizer loop
+(:func:`_stream_adam`), the scoring helpers of fitted models, and the
+learners TrainClassifier / TrainRegressor take: ``LogisticRegression``,
+``MLPClassifier``, ``NaiveBayes``, ``LinearRegression`` and
+``MLPRegressor``. Tree learners live in ``train/trees.py``.
 
+Every fit and every score runs on ``runtime.device`` (``resolve_device``).
 Every fit keeps one batch shape: the tail batch is zero-padded and masked
 out of the loss by a per-row weight, the reference's pad-and-drop
-workaround (``CNTKModel.scala:71-76``).
+workaround (``CNTKModel.scala:71-76``). A fit's optimizer loop is eager
+torch: forward, ``backward()``, the optimizer step, then the proximal
+step; it reads nothing back from the device until the fitted parameters
+come home in one counted fetch. The learners fit on one device: inside a
+``torch.distributed`` group of more than one process they raise
+(multi-process fits are ROADMAP slice 6).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from mmlspark_tpu_torch.core.frame import Frame
-from mmlspark_tpu_torch.core.params import HasFeaturesCol, HasLabelCol, IntParam
-from mmlspark_tpu_torch.core.pipeline import Estimator
+from mmlspark_tpu_torch.core.params import (
+    FloatParam, HasFeaturesCol, HasLabelCol, IntParam, ListParam,
+)
+from mmlspark_tpu_torch.core.pipeline import Estimator, Model
 from mmlspark_tpu_torch.core.schema import ColumnSchema, DType
+from mmlspark_tpu_torch.core.serialization import register_stage
 from mmlspark_tpu_torch.observability import syncs as obssyncs
+from mmlspark_tpu_torch.parallel import optim
 from mmlspark_tpu_torch.utils.config import resolve_device
 
 
@@ -47,6 +60,27 @@ class TorchEstimator(HasFeaturesCol, HasLabelCol, Estimator):
 
     hints = FeaturizeHints()
     is_classifier = True
+
+    def _peek_dim(self, frame: Frame) -> int:
+        """Feature-vector width from the first row only (no data scan)."""
+        for hb in frame.batches(1, cols=[self.featuresCol]):
+            x = np.asarray(hb[self.featuresCol])
+            if x.ndim != 2:
+                raise ValueError(f"features column {self.featuresCol!r} must "
+                                 "be a vector column")
+            return x.shape[1]
+        raise ValueError(f"{type(self).__name__}: empty frame")
+
+    def _label_max(self, frame: Frame) -> int:
+        """Max label value, streaming the label column only."""
+        ymax = -1
+        for hb in frame.batches(1 << 18, cols=[self.labelCol]):
+            y = np.asarray(hb[self.labelCol])
+            if len(y):
+                ymax = max(ymax, int(y.max()))
+        if ymax < 0:
+            raise ValueError(f"{type(self).__name__}: empty frame")
+        return ymax
 
     def _streaming_moments(self, frame: Frame):
         """One streaming pass over (features, label): the raw accumulators
@@ -86,6 +120,14 @@ class TorchEstimator(HasFeaturesCol, HasLabelCol, Estimator):
         ymu = ysum / n
         ysigma = float(np.sqrt(max(ysumsq / n - ymu * ymu, 0.0))) + 1e-6
         return n, d, mu, sigma, max(int(ymax), 0), float(ymu), ysigma
+
+    def _streaming_stats(self, frame: Frame):
+        """One streaming pass over (features, label):
+        (n, d, mu, sigma, ymax, ymu, ysigma)."""
+        moments = self._streaming_moments(frame)
+        if moments[0] == 0:
+            raise ValueError(f"{type(self).__name__}: empty frame")
+        return self._finalize_stats(*moments)
 
     def _num_classes(self, frame: Frame, y) -> int:
         """Class count from the label column's level metadata when present
@@ -146,6 +188,427 @@ def _epoch_device_cache(frame: Frame, fcol: str, lcol: str, batch_size: int,
                               y_dtype)))
     return DeviceEpochCache(epoch, batch_size, shuffle=shuffle, seed=seed,
                             device=device)
+
+
+def _single_process(what: str) -> None:
+    """The learners fit on one device: inside a ``torch.distributed`` group
+    of more than one process they raise rather than fit each process's
+    shard on its own."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        raise NotImplementedError(
+            f"{what}: multi-process fits are not ported yet (ROADMAP slice "
+            "6); the port's learners fit on one device")
+
+
+def _leaves(tree) -> list:
+    """The tensors of a dict / list tree, in a fixed order."""
+    if isinstance(tree, dict):
+        return [t for k in tree for t in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _on_device(a, device: torch.device) -> torch.Tensor:
+    """A host float array as a float32 tensor on ``device``."""
+    return torch.from_numpy(np.require(a, np.float32, ["C", "W"])).to(device)
+
+
+def _stream_adam(loss_fn: Callable, params: Any, frame: Frame,
+                 fcol: str, lcol: str, *, lr: float, max_steps: int,
+                 batch_size: int, y_dtype=np.int64, seed: int = 0,
+                 prox: Optional[Callable] = None,
+                 opt: Optional[optim.Optimizer] = None,
+                 device: Optional[torch.device] = None) -> Tuple[Any, str]:
+    """Minibatch Adam streamed from the frame: one batch shape, epochs
+    cycled until ``max_steps`` optimizer steps have run.
+
+    ``params`` is a dict / list tree of host arrays; ``loss_fn(params, x,
+    y, w)`` a per-row-weighted loss over the tree of device tensors;
+    ``prox(params)``, when given, updates the tree in place after each
+    optimizer step (the L1 soft-threshold of elastic-net LR).
+
+    Epoch residency: when the pad-and-masked epoch fits the
+    ``runtime.device_cache_mb`` budget (the common case for tabular
+    learners), it is uploaded ONCE (``DeviceEpochCache``) and each epoch is
+    a device-side permutation of it; a larger frame streams shuffled host
+    batches instead. Returns the fitted tree as host arrays, fetched in one
+    counted sync, and the device the batches lay on."""
+    _single_process("_stream_adam")
+    device = resolve_device() if device is None else device
+    params = _tree_map(lambda a: _on_device(a, device).requires_grad_(),
+                       params)
+    state = (optim.adam(lr) if opt is None else opt).init(_leaves(params))
+    batch_device = None
+
+    def step(x, y, w):
+        nonlocal batch_device
+        batch_device = str(x.device)
+        state.zero_grad()
+        loss_fn(params, x, y, w).backward()
+        state.step()
+        if prox is not None:
+            with torch.no_grad():
+                prox(params)
+
+    cache = _epoch_device_cache(frame, fcol, lcol, batch_size, y_dtype,
+                                device=device, seed=seed)
+    steps = 0
+    if cache is not None:
+        epoch_i = 0
+        while steps < max_steps:
+            for b in cache.batches(epoch_i):
+                step(b["x"], b["y"], b["w"])
+                steps += 1
+                if steps >= max_steps:
+                    break
+            epoch_i += 1
+    else:
+        from mmlspark_tpu_torch.parallel.trainer import to_device
+        host_rng = np.random.default_rng(seed)
+        while steps < max_steps:
+            for hb in frame.shuffled_batches(batch_size, cols=[fcol, lcol],
+                                             rng=host_rng):
+                step(*(to_device(a, device) for a in
+                       _pad_xyw(hb, fcol, lcol, batch_size, y_dtype)))
+                steps += 1
+                if steps >= max_steps:
+                    break
+    return obssyncs.device_get(params, "learner.params"), batch_device
+
+
+def _weighted_mean(per_row: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return (per_row * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def _mlp_forward(layers, h: torch.Tensor) -> torch.Tensor:
+    for layer in layers[:-1]:
+        h = torch.relu(h @ layer["w"] + layer["b"])
+    return h @ layers[-1]["w"] + layers[-1]["b"]
+
+
+def _mlp_init(sizes, seed: int):
+    """He-normal weights and zero biases from a seeded ``torch.Generator``
+    (the JAX package draws from ``jax.random``: same law, other numbers)."""
+    gen = torch.Generator().manual_seed(int(seed))
+    return [{"w": (torch.randn(sizes[i], sizes[i + 1], generator=gen)
+                   * float(np.sqrt(2.0 / sizes[i]))).numpy(),
+             "b": np.zeros((sizes[i + 1],), np.float32)}
+            for i in range(len(sizes) - 1)]
+
+
+# --------------------------------------------------------------------------
+@register_stage
+class LogisticRegression(HasBatchSize, TorchEstimator):
+    """Multinomial logistic regression trained by streamed minibatch Adam.
+
+    Epochs are shuffled, every step has one batch shape, and the Spark
+    elastic-net objective applies to the weights
+    (``regParam * (elasticNetParam*||w||_1 + (1-elasticNetParam)/2*||w||_2^2)``,
+    intercept unregularized, features standardized — the objective Spark
+    ML's LogisticRegression minimizes). The L1 part runs as a proximal
+    soft-threshold after each step. ``maxIter`` counts minibatch optimizer
+    steps, not full-dataset passes."""
+
+    maxIter = IntParam("maxIter", "number of minibatch optimizer steps", 200)
+    regParam = FloatParam("regParam", "regularization strength", 1e-4)
+    elasticNetParam = FloatParam(
+        "elasticNetParam", "L1 ratio in [0,1]: 0 = pure L2, 1 = pure L1",
+        0.0, validator=lambda v: 0.0 <= v <= 1.0)
+    learningRate = FloatParam("learningRate", "Adam learning rate", 0.1)
+
+    def fit(self, frame: Frame) -> "LinearClassifierModel":
+        n, d, mu, sigma, ymax, _, _ = self._streaming_stats(frame)
+        n_classes = self._num_classes(frame, ymax)
+        device = resolve_device()
+        params = {"w": np.zeros((d, n_classes), np.float32),
+                  "b": np.zeros((n_classes,), np.float32)}
+        alpha = float(self.elasticNetParam)
+        l1 = float(self.regParam) * alpha
+        l2 = float(self.regParam) * (1.0 - alpha) / 2.0
+        mu_d, sigma_d = _on_device(mu, device), _on_device(sigma, device)
+
+        def loss(p, X, y, w):
+            logits = ((X - mu_d) / sigma_d) @ p["w"] + p["b"]
+            ce = F.cross_entropy(logits, y, reduction="none")
+            return _weighted_mean(ce, w) + l2 * (p["w"] ** 2).sum()
+
+        prox = opt = None
+        if l1 > 0:
+            # proximal SGD, not Adam: the soft-threshold lr*l1 only matches
+            # the smooth step when the step is lr*gradient — under Adam's
+            # per-coordinate normalization L1 cannot zero weak features
+            sgd_lr = float(self.learningRate)
+            opt = optim.sgd(sgd_lr)
+            shrink = sgd_lr * l1
+
+            def prox(p):
+                w = p["w"]
+                w.copy_(torch.sign(w) * torch.clamp(w.abs() - shrink, min=0.0))
+
+        params, on = _stream_adam(loss, params, frame, self.featuresCol,
+                                  self.labelCol, lr=self.learningRate,
+                                  max_steps=self.maxIter,
+                                  batch_size=self.batchSize, prox=prox,
+                                  opt=opt, device=device)
+        model = LinearClassifierModel(featuresCol=self.featuresCol,
+                                      labelCol=self.labelCol)
+        model._state = {"w": params["w"], "b": params["b"],
+                        "mu": mu, "sigma": sigma, "n_classes": n_classes}
+        model.fit_device = on
+        return model
+
+
+@register_stage
+class LinearClassifierModel(HasFeaturesCol, HasLabelCol, Model):
+    def scores_fn(self):
+        device = resolve_device()
+        w, b, mu, sigma = (_on_device(self._state[k], device)
+                           for k in ("w", "b", "mu", "sigma"))
+
+        @torch.inference_mode()
+        def f(X):
+            logits = ((X - mu) / sigma) @ w + b
+            return logits, torch.softmax(logits, dim=-1)
+        return f
+
+    def transform(self, frame: Frame) -> Frame:
+        return _score_classifier(self, frame)
+
+
+# --------------------------------------------------------------------------
+@register_stage
+class MLPClassifier(HasBatchSize, TorchEstimator):
+    """Multi-layer perceptron classifier (ReLU hidden layers, softmax head)."""
+
+    hints = FeaturizeHints(one_hot=True, num_features=1 << 12)
+
+    layers = ListParam("layers", "hidden layer sizes", [128])
+    maxIter = IntParam("maxIter", "number of optimizer steps", 300)
+    learningRate = FloatParam("learningRate", "Adam learning rate", 1e-2)
+    seed = IntParam("seed", "PRNG seed", 0)
+
+    def _init_params(self, sizes, seed: int):
+        """Initial ``[{"w", "b"}, ...]`` host arrays of a ``sizes`` MLP."""
+        return _mlp_init(sizes, seed)
+
+    def fit(self, frame: Frame) -> "MLPClassifierModel":
+        n, d, mu, sigma, ymax, _, _ = self._streaming_stats(frame)
+        n_classes = self._num_classes(frame, ymax)
+        sizes = [d] + [int(h) for h in self.layers] + [n_classes]
+        device = resolve_device()
+        mu_d, sigma_d = _on_device(mu, device), _on_device(sigma, device)
+
+        def loss(p, X, y, w):
+            logits = _mlp_forward(p, (X - mu_d) / sigma_d)
+            return _weighted_mean(
+                F.cross_entropy(logits, y, reduction="none"), w)
+
+        params, on = _stream_adam(loss, self._init_params(sizes, self.seed),
+                                  frame, self.featuresCol, self.labelCol,
+                                  lr=self.learningRate,
+                                  max_steps=self.maxIter,
+                                  batch_size=self.batchSize, device=device)
+        model = MLPClassifierModel(featuresCol=self.featuresCol,
+                                   labelCol=self.labelCol)
+        model._state = {"layers": params, "mu": mu, "sigma": sigma,
+                        "n_classes": n_classes}
+        model.fit_device = on
+        return model
+
+
+@register_stage
+class MLPClassifierModel(HasFeaturesCol, HasLabelCol, Model):
+    def scores_fn(self):
+        device = resolve_device()
+        layers = _tree_map(lambda a: _on_device(a, device),
+                           self._state["layers"])
+        mu = _on_device(self._state["mu"], device)
+        sigma = _on_device(self._state["sigma"], device)
+
+        @torch.inference_mode()
+        def f(X):
+            logits = _mlp_forward(layers, (X - mu) / sigma)
+            return logits, torch.softmax(logits, dim=-1)
+        return f
+
+    def transform(self, frame: Frame) -> Frame:
+        return _score_classifier(self, frame)
+
+
+# --------------------------------------------------------------------------
+@register_stage
+class NaiveBayes(HasBatchSize, TorchEstimator):
+    """Multinomial naive Bayes via one batched count matmul (non-negative
+    features, e.g. hashed term counts / one-hots)."""
+
+    hints = FeaturizeHints(one_hot=True, num_features=1 << 18)
+    smoothing = FloatParam("smoothing", "Laplace smoothing", 1.0)
+
+    def fit(self, frame: Frame) -> "NaiveBayesModel":
+        # d from the first row; class count from the observed label max AND
+        # the label metadata (metadata alone can under-count when it was
+        # fit elsewhere)
+        _single_process("NaiveBayes")
+        from mmlspark_tpu_torch.parallel.trainer import to_device
+        d = self._peek_dim(frame)
+        ymax = self._label_max(frame)
+        n_classes = self._num_classes(frame, ymax)
+        bs = self.batchSize
+        device = resolve_device()
+        counts = torch.zeros((n_classes, d), dtype=torch.float32,
+                             device=device)
+        prior = torch.zeros((n_classes,), dtype=torch.float32, device=device)
+        for hb in frame.batches(bs, cols=[self.featuresCol, self.labelCol]):
+            x, y, w = (to_device(a, device) for a in _pad_xyw(
+                hb, self.featuresCol, self.labelCol, bs, np.int64))
+            onehot = F.one_hot(y, n_classes).float() * w[:, None]   # (b, C)
+            counts += onehot.T @ torch.clamp(x, min=0.0)
+            prior += onehot.sum(dim=0)
+        log_prior = torch.log((prior + 1.0) / (prior.sum() + n_classes))
+        smoothed = counts + self.smoothing
+        log_cond = torch.log(smoothed / smoothed.sum(dim=1, keepdim=True))
+        host = obssyncs.device_get({"log_prior": log_prior,
+                                    "log_cond": log_cond}, "learner.params")
+        model = NaiveBayesModel(featuresCol=self.featuresCol,
+                                labelCol=self.labelCol)
+        model._state = {**host, "n_classes": n_classes}
+        model.fit_device = str(counts.device)
+        return model
+
+
+@register_stage
+class NaiveBayesModel(HasFeaturesCol, HasLabelCol, Model):
+    def scores_fn(self):
+        device = resolve_device()
+        log_prior = _on_device(self._state["log_prior"], device)
+        log_cond = _on_device(self._state["log_cond"], device)
+
+        @torch.inference_mode()
+        def f(X):
+            logits = torch.clamp(X, min=0.0) @ log_cond.T + log_prior
+            return logits, torch.softmax(logits, dim=-1)
+        return f
+
+    def transform(self, frame: Frame) -> Frame:
+        return _score_classifier(self, frame)
+
+
+# --------------------------------------------------------------------------
+@register_stage
+class LinearRegression(HasBatchSize, TorchEstimator):
+    """Ridge regression by closed-form normal equations (exact, one solve)."""
+
+    is_classifier = False
+    regParam = FloatParam("regParam", "L2 regularization strength", 1e-6)
+
+    def fit(self, frame: Frame) -> "LinearRegressionModel":
+        _single_process("LinearRegression")
+        from mmlspark_tpu_torch.parallel.trainer import to_device
+        d = self._peek_dim(frame)
+        bs = self.batchSize
+        device = resolve_device()
+        # Streaming normal equations: accumulate the (d+1)x(d+1) Gram
+        # matrix and moment vector per batch on the device
+        A = torch.zeros((d + 1, d + 1), dtype=torch.float32, device=device)
+        by = torch.zeros((d + 1,), dtype=torch.float32, device=device)
+        for hb in frame.batches(bs, cols=[self.featuresCol, self.labelCol]):
+            x, y, w = (to_device(a, device) for a in _pad_xyw(
+                hb, self.featuresCol, self.labelCol, bs, np.float32))
+            Xb = torch.cat([x, torch.ones((x.shape[0], 1), dtype=x.dtype,
+                                          device=device)], dim=1)
+            A += (Xb * w[:, None]).T @ Xb
+            by += Xb.T @ (y * w)
+        eye = torch.eye(d + 1, dtype=A.dtype, device=device)
+        wb = obssyncs.device_get(
+            torch.linalg.solve(A + self.regParam * eye, by), "learner.params")
+        model = LinearRegressionModel(featuresCol=self.featuresCol,
+                                      labelCol=self.labelCol)
+        model._state = {"w": wb[:-1], "b": float(wb[-1])}
+        model.fit_device = str(A.device)
+        return model
+
+
+@register_stage
+class LinearRegressionModel(HasFeaturesCol, HasLabelCol, Model):
+    def predict_fn(self):
+        w = _on_device(self._state["w"], resolve_device())
+        b = float(self._state["b"])
+
+        @torch.inference_mode()
+        def f(X):
+            return X @ w + b
+        return f
+
+    def transform(self, frame: Frame) -> Frame:
+        return _score_regressor(self, frame)
+
+
+@register_stage
+class MLPRegressor(HasBatchSize, TorchEstimator):
+    is_classifier = False
+    hints = FeaturizeHints(one_hot=True, num_features=1 << 12)
+
+    layers = ListParam("layers", "hidden layer sizes", [128])
+    maxIter = IntParam("maxIter", "number of optimizer steps", 300)
+    learningRate = FloatParam("learningRate", "Adam learning rate", 1e-2)
+    seed = IntParam("seed", "PRNG seed", 0)
+
+    def _init_params(self, sizes, seed: int):
+        """Initial ``[{"w", "b"}, ...]`` host arrays of a ``sizes`` MLP."""
+        return _mlp_init(sizes, seed)
+
+    def fit(self, frame: Frame) -> "MLPRegressorModel":
+        n, d, mu, sigma, _, ymu, ysigma = self._streaming_stats(frame)
+        sizes = [d] + [int(h) for h in self.layers] + [1]
+        device = resolve_device()
+        mu_d, sigma_d = _on_device(mu, device), _on_device(sigma, device)
+
+        def loss(p, X, y, w):
+            pred = _mlp_forward(p, (X - mu_d) / sigma_d)[:, 0]
+            return _weighted_mean((pred - (y - ymu) / ysigma) ** 2, w)
+
+        params, on = _stream_adam(loss, self._init_params(sizes, self.seed),
+                                  frame, self.featuresCol, self.labelCol,
+                                  lr=self.learningRate,
+                                  max_steps=self.maxIter,
+                                  batch_size=self.batchSize,
+                                  y_dtype=np.float32, device=device)
+        model = MLPRegressorModel(featuresCol=self.featuresCol,
+                                  labelCol=self.labelCol)
+        model._state = {"layers": params, "mu": mu, "sigma": sigma,
+                        "ymu": ymu, "ysigma": ysigma}
+        model.fit_device = on
+        return model
+
+
+@register_stage
+class MLPRegressorModel(HasFeaturesCol, HasLabelCol, Model):
+    def predict_fn(self):
+        device = resolve_device()
+        layers = _tree_map(lambda a: _on_device(a, device),
+                           self._state["layers"])
+        mu = _on_device(self._state["mu"], device)
+        sigma = _on_device(self._state["sigma"], device)
+        ymu, ysigma = float(self._state["ymu"]), float(self._state["ysigma"])
+
+        @torch.inference_mode()
+        def f(X):
+            return _mlp_forward(layers, (X - mu) / sigma)[:, 0] * ysigma + ymu
+        return f
+
+    def transform(self, frame: Frame) -> Frame:
+        return _score_regressor(self, frame)
 
 
 # --------------------------------------------------------------------------

@@ -1,0 +1,421 @@
+"""The port's feature layer, tabular stages, CSV reader and per-instance
+statistics against the JAX package's on the CPU.
+
+These modules are host numpy in both packages, so every comparison is
+exact: the same seeded inputs through both give equal schemas (names,
+dtypes, widths, metadata) and equal values (NaN equal to NaN).
+"""
+import json
+import os
+import types
+
+import numpy as np
+import pytest
+
+from mmlspark_tpu.core.frame import Frame as JFrame
+from mmlspark_tpu.evaluate import compute_per_instance_statistics as jcpis
+from mmlspark_tpu.feature import featurize as jfz
+from mmlspark_tpu.feature import multi_column_adapter as jmca
+from mmlspark_tpu.feature import text as jtext
+from mmlspark_tpu.feature import value_indexer as jvi
+from mmlspark_tpu.io.readers import read_csv as jread_csv
+from mmlspark_tpu.ops import hashing as jhash
+from mmlspark_tpu import stages as jstages
+from mmlspark_tpu_torch.core.frame import Frame
+from mmlspark_tpu_torch.core.schema import ColumnSchema, DType, ScoreKind
+from mmlspark_tpu_torch.evaluate import compute_per_instance_statistics as tcpis
+from mmlspark_tpu_torch.feature import featurize as tfz
+from mmlspark_tpu_torch.feature import multi_column_adapter as tmca
+from mmlspark_tpu_torch.feature import text as ttext
+from mmlspark_tpu_torch.feature import value_indexer as tvi
+from mmlspark_tpu_torch.io.readers import read_csv
+from mmlspark_tpu_torch.ops import hashing as thash
+from mmlspark_tpu_torch import stages as tstages
+from mmlspark_tpu_torch.utils import config as tconfig
+
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+JAX = types.SimpleNamespace(Frame=JFrame, stages=jstages, text=jtext, vi=jvi,
+                            fz=jfz, mca=jmca, cpis=jcpis)
+PORT = types.SimpleNamespace(Frame=Frame, stages=tstages, text=ttext, vi=tvi,
+                             fz=tfz, mca=tmca, cpis=tcpis)
+
+
+@pytest.fixture(autouse=True)
+def on_cpu():
+    tconfig.set("runtime.device", "cpu")
+    yield
+    tconfig.unset("runtime.device")
+
+
+def _plain(obj):
+    """JSON-comparable form of schema metadata (arrays as lists)."""
+    return json.loads(json.dumps(
+        obj, default=lambda o: o.tolist() if hasattr(o, "tolist") else str(o)))
+
+
+def _same_values(got, want, name):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, name
+    if want.dtype == object:
+        assert [_plain(v) for v in got.tolist()] == \
+            [_plain(v) for v in want.tolist()], name
+    else:
+        assert got.dtype == want.dtype, name
+        np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+def _same_frame(got, want):
+    """Equal schema (with metadata), partition count and values."""
+    assert [_plain(c.to_json()) for c in got.schema] == \
+        [_plain(c.to_json()) for c in want.schema]
+    assert got.num_partitions == want.num_partitions
+    g, w = got.collect(), want.collect()
+    for name in want.schema.names:
+        _same_values(g[name], w[name], name)
+
+
+# -- murmur3 and hash_term ---------------------------------------------------
+def _random_strings(n=400, seed=0):
+    rng = np.random.default_rng(seed)
+    alphabet = list("abcxyzABC019 -_") + ["é", "ß", "中", "😀"]
+    return ["".join(rng.choice(alphabet, size=int(k)))
+            for k in rng.integers(0, 13, n)]
+
+
+def test_murmur3_matches_the_jax_package_bit_for_bit():
+    words = _random_strings()
+    for seed in (42, 0, 7):
+        for w in words:
+            data = w.encode("utf-8")
+            assert thash.murmur3_x86_32(data, seed) == \
+                jhash.murmur3_x86_32(data, seed), (w, seed)
+    np.testing.assert_array_equal(thash.murmur3_batch(words),
+                                  jhash.murmur3_batch(words))
+
+
+@pytest.mark.parametrize("size", [1, 7, 1000, 1 << 12, 1 << 18])
+def test_hash_term_matches_the_jax_package(size):
+    for w in _random_strings(seed=size):
+        assert thash.hash_term(w, size) == jhash.hash_term(w, size), w
+
+
+def test_hash_term_hits_the_pinned_spark_slots():
+    # exact slot indices pinned by the reference in 2^18-dim space
+    expected = {"Hi": 242088, "I": 113890, "can": 36073, "not": 139098,
+                "foo": 51654, "Logistic": 142455, "regression": 13671,
+                "Log": 74466, "f": 24152, "reg": 122984}
+    for term, slot in expected.items():
+        assert thash.hash_term(term, 262144) == slot, term
+    assert thash.hash_term("", 262144) == 249180
+
+
+def test_hash_token_rows_and_term_frequencies_match():
+    rng = np.random.default_rng(3)
+    vocab = _random_strings(50, seed=4)
+    rows = [list(rng.choice(vocab, size=int(k))) for k in
+            rng.integers(0, 9, 40)]
+    for got, want in zip(thash.hash_token_rows(rows, 1 << 12),
+                         jhash.hash_token_rows(rows, 1 << 12)):
+        np.testing.assert_array_equal(got, want)
+    for got, want in zip(thash.term_frequencies(rows, 100000),
+                         jhash.term_frequencies(rows, 100000)):
+        np.testing.assert_array_equal(got, want)
+
+
+# -- HashingTF semantics ------------------------------------------------------
+def test_hashing_tf_counts_and_compaction():
+    f = Frame.from_dict({"tok": [["a", "b", "a"], ["b", "c"]]})
+    model = ttext.HashingTF(inputCol="tok", outputCol="tf",
+                            numFeatures=1 << 18).fit(f)
+    mat = np.asarray(model.transform(f).column("tf"))
+    # 3 distinct terms -> 3 active slots, ordered by ascending hash slot
+    assert mat.shape == (2, 3)
+    slots = {t: thash.hash_term(t, 1 << 18) for t in "abc"}
+    order = [t for t, _ in sorted(slots.items(), key=lambda kv: kv[1])]
+    row0 = {t: mat[0][order.index(t)] for t in order}
+    assert row0 == {"a": 2.0, "b": 1.0, "c": 0.0}
+
+
+@pytest.mark.parametrize("kw", [{}, {"binary": True}, {"compact": False,
+                                                        "numFeatures": 64}])
+def test_hashing_tf_matches_the_jax_package(kw):
+    data = {"tok": [["a", "b", "a"], ["b", "c"], [], ["zz", "a"]]}
+    unseen = {"tok": [["a", "a", "zzz-unseen"], ["c"]]}
+    outs = []
+    for pkg in (PORT, JAX):
+        model = pkg.text.HashingTF(inputCol="tok", outputCol="tf",
+                                   **kw).fit(pkg.Frame.from_dict(data))
+        outs.append(model.transform(pkg.Frame.from_dict(unseen)))
+    _same_frame(*outs)
+
+
+# -- featurize_golden.json ----------------------------------------------------
+def _golden_frames():
+    def categorical():
+        f = Frame.from_dict({"x": [1.0, 2.0, 3.0, 4.0],
+                             "c": ["red", "blue", "red", "green"]})
+        return tvi.ValueIndexer(inputCol="c", outputCol="ci").fit(
+            f).transform(f).drop("c")
+
+    def vectors():
+        f = Frame.from_dict({"n": [1.0, 2.0]})
+        return f.with_column_values(
+            ColumnSchema("vec", DType.VECTOR, 3),
+            np.asarray([[0.0, 1.0, 2.0], [3.0, 4.0, 5.0]], np.float32))
+
+    return {
+        "basic_types": (lambda: Frame.from_dict({
+            "i": [1, 2, 3, 4], "f": [0.5, -1.25, 3.0, 2.5],
+            "g": [10.0, 20.0, 30.0, 40.0]}),
+            {"columnsToFeaturize": ["i", "f", "g"]}),
+        "one_hot": (categorical, {"columnsToFeaturize": ["x", "ci"]}),
+        "no_one_hot": (categorical, {"columnsToFeaturize": ["x", "ci"],
+                                     "oneHotEncodeCategoricals": False}),
+        "string_hash": (lambda: Frame.from_dict({
+            "n": [1.0, 2.0, 3.0], "text": ["foo bar", "foo", "baz foo"]}),
+            {"columnsToFeaturize": ["n", "text"],
+             "numberOfFeatures": 1 << 18}),
+        "string_missing": (lambda: Frame.from_dict({
+            "n": [1.0, 2.0, 3.0], "text": ["foo bar", None, "baz"]}),
+            {"columnsToFeaturize": ["n", "text"]}),
+        "vectors": (vectors, {"columnsToFeaturize": ["n", "vec"]}),
+    }
+
+
+def test_assemble_features_reproduces_featurize_golden_exactly():
+    with open(os.path.join(DATA, "featurize_golden.json")) as fh:
+        golden = json.load(fh)
+    variants = _golden_frames()
+    assert set(golden) == set(variants)
+    for name, (build, kwargs) in sorted(variants.items()):
+        frame = build()
+        model = tfz.AssembleFeatures(featuresCol="features",
+                                     **kwargs).fit(frame)
+        got = np.asarray(model.transform(frame).column("features"),
+                         np.float64)
+        want = np.asarray(golden[name], np.float64)
+        assert got.shape == want.shape, name
+        np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+# -- stages, text stages and the feature layer on shared frames ---------------
+def _basic():
+    rng = np.random.default_rng(11)
+    n = 24
+    vals = rng.normal(size=n)
+    vals[[3, 17]] = np.nan
+    return {
+        "numbers": rng.integers(-5, 50, n),
+        "values": vals,
+        "ratio": rng.uniform(0, 10, n),
+        "words": [None if i % 7 == 3 else f"w{int(k)} x{int(k) % 3}"
+                  for i, k in enumerate(rng.integers(0, 9, n))],
+        "c": [["red", "blue", "green", "blue"][i % 4] for i in range(n)],
+        "flag": [bool(i % 3) for i in range(n)],
+        "t": [f"2017-03-{1 + i % 28:02d} 1{i % 10}:30:00" for i in range(n)],
+    }
+
+
+def _text():
+    return {"text": ["The quick brown Fox", "jumps over the lazy dog",
+                     "the the the", None, "A Fox, a dog; and the END"],
+            "label": [0, 1, 0, 1, 1]}
+
+
+def _fit_or_transform(stage, frame):
+    if hasattr(stage, "fit"):
+        return stage.fit(frame).transform(frame)
+    return stage.transform(frame)
+
+
+def _chain(*makers):
+    """Apply the stages ``makers(pkg)`` in order."""
+    def run(pkg, frame):
+        for make in makers:
+            frame = _fit_or_transform(make(pkg), frame)
+        return frame
+    return run
+
+
+def _one(make):
+    return _chain(make)
+
+
+STAGE_CASES = {
+    "Repartition_grow": (_basic, _one(lambda m: m.stages.Repartition(n=4))),
+    "Repartition_shrink": (_basic, _one(lambda m: m.stages.Repartition(n=1))),
+    "Repartition_disable": (_basic, _one(
+        lambda m: m.stages.Repartition(n=3, disable=True))),
+    "SelectColumns": (_basic, _one(
+        lambda m: m.stages.SelectColumns(cols=["words", "values"]))),
+    "DropColumns": (_basic, _one(
+        lambda m: m.stages.DropColumns(cols=["flag", "t"]))),
+    "RenameColumn": (_basic, _one(
+        lambda m: m.stages.RenameColumn(inputCol="numbers",
+                                        outputCol="nums"))),
+    "DataConversion_integer": (_basic, _one(
+        lambda m: m.stages.DataConversion(cols=["ratio", "numbers"],
+                                          convertTo="integer"))),
+    "DataConversion_double": (_basic, _one(
+        lambda m: m.stages.DataConversion(cols=["numbers"],
+                                          convertTo="double"))),
+    "DataConversion_string": (_basic, _one(
+        lambda m: m.stages.DataConversion(cols=["numbers", "flag"],
+                                          convertTo="string"))),
+    "DataConversion_categorical_roundtrip": (_basic, _chain(
+        lambda m: m.stages.DataConversion(cols=["c"],
+                                          convertTo="toCategorical"),
+        lambda m: m.stages.DataConversion(cols=["c"],
+                                          convertTo="clearCategorical"))),
+    "DataConversion_toCategorical": (_basic, _one(
+        lambda m: m.stages.DataConversion(cols=["c", "numbers"],
+                                          convertTo="toCategorical"))),
+    "DataConversion_date_string": (_basic, _chain(
+        lambda m: m.stages.DataConversion(cols=["t"], convertTo="date"),
+        lambda m: m.stages.DataConversion(cols=["t"], convertTo="string"))),
+    "DataConversion_date_long": (_basic, _chain(
+        lambda m: m.stages.DataConversion(cols=["t"], convertTo="date"),
+        lambda m: m.stages.DataConversion(cols=["t"], convertTo="long"))),
+    "SummarizeData": (_basic, _one(lambda m: m.stages.SummarizeData())),
+    "SummarizeData_toggles": (_basic, _one(
+        lambda m: m.stages.SummarizeData(basic=False, sample=False,
+                                         percentiles=False))),
+    "PartitionSample_head": (_basic, _one(
+        lambda m: m.stages.PartitionSample(mode="Head", count=7))),
+    "PartitionSample_random": (_basic, _one(
+        lambda m: m.stages.PartitionSample(mode="RandomSample", percent=0.4,
+                                           seed=3))),
+    "PartitionSample_absolute": (_basic, _one(
+        lambda m: m.stages.PartitionSample(mode="RandomSample",
+                                           rsMode="Absolute", count=9,
+                                           seed=7))),
+    "PartitionSample_assign": (_basic, _one(
+        lambda m: m.stages.PartitionSample(mode="AssignToPartition",
+                                           numParts=5, seed=1))),
+    "CheckpointData": (_basic, _one(lambda m: m.stages.CheckpointData())),
+    "CheckpointData_remove": (_basic, _one(
+        lambda m: m.stages.CheckpointData(removeCheckpoint=True))),
+    "ValueIndexer": (_basic, _one(
+        lambda m: m.vi.ValueIndexer(inputCol="words", outputCol="wi"))),
+    "ValueIndexer_numeric": (_basic, _one(
+        lambda m: m.vi.ValueIndexer(inputCol="numbers", outputCol="ni"))),
+    "IndexToValue": (_basic, _chain(
+        lambda m: m.vi.ValueIndexer(inputCol="c", outputCol="ci"),
+        lambda m: m.vi.IndexToValue(inputCol="ci", outputCol="c2"))),
+    "HashIndexer": (_basic, _one(
+        lambda m: m.vi.HashIndexer(inputCol="words", outputCol="id",
+                                   numBuckets=100))),
+    "MultiColumnAdapter": (_basic, _one(
+        lambda m: m.mca.MultiColumnAdapter(
+            baseStage=m.vi.ValueIndexer(), inputCols=["c", "words"],
+            outputCols=["ci", "wi"]))),
+    "Featurize": (_basic, _one(
+        lambda m: m.fz.Featurize(
+            featureColumns={"f1": ["numbers", "values", "flag"],
+                            "f2": ["words", "c"]},
+            numberOfFeatures=1 << 10))),
+    "Featurize_categorical": (_basic, _chain(
+        lambda m: m.vi.ValueIndexer(inputCol="c", outputCol="ci"),
+        lambda m: m.fz.Featurize(
+            featureColumns={"features": ["ci", "numbers", "words"]},
+            oneHotEncodeCategoricals=True))),
+    "RegexTokenizer": (_text, _one(
+        lambda m: m.text.RegexTokenizer(inputCol="text", outputCol="tok"))),
+    "RegexTokenizer_tokens": (_text, _one(
+        lambda m: m.text.RegexTokenizer(inputCol="text", outputCol="tok",
+                                        gaps=False, pattern=r"\w+",
+                                        minTokenLength=2,
+                                        toLowercase=False))),
+    "StopWordsRemover": (_text, _chain(
+        lambda m: m.text.RegexTokenizer(inputCol="text", outputCol="tok"),
+        lambda m: m.text.StopWordsRemover(inputCol="tok",
+                                          outputCol="clean"))),
+    "NGram": (_text, _chain(
+        lambda m: m.text.RegexTokenizer(inputCol="text", outputCol="tok"),
+        lambda m: m.text.NGram(inputCol="tok", outputCol="ng", n=3))),
+    "HashingTF_IDF": (_text, _chain(
+        lambda m: m.text.RegexTokenizer(inputCol="text", outputCol="tok"),
+        lambda m: m.text.HashingTF(inputCol="tok", outputCol="tf"),
+        lambda m: m.text.IDF(inputCol="tf", outputCol="tfidf",
+                             minDocFreq=2))),
+    "TextFeaturizer": (_text, _one(
+        lambda m: m.text.TextFeaturizer(inputCol="text", outputCol="feats"))),
+    "TextFeaturizer_ngrams": (_text, _one(
+        lambda m: m.text.TextFeaturizer(
+            inputCol="text", outputCol="feats", useStopWordsRemover=True,
+            useNGram=True, nGramLength=2, useIDF=False, binary=True))),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STAGE_CASES))
+def test_stage_matches_the_jax_package(case):
+    build, run = STAGE_CASES[case]
+    data = build()
+    want = run(JAX, JFrame.from_dict(data, num_partitions=2))
+    got = run(PORT, Frame.from_dict(data, num_partitions=2))
+    _same_frame(got, want)
+
+
+def test_checkpoint_to_disk_is_not_ported_yet():
+    frame = Frame.from_dict(_basic())
+    with pytest.raises(NotImplementedError, match="DiskFrame"):
+        tstages.CheckpointData(diskIncluded=True).transform(frame)
+
+
+# -- read_csv ----------------------------------------------------------------
+@pytest.mark.parametrize("name", ["abalone_like.csv", "banknote_like.csv",
+                                  "car_eval_like.csv", "pima_like.csv"])
+@pytest.mark.parametrize("parts", [1, 2])
+def test_read_csv_matches_the_jax_package(name, parts):
+    path = os.path.join(DATA, name)
+    _same_frame(read_csv(path, num_partitions=parts),
+                jread_csv(path, num_partitions=parts))
+
+
+def test_read_csv_without_header_or_inference(tmp_path):
+    path = tmp_path / "t.csv"
+    path.write_text("a,1,2.5\nb,,3\n,4,x\n")
+    for kw in ({"header": False}, {"header": False, "infer_types": False}):
+        _same_frame(read_csv(str(path), **kw), jread_csv(str(path), **kw))
+
+
+def test_read_csv_process_shard_without_a_group_keeps_every_row():
+    path = os.path.join(DATA, "pima_like.csv")
+    _same_frame(read_csv(path, process_shard=True), read_csv(path))
+
+
+# -- ComputePerInstanceStatistics ---------------------------------------------
+def _scored_classification(pkg):
+    from_schema = __import__(pkg.Frame.__module__.rsplit(".", 1)[0]
+                             + ".schema", fromlist=["x"])
+    rng = np.random.default_rng(5)
+    probs = rng.dirichlet(np.ones(3), size=12).astype(np.float32)
+    labels = ["a", "b", "c", "a", "b", "c", "a", "zz", "b", "c", "a", "b"]
+    f = pkg.Frame.from_dict({"label": labels})
+    f = f.with_column_values(
+        from_schema.ColumnSchema("probs", from_schema.DType.VECTOR, 3), probs)
+    cmap = from_schema.CategoricalMap(["a", "b", "c"]).to_metadata()
+    f = f.with_metadata("label", score_kind=ScoreKind.TRUE_LABELS,
+                        categorical=cmap,
+                        score_value_kind=ScoreKind.CLASSIFICATION)
+    return f.with_metadata("probs",
+                           score_kind=ScoreKind.SCORED_PROBABILITIES,
+                           score_value_kind=ScoreKind.CLASSIFICATION)
+
+
+def _scored_regression(pkg):
+    rng = np.random.default_rng(6)
+    f = pkg.Frame.from_dict({"y": rng.normal(size=15),
+                             "s": rng.normal(size=15)})
+    f = f.with_metadata("y", score_kind=ScoreKind.TRUE_LABELS,
+                        score_value_kind=ScoreKind.REGRESSION)
+    return f.with_metadata("s", score_kind=ScoreKind.SCORES,
+                           score_value_kind=ScoreKind.REGRESSION)
+
+
+@pytest.mark.parametrize("build", [_scored_classification,
+                                   _scored_regression])
+def test_per_instance_statistics_match_the_jax_package(build):
+    got = tcpis.ComputePerInstanceStatistics().transform(build(PORT))
+    want = jcpis.ComputePerInstanceStatistics().transform(build(JAX))
+    _same_frame(got, want)

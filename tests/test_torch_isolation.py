@@ -34,7 +34,7 @@ def test_importing_every_port_module_loads_no_jax_and_no_jax_package():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 20        # every module of the slice was imported
+    assert int(count) >= 60        # every module, feature/ stages/ io/ too
     assert bad == "[]", bad
 
 
