@@ -4,7 +4,7 @@
     python3 chip_smoke.py                      # as the chip check runs it
     python3 chip_smoke.py --profile <dir>      # plus profiled warm passes
 
-Four paths, each through the entry points a user calls:
+Five paths, each through the entry points a user calls:
 
 - serving, the README's transfer-learning quickstart: an
   ``ImageFeaturizer`` with a ResNet-50 (random weights from a seed) scores
@@ -31,7 +31,14 @@ Four paths, each through the entry points a user calls:
   Adult's size, ``FindBestModel`` picks one and ``ComputeModelStatistics``
   scores it; ``TrainRegressor`` fits ``LinearRegression``. The JAX package
   computes these learners with XLA ops, not Pallas, so this path runs no
-  hand-written kernel.
+  hand-written kernel;
+- text and token training, the training half of the JAX bench's judged
+  lanes on one card: ``DistributedTrainer`` trains ``textcnn`` on
+  tokenized and hashed reviews (no kernel) and ``Word2Vec`` fits on them;
+  ``transformer_lm`` and the MoE LM train on next-token cross-entropy with
+  K3's forward in every block; ViT-B/16 trains at 224x224 with K1 in the
+  loss; ``DeepClassifier`` fits with the ``lamb`` and ``adafactor``
+  optimizers.
 
 The script:
 
@@ -70,7 +77,11 @@ The script:
    K1's plain version;
 6. ``deep``: fits ``DeepClassifier`` on 65,536 rows of 128 features,
    scores them, and checks that ``ComputeModelStatistics``'s device path
-   gives the host path's metrics with one counted sync;
+   gives the host path's metrics with one counted sync; then fits it with
+   ``optimizer="lamb"`` and ``"adafactor"`` (8,192 rows, one epoch, fp32,
+   TF32 off) on the card and on the CPU from the same init and batch
+   order, each parameter array within ``DEEP_OPT_TOL`` (norm-wise) of the
+   CPU fit's;
 7. ``lm_score``: zeroes the counts, scores 64 rows of 2048 ids (batch 8),
    reads the counts (K3's tensor-core kernel 6 layers x 8 batches = 48
    times, no other kernel), times 3 warm passes (tokens/s, each pass 48
@@ -104,8 +115,44 @@ The script:
     condition number is printed); (f) K1, K2 and K3 launch 0 times. Fit
     and scoring seconds, the host featurize share, syncs per fit and the
     metrics go on the phase's line;
-11. prints the kernel table line, the card's name and power limit, and
-    last ``{"ok": true, "device": {...}}``.
+11. ``text``: the JAX bench's text lane uncut. 10,240 reviews of 40-120
+    tokens (seed 3) are tokenized and hashed into 128 ids over 32,768
+    slots, uploaded once into a ``DeviceEpochCache``, and ``textcnn``
+    (bf16, adam(1e-3), batch 256) trains 6 epochs; the timed region holds
+    all of it and ends in one fetch (rows/s, step ms; median of 3 runs).
+    Gates: (a) 20 fp32 steps on the card, TF32 off, within
+    ``TEXT_F32_TOL`` (relative, per step) of a CPU run from the same
+    params and batch order; (b) K1, K2 and K3 launch 0 times; (c) an epoch
+    under CUDA's sync-debug mode syncs the host only at the ring reads and
+    the final fetch. Then ``Word2Vec`` at its defaults fits the reviews
+    (tokenized by the port's ``RegexTokenizer``; pairs/s, fit s) and the
+    synonym corpus of ``tests/test_text.py``: w_in, the pair arrays and
+    the table cross to the card once a fit, one counted sync a fit (and
+    none other under the sync-debug mode), finite vectors, and the
+    synonym cluster holds;
+12. ``lm_train``: ``transformer_lm`` at the zoo's width (bf16, random
+    weights from seed 0, 64 resident rows of 2048 ids, batch 8,
+    adamw(1e-3), next-token cross-entropy): 3 warm-up steps, one window of
+    8 steps under the sync-debug mode, 3 timed windows of 8 (tokens/s, step
+    ms, TFLOP/s, MFU), the counts read after them (K3's tensor-core kernel
+    6 a step, no other kernel), and K3's plain backward timed at the
+    step's shape (its share of the step). Gates: (a) 10 steps at batch 2
+    within ``LM_BF16_TRAIN_TOL`` of the same trainer with the reference
+    attention (``use_flash="never"``); (b) depth 2, 2 rows, fp32 with TF32
+    off: K3's CUDA-core kernel 2 a step, 5 steps within
+    ``LM_F32_TRAIN_TOL`` of the reference route; (c) ``transformer_lm_moe``
+    at its zoo defaults, 16 rows at batch 8, loss CE + 0.01 * moe_aux: 5
+    steps finite, moe_aux > 0, the last loss below the first, K3 6 a step;
+13. ``train_large``: the JAX bench's train_large lane uncut. ViT-B/16 at
+    224x224 (1000 classes, bf16) trains on 256 resident uint8 images
+    (seed 7) at batch 128 with sgd(0.01, momentum 0.9) and K1 in the loss:
+    2 warm-up steps, 3 timed windows of 8 (images/s, step ms, TFLOP/s,
+    MFU), K1 once a step and no other kernel; 10 steps' losses within
+    ``TL_PARITY_TOL`` of the same trainer fed by K1's plain version (bit
+    equality reported);
+14. prints the kernel table line (each kernel's launches on each of its
+    paths), the card's name and power limit, and last ``{"ok": true,
+    "device": {...}}``.
 
 Any failed check raises, so the exit code is nonzero and no result line is
 printed. Without CUDA, or outside a checkout of the repository, it fails
@@ -179,6 +226,42 @@ LM_BF16_MAX, LM_BF16_MEAN, LM_F32_MAX = 1e-1, 1e-2, 1e-3
 # the LM's, and at most 1% of tokens moved by more than 0.25, not a bound
 # on the worst token
 MOE_MEAN, MOE_MOVED, MOE_SHARE_MOVED = 1e-2, 0.25, 0.01
+# the JAX bench's text lane (bench.py): 40 steps x batch 256 of reviews, 128
+# hashed ids over 32,768 slots, textcnn trained 6 epochs with adam(1e-3);
+# 3 timed runs; 20 fp32 steps (TF32 off) held against a CPU run
+TEXT_STEPS, TEXT_BATCH, TEXT_SEQ, TEXT_VOCAB = 40, 256, 128, 1 << 15
+TEXT_EPOCHS, TEXT_RUNS, TEXT_PARITY_STEPS = 6, 3, 20
+# lm_train: transformer_lm at the zoo's width, 64 resident rows of ids,
+# batch 8, adamw(1e-3): 3 warm-up steps, 3 timed windows of 8 steps; the
+# bf16 gate at batch 2 over 10 steps against the reference attention; the
+# fp32 gate at depth 2 over 2 rows (batch 2), 5 steps; the MoE LM over 16
+# rows at batch 8, 5 steps
+LM_TRAIN_WARMUP, LM_TRAIN_WINDOW, LM_TRAIN_WINDOWS = 3, 8, 3
+LM_GATE_BATCH, LM_GATE_STEPS = 2, 10
+LM_F32_DEPTH, LM_F32_TRAIN_ROWS, LM_F32_STEPS = 2, 2, 5
+MOE_TRAIN_STEPS = 5
+# the JAX bench's train_large lane: ViT-B/16 at 224x224, 1000 classes,
+# bf16, 256 resident uint8 images, batch 128, sgd(0.01, momentum 0.9), K1
+# (mean = std = 127.5) in the loss; 2 warm-up steps, 3 timed windows of 8
+# steps, 10 steps held against K1's plain version
+TL_IMAGES, TL_BATCH, TL_SHAPE = 256, 128, (224, 224, 3)
+TL_WARMUP, TL_STEPS, TL_WINDOWS, TL_PARITY_STEPS = 2, 8, 3, 10
+# deep: a short fit per optimizer on the card and on the CPU, fp32, TF32 off
+DEEP_OPT_ROWS = 8192
+# the new paths' gates, each the largest relative difference of a per-step
+# loss (for the deep fits, of a parameter array, norm-wise) allowed. The
+# first card runs read: textcnn fp32 card vs CPU 1.5e-6 and 2.9e-6 (cuDNN
+# and the CPU sum the convs in other orders, the card's embedding backward
+# scatter-adds in no fixed order, and Adam carries it); the bf16 LM, K3 vs the
+# reference attention, 1.4e-5 (the two round p to bf16 at different
+# maxima), held at a quarter of one bf16 step (2^-8); the fp32 LM on K3's
+# CUDA-core route 2.7e-7; train_large bit-equal to K1's plain version (K1
+# is bit-equal; held at the train phase's bf16 bound); lamb 3.2e-7 and
+# adafactor 5.5e-7
+TEXT_F32_TOL = 2e-5
+LM_BF16_TRAIN_TOL, LM_F32_TRAIN_TOL = 1e-3, 1e-4
+TL_PARITY_TOL = 1e-3
+DEEP_OPT_TOL = 1e-5
 # fp32 operations per output element of the crop-resize-normalize kernel:
 # two row lerps (3 each), one column lerp (3), rint, clamp (2), subtract,
 # multiply
@@ -276,6 +359,42 @@ def _floor_ms(torch, fn):
         stream = torch.cuda.current_stream().cuda_stream
         _check(fn(stream) == 0, "an empty floor kernel failed to launch")
     return _graph_ms(torch, launch)
+
+
+def _launches(kernels) -> dict:
+    return {k.name: k.launches for k in kernels.KERNELS}
+
+
+def _want(kernels, **counts) -> dict:
+    """Launch counts by kernel name: ``counts`` by the kernels' attribute
+    names in ``kernels`` (``FUSED_NORMALIZE=...``), every other kernel 0."""
+    want = {k.name: 0 for k in kernels.KERNELS}
+    for attr, n in counts.items():
+        want[getattr(kernels, attr).name] = n
+    return want
+
+
+def _sync_checked(torch, run):
+    """``run()`` under CUDA's sync-debug mode: returns its result, the
+    places outside ``observability/syncs.py`` (the counted syncs) that
+    synchronized with the host, and the number of sync warnings in all."""
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncing = [w for w in caught if "synchroniz" in str(w.message)]
+    hidden = [f"{w.filename}:{w.lineno}" for w in syncing
+              if not w.filename.endswith("syncs.py")]
+    return out, hidden, len(syncing)
+
+
+def _max_step_rel(got, want) -> float:
+    """The largest relative difference of two per-step loss histories."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / np.abs(want)))
 
 
 def phase_kernel_check_k1(torch, tpre, kernel, card):
@@ -641,11 +760,10 @@ def phase_featurize(torch, kernels, card, profile_dir=None):
     t0 = time.perf_counter()
     feats = np.asarray(fz.transform(frame).column("features"))
     first_s = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels.KERNELS}
+    launches = _launches(kernels)
     _check(feats.shape == (N_IMAGES, 2048), f"features shape {feats.shape}")
     _check(bool(np.isfinite(feats).all()), "features not all finite")
-    want = {k.name: 0 for k in kernels.KERNELS}
-    want[kernels.CROP_RESIZE_NORMALIZE.name] = batches
+    want = _want(kernels, CROP_RESIZE_NORMALIZE=batches)
     k2_variants = dict(kernels.CROP_RESIZE_NORMALIZE.variant_launches)
     _check(launches == want and k2_variants == {"staged": batches},
            f"kernels launched {launches} times on the featurize path "
@@ -781,17 +899,10 @@ def phase_train(torch, kernels, card, profile_dir=None):
 
     # the sync check, untimed: any sync outside observability/syncs.py
     # raises a CUDA sync-debug warning
-    torch.cuda.set_sync_debug_mode("warn")
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        _, check_syncs = window()
-    torch.cuda.set_sync_debug_mode(0)
+    (_, check_syncs), hidden, n_sync_warnings = _sync_checked(torch, window)
     _check(check_syncs == expected_syncs,
            f"{check_syncs} counted syncs in {TRAIN_STEPS} steps, want "
            f"{expected_syncs} (the ring reads and the final fetch)")
-    syncing = [w for w in caught if "synchroniz" in str(w.message)]
-    hidden = [f"{w.filename}:{w.lineno}" for w in syncing
-              if not w.filename.endswith("syncs.py")]
     _check(not hidden, f"uncounted host syncs in the train steps: {hidden}")
 
     # the timed windows, debug mode off; beside each window's wall time the
@@ -810,11 +921,10 @@ def phase_train(torch, kernels, card, profile_dir=None):
                             loadavg_1m=os.getloadavg()[0]))
     eval_loss = float(syncs.device_get(
         trainer.eval_step(state, next(it), 1), "smoke.eval"))
-    launches = {k.name: k.launches for k in kernels.KERNELS}
+    launches = _launches(kernels)
 
     steps = TRAIN_WARMUP + TRAIN_STEPS * (1 + TRAIN_WINDOWS)
-    want = {k.name: 0 for k in kernels.KERNELS}
-    want[kernels.FUSED_NORMALIZE.name] = steps + 1      # + the eval step
+    want = _want(kernels, FUSED_NORMALIZE=steps + 1)     # + the eval step
     _check(launches == want, f"kernels launched {launches} times on the "
                              f"train path, want {want} (K1 once per train "
                              "and eval step, no other kernel)")
@@ -882,7 +992,7 @@ def phase_train(torch, kernels, card, profile_dir=None):
           mfu_vs_bf16_dense_peak=tflops * 1e12 / H100_SXM_BF16_DENSE_FLOPS,
           launches_main_path=launches, syncs_per_window=timed_syncs,
           expected_syncs=expected_syncs,
-          sync_warnings_in_counted_syncs=len(syncing),
+          sync_warnings_in_counted_syncs=n_sync_warnings,
           final_loss=final_loss, eval_loss=eval_loss,
           parity_bf16=dict(steps=PARITY_STEPS, final_rel_diff=bf16_rel,
                            max_step_rel_diff=bf16_step, tolerance=1e-3,
@@ -950,11 +1060,51 @@ def phase_deep(torch, card):
     for name in ("AUC", "AUC_PR"):
         _check(abs(dev[name] - host[name]) <= 1e-5,
                f"{name}: device {dev[name]} vs host {host[name]}")
+
+    # lamb and adafactor: a short fp32 fit on the card and on the CPU from
+    # the same init and batch order (the resident epoch's permutation comes
+    # from a host generator), TF32 off
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    small = Frame.from_dict({"features": X[:DEEP_OPT_ROWS],
+                             "label": y[:DEEP_OPT_ROWS]}, num_partitions=4)
+    optimizers = {}
+    for opt in ("lamb", "adafactor"):
+        fits = {}
+        for device in ("cuda", "cpu"):
+            config.set("runtime.device", device)
+            try:
+                fitter = DeepClassifier(
+                    architecture="mlp_tabular", batchSize=256, epochs=1,
+                    optimizer=opt, trainDtype="float32", deviceCache="on")
+                fitter.set_params(featuresCol="features", labelCol="label")
+                t0 = time.perf_counter()
+                fits[device] = (fitter.fit(small), time.perf_counter() - t0)
+            finally:
+                config.unset("runtime.device")
+        got, want = (fits[d][0]._state["params"] for d in ("cuda", "cpu"))
+        rel = {k: float(np.linalg.norm(got[k] - want[k])
+                        / max(np.linalg.norm(want[k]), 1e-30)) for k in want}
+        pred = fits["cuda"][0].transform(small).column("prediction")
+        opt_acc = float((pred.astype(np.int64) == y[:DEEP_OPT_ROWS]).mean())
+        _check(max(rel.values()) <= DEEP_OPT_TOL,
+               f"DeepClassifier(optimizer={opt!r}) card vs CPU parameters: "
+               f"{rel} (norm-wise, tolerance {DEEP_OPT_TOL})")
+        optimizers[opt] = dict(rows=DEEP_OPT_ROWS, epochs=1,
+                               card_fit_s=fits["cuda"][1],
+                               cpu_fit_s=fits["cpu"][1], accuracy=opt_acc,
+                               max_param_rel_diff=max(rel.values()),
+                               tolerance=DEEP_OPT_TOL)
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32
     _line(phase="deep", card=_smi(), rows=DEEP_ROWS, features=DEEP_FEATURES,
           architecture="mlp_tabular", batch=256, epochs=2,
           fit_s=fit_s, score_s=score_s, eval_device_s=eval_s,
           accuracy=acc, device_metrics=dev, host_metrics=host,
-          confusion_matrix=cm_dev.tolist(), evaluate_finalize_syncs=finalize)
+          confusion_matrix=cm_dev.tolist(), evaluate_finalize_syncs=finalize,
+          optimizers_fp32_tf32_off=optimizers)
 
 
 def _lm_reference(torch, card, name, state, ids, batch, **arch):
@@ -1009,12 +1159,10 @@ def phase_lm_score(torch, kernels, card, profile_dir=None):
     frame = Frame.from_dict({"ids": ids})
     batches = math.ceil(LM_ROWS / LM_BATCH)
 
-    def want_launches(n, kernel=kernels.FLASH_ATTENTION_TC):
+    def want_launches(n, kernel="FLASH_ATTENTION_TC"):
         """n launches of one K3 route (bf16: the tensor cores), none of any
         other kernel"""
-        want = {k.name: 0 for k in kernels.KERNELS}
-        want[kernel.name] = n
-        return want
+        return _want(kernels, **{kernel: n})
 
     # the main path: counts zeroed just before, read just after
     tm = _lm_scorer("transformer_lm", "hidden", LM_BATCH)
@@ -1022,7 +1170,7 @@ def phase_lm_score(torch, kernels, card, profile_dir=None):
     t0 = time.perf_counter()
     hidden = np.asarray(tm.transform(frame).column("h"))
     first_s = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels.KERNELS}
+    launches = _launches(kernels)
     _check(launches == want_launches(LM_DEPTH * batches),
            f"kernels launched {launches} times on the lm_score path, want "
            f"K3's tensor-core kernel {LM_DEPTH} layers x {batches} batches "
@@ -1037,7 +1185,7 @@ def phase_lm_score(torch, kernels, card, profile_dir=None):
         t0 = time.perf_counter()
         again = np.asarray(tm.transform(frame).column("h"))
         pass_s.append(time.perf_counter() - t0)
-        _check({k.name: k.launches for k in kernels.KERNELS}
+        _check(_launches(kernels)
                == want_launches(LM_DEPTH * batches),
                "a warm pass did not launch K3's tensor-core kernel once per "
                "layer and batch")
@@ -1060,10 +1208,10 @@ def phase_lm_score(torch, kernels, card, profile_dir=None):
     tm32 = _lm_scorer("transformer_lm", "hidden", LM_BATCH, dtype="float32")
     frame32 = Frame.from_dict({"ids": ids32})
     want32 = want_launches(LM_DEPTH * LM_F32_ROWS // LM_BATCH,
-                           kernels.FLASH_ATTENTION)
+                           "FLASH_ATTENTION")
     kernels.reset_launches()
     h32 = np.asarray(tm32.transform(frame32).column("h"))
-    launches32 = {k.name: k.launches for k in kernels.KERNELS}
+    launches32 = _launches(kernels)
     _check(launches32 == want32,
            f"fp32 pass: kernels launched {launches32} times, want K3's "
            "CUDA-core kernel once per layer and batch and no other kernel")
@@ -1072,7 +1220,7 @@ def phase_lm_score(torch, kernels, card, profile_dir=None):
     t0 = time.perf_counter()
     again32 = np.asarray(tm32.transform(frame32).column("h"))
     pass32_s = time.perf_counter() - t0
-    _check({k.name: k.launches for k in kernels.KERNELS} == want32
+    _check(_launches(kernels) == want32
            and float(np.abs(again32 - h32).max()) <= 1e-5,
            "the warm fp32 pass launched other kernels or moved hidden")
     ref32 = _lm_reference(torch, card, "transformer_lm", tm32._state["params"],
@@ -1126,9 +1274,8 @@ def phase_moe_score(torch, kernels, card):
     hidden = np.asarray(tm.transform(Frame.from_dict({"ids": ids}))
                         .column("h"))
     pass_s = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels.KERNELS}
-    want = {k.name: 0 for k in kernels.KERNELS}
-    want[kernels.FLASH_ATTENTION_TC.name] = LM_DEPTH * MOE_ROWS // LM_BATCH
+    launches = _launches(kernels)
+    want = _want(kernels, FLASH_ATTENTION_TC=LM_DEPTH * MOE_ROWS // LM_BATCH)
     _check(launches == want, f"kernels launched {launches} times on the "
                              f"moe_score path, want {want}")
     _check(hidden.shape == (MOE_ROWS, LM_LEN, 512)
@@ -1177,9 +1324,8 @@ def phase_featurize_vit(torch, kernels, card):
         t0 = time.perf_counter()
         feats = np.asarray(run())
         seconds = time.perf_counter() - t0
-        launches = {k.name: k.launches for k in kernels.KERNELS}
-        want = {k.name: 0 for k in kernels.KERNELS}
-        want[kernels.CROP_RESIZE_NORMALIZE.name] = batches
+        launches = _launches(kernels)
+        want = _want(kernels, CROP_RESIZE_NORMALIZE=batches)
         _check(launches == want, f"featurize_vit: kernels launched "
                                  f"{launches} times, want {want}")
         _check(feats.shape == (VIT_IMAGES, 768)
@@ -1511,7 +1657,7 @@ def phase_automl(torch, kernels, card):
     reg_stats = metrics(reg, flights)
 
     # (f) this path runs no TPU kernel's counterpart
-    launched = {k.name: k.launches for k in kernels.KERNELS}
+    launched = _launches(kernels)
     _check(not any(launched.values()), f"kernels launched: {launched}")
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 \
         = tf32
@@ -1567,6 +1713,568 @@ def _slot_names(metadata) -> list:
     for name, start, stop, _ in metadata.get("feature_layout", []):
         names += [name] * (int(stop) - int(start))
     return names
+
+
+def _make_reviews(n: int, seed: int = 3):
+    """Amazon-review-shaped texts (the JAX bench's ``_make_reviews``): 40-120
+    tokens from a 20k vocabulary, and binary labels."""
+    rng = np.random.default_rng(seed)
+    vocab = np.array([f"word{i}" for i in range(20000)])
+    texts = [" ".join(rng.choice(vocab, rng.integers(40, 120)))
+             for _ in range(n)]
+    labels = rng.integers(0, 2, n).astype(np.int32)
+    return texts, labels
+
+
+def _tokenize_hash(texts) -> np.ndarray:
+    """TextFeaturizer's hot path (the JAX bench's ``_tokenize_hash``):
+    regex tokenize + Spark-parity murmur3 -> fixed-length id rows (0 =
+    pad), through the port's ``ops/hashing.hash_terms``."""
+    import re
+    from mmlspark_tpu_torch.ops.hashing import hash_terms
+    tok = re.compile(r"\w+")
+    rows = [tok.findall(t.lower()) for t in texts]
+    flat = [w for r in rows for w in r]
+    ids = hash_terms(flat, TEXT_VOCAB - 1).astype(np.int32) + 1
+    out = np.zeros((len(rows), TEXT_SEQ), np.int32)
+    off = 0
+    for i, r in enumerate(rows):
+        k = min(len(r), TEXT_SEQ)
+        out[i, :k] = ids[off:off + k]
+        off += len(r)
+    return out
+
+
+def phase_text(torch, kernels, card, profile_dir=None):
+    """The JAX bench's text lane on the card: tokenize and hash 10,240
+    reviews, train textcnn 6 epochs from a resident epoch (timed end to
+    end, the counts zeroed just before, read just after), its sync check,
+    20 fp32 steps against the CPU; then Word2Vec on the same reviews and
+    on the synonym corpus."""
+    import torch.nn.functional as F
+    from mmlspark_tpu_torch.core.frame import Frame
+    from mmlspark_tpu_torch.feature import word2vec as tw2v
+    from mmlspark_tpu_torch.feature.text import RegexTokenizer
+    from mmlspark_tpu_torch.models.zoo import build_model, init_state
+    from mmlspark_tpu_torch.observability import syncs
+    from mmlspark_tpu_torch.parallel.optim import adam
+    from mmlspark_tpu_torch.parallel.trainer import (
+        DeviceEpochCache, DistributedTrainer,
+    )
+
+    n = TEXT_STEPS * TEXT_BATCH
+    texts, labels = _make_reviews(n)
+    params = {}
+
+    def lane(dtype="bfloat16", device=card):
+        """textcnn at its defaults (embed 128, widths 3/4/5, 128 filters),
+        random weights from seed 0, adam(1e-3)."""
+        module = build_model("textcnn", vocab_size=TEXT_VOCAB, num_classes=2,
+                             seq_len=TEXT_SEQ, dtype=dtype)["module"]
+        if not params:
+            params.update(init_state(module, seed=0))
+        module.load_state_dict({k: torch.from_numpy(v)
+                                for k, v in params.items()})
+
+        def loss_fn(module, batch, gen):
+            logits = module(batch["ids"]).float()
+            return F.cross_entropy(logits, batch["label"].long())
+        trainer = DistributedTrainer(loss_fn, adam(1e-3), device=device)
+        return trainer, trainer.init(lambda: module)
+
+    trainer, state = lane()
+    warm = trainer.put_batch({"ids": _tokenize_hash(texts[:TEXT_BATCH]),
+                              "label": labels[:TEXT_BATCH]})
+    t0 = time.perf_counter()
+    state, m = trainer.train_step(state, warm, 1)
+    syncs.device_get(m["loss"], "smoke.first_step")
+    first_s = time.perf_counter() - t0
+    state, m = trainer.train_step(state, warm, 1)
+    syncs.device_get(m["loss"], "smoke.warm")
+
+    def run():
+        """The bench's timed region: tokenize + hash, one upload into a
+        DeviceEpochCache, 6 epochs of steps, one fetch of the last loss."""
+        nonlocal state
+        trainer.flush_metrics()
+        sync0 = syncs.total()
+        cache = DeviceEpochCache({"ids": _tokenize_hash(texts),
+                                  "label": labels}, TEXT_BATCH, device=card)
+        for epoch in range(TEXT_EPOCHS):
+            for batch in cache.batches(epoch):
+                state, metrics = trainer.train_step(state, batch, 1)
+        loss = float(syncs.device_get(metrics["loss"], "smoke.final_fetch"))
+        return loss, syncs.total() - sync0
+
+    # the main path: counts zeroed just before, read just after
+    kernels.reset_launches()
+    walls, cpus, region_syncs = [], [], []
+    for _ in range(TEXT_RUNS):
+        cpu0, t0 = time.process_time(), time.perf_counter()
+        final_loss, n_syncs = run()
+        walls.append(time.perf_counter() - t0)
+        cpus.append(time.process_time() - cpu0)
+        region_syncs.append(n_syncs)
+    launches = _launches(kernels)
+    steps = TEXT_EPOCHS * TEXT_STEPS
+    expected = steps // trainer.flush_steps() + 1
+    _check(launches == _want(kernels), f"kernels launched {launches} times "
+                                       "on the text path, want none")
+    _check(all(c == expected for c in region_syncs),
+           f"counted syncs per timed run {region_syncs}, want {expected} "
+           "(the ring reads and the final fetch)")
+    _check(math.isfinite(final_loss), "text loss not finite")
+
+    # the sync check, untimed: an epoch of steps from a resident cache
+    cache = DeviceEpochCache({"ids": _tokenize_hash(texts), "label": labels},
+                             TEXT_BATCH, device=card)
+
+    def epoch():
+        nonlocal state
+        trainer.flush_metrics()
+        for batch in cache.batches(0):
+            state, metrics = trainer.train_step(state, batch, 1)
+        return float(syncs.device_get(metrics["loss"], "smoke.final_fetch"))
+    _, hidden, _ = _sync_checked(torch, epoch)
+    _check(not hidden, f"uncounted host syncs in the text steps: {hidden}")
+    rows_s = [n * TEXT_EPOCHS / w for w in walls]
+    t0 = time.perf_counter()
+    _tokenize_hash(texts)
+    tokenize_s = time.perf_counter() - t0
+    if profile_dir:
+        _profile_pass(torch, epoch, profile_dir, "text")
+
+    # (a) fp32, TF32 off: the card against a CPU run from the same params
+    # and batch order
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ids = _tokenize_hash(texts)
+
+    def fp32_losses(device):
+        tr, st = lane("float32", device)
+        c = DeviceEpochCache({"ids": ids, "label": labels}, TEXT_BATCH,
+                             device=device)
+        out = []
+        for batch in list(c.batches(0))[:TEXT_PARITY_STEPS]:
+            st, mm = tr.train_step(st, batch, 1)
+            out.append(mm["loss"])
+        return syncs.device_get(torch.stack(out), "smoke.parity")
+    card_f32 = fp32_losses(card)
+    cpu_f32 = fp32_losses(torch.device("cpu"))
+    f32_rel = _max_step_rel(card_f32, cpu_f32)
+    torch.backends.cudnn.allow_tf32 = True
+    _check(f32_rel <= TEXT_F32_TOL,
+           f"textcnn fp32 {TEXT_PARITY_STEPS} steps, card vs CPU: largest "
+           f"relative loss difference {f32_rel} > {TEXT_F32_TOL}")
+
+    # Word2Vec at its defaults on the same reviews, tokenized by the port's
+    # RegexTokenizer; the synonym corpus of tests/test_text.py
+    tokens = RegexTokenizer(inputCol="text", outputCol="tok").transform(
+        Frame.from_dict({"text": texts}))
+    uploads = []
+    real_to_device = tw2v.to_device
+
+    def spy(x, device):
+        uploads.append((tuple(np.shape(x)), device.type))
+        return real_to_device(x, device)
+    tw2v.to_device = spy
+    try:
+        kernels.reset_launches()
+        sync0 = syncs.total()
+        t0 = time.perf_counter()
+        w2v = tw2v.Word2Vec(inputCol="tok", outputCol="vec").fit(tokens)
+        fit_s = time.perf_counter() - t0
+        fit_syncs = syncs.total() - sync0
+        w2v_launches = _launches(kernels)
+        review_uploads = list(uploads)
+        uploads.clear()
+        docs = []
+        for fruit in ("apple", "orange"):
+            docs += [["i", "eat", fruit, "every", "day"],
+                     ["fresh", fruit, "juice", "tastes", "sweet"],
+                     ["the", fruit, "tree", "grows", "fast"]] * 6
+        docs += [["the", "motor", "engine", "runs", "fast"],
+                 ["repair", "the", "motor", "with", "tools"]] * 6
+        sync0 = syncs.total()
+        toy, toy_hidden, _ = _sync_checked(torch, lambda: tw2v.Word2Vec(
+            inputCol="tok", outputCol="vec", vectorSize=24, minCount=2,
+            maxIter=10, stepSize=0.05, seed=3, batchSize=256).fit(
+            Frame.from_dict({"tok": docs})))
+        toy_syncs = syncs.total() - sync0
+        toy_uploads = list(uploads)
+    finally:
+        tw2v.to_device = real_to_device
+    n_pairs = review_uploads[1][0][0]
+    _check(len(review_uploads) == 4 and len(toy_uploads) == 4
+           and all(d == "cuda" for _, d in review_uploads + toy_uploads),
+           f"Word2Vec uploads {review_uploads} / {toy_uploads}: want w_in, "
+           "the two pair arrays and the table, once a fit, to the card")
+    _check(fit_syncs == 1 and toy_syncs == 1,
+           f"Word2Vec counted syncs a fit {fit_syncs} / {toy_syncs}, want 1")
+    _check(not toy_hidden, f"uncounted host syncs in Word2Vec: {toy_hidden}")
+    _check(w2v_launches == _want(kernels),
+           f"Word2Vec launched kernels {w2v_launches}")
+    _check(bool(np.isfinite(w2v.vectors).all())
+           and w2v.vectors.shape[1] == 100, "Word2Vec vectors not finite")
+    vecs = toy.get_vectors()
+
+    def cos(a, b):
+        return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b) + 1e-12))
+    syn = (cos(vecs["apple"], vecs["orange"]), cos(vecs["apple"],
+                                                   vecs["motor"]))
+    synonyms = toy.find_synonyms("apple", 3)
+    _check(syn[0] > syn[1] and len(synonyms) == 3
+           and all(w != "apple" for w, _ in synonyms),
+           f"Word2Vec synonym corpus on the card: cos {syn}, {synonyms}")
+
+    _line(phase="text", card=_smi(), model="textcnn", rows=n,
+          seq_len=TEXT_SEQ, vocab_slots=TEXT_VOCAB, batch=TEXT_BATCH,
+          epochs=TEXT_EPOCHS, optimizer="adam(1e-3)", compute="bfloat16",
+          first_step_s=first_s, timed_runs_s=walls, cpu_s=cpus,
+          rows_per_s=statistics.median(rows_s), rows_per_s_min=min(rows_s),
+          rows_per_s_max=max(rows_s),
+          step_ms=statistics.median(walls) / steps * 1e3,
+          timed_region=f"tokenize+hash, one upload, {TEXT_EPOCHS} epochs, "
+                       "one fetch", tokenize_hash_s=tokenize_s,
+          syncs_per_run=region_syncs, expected_syncs=expected,
+          flops_per_step=trainer.flops_per_step,
+          launches_main_path=launches, final_loss=final_loss,
+          parity_fp32_tf32_off=dict(
+              steps=TEXT_PARITY_STEPS, max_step_rel_diff=f32_rel,
+              tolerance=TEXT_F32_TOL, first_loss=float(card_f32[0]),
+              last_loss=float(card_f32[-1])),
+          word2vec=dict(rows=n, vocab=len(w2v.get("vocabulary")),
+                        pairs=n_pairs, fit_s=fit_s,
+                        pairs_per_s=n_pairs / fit_s, syncs=fit_syncs,
+                        uploads=len(review_uploads),
+                        launches=w2v_launches,
+                        synonym_corpus_cos=syn,
+                        synonyms=[w for w, _ in synonyms]))
+
+
+def phase_lm_train(torch, kernels, card, profile_dir=None):
+    """Next-token LM training on the card: transformer_lm at the zoo's
+    width in bf16 through DistributedTrainer (the counts zeroed just
+    before, read just after), its sync check and tokens/s, the share of K3's
+    plain backward; then the three gates: bf16 against the reference
+    attention, fp32 on K3's CUDA-core route, and the MoE LM."""
+    from functools import partial
+
+    import torch.nn.functional as F
+    from mmlspark_tpu_torch.models.zoo import build_model, init_state
+    from mmlspark_tpu_torch.models.zoo.moe import moe_aux_loss
+    from mmlspark_tpu_torch.observability import syncs
+    from mmlspark_tpu_torch.observability.metrics import (
+        H100_SXM_BF16_DENSE_FLOPS,
+    )
+    from mmlspark_tpu_torch.ops.attention import _flash_backward_plain
+    from mmlspark_tpu_torch.parallel.optim import adamw
+    from mmlspark_tpu_torch.parallel.sequence import full_attention
+    from mmlspark_tpu_torch.parallel.trainer import (
+        DeviceEpochCache, DistributedTrainer,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ids = np.random.default_rng(0).integers(
+        0, LM_VOCAB, (LM_ROWS, LM_LEN)).astype(np.int32)
+    inits = {}
+    aux_log = []
+
+    def lane(name="transformer_lm", dtype="bfloat16", batch=LM_BATCH,
+             rows=LM_ROWS, reference=False, **arch):
+        """``name`` from random weights of seed 0 (one draw per
+        architecture), adamw(1e-3), next-token cross-entropy (plus 0.01 *
+        moe_aux for the MoE LM), an endless unshuffled resident epoch."""
+        attention = partial(full_attention, use_flash="never") \
+            if reference else None
+        module = build_model(name, dtype=dtype, attention_fn=attention,
+                             **arch)["module"]
+        key = (name, tuple(sorted(arch.items())))
+        if key not in inits:
+            inits[key] = init_state(module, seed=0)
+        module.load_state_dict({k: torch.from_numpy(v)
+                                for k, v in inits[key].items()})
+        moe = name == "transformer_lm_moe"
+
+        def loss_fn(module, batch, gen):
+            x = batch["ids"]
+            logits, inters = module.forward_with_intermediates(x)
+            v = logits.shape[-1]
+            ce = F.cross_entropy(logits[:, :-1].reshape(-1, v),
+                                 x[:, 1:].reshape(-1).long())
+            if not moe:
+                return ce
+            aux = moe_aux_loss(inters)
+            aux_log.append(aux.detach())
+            return ce + 0.01 * aux
+        trainer = DistributedTrainer(loss_fn, adamw(1e-3))
+        state = trainer.init(lambda: module)
+        cache = DeviceEpochCache({"ids": ids[:rows]}, batch)
+
+        def batches():
+            while True:
+                yield from cache.batches(0)
+        return trainer, state, batches()
+
+    # the main path: counts zeroed just before, read just after
+    trainer, state, it = lane()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    state, m = trainer.train_step(state, next(it), 1)
+    syncs.device_get(m["loss"], "smoke.first_step")
+    first_s = time.perf_counter() - t0
+    for _ in range(LM_TRAIN_WARMUP - 1):
+        state, m = trainer.train_step(state, next(it), 1)
+    expected = LM_TRAIN_WINDOW // trainer.flush_steps() + 1
+
+    def window():
+        nonlocal state
+        trainer.flush_metrics()
+        sync0 = syncs.total()
+        for _ in range(LM_TRAIN_WINDOW):
+            state, m = trainer.train_step(state, next(it), 1)
+        loss = float(syncs.device_get(m["loss"], "smoke.final_fetch"))
+        return loss, syncs.total() - sync0
+
+    (_, check_syncs), hidden, _ = _sync_checked(torch, window)
+    _check(not hidden, f"uncounted host syncs in the LM steps: {hidden}")
+    windows = []
+    for _ in range(LM_TRAIN_WINDOWS):
+        t0 = time.perf_counter()
+        final_loss, n_syncs = window()
+        windows.append(time.perf_counter() - t0)
+        _check(n_syncs == expected, f"{n_syncs} counted syncs in an LM "
+                                    f"window, want {expected}")
+    launches = _launches(kernels)
+    steps = LM_TRAIN_WARMUP + LM_TRAIN_WINDOW * (1 + LM_TRAIN_WINDOWS)
+    _check(launches == _want(kernels, FLASH_ATTENTION_TC=LM_DEPTH * steps),
+           f"kernels launched {launches} times in {steps} LM train steps, "
+           f"want K3's tensor-core kernel {LM_DEPTH} a step and no other")
+    _check(check_syncs == expected and math.isfinite(final_loss)
+           and int(syncs.device_get(state["step"], "smoke.step")) == steps,
+           "LM train loss not finite, step counter or syncs off")
+    step_s = statistics.median(windows) / LM_TRAIN_WINDOW
+    tokens_s = [LM_BATCH * LM_LEN * LM_TRAIN_WINDOW / w for w in windows]
+    flops = trainer.flops_per_step
+    if profile_dir:
+        def one_step():
+            nonlocal state
+            state, _ = trainer.train_step(state, next(it), 1)
+            torch.cuda.synchronize()
+        _profile_pass(torch, one_step, profile_dir, "lm_train")
+
+    # K3's plain backward at the step's shape, 6 a step: its share
+    shape = (LM_BATCH, LM_LEN, 8, 64)
+    g = torch.Generator(device=card).manual_seed(5)
+    q, k, v, out, do = (torch.randn(shape, generator=g, device=card,
+                                    dtype=torch.bfloat16) for _ in range(5))
+    bwd_ms = _median_ms(torch, lambda: _flash_backward_plain(
+        q, k, v, out, do, True), iters=2, reps=3)
+    del q, k, v, out, do, trainer, state, it
+
+    # (a) bf16: the K3 route against the reference attention, same params
+    # and batches, at a batch whose (b, h, L, L) fp32 scores fit
+    def losses(n, **kw):
+        tr, st, batches = lane(**kw)
+        out = []
+        for _ in range(n):
+            st, mm = tr.train_step(st, next(batches), 1)
+            out.append(mm["loss"])
+        return syncs.device_get(torch.stack(out), "smoke.parity")
+    kernels.reset_launches()
+    k3_bf16 = losses(LM_GATE_STEPS, batch=LM_GATE_BATCH)
+    gate_launches = _launches(kernels)
+    ref_bf16 = losses(LM_GATE_STEPS, batch=LM_GATE_BATCH, reference=True)
+    bf16_rel = _max_step_rel(k3_bf16, ref_bf16)
+    _check(gate_launches == _want(kernels, FLASH_ATTENTION_TC=LM_DEPTH
+                                  * LM_GATE_STEPS)
+           and bf16_rel <= LM_BF16_TRAIN_TOL,
+           f"bf16 LM training, K3 vs the reference attention over "
+           f"{LM_GATE_STEPS} steps: largest relative loss difference "
+           f"{bf16_rel} > {LM_BF16_TRAIN_TOL}, or launches {gate_launches}")
+
+    # (b) fp32, TF32 off: K3's CUDA-core route, 2 a step at depth 2
+    kernels.reset_launches()
+    k3_f32 = losses(LM_F32_STEPS, dtype="float32", batch=LM_F32_TRAIN_ROWS,
+                    rows=LM_F32_TRAIN_ROWS, depth=LM_F32_DEPTH)
+    f32_launches = _launches(kernels)
+    ref_f32 = losses(LM_F32_STEPS, dtype="float32", batch=LM_F32_TRAIN_ROWS,
+                     rows=LM_F32_TRAIN_ROWS, depth=LM_F32_DEPTH,
+                     reference=True)
+    f32_rel = _max_step_rel(k3_f32, ref_f32)
+    _check(f32_launches == _want(kernels, FLASH_ATTENTION=LM_F32_DEPTH
+                                 * LM_F32_STEPS)
+           and f32_rel <= LM_F32_TRAIN_TOL,
+           f"fp32 LM training on K3's CUDA-core route: launches "
+           f"{f32_launches}, largest relative loss difference {f32_rel} > "
+           f"{LM_F32_TRAIN_TOL}")
+
+    # (c) the MoE LM at its zoo defaults: CE + 0.01 * moe_aux
+    kernels.reset_launches()
+    aux_log.clear()
+    moe = losses(MOE_TRAIN_STEPS, name="transformer_lm_moe", rows=MOE_ROWS)
+    moe_launches = _launches(kernels)
+    aux = syncs.device_get(torch.stack(aux_log), "smoke.moe_aux")
+    _check(moe_launches == _want(kernels, FLASH_ATTENTION_TC=LM_DEPTH
+                                 * MOE_TRAIN_STEPS)
+           and bool(np.isfinite(moe).all()) and bool((aux > 0).all())
+           and moe[-1] < moe[0],
+           f"MoE LM training: losses {moe.tolist()}, moe_aux {aux.tolist()}, "
+           f"launches {moe_launches}")
+
+    _line(phase="lm_train", card=_smi(), model="transformer_lm",
+          rows=LM_ROWS, length=LM_LEN, batch=LM_BATCH, depth=LM_DEPTH,
+          compute="bfloat16", optimizer="adamw(1e-3)",
+          loss="next-token cross-entropy (mean)", first_step_s=first_s,
+          timed_windows_s=windows, steps_per_window=LM_TRAIN_WINDOW,
+          step_ms=step_s * 1e3, tokens_per_s=statistics.median(tokens_s),
+          tokens_per_s_min=min(tokens_s), tokens_per_s_max=max(tokens_s),
+          flops_per_step=flops, achieved_tflops=flops / step_s / 1e12,
+          mfu_vs_bf16_dense_peak=flops / step_s / H100_SXM_BF16_DENSE_FLOPS,
+          launches_main_path=launches, k3_launches_per_step=LM_DEPTH,
+          syncs_per_window=check_syncs, expected_syncs=expected,
+          final_loss=final_loss,
+          k3_plain_backward=dict(ms_per_call=bwd_ms, calls_per_step=LM_DEPTH,
+                                 share_of_step=LM_DEPTH * bwd_ms
+                                 / (step_s * 1e3)),
+          gate_bf16_vs_reference=dict(
+              batch=LM_GATE_BATCH, steps=LM_GATE_STEPS,
+              max_step_rel_diff=bf16_rel, tolerance=LM_BF16_TRAIN_TOL,
+              k3_losses=k3_bf16.tolist(), reference_losses=ref_bf16.tolist()),
+          gate_fp32_cuda_core=dict(
+              depth=LM_F32_DEPTH, rows=LM_F32_TRAIN_ROWS, steps=LM_F32_STEPS,
+              launches=f32_launches, max_step_rel_diff=f32_rel,
+              tolerance=LM_F32_TRAIN_TOL, tf32="off"),
+          gate_moe=dict(model="transformer_lm_moe", rows=MOE_ROWS,
+                        batch=LM_BATCH, steps=MOE_TRAIN_STEPS,
+                        losses=moe.tolist(), moe_aux=aux.tolist(),
+                        launches=moe_launches))
+    return launches, f32_launches, moe_launches
+
+
+def phase_train_large(torch, kernels, card, profile_dir=None):
+    """The JAX bench's train_large lane on the card: ViT-B/16 at 224x224
+    trained from a resident epoch with K1 in the loss (the counts zeroed
+    just before, read just after), images/s and MFU; then 10 steps against
+    the same trainer fed by K1's plain version."""
+    import torch.nn.functional as F
+    from mmlspark_tpu_torch.models.zoo import build_model, init_state
+    from mmlspark_tpu_torch.observability import syncs
+    from mmlspark_tpu_torch.observability.metrics import (
+        H100_SXM_BF16_DENSE_FLOPS,
+    )
+    from mmlspark_tpu_torch.ops.preprocess import (
+        _fused_normalize_plain, _inv_std, make_preprocess_fn,
+    )
+    from mmlspark_tpu_torch.parallel.optim import sgd
+    from mmlspark_tpu_torch.parallel.trainer import (
+        DeviceEpochCache, DistributedTrainer,
+    )
+
+    rng = np.random.default_rng(7)
+    images = rng.integers(0, 256, (TL_IMAGES, math.prod(TL_SHAPE)),
+                          dtype=np.uint8)
+    labels = rng.integers(0, 1000, TL_IMAGES).astype(np.int32)
+    params = {}
+    mean = (127.5,) * 3
+
+    def lane(pre):
+        module = build_model("vit_b16", num_classes=1000)["module"]
+        if not params:
+            params.update(init_state(module, seed=0))
+        module.load_state_dict({k: torch.from_numpy(v)
+                                for k, v in params.items()})
+
+        def loss_fn(module, batch, gen):
+            logits = module(pre(batch["image"])).float()
+            return F.cross_entropy(logits, batch["label"].long())
+        trainer = DistributedTrainer(loss_fn, sgd(0.01, momentum=0.9))
+        state = trainer.init(lambda: module)
+        cache = DeviceEpochCache({"image": images, "label": labels},
+                                 TL_BATCH)
+
+        def batches():
+            while True:
+                yield from cache.batches(0)
+        return trainer, state, batches()
+
+    def plain_pre(u8):
+        m = torch.tensor(mean, dtype=torch.float32, device=card)
+        istd = torch.from_numpy(_inv_std(mean)).to(card)
+        return _fused_normalize_plain(u8, m, istd, torch.bfloat16).reshape(
+            (u8.shape[0],) + TL_SHAPE)
+
+    # the main path: counts zeroed just before, read just after
+    trainer, state, it = lane(make_preprocess_fn(TL_SHAPE, mean, mean))
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    state, m = trainer.train_step(state, next(it), 1)
+    syncs.device_get(m["loss"], "smoke.first_step")
+    first_s = time.perf_counter() - t0
+    for _ in range(TL_WARMUP - 1):
+        state, m = trainer.train_step(state, next(it), 1)
+    syncs.device_get(m["loss"], "smoke.warm")
+    windows = []
+    for _ in range(TL_WINDOWS):
+        trainer.flush_metrics()
+        t0 = time.perf_counter()
+        for _ in range(TL_STEPS):
+            state, m = trainer.train_step(state, next(it), 1)
+        final_loss = float(syncs.device_get(m["loss"], "smoke.final_fetch"))
+        windows.append(time.perf_counter() - t0)
+    launches = _launches(kernels)
+    steps = TL_WARMUP + TL_STEPS * TL_WINDOWS
+    _check(launches == _want(kernels, FUSED_NORMALIZE=steps),
+           f"kernels launched {launches} times in {steps} train_large steps, "
+           "want K1 once a step and no other")
+    _check(math.isfinite(final_loss), "train_large loss not finite")
+    step_s = statistics.median(windows) / TL_STEPS
+    flops = trainer.flops_per_step
+    tflops = flops / step_s / 1e12
+    if profile_dir:
+        def one_step():
+            nonlocal state
+            state, _ = trainer.train_step(state, next(it), 1)
+            torch.cuda.synchronize()
+        _profile_pass(torch, one_step, profile_dir, "train_large")
+    del trainer, state, it
+
+    # K1 against its plain version in the loss: same params and batches,
+    # cuDNN deterministic so the two runs differ only in the preprocess
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+    def losses(pre):
+        tr, st, batches = lane(pre)
+        out = []
+        for _ in range(TL_PARITY_STEPS):
+            st, mm = tr.train_step(st, next(batches), 1)
+            out.append(mm["loss"])
+        return syncs.device_get(torch.stack(out), "smoke.parity")
+    k1 = losses(make_preprocess_fn(TL_SHAPE, mean, mean))
+    plain = losses(plain_pre)
+    torch.backends.cudnn.deterministic = False
+    rel = _max_step_rel(k1, plain)
+    _check(bool(np.isfinite(k1).all()) and rel <= TL_PARITY_TOL,
+           f"train_large {TL_PARITY_STEPS} steps, K1 vs its plain version: "
+           f"largest relative loss difference {rel} > {TL_PARITY_TOL}")
+    _line(phase="train_large", card=_smi(), model="vit_b16",
+          image=list(TL_SHAPE), classes=1000, images=TL_IMAGES,
+          batch=TL_BATCH, compute="bfloat16",
+          optimizer="sgd(0.01, momentum=0.9)", first_step_s=first_s,
+          timed_windows_s=windows, steps_per_window=TL_STEPS,
+          step_ms=step_s * 1e3,
+          images_per_s=TL_BATCH / step_s,
+          images_per_s_min=TL_BATCH * TL_STEPS / max(windows),
+          images_per_s_max=TL_BATCH * TL_STEPS / min(windows),
+          flops_per_step=flops, achieved_tflops=tflops,
+          mfu_vs_bf16_dense_peak=tflops * 1e12 / H100_SXM_BF16_DENSE_FLOPS,
+          launches_main_path=launches, final_loss=final_loss,
+          parity_vs_k1_plain=dict(
+              steps=TL_PARITY_STEPS, bit_equal=bool(np.array_equal(k1, plain)),
+              max_step_rel_diff=rel, tolerance=TL_PARITY_TOL,
+              first_loss=float(k1[0]), last_loss=float(k1[-1])))
+    return launches
 
 
 def _profile_pass(torch, run, out_dir, name) -> None:
@@ -1642,6 +2350,10 @@ def main() -> int:
     phase_moe_score(torch, kernels, card)
     phase_featurize_vit(torch, kernels, card)
     phase_automl(torch, kernels, card)
+    phase_text(torch, kernels, card, profile_dir)
+    lm_train, lm_train32, moe_train = phase_lm_train(torch, kernels, card,
+                                                     profile_dir)
+    train_large = phase_train_large(torch, kernels, card, profile_dir)
 
     k1k, k2k = kernels.FUSED_NORMALIZE, kernels.CROP_RESIZE_NORMALIZE
     tc, f32 = kernels.FLASH_ATTENTION_TC, kernels.FLASH_ATTENTION
@@ -1649,7 +2361,10 @@ def main() -> int:
         "name": k1k.name, "route": "cuda",
         "source": "mmlspark_tpu_torch/kernels/csrc/fused_normalize.cu",
         "replaces": "mmlspark_tpu/ops/pallas_preprocess.py:43",
-        "launches": train[k1k.name], "max_abs_err": k1["max_abs_err"],
+        "launches": train[k1k.name],
+        "launches_by_path": {"train": train[k1k.name],
+                             "train_large": train_large[k1k.name]},
+        "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
         "library_ms": None,
@@ -1684,7 +2399,11 @@ def main() -> int:
         "name": tc.name, "route": "cuda",
         "source": "mmlspark_tpu_torch/kernels/csrc/flash_attention_wgmma.cu",
         "replaces": "mmlspark_tpu/ops/pallas_attention.py:109",
-        "launches": lm[tc.name], "max_abs_err": k3["tc"]["max_abs_err"],
+        "launches": lm[tc.name],
+        "launches_by_path": {"lm_score": lm[tc.name],
+                             "lm_train": lm_train[tc.name],
+                             "lm_train_moe": moe_train[tc.name]},
+        "max_abs_err": k3["tc"]["max_abs_err"],
         "ms": k3["tc"]["ms"], "plain_ms": k3["tc"]["plain_ms"],
         "bound_ms": k3["tc"]["bound_ms"], "bound_by": k3["tc"]["bound_by"],
         "library_ms": k3["tc"]["library_ms"],
@@ -1694,8 +2413,10 @@ def main() -> int:
         "source": "mmlspark_tpu_torch/kernels/csrc/flash_attention.cu",
         "replaces": "mmlspark_tpu/ops/pallas_attention.py:109",
         "launches": lm32[f32.name],
+        "launches_by_path": {"lm_score_fp32": lm32[f32.name],
+                             "lm_train_fp32": lm_train32[f32.name]},
         "launches_note": "lm_score's fp32 pass (16 rows): f32 is this "
-                         "route's input; the bf16 main path launches it 0 "
+                         "route's input; the bf16 main paths launch it 0 "
                          "times",
         "max_abs_err": k3["f32"]["max_abs_err"],
         "ms": k3["f32"]["ms"], "plain_ms": k3["f32"]["plain_ms"],

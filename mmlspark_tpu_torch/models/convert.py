@@ -5,7 +5,9 @@ The inverse of the reference's torch import
 ``{"params": {module: {leaf: array}}}`` becomes a flat state dict whose
 keys are the module path joined by dots. Only the leaf is translated:
 
-- conv ``kernel`` HWIO -> ``weight`` OIHW;
+- conv ``kernel`` HWIO -> ``weight`` OIHW, and a 1-D conv's ``kernel``
+  (k, in, out) -> ``weight`` (out, in, k) (a rank-3 kernel of a module
+  named ``conv...``, as TextCNN's ``conv3``/``conv4``/``conv5`` are);
 - dense ``kernel`` (in, out) -> ``weight`` (out, in);
 - the ``DenseGeneral`` kernels of flax's multi-head attention (ViT):
   ``query``/``key``/``value`` (in, heads, head_dim) -> ``weight``
@@ -43,6 +45,8 @@ def _convert_leaf(module: str, leaf: str,
             return "weight", arr.reshape(arr.shape[0], -1).T
         if arr.ndim == 3 and module == "out":
             return "weight", arr.reshape(-1, arr.shape[-1]).T
+        if arr.ndim == 3 and module.startswith("conv"):
+            return "weight", arr.transpose(2, 1, 0)
         raise ValueError(f"kernel of rank {arr.ndim} has no torch layout")
     if leaf == "bias" and arr.ndim == 2 and module in _HEAD_SPLIT_IN:
         return "bias", arr.reshape(-1)
@@ -55,8 +59,8 @@ def from_jax_params(tree: Mapping) -> Dict[str, np.ndarray]:
     """Flax parameter tree (with or without the ``"params"`` collection
     key) -> the port's state dict of contiguous numpy arrays, copied, so
     the result is writable and shares no memory with the tree. Covers
-    every leaf the zoo holds: the ResNets, the MLP, the transformer LM
-    and its MoE variant, and the ViTs."""
+    every leaf the zoo holds: the ResNets, the MLP, TextCNN, the
+    transformer LM and its MoE variant, and the ViTs."""
     if "params" in tree:
         tree = tree["params"]
     out: Dict[str, np.ndarray] = {}

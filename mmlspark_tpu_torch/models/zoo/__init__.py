@@ -6,8 +6,8 @@ architecture registers under the same stable name with the same spec dict
 ``layer_names``), so stages and saved state name models the same way in
 both packages. ``module`` is an ``nn.Module`` whose parameters are
 allocated but not initialized; :func:`init_state` fills a state dict from a
-seed. Registered so far: the ResNets, the tabular MLP, the transformer LM
-and its MoE variant, and the ViTs.
+seed. Registered so far: the ResNets, the tabular MLP, TextCNN, the
+transformer LM and its MoE variant, and the ViTs.
 """
 from __future__ import annotations
 
@@ -118,6 +118,7 @@ class PooledHead(torch.nn.Module):
 # populate the registry
 from mmlspark_tpu_torch.models.zoo import resnet as _resnet  # noqa: E402,F401
 from mmlspark_tpu_torch.models.zoo import mlp as _mlp  # noqa: E402,F401
+from mmlspark_tpu_torch.models.zoo import cnn1d as _cnn1d  # noqa: E402,F401
 from mmlspark_tpu_torch.models.zoo import vit as _vit  # noqa: E402,F401
 from mmlspark_tpu_torch.models.zoo import transformer as _transformer  # noqa: E402,F401
 from mmlspark_tpu_torch.models.zoo import moe as _moe  # noqa: E402,F401

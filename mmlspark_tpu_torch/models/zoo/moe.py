@@ -20,7 +20,8 @@ The load-balancing loss (E * sum over experts of the first-choice share
 times the mean router probability) is computed on every forward and read
 by :meth:`TransformerLM.forward_with_intermediates` as ``moe_aux`` (the
 sum over MoE blocks), where the JAX package sows it under
-``("losses", "moe_aux")``.
+``("losses", "moe_aux")``. :func:`moe_aux_loss` sums it for a training
+loss, as the JAX package's ``moe_aux_loss`` sums the sown terms.
 
 ``transformer_lm_moe`` is ``TransformerLM`` with the dense MLP of every
 odd block swapped for :class:`MoeMlp`; every block's attention is K3's.
@@ -28,6 +29,7 @@ odd block swapped for :class:`MoeMlp`; every block's attention is K3's.
 from __future__ import annotations
 
 import math
+from collections.abc import Mapping
 from typing import Optional
 
 import torch
@@ -123,6 +125,21 @@ def _moe_lm(vocab, dim, depth, heads, max_len, num_experts, top_k,
                          max_len=max_len, dtype=dtype,
                          attention_fn=attention_fn,
                          block_factory=block_factory)
+
+
+def moe_aux_loss(inters: Mapping) -> torch.Tensor:
+    """The sum of the load-balancing terms of a forward, fp32: the
+    ``"moe_aux"`` of ``forward_with_intermediates``' intermediates (already
+    the sum over MoE blocks), or zero when the model routes nothing, as the
+    JAX package's sum over an empty ``losses`` collection is. The loss
+    that weighs it stays the caller's (the JAX tests use ``ce + 0.01 *
+    moe_aux_loss(state)``)."""
+    aux = inters.get("moe_aux")
+    if aux is not None:
+        return aux.float()
+    device = next((v.device for v in inters.values()
+                   if isinstance(v, torch.Tensor)), None)
+    return torch.zeros((), dtype=torch.float32, device=device)
 
 
 @register_model("transformer_lm_moe")

@@ -11,7 +11,11 @@ The JAX package builds its optimizers from optax (``train/deep.py``,
   torch does;
 - :func:`adamw`: decoupled decay of every parameter (optax applies no mask
   by default), as ``torch.optim.AdamW`` does; optax's default decay 1e-4
-  is kept, not torch's 1e-2.
+  is kept, not torch's 1e-2;
+- :func:`lamb` and :func:`adafactor`: torch has no LAMB, and
+  ``torch.optim.Adafactor`` follows other rules (no parameter scale,
+  another decay and eps), so :class:`Lamb` and :class:`Adafactor` are
+  written here from optax 0.2.6's chains, their state in float32.
 
 An :class:`Optimizer` is a recipe, like an optax ``GradientTransformation``:
 :meth:`Optimizer.init` builds the torch optimizer over the parameters it is
@@ -20,14 +24,13 @@ the update count. optax evaluates a schedule at the count BEFORE the update
 (the first update uses ``schedule(0)``); :meth:`OptimizerState.step` sets
 the rate from its host-side count first, then steps, then counts. The
 count is a host int, so stepping reads nothing from the device.
-
-``lamb`` and ``adafactor`` are not ported yet (ROADMAP).
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, Sequence, Union
+from typing import Callable, Iterable, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 Schedule = Callable[[int], float]
@@ -89,16 +92,142 @@ def adamw(lr: LearningRate, b1: float = 0.9, b2: float = 0.999,
                      weight_decay=weight_decay)
 
 
+class Lamb(torch.optim.Optimizer):
+    """optax.lamb: ``scale_by_adam(b1=0.9, b2=0.999, eps=1e-6,
+    eps_root=0)``, then ``add_decayed_weights(weight_decay)`` on every
+    parameter, then ``scale_by_trust_ratio()`` per parameter, then ``-lr``.
+
+    The trust ratio is ``||p|| / ||u||``, and 1 where either norm is 0.
+    The bias corrections ``1 - b**t`` are computed in float32, as optax
+    does; the step count is a host int, so a step reads nothing from the
+    device."""
+
+    B1, B2, EPS = 0.9, 0.999, 1e-6
+
+    def __init__(self, params, lr: float, weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay))
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        self.count += 1
+        t = np.float32(self.count)
+        c1 = float(np.float32(1) - np.float32(self.B1) ** t)
+        c2 = float(np.float32(1) - np.float32(self.B2) ** t)
+        for group in self.param_groups:
+            wd, lr = group["weight_decay"], group["lr"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad.float()
+                state = self.state[p]
+                if not state:
+                    state["mu"] = torch.zeros_like(g)
+                    state["nu"] = torch.zeros_like(g)
+                mu, nu = state["mu"], state["nu"]
+                mu.mul_(self.B1).add_(g, alpha=1.0 - self.B1)
+                nu.mul_(self.B2).add_(g * g, alpha=1.0 - self.B2)
+                u = (mu / c1) / ((nu / c2).sqrt() + self.EPS)
+                w = p.float()
+                if wd:
+                    u = u + wd * w
+                p_norm = torch.linalg.vector_norm(w)
+                u_norm = torch.linalg.vector_norm(u)
+                ratio = torch.where((p_norm == 0) | (u_norm == 0),
+                                    torch.ones_like(p_norm), p_norm / u_norm)
+                p.sub_((u * ratio * lr).to(p.dtype))
+
+
+# optax.adafactor's defaults: factor a parameter's second moment when its
+# two largest axes are both at least this long
+_MIN_DIM_TO_FACTOR = 128
+
+
+def _factored_dims(shape: Sequence[int]) -> Optional[Tuple[int, int]]:
+    """optax's ``_factored_dims``: the (second largest, largest) axes of a
+    parameter of rank >= 2 whose second largest axis is at least
+    ``_MIN_DIM_TO_FACTOR``, else None (the second moment is kept whole)."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < _MIN_DIM_TO_FACTOR:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+class Adafactor(torch.optim.Optimizer):
+    """optax.adafactor with its defaults: ``scale_by_factored_rms``, then
+    ``clip_by_block_rms(1.0)``, then ``lr``, then
+    ``scale_by_param_block_rms(1e-3)``, then ``-1``; no momentum, no
+    weight decay.
+
+    - A parameter whose two largest axes are both at least 128 keeps a row
+      and a column mean of ``g**2 + 1e-30`` (the second moment factored
+      over those axes); any other keeps ``g**2 + 1e-30`` whole.
+    - The decay at the update of count ``t`` (from 0) is ``1 - (t + 1) **
+      -0.8``, in float32.
+    - The update's RMS is clipped to 1, and the update is scaled by
+      ``max(RMS(p), 1e-3)``.
+
+    The factored update ``g * sqrt(mean(R)) / sqrt(R_i * C_j)`` is the same
+    for a transposed layout (torch's ``(out, in)`` against flax's ``(in,
+    out)``), so the rule holds on the port's parameters as optax's holds
+    on flax's."""
+
+    DECAY_RATE, EPS, CLIP, MIN_SCALE = 0.8, 1e-30, 1.0, 1e-3
+
+    def __init__(self, params, lr: float):
+        super().__init__(params, dict(lr=lr))
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        t = np.float32(self.count + 1)
+        decay = float(np.float32(1) - t ** np.float32(-self.DECAY_RATE))
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is not None:
+                    p.sub_(self._update(p, group["lr"], decay).to(p.dtype))
+        self.count += 1
+
+    def _update(self, p, lr: float, decay: float) -> torch.Tensor:
+        g = p.grad.float()
+        state = self.state[p]
+        dims = _factored_dims(tuple(p.shape))
+        g2 = g * g + self.EPS
+        if dims is not None:
+            d1, d0 = dims
+            if not state:
+                state["v_row"] = torch.zeros_like(g.mean(dim=d0))
+                state["v_col"] = torch.zeros_like(g.mean(dim=d1))
+            v_row, v_col = state["v_row"], state["v_col"]
+            v_row.mul_(decay).add_(g2.mean(dim=d0), alpha=1.0 - decay)
+            v_col.mul_(decay).add_(g2.mean(dim=d1), alpha=1.0 - decay)
+            reduced_d1 = d1 - 1 if d1 > d0 else d1
+            row_col_mean = v_row.mean(dim=reduced_d1, keepdim=True)
+            row_factor = (v_row / row_col_mean).rsqrt()
+            u = g * row_factor.unsqueeze(d0) * v_col.rsqrt().unsqueeze(d1)
+        else:
+            if not state:
+                state["v"] = torch.zeros_like(g)
+            v = state["v"]
+            v.mul_(decay).add_(g2, alpha=1.0 - decay)
+            u = g * v.rsqrt()
+        u = u / torch.clamp(torch.sqrt(torch.mean(u * u)) / self.CLIP,
+                            min=1.0)
+        w = p.float()
+        scale = torch.clamp(torch.sqrt(torch.mean(w * w)), min=self.MIN_SCALE)
+        return u * lr * scale
+
+
 def lamb(lr: LearningRate, weight_decay: float = 0.0) -> Optimizer:
-    raise NotImplementedError(
-        "lamb is not ported yet (ROADMAP, slice 2 left-outs); use adamw, "
-        "adam or sgd")
+    """optax.lamb (:class:`Lamb`)."""
+    return Optimizer(Lamb, lr, weight_decay=weight_decay)
 
 
 def adafactor(lr: LearningRate) -> Optimizer:
-    raise NotImplementedError(
-        "adafactor is not ported yet (ROADMAP, slice 2 left-outs); use "
-        "adamw, adam or sgd")
+    """optax.adafactor with its defaults (:class:`Adafactor`)."""
+    return Optimizer(Adafactor, lr)
 
 
 # -- schedules: optax's formulas, as plain functions of the count ----------

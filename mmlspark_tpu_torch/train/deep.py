@@ -21,9 +21,11 @@ same architecture (the reference's CNTKLearner round trip,
 - the fitted ``DeepClassifierModel`` hands out a ``TorchModel`` for
   feature extraction (:meth:`DeepClassifierModel.to_torch_model`).
 
-Not ported yet, and raising ``NotImplementedError``: ``checkpointDir``
+Every optimizer of the reference trains (``adamw``, ``adam``, ``sgd``,
+``lamb``, ``adafactor``; ``parallel/optim.py`` holds optax's rules). Not
+ported yet, and raising ``NotImplementedError``: ``checkpointDir``
 (checkpointing needs ``parallel/checkpoint.py``) and a non-None
-``meshSpec`` (ROADMAP slice 6); the ``lamb`` and ``adafactor`` optimizers.
+``meshSpec`` (ROADMAP slice 6).
 """
 from __future__ import annotations
 
