@@ -4,7 +4,7 @@
     python3 chip_smoke.py                      # as the chip check runs it
     python3 chip_smoke.py --profile <dir>      # plus profiled warm passes
 
-Five paths, each through the entry points a user calls:
+Six paths, each through the entry points a user calls:
 
 - serving, the README's transfer-learning quickstart: an
   ``ImageFeaturizer`` with a ResNet-50 (random weights from a seed) scores
@@ -38,7 +38,13 @@ Five paths, each through the entry points a user calls:
   ``transformer_lm`` and the MoE LM train on next-token cross-entropy with
   K3's forward in every block; ViT-B/16 trains at 224x224 with K1 in the
   loss; ``DeepClassifier`` fits with the ``lamb`` and ``adafactor``
-  optimizers.
+  optimizers;
+- serve and generate: a ``Server`` scores single-image requests through
+  the featurize path's ResNet-50 scoring model and token rows through
+  ``transformer_lm``, one CUDA graph per batch bucket replaying K2 and K3;
+  its generate lane decodes continuously batched sequences over a paged KV
+  arena, one CUDA graph per (program, bucket), K3 in every prefill at
+  prompt buckets of 512 and more.
 
 The script:
 
@@ -150,7 +156,53 @@ The script:
     MFU), K1 once a step and no other kernel; 10 steps' losses within
     ``TL_PARITY_TOL`` of the same trainer fed by K1's plain version (bit
     equality reported);
-14. prints the kernel table line (each kernel's launches on each of its
+14. ``serve``: a ``Server`` (max_batch 64, buckets 1, 8, 32, 64) over the
+    TorchModel ``ImageFeaturizer`` builds for ResNet-50 (``pool``, bf16,
+    ``devicePreprocess`` 256^2x3 uint8 -> 224^2; seed 0). Every bucket's
+    CUDA graph is captured first (capture ms each: the cold start), then the
+    counts are zeroed and 16 client threads send 512 single-image requests,
+    each waiting for its answer (images/s, p50/p99 request ms). Gates: (a)
+    no capture after warm-up; (b) each graph's capture records K2's staged
+    variant once, and K2's launches equal the sum over replays of the
+    graphs' recorded launches, K1 and K3 0; one replay of each graph
+    under torch.profiler runs on the device exactly the kernels its
+    capture recorded; (c) full 64-row batches EQUAL
+    ``TorchModel.transform`` at ``miniBatchSize=64`` bit for bit; the
+    rows served at the smaller buckets are held within 2% of the
+    features' scale (the featurize phase's bf16 gate). A batch's copy-in,
+    replay and fetch are timed apart;
+15. ``lm_serve``: ``transformer_lm`` (bf16, ``hidden``) behind buckets 1,
+    4, 8, 128 requests of 2048 ids from 8 client threads (tokens/s,
+    p50/p99). Gates: no capture after warm-up; each graph's capture
+    records K3's tensor-core kernel 6 times, its launches equal 6 x
+    replays, and one profiled replay of each graph runs just those 6 on
+    the device; a full 8-row batch EQUALS ``transform`` at
+    ``miniBatchSize=8`` bit for bit, and every served row is within the
+    lm_score phase's bf16 limits (max 0.1, mean 0.01) of it;
+16. ``generate``: the lane of ``transformer_lm`` (bf16) at
+    ``generate.max_seq_len`` 2048, 8 sequences, KV blocks of 16 tokens
+    (an arena of 201 MB). Every prefill, decode, chunk and copy-on-write
+    graph the traffic uses is captured first; then 128 prompts of
+    600-1900 ids (``default_rng(0)``), 32 new tokens each, from 8 client
+    threads (generated tokens/s over the round, decode tokens/s over the
+    round's decode steps' time, TTFT p50/p99, inter-token ms). Gates: (a)
+    no capture after warm-up (``steady_compiles`` 0); (b) K3's
+    tensor-core kernel 6 times a prefill replay (every bucket is 512 or
+    more), no kernel in the decode, chunk and copy-on-write graphs, and
+    no other launch, each graph's recorded launches confirmed by one
+    profiled replay on the device (as in the fp32 gate); (c) a
+    shared-prefix round (8 prompts on one 1024-id head, the head alone
+    among them) has prefix hits and a copy-on-write, and its tokens'
+    agreement with the same round with ``generate.prefix_cache=False`` is
+    printed; (d) the fp32 gate, TF32 off, ``transformer_lm`` at the zoo's
+    width cut to depth 2: 4 prompts of 600-1000 ids give greedy tokens
+    EQUAL to the port's full-recompute loop (K3's CUDA-core kernel twice a
+    prefill replay), and the shared-prefix round gives tokens EQUAL to the
+    cache-off round. The bf16 lane's agreement with its own full
+    recompute (the first 16 prompts) is printed without a gate: K3's
+    tensor-core route and the decode's plain attention round p to bf16 at
+    different places, which can move a near-tied argmax;
+17. prints the kernel table line (each kernel's launches on each of its
     paths), the card's name and power limit, and last ``{"ok": true,
     "device": {...}}``.
 
@@ -262,6 +314,29 @@ TEXT_F32_TOL = 2e-5
 LM_BF16_TRAIN_TOL, LM_F32_TRAIN_TOL = 1e-3, 1e-4
 TL_PARITY_TOL = 1e-3
 DEEP_OPT_TOL = 1e-5
+# the serve phases. serve: the featurize path's ResNet-50 scoring model
+# (bf16, pool, K2 resizing 256^2 uint8 to 224^2) behind a Server with
+# buckets (1, 8, 32, 64), 512 single-image requests from 16 client threads
+# (each waits for its answer before the next). lm_serve: transformer_lm
+# (bf16, hidden) behind buckets (1, 4, 8), 128 requests of 2048 ids from 8
+# clients. generate: transformer_lm's lane at max_seq_len 2048, 8
+# sequences, KV blocks of 16 tokens; 128 prompts of 600-1900 ids from 8
+# clients, 32 new tokens each (so that the timed windows last seconds and
+# p99 is not the maximum), the first 16 also through the full recompute;
+# a round of 8 prompts sharing a 1024-id head;
+# the fp32 gate at depth 2 over 4 prompts of 600-1000 ids. Served rows of
+# a full batch must equal the eager pass at the same batch shape bit for
+# bit; rows served at other buckets are held within the featurize phase's
+# 2% (serve) and lm_score's bf16 limits (lm_serve)
+SERVE_REQUESTS, SERVE_CLIENTS, SERVE_BUCKETS = 512, 16, (1, 8, 32, 64)
+SERVE_REL_TOL = 0.02
+LM_SERVE_REQUESTS, LM_SERVE_CLIENTS, LM_SERVE_BUCKETS = 128, 8, (1, 4, 8)
+GEN_CONFIG = {"generate.max_seq_len": 2048, "generate.max_sequences": 8,
+              "generate.kv_block_tokens": 16}
+GEN_REQUESTS, GEN_CLIENTS, GEN_NEW_TOKENS = 128, 8, 32
+GEN_PROMPT, GEN_RECOMPUTED = (600, 1900), 16
+GEN_PREFIX_REQUESTS, GEN_PREFIX_HEAD, GEN_PREFIX_SUFFIX = 8, 1024, (1, 400)
+GEN_F32_DEPTH, GEN_F32_PROMPTS, GEN_F32_PROMPT = 2, 4, (600, 1000)
 # fp32 operations per output element of the crop-resize-normalize kernel:
 # two row lerps (3 each), one column lerp (3), rint, clamp (2), subtract,
 # multiply
@@ -479,7 +554,8 @@ def phase_kernel_check_k1(torch, tpre, kernel, card):
 
 
 def phase_kernel_check(torch, tpre, kernel, card):
-    """K2 against its plain version at the main path's geometries; at the
+    """K2 against its plain version at the main path's geometries and at
+    the serve path's batch buckets (untimed); at the
     main shape (256² → 224²) in bf16, the featurize path's output, and
     f32: times, bound, launch floor (an empty kernel on the same grid),
     the direct-load variant's time beside the staged one, and
@@ -491,26 +567,29 @@ def phase_kernel_check(torch, tpre, kernel, card):
         0, 256, (BATCH, SRC, SRC, 3), dtype=np.uint8)
     u8 = torch.from_numpy(raw).to(card)
     variants = [
-        ("resize_bf16", None, (DST, DST), torch.bfloat16),
-        ("resize", None, (DST, DST), torch.float32),
-        ("crop_resize", (240, 240), (DST, DST), torch.float32),
-        ("crop_resize_bf16", (240, 240), (DST, DST), torch.bfloat16),
-        ("crop_only", (DST, DST), None, torch.float32),
-        ("crop_only_bf16", (DST, DST), None, torch.bfloat16),
-    ]
+        ("resize_bf16", None, (DST, DST), torch.bfloat16, BATCH),
+        ("resize", None, (DST, DST), torch.float32, BATCH),
+        ("crop_resize", (240, 240), (DST, DST), torch.float32, BATCH),
+        ("crop_resize_bf16", (240, 240), (DST, DST), torch.bfloat16, BATCH),
+        ("crop_only", (DST, DST), None, torch.float32, BATCH),
+        ("crop_only_bf16", (DST, DST), None, torch.bfloat16, BATCH),
+    ] + [   # the serve path's batch buckets, checked and not timed
+        (f"serve_b{b}_resize_bf16", None, (DST, DST), torch.bfloat16, b)
+        for b in SERVE_BUCKETS]
     xf = u8.permute(0, 3, 1, 2).float()   # NCHW view, channels-last
     library_ms = _graph_ms(torch, lambda: torch.nn.functional.interpolate(
         xf, size=(DST, DST), mode="bilinear", align_corners=False,
         antialias=False))
     rows = {}
-    for name, crop, resize, dt in variants:
+    for name, crop, resize, dt, batch in variants:
+        x = u8[:batch]
         plan = tpre.CropResizePlan((SRC, SRC, 3), resize=resize, crop=crop,
                                    mean=IMAGENET_MEAN, std=IMAGENET_STD)
         before = kernel.variant_launches.get("staged", 0)
-        got = tpre.crop_resize_normalize(u8, plan, dt)
+        got = tpre.crop_resize_normalize(x, plan, dt)
         _check(kernel.variant_launches.get("staged", 0) == before + 1,
                f"K2 {name}: the staged variant did not launch")
-        want = tpre._crop_resize_normalize_plain(u8, plan, dt)
+        want = tpre._crop_resize_normalize_plain(x, plan, dt)
         torch.cuda.synchronize()
         diff = (got.float() - want.float()).abs()
         std = torch.tensor(IMAGENET_STD, device=card)
@@ -527,11 +606,12 @@ def phase_kernel_check(torch, tpre, kernel, card):
                f"K2 {name}: max err {max_err} (tol {tol}), "
                f"share differing {share}")
         row = dict(variant=name, out_dtype=str(dt).replace("torch.", ""),
-                   band_rows=plan.band_rows, stage_max=plan.stage_max,
+                   batch=batch, band_rows=plan.band_rows,
+                   stage_max=plan.stage_max,
                    smem_bytes=plan.smem_bytes(plan.stage_max),
                    max_abs_err=max_err, max_quanta=quanta,
                    share_differing=share, tolerance=tol)
-        if name.startswith("resize"):
+        if name in ("resize_bf16", "resize"):
             direct = tpre.CropResizePlan(
                 (SRC, SRC, 3), resize=resize, crop=crop, mean=IMAGENET_MEAN,
                 std=IMAGENET_STD, smem_budget=0)
@@ -602,7 +682,9 @@ def phase_kernel_check_k3(torch, tatt, kernels, card):
     route ``_route`` picks; both K3 kernels' launches are counted across the
     routed call (the route's kernel once, the other never) and across the
     plain call (neither). Times, the library call's time and the bound at
-    each. Returns the LM shape's row of each route."""
+    each, except at the lm_serve and generate prefill shapes, which are
+    held to the same gates untimed. Returns the LM shape's row of each
+    route."""
     import torch.nn.functional as F
     torch.backends.cuda.matmul.allow_tf32 = False     # fp32 products in fp32
     ks = {"tc": kernels.FLASH_ATTENTION_TC, "f32": kernels.FLASH_ATTENTION}
@@ -619,6 +701,17 @@ def phase_kernel_check_k3(torch, tatt, kernels, card):
                 # the CUDA-core route's bf16 input; SDPA runs it on the
                 # tensor cores
                 ("d256_bf16", (2, LM_LEN, 4, 256), torch.bfloat16, True)]
+    # the shapes the lm_serve graphs (batch buckets 1 and 4) and the
+    # generate prefill graphs (one prompt at buckets 1024 and 2048; bf16,
+    # and f32 in the fp32 gate) give K3: checked, not timed
+    checked = [("serve_b1_prefill_2048_bf16", (1, LM_LEN, 8, 64),
+                torch.bfloat16),
+               ("serve_b4_bf16", (4, LM_LEN, 8, 64), torch.bfloat16),
+               ("prefill_1024_bf16", (1, 1024, 8, 64), torch.bfloat16),
+               ("prefill_1024_f32", (1, 1024, 8, 64), torch.float32),
+               ("prefill_2048_f32", (1, LM_LEN, 8, 64), torch.float32)]
+    variants = ([v + (True,) for v in variants]
+                + [v + (True, False) for v in checked])
 
     def counted(fn):
         before = {r: k.launches for r, k in ks.items()}
@@ -626,7 +719,7 @@ def phase_kernel_check_k3(torch, tatt, kernels, card):
         return out, {r: k.launches - before[r] for r, k in ks.items()}
 
     rows, main = [], {}
-    for name, shape, dt, causal in variants:
+    for name, shape, dt, causal, timed in variants:
         rng = np.random.default_rng(8)
         q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
                    .to(card, dt) for _ in range(3))
@@ -655,6 +748,19 @@ def phase_kernel_check_k3(torch, tatt, kernels, card):
             got.float()).all()), f"K3 {name} ({route}): max err {max_err} "
                                  f"({steps} bf16 steps, gate {gate}) against "
                                  "its plain version")
+        row = dict(variant=name, route=route, kernel=ks[route].name,
+                   shape=list(shape), causal=causal,
+                   dtype=str(dt).replace("torch.", ""),
+                   launches_kernel_call=got_launches,
+                   launches_plain_call=want_launches, max_abs_err=max_err,
+                   mean_abs_err=(got.float() - want.float()).abs().mean()
+                   .item(), bf16_steps_beyond_f32_tol=steps,
+                   tc_gate_worst_over_bound=None if gate is None else gate[0],
+                   tc_gate_mean_over_ceiling=None if gate is None
+                   else gate[1])
+        rows.append(row)
+        if not timed:
+            continue
         plain_iters = 2 if L >= 8192 else 5
         kernel_ms = _graph_ms(
             torch, lambda: tatt.flash_attention(q, k, v, causal=causal))
@@ -674,22 +780,11 @@ def phase_kernel_check_k3(torch, tatt, kernels, card):
         bound_ms, bound_by = _bound(
             nbytes, flops, PEAK_BF16_S if dt == torch.bfloat16
             else PEAK_FP32_S)
-        row = dict(variant=name, route=route, kernel=ks[route].name,
-                   shape=list(shape), causal=causal,
-                   dtype=str(dt).replace("torch.", ""),
-                   launches_kernel_call=got_launches,
-                   launches_plain_call=want_launches, max_abs_err=max_err,
-                   mean_abs_err=(got.float() - want.float()).abs().mean()
-                   .item(), bf16_steps_beyond_f32_tol=steps,
-                   tc_gate_worst_over_bound=None if gate is None else gate[0],
-                   tc_gate_mean_over_ceiling=None if gate is None
-                   else gate[1], ms=kernel_ms, eager_ms=eager_ms,
-                   plain_ms=plain_ms, library_ms=library_ms,
-                   over_library=kernel_ms / library_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, flops=flops, bytes=nbytes,
-                   tflops=flops / kernel_ms / 1e9,
+        row.update(ms=kernel_ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                   library_ms=library_ms, over_library=kernel_ms / library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                   bytes=nbytes, tflops=flops / kernel_ms / 1e9,
                    bound_share=bound_ms / kernel_ms)
-        rows.append(row)
         main.setdefault(route, row)
     _line(phase="kernel_check", kernel="flash_attention (both routes)",
           launches_while_checking={r: k.launches for r, k in ks.items()},
@@ -2277,6 +2372,598 @@ def phase_train_large(torch, kernels, card, profile_dir=None):
     return launches
 
 
+def _closed_loop(clients, jobs, call):
+    """``call(job)`` for every job, from ``clients`` threads that each take
+    every ``clients``-th job in turn and wait for its answer before the
+    next: (results, seconds per job, wall seconds). Any failure raises."""
+    import threading
+    results, lat, errors = [None] * len(jobs), [0.0] * len(jobs), []
+
+    def client(c):
+        try:
+            for i in range(c, len(jobs), clients):
+                t0 = time.perf_counter()
+                results[i] = call(jobs[i])
+                lat[i] = time.perf_counter() - t0
+        except BaseException as e:          # re-raised below
+            errors.append(e)
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    _check(not any(t.is_alive() for t in threads), "a client thread hung")
+    return results, lat, wall
+
+
+def _pct_ms(seconds, q) -> float:
+    return float(np.percentile(np.asarray(seconds) * 1e3, q))
+
+
+def _replayed(programs, kernel) -> tuple:
+    """(launches, variant launches) of ``kernel`` that the programs' replays
+    made: each program's captured launches times its replays."""
+    n, variants = 0, {}
+    for prog in programs:
+        k, v = prog.launches.get(kernel.name, (0, {}))
+        n += prog.replays * k
+        for name, c in v.items():
+            variants[name] = variants.get(name, 0) + prog.replays * c
+    return n, variants
+
+
+# the device symbols of each kernel's functions, as the profiler names the
+# kernel nodes of a replayed graph
+KERNEL_SYMBOLS = {
+    "fused_normalize": ("fused_normalize_vec_kernel",
+                        "fused_normalize_scalar_kernel"),
+    "crop_resize_normalize": ("crop_resize_normalize_kernel",),
+    "flash_attention": ("flash_fwd_kernel",),
+    "flash_attention_tc": ("flash_tc_kernel",)}
+
+
+def _profiled_replays(torch, kernels, programs, what) -> dict:
+    """Each program's graph replayed once under torch.profiler, its
+    operands zeroed first (padding rows: a generate program then writes
+    only the reserved scratch block). The kernel nodes the profiler
+    records on the device are counted by kernel and held against the
+    launches the program's capture recorded (``prog.launches``), which the
+    launch counts add at every replay; the replay must record some device
+    work. Measurement only: it adds no launch counts. Returns the device
+    counts by program."""
+    from torch.profiler import ProfilerActivity, profile
+    from mmlspark_tpu_torch.serve.programs import DEVICE_LOCK
+    seen = {}
+    for key, prog in programs.items():
+        with DEVICE_LOCK:
+            for buf in prog.inputs:
+                buf.zero_()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                prog.graph.replay()
+                torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        got = {k.name: sum(1 for n in names
+                           if any(sym in n for sym in KERNEL_SYMBOLS[k.name])
+                           and "pytorch" not in n)
+               for k in kernels.KERNELS}
+        want = {k.name: prog.launches.get(k.name, (0, {}))[0]
+                for k in kernels.KERNELS}
+        _check(bool(names) and got == want,
+               f"{what} {key}: one replay ran {got} on the device "
+               f"({len(names)} device events), its capture recorded {want}")
+        seen[str(key)] = {"device_events": len(names),
+                          **{k: n for k, n in got.items() if n}}
+    return seen
+
+
+def _batch_breakdown(torch, prog, x, reps: int = 5) -> dict:
+    """Where one served batch's time goes, medians of ``reps``: the copy of
+    the padded host batch into the graph's static input (host clock to a
+    synchronize), the replay (CUDA events) and the counted fetch (host
+    clock). Measurement only: the replays here add no launch counts."""
+    from mmlspark_tpu_torch.observability import syncs
+    from mmlspark_tpu_torch.serve.programs import DEVICE_LOCK
+    copy, replay, fetch = [], [], []
+    host = torch.from_numpy(np.ascontiguousarray(x))
+    with DEVICE_LOCK:
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            prog.inputs[0].copy_(host)
+            torch.cuda.synchronize()
+            copy.append(time.perf_counter() - t0)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            prog.graph.replay()
+            end.record()
+            end.synchronize()
+            replay.append(start.elapsed_time(end) / 1e3)
+            t0 = time.perf_counter()
+            syncs.device_get(prog.output, "smoke.breakdown")
+            fetch.append(time.perf_counter() - t0)
+    return {"copy_in_ms": statistics.median(copy) * 1e3,
+            "replay_ms": statistics.median(replay) * 1e3,
+            "fetch_ms": statistics.median(fetch) * 1e3}
+
+
+def phase_serve(torch, kernels, card):
+    """The image-scoring seam: a ``Server`` over the featurize path's
+    ResNet-50 scoring model (the TorchModel ``ImageFeaturizer`` builds:
+    ``pool``, bf16, ``devicePreprocess`` 256^2x3 uint8 -> 224^2), every
+    bucket's CUDA graph captured before traffic, then 512 single-image
+    requests from 16 client threads (the counts zeroed just before, read
+    just after); full 64-row batches against ``TorchModel.transform`` at
+    ``miniBatchSize=64``."""
+    from mmlspark_tpu_torch.core.frame import Frame
+    from mmlspark_tpu_torch.models.torch_model import TorchModel
+    from mmlspark_tpu_torch.serve import Server
+
+    k2 = kernels.CROP_RESIZE_NORMALIZE
+    rows = np.random.default_rng(0).integers(
+        0, 256, (SERVE_REQUESTS, SRC * SRC * 3), dtype=np.uint8)
+    tm = TorchModel(inputCol="image", outputCol="features",
+                    outputNodeName="pool", miniBatchSize=SERVE_BUCKETS[-1],
+                    devicePreprocess={"srcShape": [SRC, SRC, 3],
+                                      "resize": [DST, DST]},
+                    computeDtype="bfloat16")
+    tm.set_model("resnet50", num_classes=1000, seed=0)
+    with Server({"resnet50": tm}, max_batch=SERVE_BUCKETS[-1],
+                buckets=SERVE_BUCKETS, max_wait_ms=2.0,
+                queue_depth=4 * SERVE_REQUESTS) as srv:
+        entry = srv.registry.get("resnet50")
+        capture_ms = {}
+        for b in SERVE_BUCKETS:          # cold start: one capture a bucket
+            capture_ms[b] = entry.program_for(b, rows[:b]).capture_s * 1e3
+        warm = entry.compile_count
+        _check(warm == len(SERVE_BUCKETS), f"{warm} captures for "
+                                           f"{len(SERVE_BUCKETS)} buckets")
+
+        # the main path: counts zeroed just before, read just after
+        kernels.reset_launches()
+        served, lat, wall = _closed_loop(
+            SERVE_CLIENTS, list(range(SERVE_REQUESTS)),
+            lambda i: srv.submit("resnet50", rows[i], timeout=300))
+        launches = _launches(kernels)
+        k2_variants = dict(k2.variant_launches)
+        progs = {key[0][0]: p for key, p in entry.built_programs().items()}
+        _check(entry.compile_count == warm,
+               f"{entry.compile_count - warm} captures after warm-up")
+        for b, p in progs.items():
+            _check(p.launches == {k2.name: (1, {"staged": 1})},
+                   f"bucket {b}'s graph holds {p.launches}, want K2's "
+                   "staged variant once")
+        want_n, want_variants = _replayed(progs.values(), k2)
+        _check(launches == _want(kernels, CROP_RESIZE_NORMALIZE=want_n)
+               and k2_variants == want_variants and want_n > 0,
+               f"kernels launched {launches} ({k2_variants}) on the serve "
+               f"path, want K2 {want_n} times ({want_variants}): once per "
+               "graph replay, and no other kernel")
+        feats = np.concatenate(served)
+        _check(feats.shape == (SERVE_REQUESTS, 2048)
+               and bool(np.isfinite(feats).all()),
+               f"served features {feats.shape} not finite or misshaped")
+        replays = {b: p.replays for b, p in sorted(progs.items())}
+
+        # full batches at the transform's shape: bit-equal, or within the
+        # featurize phase's bf16 gate
+        full = np.concatenate([srv.submit("resnet50", rows[i:i + 64],
+                                          timeout=300)
+                               for i in range(0, 128, 64)])
+        direct = np.asarray(tm.transform(Frame.from_dict(
+            {"image": rows})).column("features"))
+        scale = float(np.abs(direct).max())
+        full_diff = float(np.abs(full - direct[:128]).max())
+        _check(bool(np.array_equal(full, direct[:128])),
+               f"full 64-row batches vs transform at the same batch shape: "
+               f"not bit-equal, max |difference| {full_diff}")
+        cross_rel = float(np.abs(feats - direct).max()) / scale
+        _check(cross_rel <= SERVE_REL_TOL,
+               f"served rows (buckets 1-32) vs transform: rel {cross_rel}")
+        device_launches = _profiled_replays(torch, kernels, progs, "serve")
+        breakdown = {b: _batch_breakdown(torch, progs[b], rows[:b])
+                     for b in (8, 64)}
+
+    _line(phase="serve", card=_smi(), model="resnet50",
+          requests=SERVE_REQUESTS, clients=SERVE_CLIENTS,
+          buckets=list(SERVE_BUCKETS), compute="bfloat16",
+          capture_ms=capture_ms, captures_warm=warm,
+          captures_after_warm=entry.compile_count - warm,
+          launches_main_path=launches, k2_variant_launches=k2_variants,
+          replays_by_bucket=replays, wall_s=wall,
+          images_per_s=SERVE_REQUESTS / wall,
+          p50_ms=_pct_ms(lat, 50), p99_ms=_pct_ms(lat, 99),
+          full_batch_bit_equal=True, full_batch_max_abs=full_diff,
+          served_vs_transform_rel=cross_rel, rel_limit=SERVE_REL_TOL,
+          device_launches_one_replay=device_launches,
+          batch_breakdown=breakdown)
+    return launches
+
+
+def phase_lm_serve(torch, kernels, card):
+    """The LM behind the same seam: ``transformer_lm`` (bf16, ``hidden``)
+    served at buckets (1, 4, 8) to 128 requests of 2048 ids from 8 client
+    threads, K3's tensor-core kernel 6 times a replay; a full 8-row batch
+    against ``TorchModel.transform`` at ``miniBatchSize=8``."""
+    from mmlspark_tpu_torch.core.frame import Frame
+    from mmlspark_tpu_torch.serve import Server
+
+    tc = kernels.FLASH_ATTENTION_TC
+    ids = np.random.default_rng(0).integers(
+        0, LM_VOCAB, (LM_SERVE_REQUESTS, LM_LEN)).astype(np.int32)
+    tm = _lm_scorer("transformer_lm", "hidden", LM_SERVE_BUCKETS[-1])
+    with Server({"lm": tm}, max_batch=LM_SERVE_BUCKETS[-1],
+                buckets=LM_SERVE_BUCKETS, max_wait_ms=2.0) as srv:
+        entry = srv.registry.get("lm")
+        capture_ms = {b: entry.program_for(b, ids[:b]).capture_s * 1e3
+                      for b in LM_SERVE_BUCKETS}
+        warm = entry.compile_count
+
+        # the main path: counts zeroed just before, read just after
+        kernels.reset_launches()
+        served, lat, wall = _closed_loop(
+            LM_SERVE_CLIENTS, list(range(LM_SERVE_REQUESTS)),
+            lambda i: srv.submit("lm", ids[i], timeout=300))
+        launches = _launches(kernels)
+        progs = {key[0][0]: p for key, p in entry.built_programs().items()}
+        _check(entry.compile_count == warm,
+               f"{entry.compile_count - warm} captures after warm-up")
+        for b, p in progs.items():
+            _check(p.launches == {tc.name: (LM_DEPTH, {})},
+                   f"bucket {b}'s graph holds {p.launches}, want K3's "
+                   f"tensor-core kernel {LM_DEPTH} times")
+        want_n, _ = _replayed(progs.values(), tc)
+        _check(launches == _want(kernels, FLASH_ATTENTION_TC=want_n)
+               and want_n > 0,
+               f"kernels launched {launches} on the lm_serve path, want "
+               f"K3's tensor-core kernel {want_n} times ({LM_DEPTH} a "
+               "replay) and no other kernel")
+        hidden = np.concatenate(served)
+        _check(hidden.shape == (LM_SERVE_REQUESTS, LM_LEN, 512)
+               and bool(np.isfinite(hidden).all()),
+               f"served hidden {hidden.shape} not finite or misshaped")
+        replays = {b: p.replays for b, p in sorted(progs.items())}
+
+        full = srv.submit("lm", ids[:8], timeout=300)
+        direct = np.asarray(tm.transform(Frame.from_dict(
+            {"ids": ids})).column("h"))
+        cross = _diff_stats(hidden, direct)
+        _check(cross["max_abs"] <= LM_BF16_MAX
+               and cross["mean_abs"] <= LM_BF16_MEAN,
+               f"served rows (buckets 1-8) vs transform: {cross}")
+        direct = direct[:8]
+        full_stats = _diff_stats(full, direct)
+        _check(bool(np.array_equal(full, direct)),
+               f"a full 8-row batch vs transform at the same batch shape: "
+               f"not bit-equal, {full_stats}")
+        device_launches = _profiled_replays(torch, kernels, progs,
+                                            "lm_serve")
+        breakdown = _batch_breakdown(torch, progs[8], ids[:8])
+
+    _line(phase="lm_serve", card=_smi(), model="transformer_lm",
+          requests=LM_SERVE_REQUESTS, clients=LM_SERVE_CLIENTS,
+          length=LM_LEN, buckets=list(LM_SERVE_BUCKETS), compute="bfloat16",
+          capture_ms=capture_ms, captures_warm=warm,
+          captures_after_warm=entry.compile_count - warm,
+          launches_main_path=launches, replays_by_bucket=replays,
+          wall_s=wall, tokens_per_s=LM_SERVE_REQUESTS * LM_LEN / wall,
+          p50_ms=_pct_ms(lat, 50), p99_ms=_pct_ms(lat, 99),
+          full_batch_bit_equal=True, full_batch_vs_transform=full_stats,
+          served_vs_transform=cross,
+          limits=dict(max_abs=LM_BF16_MAX, mean_abs=LM_BF16_MEAN),
+          device_launches_one_replay=device_launches,
+          batch_breakdown_bucket8=breakdown)
+    return launches
+
+
+def _full_recompute(torch, module, card, prompt, n):
+    """The port's full-recompute loop: the whole context through the
+    module once per new token, greedy."""
+    toks = list(int(t) for t in prompt)
+    with torch.no_grad():
+        for _ in range(n):
+            lg = module(torch.tensor([toks], dtype=torch.int64, device=card))
+            toks.append(int(lg[0, -1].argmax()))
+    return toks[len(prompt):]
+
+
+def _warm_lane(lane, prompt_lengths) -> dict:
+    """Capture every program the lane's traffic will use before it starts:
+    the prefill buckets of ``prompt_lengths``, every decode bucket, the
+    chunk width and the copy-on-write. Returns capture ms by (kind,
+    bucket)."""
+    from mmlspark_tpu_torch.serve.batcher import bucket_for
+    gen = lane.gen
+    keys = ([("prefill", b) for b in sorted(
+        {bucket_for(n, gen.prefill_buckets) for n in prompt_lengths})]
+        + [("decode", b) for b in gen.decode_buckets]
+        + [("chunk", gen.chunk_width), ("cow", 0)])
+    return {f"{k}:{b}": gen.program_for(k, b).capture_s * 1e3
+            for k, b in keys}
+
+
+def _prefix_round(srv, name, head, suffixes, new_tokens):
+    """One shared-prefix round on ``srv``'s lane for ``name`` (started):
+    ``head + suffixes[0]`` alone first (its prefill indexes the head's
+    blocks), then ``head`` itself (a full hit: copy-on-write) and ``head +
+    suffix`` for the rest, concurrently. Returns (tokens per request, the
+    lane's prefix hits and copy-on-writes during the round)."""
+    lane = srv._lanes[name]
+    hits0, cow0 = lane.stats()["prefix_hits"], lane.stats()["cow_copies"]
+    prompts = [np.concatenate([head, suffixes[0]]), head] + [
+        np.concatenate([head, s]) for s in suffixes[1:]]
+    first = srv.generate(name, prompts[0], max_new_tokens=new_tokens,
+                         timeout=300)
+    futs = [srv.submit_generate(name, p, max_new_tokens=new_tokens)
+            for p in prompts[1:]]
+    outs = [first] + [f.result(300) for f in futs]
+    st = lane.stats()
+    return ([o["tokens"] for o in outs], st["prefix_hits"] - hits0,
+            st["cow_copies"] - cow0)
+
+
+def _agreement(got, want) -> dict:
+    """Requests whose tokens are equal, and the share of tokens before each
+    request's first difference."""
+    same = [g == w for g, w in zip(got, want)]
+    lead = [next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
+                 len(w)) for g, w in zip(got, want)]
+    return {"requests_equal": int(sum(same)), "requests": len(same),
+            "tokens_before_first_difference": float(
+                sum(lead) / max(1, sum(len(w) for w in want)))}
+
+
+def phase_generate(torch, kernels, card):
+    """The generate lane on the card: ``transformer_lm`` (bf16) at
+    max_seq_len 2048, every program captured before traffic, 128 prompts of
+    600-1900 ids from 8 client threads (the counts zeroed just before,
+    read just after: K3's tensor-core kernel 6 times a prefill replay, no
+    other kernel); a shared-prefix round against the same round with the
+    prefix cache off; the fp32 gate (depth 2, TF32 off): greedy tokens
+    equal to the full recompute, and the shared-prefix round equal with
+    and without the prefix cache."""
+    from mmlspark_tpu_torch.models.torch_model import TorchModel
+    from mmlspark_tpu_torch.serve import Server
+    from mmlspark_tpu_torch.utils import config as tconfig
+
+    tc = kernels.FLASH_ATTENTION_TC
+    for k, v in GEN_CONFIG.items():
+        tconfig.set(k, v)
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(GEN_PROMPT[0], GEN_PROMPT[1] + 1, GEN_REQUESTS)
+    prompts = [rng.integers(0, LM_VOCAB, n) for n in lengths]
+    head = rng.integers(0, LM_VOCAB, GEN_PREFIX_HEAD)
+    suffixes = [rng.integers(0, LM_VOCAB, n) for n in
+                rng.integers(*GEN_PREFIX_SUFFIX, GEN_PREFIX_REQUESTS - 1)]
+    prefix_lengths = [GEN_PREFIX_HEAD + len(suffixes[0])]
+
+    tm = TorchModel().set_model("transformer_lm", seed=0)
+    srv = Server({"lm": tm})
+    try:
+        lane = srv.enable_generate("lm", start=False)
+        gen = lane.gen
+        capture_ms = _warm_lane(lane, list(lengths) + prefix_lengths)
+        warm = gen.entry.compile_count
+        steps = []
+        decode_step = lane._decode_step
+
+        def timed_decode_step():
+            n, t0 = len(lane.batcher.active), time.perf_counter()
+            decode_step()
+            steps.append((n, time.perf_counter() - t0))
+        lane._decode_step = timed_decode_step
+        lane.start()
+
+        # the main path: counts zeroed just before, read just after
+        kernels.reset_launches()
+        outs, lat, wall = _closed_loop(
+            GEN_CLIENTS, prompts,
+            lambda p: srv.generate("lm", p, max_new_tokens=GEN_NEW_TOKENS,
+                                   timeout=600))
+        launches = _launches(kernels)
+        progs = gen.built_programs()
+        # the decode steps of this round alone: the last step's timing is
+        # appended just after its requests are answered
+        n_decode = sum(p.replays for (k, _), p in progs.items()
+                       if k == "decode")
+        t_end = time.perf_counter() + 10
+        while len(steps) < n_decode and time.perf_counter() < t_end:
+            time.sleep(0.001)
+        main_steps = list(steps)
+        _check(len(main_steps) == n_decode,
+               f"{len(main_steps)} timed decode steps for {n_decode} decode "
+               "replays")
+        steady = gen.entry.compile_count - warm
+        _check(steady == 0, f"steady_compiles {steady}, want 0")
+        for (kind, b), p in progs.items():
+            want = ({tc.name: (LM_DEPTH, {})} if kind == "prefill"
+                    and b >= 512 else {})
+            _check(p.launches == want, f"the {kind}:{b} graph holds "
+                                       f"{p.launches}, want {want}")
+        want_n, _ = _replayed(progs.values(), tc)
+        _check(launches == _want(kernels, FLASH_ATTENTION_TC=want_n)
+               and want_n > 0,
+               f"kernels launched {launches} on the generate path, want K3's "
+               f"tensor-core kernel {want_n} times ({LM_DEPTH} a prefill "
+               "replay) and no other kernel")
+        tokens = [o["tokens"] for o in outs]
+        _check(all(len(t) == GEN_NEW_TOKENS for t in tokens)
+               and all(0 <= x < LM_VOCAB for t in tokens for x in t),
+               "a request did not get its 32 tokens in the vocabulary")
+        replays = {f"{k}:{b}": p.replays for (k, b), p in progs.items()}
+        decode_tokens = sum(n for n, _ in main_steps)
+        decode_s = sum(s for _, s in main_steps)
+        ttft = [o["ttft_ms"] for o in outs]
+        itl = [o["itl_mean_ms"] for o in outs]
+        device_launches = _profiled_replays(torch, kernels, progs,
+                                            "generate")
+        breakdown = _batch_breakdown_decode(torch, progs, gen)
+        module = srv.registry.get("lm").module
+        bf16_agreement = _agreement(tokens[:GEN_RECOMPUTED], [
+            _full_recompute(torch, module, card, p, GEN_NEW_TOKENS)
+            for p in prompts[:GEN_RECOMPUTED]])
+
+        on = _prefix_round(srv, "lm", head, suffixes, GEN_NEW_TOKENS)
+        tconfig.set("generate.prefix_cache", False)
+        srv.reset_lane("lm")
+        off_lane = srv.enable_generate("lm", start=False)
+        _warm_lane(off_lane, prefix_lengths + [GEN_PREFIX_HEAD])
+        off_lane.start()
+        off = _prefix_round(srv, "lm", head, suffixes, GEN_NEW_TOKENS)
+        _check(on[1] > 0 and on[2] >= 1 and off[1] == 0,
+               f"bf16 prefix round: {on[1]} hits, {on[2]} copy-on-writes "
+               f"(cache off: {off[1]} hits)")
+        bf16_prefix = _agreement(on[0], off[0])
+    finally:
+        srv.close()
+        tconfig.unset("generate.prefix_cache")
+
+    gate = _generate_fp32_gate(torch, kernels, card, rng, head, suffixes)
+    for k in GEN_CONFIG:
+        tconfig.unset(k)
+    _line(phase="generate", card=_smi(), model="transformer_lm",
+          compute="bfloat16", requests=GEN_REQUESTS, clients=GEN_CLIENTS,
+          prompt_length_min_median_max=[int(lengths.min()),
+                                        float(np.median(lengths)),
+                                        int(lengths.max())],
+          new_tokens=GEN_NEW_TOKENS, config=GEN_CONFIG,
+          kv_blocks=gen.kv.num_blocks, arena_bytes=gen.kv.arena_bytes(),
+          capture_ms=capture_ms, captures_warm=warm, steady_compiles=steady,
+          launches_main_path=launches, replays=replays, wall_s=wall,
+          tokens_per_s=GEN_REQUESTS * GEN_NEW_TOKENS / wall,
+          decode_tokens_per_s=decode_tokens / decode_s,
+          decode_s=decode_s, decode_steps=len(main_steps),
+          decode_step_ms_median=statistics.median(
+              s for _, s in main_steps) * 1e3,
+          ttft_ms_p50=float(np.percentile(ttft, 50)),
+          ttft_ms_p99=float(np.percentile(ttft, 99)),
+          itl_ms_median=float(np.median(itl)), itl_ms_max=float(max(itl)),
+          request_s_p50=float(np.percentile(lat, 50)),
+          device_launches_one_replay=device_launches,
+          decode_breakdown=breakdown,
+          bf16_vs_full_recompute=bf16_agreement,
+          prefix_round={"head": GEN_PREFIX_HEAD,
+                        "requests": GEN_PREFIX_REQUESTS,
+                        "prefix_hits": on[1], "cow_copies": on[2],
+                        "bf16_tokens_vs_cache_off": bf16_prefix},
+          fp32_gate=gate["line"])
+    return launches, gate["launches"]
+
+
+def _batch_breakdown_decode(torch, progs, gen) -> dict:
+    """The largest decode bucket's replay alone (CUDA events) beside its
+    copy-in and fetch, on padding-lane operands (scratch writes only)."""
+    from mmlspark_tpu_torch.observability import syncs
+    from mmlspark_tpu_torch.serve.programs import DEVICE_LOCK
+    b = gen.decode_buckets[-1]
+    prog = progs[("decode", b)]
+    times = {"copy_in_ms": [], "replay_ms": [], "fetch_ms": []}
+    with DEVICE_LOCK:
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for buf in prog.inputs:
+                buf.copy_(torch.zeros(buf.shape, dtype=buf.dtype))
+            torch.cuda.synchronize()
+            times["copy_in_ms"].append((time.perf_counter() - t0) * 1e3)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            prog.graph.replay()
+            end.record()
+            end.synchronize()
+            times["replay_ms"].append(start.elapsed_time(end))
+            t0 = time.perf_counter()
+            syncs.device_get(prog.output, "smoke.breakdown")
+            times["fetch_ms"].append((time.perf_counter() - t0) * 1e3)
+    return {"bucket": b, **{k: statistics.median(v)
+                            for k, v in times.items()}}
+
+
+def _generate_fp32_gate(torch, kernels, card, rng, head, suffixes) -> dict:
+    """fp32, TF32 off, ``transformer_lm`` at the zoo's width cut to depth 2:
+    4 prompts of 600-1000 ids through a manually stepped lane (K3's
+    CUDA-core kernel in prefill, twice a replay), greedy tokens equal to
+    the full recompute; the shared-prefix round equal with and without
+    the prefix cache."""
+    from mmlspark_tpu_torch.models.torch_model import TorchModel
+    from mmlspark_tpu_torch.serve import Server
+    from mmlspark_tpu_torch.utils import config as tconfig
+
+    f32k = kernels.FLASH_ATTENTION
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lengths = rng.integers(GEN_F32_PROMPT[0], GEN_F32_PROMPT[1] + 1,
+                           GEN_F32_PROMPTS)
+    prompts = [rng.integers(0, LM_VOCAB, n) for n in lengths]
+    tm = TorchModel().set_model("transformer_lm", seed=0, dtype="float32",
+                                depth=GEN_F32_DEPTH)
+    srv = Server({"lm32": tm})
+    try:
+        lane = srv.enable_generate("lm32", start=False)
+        _warm_lane(lane, list(lengths) + [GEN_PREFIX_HEAD + len(suffixes[0])])
+        kernels.reset_launches()
+        futs = [srv.submit_generate("lm32", p, max_new_tokens=GEN_NEW_TOKENS)
+                for p in prompts]
+        for _ in range(8 * GEN_NEW_TOKENS):
+            if all(f.done() for f in futs):
+                break
+            lane.step()
+        launches = _launches(kernels)
+        progs = lane.gen.built_programs()
+        for (kind, b), p in progs.items():
+            want = ({f32k.name: (GEN_F32_DEPTH, {})} if kind == "prefill"
+                    and b >= 512 else {})
+            _check(p.launches == want, f"fp32 {kind}:{b} graph holds "
+                                       f"{p.launches}, want {want}")
+        want_n, _ = _replayed(progs.values(), f32k)
+        _check(launches == _want(kernels, FLASH_ATTENTION=want_n)
+               and want_n > 0, f"fp32 lane launched {launches}, want K3's "
+                               f"CUDA-core kernel {want_n} times")
+        device_launches = _profiled_replays(torch, kernels, progs,
+                                            "fp32 generate")
+        tokens = [f.result(1)["tokens"] for f in futs]
+        module = srv.registry.get("lm32").module
+        want = [_full_recompute(torch, module, card, p, GEN_NEW_TOKENS)
+                for p in prompts]
+        _check(tokens == want, f"fp32 greedy tokens differ from the full "
+                               f"recompute: {_agreement(tokens, want)}")
+        lane.start()
+        on = _prefix_round(srv, "lm32", head, suffixes,
+                           GEN_NEW_TOKENS)
+        tconfig.set("generate.prefix_cache", False)
+        srv.reset_lane("lm32")
+        off_lane = srv.enable_generate("lm32", start=False)
+        _warm_lane(off_lane, [GEN_PREFIX_HEAD + len(suffixes[0]),
+                              GEN_PREFIX_HEAD])
+        off_lane.start()
+        off = _prefix_round(srv, "lm32", head, suffixes,
+                            GEN_NEW_TOKENS)
+        _check(on[1] > 0 and on[2] >= 1 and off[1] == 0,
+               f"fp32 prefix round: {on[1]} hits, {on[2]} copy-on-writes "
+               f"(cache off: {off[1]} hits)")
+        _check(on[0] == off[0],
+               "fp32 prefix-cache tokens differ from the cache-off round: "
+               f"{_agreement(on[0], off[0])}")
+    finally:
+        srv.close()
+        tconfig.unset("generate.prefix_cache")
+    return {"launches": launches,
+            "line": {"depth": GEN_F32_DEPTH, "tf32": "off",
+                     "prompt_lengths": [int(n) for n in lengths],
+                     "launches": launches,
+                     "device_launches_one_replay": device_launches,
+                     "tokens_equal_full_recompute": True,
+                     "prefix_hits": on[1], "cow_copies": on[2],
+                     "prefix_tokens_equal_cache_off": True}}
+
+
 def _profile_pass(torch, run, out_dir, name) -> None:
     """One warm ``run()`` under torch.profiler: the device time by kernel
     (top 25) and the device's busy share of the run, as a JSON line; the
@@ -2354,6 +3041,9 @@ def main() -> int:
     lm_train, lm_train32, moe_train = phase_lm_train(torch, kernels, card,
                                                      profile_dir)
     train_large = phase_train_large(torch, kernels, card, profile_dir)
+    serve = phase_serve(torch, kernels, card)
+    lm_serve = phase_lm_serve(torch, kernels, card)
+    generate, generate32 = phase_generate(torch, kernels, card)
 
     k1k, k2k = kernels.FUSED_NORMALIZE, kernels.CROP_RESIZE_NORMALIZE
     tc, f32 = kernels.FLASH_ATTENTION_TC, kernels.FLASH_ATTENTION
@@ -2380,7 +3070,10 @@ def main() -> int:
         "name": k2k.name, "route": "cuda",
         "source": "mmlspark_tpu_torch/kernels/csrc/crop_resize_normalize.cu",
         "replaces": "mmlspark_tpu/ops/pallas_preprocess.py:147",
-        "launches": featurize[k2k.name], "max_abs_err": k2["max_abs_err"],
+        "launches": featurize[k2k.name],
+        "launches_by_path": {"featurize": featurize[k2k.name],
+                             "serve": serve[k2k.name]},
+        "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
         "library_ms": k2["library_ms"],
@@ -2402,7 +3095,9 @@ def main() -> int:
         "launches": lm[tc.name],
         "launches_by_path": {"lm_score": lm[tc.name],
                              "lm_train": lm_train[tc.name],
-                             "lm_train_moe": moe_train[tc.name]},
+                             "lm_train_moe": moe_train[tc.name],
+                             "lm_serve": lm_serve[tc.name],
+                             "generate": generate[tc.name]},
         "max_abs_err": k3["tc"]["max_abs_err"],
         "ms": k3["tc"]["ms"], "plain_ms": k3["tc"]["plain_ms"],
         "bound_ms": k3["tc"]["bound_ms"], "bound_by": k3["tc"]["bound_by"],
@@ -2414,7 +3109,8 @@ def main() -> int:
         "replaces": "mmlspark_tpu/ops/pallas_attention.py:109",
         "launches": lm32[f32.name],
         "launches_by_path": {"lm_score_fp32": lm32[f32.name],
-                             "lm_train_fp32": lm_train32[f32.name]},
+                             "lm_train_fp32": lm_train32[f32.name],
+                             "generate_fp32": generate32[f32.name]},
         "launches_note": "lm_score's fp32 pass (16 rows): f32 is this "
                          "route's input; the bf16 main paths launch it 0 "
                          "times",

@@ -21,7 +21,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -43,7 +43,13 @@ class Kernel:
     ``-Xptxas=-v``) when the library was built, kept beside it as
     ``<library>.log``; :func:`ptxas_report` reads it.
     ``variant_launches`` splits ``launches`` by the variant a wrapper names
-    when it launches one of several kernels behind the entry point."""
+    when it launches one of several kernels behind the entry point.
+
+    A call made while a CUDA graph is being captured records the launch
+    instead of making it; the graph launches it at every replay.
+    :func:`launch_counts`, :func:`launches_since` and :func:`add_launches`
+    move those counts from the capture to the replays (the serving
+    programs, ``serve/programs.py``)."""
 
     def __init__(self, name: str, source, argtypes: Sequence):
         self.name = name
@@ -187,6 +193,44 @@ def demangle(names: Sequence[str]) -> List[str]:
                           text=True, timeout=60)
     out = done.stdout.splitlines()
     return out if done.returncode == 0 and len(out) == len(names) else names
+
+
+def launch_counts() -> Dict[str, Tuple[int, Dict[str, int]]]:
+    """Every kernel's ``(launches, variant_launches)``, by name."""
+    out = {}
+    for k in KERNELS:
+        with k._lock:
+            out[k.name] = (k.launches, dict(k.variant_launches))
+    return out
+
+
+def launches_since(before: Dict[str, Tuple[int, Dict[str, int]]]
+                   ) -> Dict[str, Tuple[int, Dict[str, int]]]:
+    """The launches made since ``before`` (a :func:`launch_counts`), by
+    kernel name; kernels that made none are left out."""
+    out = {}
+    for name, (n, variants) in launch_counts().items():
+        n0, v0 = before.get(name, (0, {}))
+        dv = {v: c - v0.get(v, 0) for v, c in variants.items()
+              if c != v0.get(v, 0)}
+        if n != n0 or dv:
+            out[name] = (n - n0, dv)
+    return out
+
+
+def add_launches(counts: Dict[str, Tuple[int, Dict[str, int]]],
+                 times: int = 1) -> None:
+    """Add ``times`` x ``counts`` (a :func:`launches_since`) to the kernels'
+    counts: +1 for each replay of a captured graph, -1 to take back what
+    a capture recorded without launching."""
+    by_name = {k.name: k for k in KERNELS}
+    for name, (n, variants) in counts.items():
+        k = by_name[name]
+        with k._lock:
+            k.launches += times * n
+            for v, c in variants.items():
+                k.variant_launches[v] = \
+                    k.variant_launches.get(v, 0) + times * c
 
 
 def reset_launches() -> None:

@@ -268,15 +268,21 @@ class TorchModel(HasInputCol, HasOutputCol, Model):
                 x = np.concatenate([x, pad], axis=0)
             yield x, n
 
-    def transform(self, frame: Frame) -> Frame:
-        device = resolve_device()
-        spec = self._spec()
-        _, apply = self._cached_build(
+    def _device_apply(self, device: torch.device):
+        """``(module, apply)`` on ``device``, built once and memoized under
+        everything the closure bakes in; the serving registry shares it
+        with ``transform``."""
+        return self._cached_build(
             lambda: self._build_apply(device),
             key=(str(device), self.architecture,
                  repr(self.get("architectureArgs")), self.outputNodeName,
                  repr(self.get("devicePreprocess")),
                  repr(self.get("meshSpec")), self.get("computeDtype")))
+
+    def transform(self, frame: Frame) -> Frame:
+        device = resolve_device()
+        spec = self._spec()
+        _, apply = self._device_apply(device)
         bs = self.miniBatchSize
         if self.get("deviceCache") == "on" \
                 and getattr(frame, "_out_of_core", False):

@@ -129,7 +129,8 @@ class TransformerLM(nn.Module):
                                                   nn.Module]] = None):
         super().__init__()
         self.dtype = resolve_dtype(dtype)
-        self.depth = depth
+        self.vocab, self.dim, self.depth = vocab, dim, depth
+        self.heads, self.max_len = heads, max_len
         self.token_embedding = Embed(vocab, dim, self.dtype)
         self.pos_embedding = nn.Parameter(torch.empty(1, max_len, dim))
         for i in range(depth):

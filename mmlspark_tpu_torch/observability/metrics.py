@@ -2,15 +2,16 @@
 
 The port's minimal copy of ``mmlspark_tpu/observability/metrics.py``:
 the instruments and the process-wide registry that the trainer, the
-prefetcher and the metric logger report to. Cold paths count
-unconditionally (an int add under a lock); hot per-step paths gate on
-:func:`metrics_enabled` (``observability.metrics``), so a run with it off
-pays nothing per step. The Prometheus exposition and the percentile
-helpers of the reference are not ported yet (ROADMAP, observability).
+prefetcher, the metric logger and the server report to, the bucket
+percentile estimator, and the Prometheus text exposition the HTTP front
+end serves on ``/metrics``. Cold paths count unconditionally (an int add
+under a lock); hot per-step paths gate on :func:`metrics_enabled`
+(``observability.metrics``), so a run with it off pays nothing per step.
 """
 from __future__ import annotations
 
 import bisect
+import re
 import threading
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -23,6 +24,47 @@ DEFAULT_BUCKETS: Tuple[float, ...] = (
 # MFU denominator: the NVIDIA H100 SXM data sheet's dense (no sparsity)
 # bf16 tensor-core peak, in FLOP/s
 H100_SXM_BF16_DENSE_FLOPS = 989e12
+
+
+_NAME_RE = re.compile(r"[^a-zA-Z0-9_:]")
+
+
+def sanitize(name: str) -> str:
+    """Dotted registry name -> Prometheus-charset metric name."""
+    name = _NAME_RE.sub("_", name)
+    if name and name[0].isdigit():
+        name = "_" + name
+    return name
+
+
+def percentile_from_buckets(cumulative: Dict[Any, Any], p: float) -> float:
+    """Percentile (``p`` in [0, 100]) from a cumulative ``{le: count}``
+    mapping with its ``+Inf`` slot: linear interpolation inside the bucket
+    holding the target rank; a rank in the overflow bucket clamps to the
+    highest finite bound. An empty histogram gives 0.0."""
+    finite = []
+    inf_count: Optional[float] = None
+    for le, c in cumulative.items():
+        if isinstance(le, str) and le.strip().lstrip("+") in ("Inf", "inf"):
+            inf_count = float(c)
+        elif float(le) == float("inf"):
+            inf_count = float(c)
+        else:
+            finite.append((float(le), float(c)))
+    finite.sort()
+    total = inf_count if inf_count is not None else (
+        finite[-1][1] if finite else 0.0)
+    if total <= 0:
+        return 0.0
+    rank = max(0.0, min(100.0, float(p))) / 100.0 * total
+    prev_bound, prev_cum = 0.0, 0.0
+    for bound, cum in finite:
+        if cum >= rank:
+            span = cum - prev_cum
+            frac = (rank - prev_cum) / span if span > 0 else 1.0
+            return prev_bound + (bound - prev_bound) * frac
+        prev_bound, prev_cum = bound, cum
+    return finite[-1][0] if finite else 0.0
 
 
 def metrics_enabled() -> bool:
@@ -69,7 +111,8 @@ class Gauge:
 class Histogram:
     """Cumulative fixed-bucket histogram (Prometheus ``le`` semantics)."""
 
-    __slots__ = ("name", "buckets", "_lock", "_counts", "_sum", "_count")
+    __slots__ = ("name", "buckets", "_lock", "_counts", "_sum", "_count",
+                 "_exemplar")
 
     def __init__(self, name: str, buckets: Sequence[float] = DEFAULT_BUCKETS):
         if not buckets or list(buckets) != sorted(buckets):
@@ -81,13 +124,27 @@ class Histogram:
         self._counts = [0] * (len(self.buckets) + 1)  # last = +Inf overflow
         self._sum = 0.0
         self._count = 0
+        self._exemplar: Optional[Dict[str, Any]] = None
 
-    def observe(self, v: float) -> None:
+    def observe(self, v: float, exemplar: Optional[str] = None) -> None:
+        """Count ``v``; ``exemplar`` (a request's trace id) is kept as the
+        histogram's last exemplar."""
         i = bisect.bisect_left(self.buckets, v)
         with self._lock:
             self._counts[i] += 1
             self._sum += v
             self._count += 1
+            if exemplar is not None:
+                self._exemplar = {"trace_id": str(exemplar),
+                                  "value": float(v)}
+
+    @property
+    def exemplar(self) -> Optional[Dict[str, Any]]:
+        return self._exemplar
+
+    def percentile(self, p: float) -> float:
+        """Bucket-interpolated percentile, ``p`` in [0, 100]."""
+        return percentile_from_buckets(self.cumulative(), p)
 
     @property
     def count(self) -> int:
@@ -155,7 +212,32 @@ class MetricsRegistry:
             else:
                 out[name] = {"type": "histogram", "count": m.count,
                              "sum": m.sum, "buckets": m.cumulative()}
+                if m.exemplar is not None:
+                    out[name]["exemplar"] = dict(m.exemplar)
         return out
+
+    def prometheus_text(self) -> str:
+        """Prometheus text-format exposition of every registered metric."""
+        lines = []
+        with self._lock:
+            items = sorted(self._metrics.items())
+        for name, m in items:
+            pname = sanitize(name)
+            if isinstance(m, Counter):
+                lines += [f"# TYPE {pname} counter", f"{pname} {_fmt(m.value)}"]
+            elif isinstance(m, Gauge):
+                lines += [f"# TYPE {pname} gauge", f"{pname} {_fmt(m.value)}"]
+            else:
+                lines.append(f"# TYPE {pname} histogram")
+                for le, c in m.cumulative().items():
+                    lines.append(f'{pname}_bucket{{le="{le}"}} {c}')
+                lines.append(f"{pname}_sum {_fmt(m.sum)}")
+                lines.append(f"{pname}_count {m.count}")
+        return "\n".join(lines) + ("\n" if lines else "")
+
+
+def _fmt(v: float) -> str:
+    return repr(int(v)) if float(v).is_integer() else repr(float(v))
 
 
 _REGISTRY = MetricsRegistry()

@@ -9,7 +9,12 @@ is timed or emitted. The full observability layer is a later slice.
 from __future__ import annotations
 
 import contextvars
+import itertools
+import threading
 from typing import Any, Optional, Tuple
+
+_ids = itertools.count(1)
+_ids_lock = threading.Lock()
 
 _STACK: contextvars.ContextVar[Tuple[str, ...]] = \
     contextvars.ContextVar("mmlspark_tpu_torch_span_stack", default=())
@@ -41,3 +46,10 @@ def current_span() -> Optional[str]:
     """Name of the innermost open span, or None at the root."""
     stack = _STACK.get()
     return stack[-1] if stack else None
+
+
+def next_span_id() -> int:
+    """A span id from the process counter, unique within the process
+    (span events carry the pid beside it)."""
+    with _ids_lock:
+        return next(_ids)

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import threading
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 _LOCK = threading.Lock()
 _ACTIVE: Optional["FaultPlan"] = None
@@ -26,12 +26,14 @@ class InjectedFault(RuntimeError):
     """What a triggered fault raises."""
 
 
-def fault_site(name: str) -> None:
-    """A named fault-injection point: raises per the active plan, a no-op
-    when none is installed."""
+def fault_site(name: str, payload: Any = None) -> Any:
+    """A named fault-injection point: raises per the active plan, and
+    otherwise returns ``payload`` unchanged (the reference's truncate
+    action, which transforms it, is not ported)."""
     plan = _ACTIVE
     if plan is not None:
         plan.hit(name)
+    return payload
 
 
 @dataclass

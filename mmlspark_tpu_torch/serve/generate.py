@@ -1,0 +1,1061 @@
+"""Generative serving lane: continuous batching over a paged KV arena.
+
+The port of ``mmlspark_tpu/serve/generate.py``, without speculative
+decoding and int8 KV blocks (the next slice; ``generate.draft_model`` and
+``generate.kv_dtype`` raise when set). The ``/score`` lane batches
+REQUESTS; one generation request is hundreds of sequential single-token
+steps, so this lane batches SEQUENCES:
+
+- :class:`GenerativeEntry` — the program half. One **prefill** program per
+  prompt-length bucket (the served ``TransformerLM``'s own forward at the
+  padded bucket, with each block's ``attn_key`` / ``attn_value`` outputs
+  written into the arena, so prefill numerics are the served model's, K3
+  included where ``supports()`` admits the bucket), ONE single-token
+  **decode** program per batch-size bucket (a hand-unrolled forward over
+  gathered KV pages, in plain torch as the reference's is plain jnp), the
+  **chunk** program (consecutive prompt positions of one sequence over the
+  paged history: chunked prefill and the uncached suffix after a prefix
+  hit) and the **cow** block copy. Every program is built through
+  :meth:`GenerativeEntry._compile` — the twin of ``ModelEntry._compile``
+  — and :func:`mmlspark_tpu_torch.compile_cache.load_or_compile_program`:
+  on a CUDA device one CUDA graph per (kind, bucket), replayed per call
+  (``serve/programs.py``). The programs write the arena in place
+  (``index_copy_`` / ``index_put_``), so a replay allocates nothing.
+- :class:`ContinuousBatcher` — the policy half, pure logic like
+  ``MicroBatcher``: sequences JOIN the in-flight batch the step a slot
+  frees and LEAVE the step they finish.
+- :class:`GenerateLane` — the executor half: a single thread owning the
+  arena; each pass advances chunked prefills, admits joiners (prefill +
+  first sampled token = TTFT), then runs one bucketed decode step over the
+  whole active set.
+
+Admission reserves a sequence's FULL block budget (prompt + max-new) up
+front from the :class:`~mmlspark_tpu_torch.serve.kvcache.KVCacheManager`;
+when the arena cannot cover it the request sheds with a retryable
+``ServerOverloaded``. Sampling (greedy, temperature/top-k) is seeded per
+(seed, position), so a restart from the prompt replays the exact token
+stream.
+
+Shared-prefix KV reuse (``generate.prefix_cache``, on by default): the
+prompt's full blocks are hashed (chained) and already-cached blocks are
+shared, so N requests behind one system prompt pay prefill ONCE; only the
+uncached suffix runs through the chunk program. A full-prompt hit
+schedules a copy-on-write of the final block and recomputes just the last
+position for its first token. Chunked prefill (``generate.prefill_chunk``)
+splits long prompts into chunks processed one per lane step.
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+import queue
+import threading
+import time
+from collections import deque
+from concurrent.futures import Future
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from mmlspark_tpu_torch.observability import events, metrics, spans
+from mmlspark_tpu_torch.reliability import watchdog as _watchdog
+from mmlspark_tpu_torch.reliability.faults import fault_site
+from mmlspark_tpu_torch.serve import programs
+from mmlspark_tpu_torch.serve.batcher import bucket_for, default_buckets
+from mmlspark_tpu_torch.serve.kvcache import (
+    RESERVED_BLOCK, KVCacheManager, blocks_needed, prefix_block_hashes,
+)
+from mmlspark_tpu_torch.utils import config as mmlconfig
+from mmlspark_tpu_torch.utils.logging import get_logger
+
+logger = get_logger("serve.generate")
+
+_STOP = object()
+_I64 = torch.int64
+
+
+# ---------------------------------------------------------------------------
+# buckets
+
+
+def parse_prefill_buckets(text: str, max_seq_len: int,
+                          block_tokens: int) -> Tuple[int, ...]:
+    """``generate.prefill_buckets`` config -> ascending bucket tuple.
+    Every bucket must be a multiple of ``block_tokens`` (prefill writes
+    whole blocks) and the ladder must cover ``max_seq_len``. "" derives
+    powers of two from ``block_tokens`` up to ``max_seq_len``."""
+    if text.strip():
+        vals = sorted({int(v) for v in text.split(",") if v.strip()})
+    else:
+        vals, b = [], block_tokens
+        while b < max_seq_len:
+            vals.append(b)
+            b *= 2
+        vals.append(b)
+    bad = [v for v in vals if v < 1 or v % block_tokens]
+    if bad:
+        raise ValueError(
+            f"prefill buckets must be positive multiples of "
+            f"kv_block_tokens={block_tokens}, got {bad}")
+    if vals[-1] < max_seq_len:
+        raise ValueError(
+            f"largest prefill bucket {vals[-1]} < max_seq_len "
+            f"{max_seq_len}; the longest admissible prompt would have no "
+            "program shape")
+    return tuple(vals)
+
+
+# ---------------------------------------------------------------------------
+# sampling — host-side, deterministic per (seed, position) so a restart
+# from the prompt replays the identical token stream
+
+
+def sample_token(logits: np.ndarray, *, temperature: float, top_k: int,
+                 seed: int, position: int) -> int:
+    """One next-token draw from a (vocab,) logits row. ``temperature <= 0``
+    is greedy (pure argmax, no RNG at all); otherwise top-k + temperature
+    with an RNG derived from (seed, position) — the same (seed, position)
+    always yields the same token regardless of replica or retry."""
+    if temperature <= 0:
+        return int(np.argmax(logits))
+    scaled = logits.astype(np.float64) / float(temperature)
+    if top_k > 0 and top_k < scaled.size:
+        cutoff = np.partition(scaled, -top_k)[-top_k]
+        scaled = np.where(scaled < cutoff, -np.inf, scaled)
+    scaled = scaled - scaled.max()
+    p = np.exp(scaled)
+    p /= p.sum()
+    rng = np.random.default_rng((int(seed) & 0x7FFFFFFF, int(position)))
+    return int(rng.choice(p.size, p=p))
+
+
+# ---------------------------------------------------------------------------
+# requests and sequences
+
+
+@dataclass
+class GenerateRequest:
+    """One admitted generation ask (the ``/generate`` wire shape)."""
+    model: str
+    prompt: Sequence[int]
+    max_new_tokens: int
+    temperature: float = 0.0
+    top_k: int = 0
+    seed: int = 0
+    eos_id: Optional[int] = None
+    deadline_ms: Optional[float] = None
+    trace_id: str = ""
+
+
+class _Seq:
+    """One in-flight sequence: prompt, sampled tokens, leased blocks, and
+    the latency ledger (TTFT + inter-token gaps) its caller is owed."""
+
+    __slots__ = ("seq_id", "prompt", "max_new", "temperature", "top_k",
+                 "seed", "eos_id", "future", "trace_id", "enqueued",
+                 "deadline", "generated", "ttft_s", "last_t", "itl_s",
+                 "finish", "prefill_pos", "hashes", "prefix_hits")
+
+    def __init__(self, seq_id: str, req: GenerateRequest, future: Future,
+                 enqueued: float, deadline: Optional[float]):
+        self.seq_id = seq_id
+        self.prompt = np.asarray(req.prompt, np.int32).ravel()
+        self.max_new = int(req.max_new_tokens)
+        self.temperature = float(req.temperature)
+        self.top_k = int(req.top_k)
+        self.seed = int(req.seed)
+        self.eos_id = req.eos_id
+        self.future = future
+        self.trace_id = req.trace_id
+        self.enqueued = enqueued
+        self.deadline = deadline
+        self.generated: List[int] = []
+        self.ttft_s: Optional[float] = None
+        self.last_t = enqueued
+        self.itl_s: List[float] = []
+        self.finish = ""
+        self.prefill_pos = 0            # next prompt position to prefill
+        self.hashes: List[str] = []     # chained full-block prefix hashes
+        self.prefix_hits = 0            # prefix blocks shared at reserve
+
+    @property
+    def seq_len(self) -> int:
+        return len(self.prompt) + len(self.generated)
+
+    def expired(self, now: float) -> bool:
+        return self.deadline is not None and now > self.deadline
+
+    def result(self) -> Dict[str, Any]:
+        itl = self.itl_s
+        return {
+            "tokens": list(self.generated),
+            "finish_reason": self.finish,
+            "ttft_ms": round((self.ttft_s or 0.0) * 1e3, 3),
+            "itl_mean_ms": round(sum(itl) / len(itl) * 1e3, 3) if itl
+            else 0.0,
+            # prefix blocks shared at admission: what the arena actually
+            # re-used for this request
+            "prefix_hits": int(self.prefix_hits),
+            "trace_id": self.trace_id,
+        }
+
+
+# ---------------------------------------------------------------------------
+# continuous batching policy (pure logic, injectable clock, no threads)
+
+
+class ContinuousBatcher:
+    """The continuous-batching sibling of
+    :class:`~mmlspark_tpu_torch.serve.batcher.MicroBatcher`, speaking the
+    same ``offer``/``ready``/``wait_s``/``take`` vocabulary — with one
+    structural difference: ``take`` admits JOINERS into a persistent
+    ``active`` set (capped at ``max_sequences``) instead of flushing a
+    transient group, and :meth:`leave` retires a finished sequence the same
+    step it finishes, freeing its slot for the next waiter. Not
+    thread-safe by itself; the lane's single executor thread is the only
+    caller."""
+
+    def __init__(self, max_sequences: int,
+                 clock: Callable[[], float] = time.monotonic):
+        if max_sequences < 1:
+            raise ValueError(
+                f"max_sequences must be >= 1, got {max_sequences}")
+        self.max_sequences = int(max_sequences)
+        self.clock = clock
+        self._waiting: "deque[_Seq]" = deque()
+        self._active: List[_Seq] = []
+
+    def __len__(self) -> int:
+        return len(self._waiting)
+
+    @property
+    def active(self) -> List[_Seq]:
+        return list(self._active)
+
+    @property
+    def free_slots(self) -> int:
+        return self.max_sequences - len(self._active)
+
+    def offer(self, seq: _Seq) -> None:
+        self._waiting.append(seq)
+
+    def ready(self, now: Optional[float] = None) -> bool:
+        """A step is due whenever anything is decoding or a waiter can
+        join — continuous batching has no coalescing delay to wait out."""
+        if self._active:
+            return True
+        return bool(self._waiting) and self.free_slots > 0
+
+    def wait_s(self, now: Optional[float] = None) -> Optional[float]:
+        return 0.0 if self.ready(now) else None
+
+    def take(self, now: Optional[float] = None) -> List[_Seq]:
+        """Pop the joiners for THIS step: FIFO waiters up to the free
+        slots. The caller prefills each and confirms with :meth:`join`
+        (or sheds/expires it without joining)."""
+        out: List[_Seq] = []
+        while self._waiting and len(self._active) + len(out) \
+                < self.max_sequences:
+            out.append(self._waiting.popleft())
+        return out
+
+    def requeue(self, seq: _Seq) -> None:
+        """Put a taken-but-not-admitted waiter back at the FRONT of the
+        queue (its slot this step went to a sequence still mid-chunked-
+        prefill); it stays first in line for the next step."""
+        self._waiting.appendleft(seq)
+
+    def join(self, seq: _Seq) -> None:
+        if len(self._active) >= self.max_sequences:
+            raise ValueError("active set full; take() admitted too many")
+        self._active.append(seq)
+
+    def leave(self, seq: _Seq) -> None:
+        self._active.remove(seq)
+
+    def drain(self) -> List[_Seq]:
+        """Everything still owned by the batcher (waiting + active), for
+        shutdown paths. Leaves the batcher empty."""
+        out = list(self._waiting) + list(self._active)
+        self._waiting.clear()
+        self._active.clear()
+        return out
+
+
+# ---------------------------------------------------------------------------
+# programs
+
+
+class _KVTap:
+    """Forward hooks on every block's ``attn_key`` / ``attn_value`` that
+    hand the projections to the thread that armed the tap, in block order
+    (the counterpart of the reference's ``capture_intermediates`` filter).
+    Installed once per entry; unarmed they do nothing, so other forwards
+    of the same module (offline scoring, the scoring graphs) are
+    untouched."""
+
+    def __init__(self, module: torch.nn.Module, depth: int):
+        self._local = threading.local()
+        self._handles = []
+        for i in range(depth):
+            blk = getattr(module, f"block{i}")
+            self._handles.append(
+                blk.attn_key.register_forward_hook(self._hook("k")))
+            self._handles.append(
+                blk.attn_value.register_forward_hook(self._hook("v")))
+
+    def _hook(self, kind: str):
+        def hook(_module, _inputs, out):
+            sink = getattr(self._local, "sink", None)
+            if sink is not None:
+                sink[kind].append(out)
+        return hook
+
+    @contextlib.contextmanager
+    def armed(self):
+        sink = {"k": [], "v": []}
+        self._local.sink = sink
+        try:
+            yield sink
+        finally:
+            self._local.sink = None
+
+    def remove(self) -> None:
+        for h in self._handles:
+            h.remove()
+        self._handles = []
+
+
+class GenerativeEntry:
+    """The generative artifacts of one registered model: the KV arena plus
+    the bucketed prefill / decode / chunk / cow programs.
+
+    :meth:`_compile` is THE generative compile seam — the twin of
+    ``ModelEntry._compile`` that tests wrap to assert one program per
+    (kind, bucket). Builds are accounted on the UNDERLYING ``ModelEntry``
+    (``compile_count``), so registry stats see scoring and generative
+    programs in one ledger.
+    """
+
+    def __init__(self, entry, *, max_seq_len: Optional[int] = None,
+                 max_sequences: Optional[int] = None):
+        self.entry = entry
+        module = entry.module
+        for attr in ("vocab", "dim", "depth", "heads", "max_len"):
+            if not hasattr(module, attr):
+                raise ValueError(
+                    f"model {entry.name!r} ({type(module).__name__}) is "
+                    "not a decoder LM; the generative lane serves "
+                    "TransformerLM-shaped architectures")
+        if any(getattr(getattr(module, f"block{i}"), "has_ffn", False)
+               for i in range(module.depth)):
+            raise ValueError(
+                f"model {entry.name!r} routes its FFN (a MoE LM); the "
+                "decode program unrolls the dense MLP blocks only, as the "
+                "reference's does")
+        self.module = module
+        self.device = entry.device
+        self.vocab = int(module.vocab)
+        self.dim = int(module.dim)
+        self.depth = int(module.depth)
+        self.heads = int(module.heads)
+        self.head_dim = self.dim // self.heads
+        self.dtype = module.dtype
+        cap = int(max_seq_len if max_seq_len is not None
+                  else mmlconfig.get("generate.max_seq_len"))
+        self.max_seq_len = min(cap, int(module.max_len))
+        self.max_sequences = int(
+            max_sequences if max_sequences is not None
+            else mmlconfig.get("generate.max_sequences"))
+        self.kv = KVCacheManager.from_config(
+            layers=self.depth, heads=self.heads, head_dim=self.head_dim,
+            dtype=self.dtype, device=self.device)
+        self.block_tokens = self.kv.block_tokens
+        # block-table width: every sequence's table is padded to the
+        # blocks a max-length sequence needs, so ONE decode program shape
+        # serves every occupancy
+        self.table_width = blocks_needed(self.max_seq_len,
+                                         self.block_tokens)
+        self.prefill_buckets = parse_prefill_buckets(
+            str(mmlconfig.get("generate.prefill_buckets")),
+            self.max_seq_len, self.block_tokens)
+        self.decode_buckets = default_buckets(self.max_sequences)
+        self.prefix_cache = bool(mmlconfig.get("generate.prefix_cache"))
+        self.prefill_chunk = max(0, int(mmlconfig.get(
+            "generate.prefill_chunk")))
+        # the chunk program's width: the configured chunk, else one block
+        # (the chunk path also serves the uncached-SUFFIX prefill after a
+        # prefix hit, so it exists even with chunking nominally off)
+        self.chunk_width = min(self.max_seq_len,
+                               self.prefill_chunk if self.prefill_chunk > 0
+                               else self.block_tokens)
+        # index constants of the paged forward, made once outside any
+        # capture: key slots of a block table, query columns of a chunk
+        self._keys = torch.arange(self.table_width * self.block_tokens,
+                                  device=self.device)
+        self._cols = torch.arange(max(self.chunk_width, 1),
+                                  device=self.device)
+        self._tap = _KVTap(module, self.depth)
+        self._programs: Dict[Tuple[str, int], Callable] = {}
+        # the arena is device memory this model now pins: charge it to the
+        # registry entry so the LRU sees params + arena as one tenant
+        entry.kv_arena_bytes = self.kv.arena_bytes()
+
+    # -- compile seam ------------------------------------------------------
+    def program_for(self, kind: str, bucket: int) -> Callable:
+        key = (kind, int(bucket))
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = self._compile(kind, int(bucket))
+            self._programs[key] = prog
+        return prog
+
+    def built_programs(self) -> Dict[Tuple[str, int], Callable]:
+        """(kind, bucket) -> the program built for it."""
+        return dict(self._programs)
+
+    def _compile(self, kind: str, bucket: int) -> Callable:
+        """Build the program of one (kind, bucket). Every generative build
+        funnels through here exactly once per key — the compile-discipline
+        tests wrap this method."""
+        from mmlspark_tpu_torch import compile_cache
+        if kind == "prefill":
+            fn, specs = self._prefill_spec(bucket)
+        elif kind == "decode":
+            fn, specs = self._decode_spec(bucket)
+        elif kind == "chunk":
+            fn, specs = self._chunk_spec(bucket)
+        elif kind == "cow":
+            fn, specs = self._cow_spec()
+        elif kind == "verify":
+            raise NotImplementedError(
+                "the verify program serves speculative decoding, the next "
+                "slice of the port (ROADMAP queue A, slice 5b-ii)")
+        else:
+            raise ValueError(f"unknown program kind {kind!r}")
+        shape_key = (f"{kind}:{bucket}|arena={self.kv.num_blocks}x"
+                     f"{self.block_tokens}x{self.heads}x{self.head_dim}"
+                     f"|layers={self.depth}|W={self.table_width}"
+                     f"|dtype={self.kv.dtype_name}")
+
+        def fresh():
+            pool = (self.entry.graph_pool()
+                    if self.device.type == "cuda" else None)
+            return programs.build(fn, specs, self.device, pool)
+
+        result = compile_cache.load_or_compile_program(
+            self.entry.name, self.entry.version, kind, shape_key, fresh)
+        self.entry.compile_count += 1
+        return result.program
+
+    # -- prefill -----------------------------------------------------------
+    def _prefill_spec(self, bucket: int):
+        """Prefill for one prompt-length bucket ``Lb``: run the module's OWN
+        forward on ``(1, Lb)`` tokens, tap each block's K/V projections,
+        write them into the sequence's ``Lb / block_tokens`` arena blocks,
+        and return the last live position's logits row (fp32, (vocab,))."""
+        module, kv, tap = self.module, self.kv, self._tap
+        nb = bucket // self.block_tokens
+        shape = (nb, self.block_tokens, self.heads, self.head_dim)
+
+        def prefill(tokens, last_pos, block_ids):
+            with torch.no_grad():
+                with tap.armed() as sink:
+                    hidden = module.forward_hidden(tokens)
+                for i in range(self.depth):
+                    kv.arena_k[i].index_copy_(
+                        0, block_ids, sink["k"][i].reshape(shape)
+                        .to(kv.dtype))
+                    kv.arena_v[i].index_copy_(
+                        0, block_ids, sink["v"][i].reshape(shape)
+                        .to(kv.dtype))
+                row = hidden.index_select(1, last_pos.view(1))
+                return module.head(row)[0, 0]
+
+        return prefill, [((1, bucket), _I64), ((), _I64), ((nb,), _I64)]
+
+    # -- the paged forward of decode and chunk -----------------------------
+    def _paged_forward(self, tokens, positions, tables, n_valid):
+        """``(B, C)`` tokens at ``(B, C)`` positions through every block
+        over the paged arena, mirroring the module's math one position at
+        a time (the reference's decode body, with a chunk's ``C`` query
+        rows): each row's K/V is written FIRST so it attends itself, then
+        each lane's table gathers its history, masked causally at the row's
+        position. Rows at or past a lane's ``n_valid`` write the reserved
+        scratch block and their outputs are ignored. Returns the
+        final-normed fp32 activations ``(B, C, dim)``."""
+        module, kv = self.module, self.kv
+        B, C = tokens.shape
+        bt, W = self.block_tokens, self.table_width
+        heads, hd, dim = self.heads, self.head_dim, self.dim
+        scale = 1.0 / math.sqrt(hd)
+        valid = self._cols[:C][None, :] < n_valid[:, None]           # (B, C)
+        # positions past the table or the position table only ever sit in
+        # invalid rows; clamp them so no gather leaves its tensor
+        cols = torch.clamp(positions // bt, max=W - 1)
+        blk_idx = torch.where(valid, torch.gather(tables, 1, cols),
+                              torch.full_like(cols, RESERVED_BLOCK))
+        offs = positions % bt
+        masked = self._keys[None, None, :] > positions[:, :, None]   # (B,C,K)
+        pos = torch.clamp(positions, max=module.max_len - 1)
+        x = module.token_embedding(tokens)
+        x = x + module.pos_embedding[0][pos].to(x.dtype)
+        for i in range(self.depth):
+            blk = getattr(module, f"block{i}")
+            y = blk.norm1(x)
+            q = blk.attn_query(y).reshape(B, C, heads, hd)
+            k = blk.attn_key(y).reshape(B, C, heads, hd)
+            v = blk.attn_value(y).reshape(B, C, heads, hd)
+            kv.arena_k[i].index_put_((blk_idx, offs), k.to(kv.dtype))
+            kv.arena_v[i].index_put_((blk_idx, offs), v.to(kv.dtype))
+            k_all = kv.arena_k[i][tables].reshape(B, W * bt, heads, hd)
+            v_all = kv.arena_v[i][tables].reshape(B, W * bt, heads, hd)
+            s = torch.einsum("bchd,bkhd->bchk", q.float(),
+                             k_all.float()) * scale
+            s = s.masked_fill(masked[:, :, None, :], float("-inf"))
+            p = torch.softmax(s, dim=-1)
+            o = torch.einsum("bchk,bkhd->bchd", p.to(v_all.dtype).float(),
+                             v_all.float()).to(q.dtype)
+            x = x + blk.attn_out(o.reshape(B, C, dim))
+            y = blk.norm2(x)
+            x = x + blk.mlp_down(_gelu(blk.mlp_up(y)))
+        return module.final_norm(x)
+
+    def _decode_spec(self, batch: int):
+        """Single-token decode for one batch bucket ``B``: operands tokens
+        ``(B, 1)``, positions ``(B, 1)``, block tables ``(B, W)`` and
+        ``n_valid`` ``(B,)`` (1 for a live lane, 0 for a padding lane);
+        returns the next-token logits ``(B, vocab)`` in fp32."""
+        module = self.module
+
+        def decode(tokens, positions, tables, n_valid):
+            with torch.no_grad():
+                xf = self._paged_forward(tokens, positions, tables, n_valid)
+                return module.head(xf)[:, 0]
+
+        W = self.table_width
+        return decode, [((batch, 1), _I64), ((batch, 1), _I64),
+                        ((batch, W), _I64), ((batch,), _I64)]
+
+    def _chunk_spec(self, C: int):
+        """Prefill CHUNK: ``C`` consecutive prompt positions of ONE
+        sequence. Serves chunked prefill and the uncached-suffix prefill
+        after a prefix hit (earlier shared blocks are only READ). Operands
+        tokens ``(1, C)``, positions ``(1, C)``, the table row ``(1, W)``
+        and ``n_valid`` ``(1,)``; returns the logits row of the last valid
+        position."""
+        module = self.module
+
+        def chunk(tokens, positions, table_row, n_valid):
+            with torch.no_grad():
+                xf = self._paged_forward(tokens, positions, table_row,
+                                         n_valid)
+                last = torch.clamp(n_valid - 1, min=0)
+                return module.head(xf.index_select(1, last))[0, 0]
+
+        W = self.table_width
+        return chunk, [((1, C), _I64), ((1, C), _I64), ((1, W), _I64),
+                       ((1,), _I64)]
+
+    def _cow_spec(self):
+        """Block copy ``src -> dst`` across every layer of both arenas —
+        the copy-on-write a full-prefix-hit joiner owes before it may
+        write its final prompt block."""
+        kv = self.kv
+
+        def cow(src, dst):
+            for arena in (kv.arena_k, kv.arena_v):
+                arena.index_copy_(1, dst.view(1),
+                                  arena.index_select(1, src.view(1)))
+
+        return cow, [((), _I64), ((), _I64)]
+
+    def release(self) -> None:
+        """Drop programs, the K/V tap and the arena accounting (lane
+        shutdown)."""
+        self._programs.clear()
+        self._tap.remove()
+        self.entry.kv_arena_bytes = 0
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.gelu``: the tanh approximation."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+# ---------------------------------------------------------------------------
+# the lane executor
+
+
+class GenerateLane:
+    """Single-threaded decode executor for one generative model.
+
+    Owns the arena and the active set; caller threads only touch the
+    admission queue and the (thread-safe) block ledger. ``start=False``
+    leaves the thread unstarted so tests drive :meth:`step` directly
+    under an injected clock.
+    """
+
+    def __init__(self, server, model: str, *, clock=None,
+                 start: bool = True):
+        draft_name = str(mmlconfig.get("generate.draft_model")).strip()
+        if draft_name:
+            raise NotImplementedError(
+                f"generate.draft_model={draft_name!r}: speculative decoding "
+                "is the next slice of the port (ROADMAP queue A, slice "
+                "5b-ii); leave it \"\"")
+        self.server = server
+        self.model = model
+        self.clock = clock if clock is not None else server.clock
+        entry = server.registry.get(model)
+        self.gen = GenerativeEntry(entry)
+        server.registry.touch(entry)
+        self.batcher = ContinuousBatcher(self.gen.max_sequences,
+                                         clock=self.clock)
+        self._prefilling: List[_Seq] = []   # joined the arena, mid-chunk
+        # deliberately unbounded: backpressure is the KV arena — submit()
+        # reserved every enqueued sequence's full block budget, so the
+        # queue can never hold more than the arena admits
+        self._queue: "queue.Queue" = queue.Queue(maxsize=0)
+        self._lock = threading.Lock()
+        self._closed = False
+        self._thread: Optional[threading.Thread] = None
+        self._seq_ids = 0
+        self._admitted = server._twin("generate.admitted")
+        self._shed = server._twin("generate.shed")
+        self._expired = server._twin("generate.expired")
+        self._completed = server._twin("generate.completed")
+        self._failed = server._twin("generate.failed")
+        self._prefix_hits = server._twin("generate.prefix_hits")
+        self._prefix_misses = server._twin("generate.prefix_misses")
+        self._cow_copies = server._twin("generate.cow_copies")
+        self.steps = 0          # decode steps taken
+        if events.recording_enabled():
+            kv = self.gen.kv
+            events.emit("decode", "arena", model=self.model,
+                        blocks=kv.num_blocks,
+                        block_tokens=kv.block_tokens,
+                        kv_dtype=kv.dtype_name,
+                        arena_bytes=kv.arena_bytes())
+        if start:
+            self.start()
+
+    # -- lifecycle ---------------------------------------------------------
+    def start(self) -> None:
+        if self._thread is not None:
+            return
+        self._thread = threading.Thread(
+            target=self._run,
+            name=f"mmlspark-tpu-torch-generate-{self.model}", daemon=True)
+        self._thread.start()
+
+    def close(self, timeout_s: Optional[float] = None) -> None:
+        """Stop the executor and fail everything unfinished with
+        :class:`ServerClosed` — generation state dies with the lane; a
+        caller restarts the sequence from its prompt elsewhere (seeded
+        sampling replays the identical tokens). Idempotent."""
+        from mmlspark_tpu_torch.serve.server import ServerClosed
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+        if timeout_s is None:
+            timeout_s = float(mmlconfig.get("serving.drain_timeout_s"))
+        if self._thread is not None:
+            self._queue.put(_STOP)
+            self._thread.join(timeout=max(timeout_s, 0.1))
+            self._thread = None
+        leftovers = [s for s in self._drain_queue() if s is not _STOP]
+        leftovers.extend(self.batcher.drain())
+        leftovers.extend(self._prefilling)
+        self._prefilling.clear()
+        for seq in leftovers:
+            self.gen.kv.free(seq.seq_id)
+            if not seq.future.done():
+                self._failed.inc()
+                seq.future.set_exception(ServerClosed(
+                    "server closed mid-generation; restart from prompt "
+                    "elsewhere"))
+        self.gen.release()
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    # -- admission (caller threads) ---------------------------------------
+    def submit(self, req: GenerateRequest) -> Future:
+        from mmlspark_tpu_torch.serve.server import (
+            ServerClosed, ServerOverloaded, _mint_trace_id,
+        )
+        if self._closed:
+            raise ServerClosed("generate lane closed")
+        prompt = np.asarray(req.prompt, np.int32).ravel()
+        if prompt.size < 1:
+            raise ValueError("prompt must contain at least one token")
+        if prompt.size >= self.gen.max_seq_len:
+            raise ValueError(
+                f"prompt of {prompt.size} tokens leaves no room under "
+                f"generate.max_seq_len={self.gen.max_seq_len}")
+        max_new = min(int(req.max_new_tokens),
+                      self.gen.max_seq_len - int(prompt.size))
+        if max_new < 1:
+            raise ValueError(
+                f"max_new_tokens must be >= 1, got {req.max_new_tokens}")
+        req = GenerateRequest(
+            model=req.model, prompt=prompt, max_new_tokens=max_new,
+            temperature=req.temperature, top_k=req.top_k, seed=req.seed,
+            eos_id=req.eos_id, deadline_ms=req.deadline_ms,
+            trace_id=req.trace_id or _mint_trace_id())
+        now = self.clock()
+        deadline = now + req.deadline_ms / 1e3 if req.deadline_ms else None
+        with self._lock:
+            if self._closed:
+                raise ServerClosed("generate lane closed")
+            self._seq_ids += 1
+            seq_id = f"{self.model}/s{self._seq_ids}"
+        # the whole lifetime's blocks up front: the prefill bucket's span
+        # now, the generated tail later — admission is the ONLY place a
+        # sequence can fail for memory
+        bucket = bucket_for(prompt.size, self.gen.prefill_buckets)
+        span_tokens = max(bucket, prompt.size + max_new)
+        hashes: List[str] = []
+        if self.gen.prefix_cache:
+            hashes = prefix_block_hashes(
+                self.model, self.gen.kv.dtype_name, prompt,
+                self.gen.block_tokens)
+        fault_site("generate.enqueue", {"model": self.model,
+                                        "prompt": int(prompt.size)})
+        blocks = self.gen.kv.try_reserve(
+            seq_id, span_tokens, prefix_hashes=hashes,
+            prompt_tokens=int(prompt.size))
+        if blocks is None:
+            self._shed.inc()
+            if events.recording_enabled():
+                events.emit("generate", "shed", model=self.model,
+                            prompt=int(prompt.size), tokens=span_tokens,
+                            free_blocks=self.gen.kv.free_blocks,
+                            trace_id=req.trace_id)
+            raise ServerOverloaded(
+                f"KV arena full ({self.gen.kv.free_blocks} free blocks < "
+                f"{blocks_needed(span_tokens, self.gen.block_tokens)} "
+                "needed); retry with backoff",
+                retry_after=float(mmlconfig.get("serving.retry_after_s")))
+        seq = _Seq(seq_id, req, Future(), now, deadline)
+        seq.future.trace_id = req.trace_id
+        seq.hashes = hashes
+        info = self.gen.kv.reserve_info(seq_id)
+        seq.prefix_hits = int(info["hits"])
+        if info["hits"]:
+            self._prefix_hits.inc(info["hits"])
+        if info["misses"]:
+            self._prefix_misses.inc(info["misses"])
+        if hashes and events.recording_enabled():
+            events.emit("decode", "prefix", model=self.model,
+                        hits=int(info["hits"]), misses=int(info["misses"]),
+                        cached_tokens=int(info["cached_tokens"]),
+                        cow=bool(info["pending_cow"]),
+                        trace_id=req.trace_id)
+        self._queue.put(seq)
+        self._admitted.inc()
+        return seq.future
+
+    # -- executor ----------------------------------------------------------
+    def _run(self) -> None:
+        hb = _watchdog.register(f"generate.{self.model}")
+        try:
+            self._run_loop(hb)
+        finally:
+            hb.close()
+
+    def _run_loop(self, hb) -> None:
+        stopping = False
+        while True:
+            hb.beat()
+            busy = self.batcher.ready() or bool(self._prefilling)
+            try:
+                item = self._queue.get(timeout=0.0 if busy else 0.05)
+            except queue.Empty:
+                item = None
+            if item is _STOP:
+                stopping = True
+            elif item is not None:
+                self.batcher.offer(item)
+            for s in self._drain_queue():
+                if s is _STOP:
+                    stopping = True
+                else:
+                    self.batcher.offer(s)
+            if stopping:
+                return              # close() resolves whatever is left
+            if self.batcher.ready() or self._prefilling:
+                self.step()
+
+    def _drain_queue(self) -> List:
+        out: List = []
+        while True:
+            try:
+                out.append(self._queue.get_nowait())
+            except queue.Empty:
+                return out
+
+    # -- one continuous-batching step (public: tests drive it) ------------
+    def step(self) -> None:
+        """Advance mid-prefill sequences one chunk, admit joiners
+        (prefill + first token), then run ONE decode step over the active
+        set — chunked prefill interleaves with decode at exactly this
+        boundary. Sequences finishing this step leave and free their
+        blocks before the next step's joiners are considered."""
+        for s in self._drain_queue():
+            if s is not _STOP:
+                self.batcher.offer(s)
+        for seq in list(self._prefilling):
+            self._prefill_chunk_step(seq)
+        taken = self.batcher.take()
+        room = max(0, self.batcher.free_slots - len(self._prefilling))
+        for seq in reversed(taken[room:]):
+            self.batcher.requeue(seq)   # slots held by mid-chunk prefills
+        for seq in taken[:room]:
+            self._admit_one(seq)
+        if self.batcher.active:
+            self._decode_step()
+        if metrics.metrics_enabled():
+            metrics.gauge("generate.kv_occupancy").set(
+                self.gen.kv.occupancy())
+
+    def _admit_one(self, seq: _Seq) -> None:
+        now = self.clock()
+        if seq.expired(now):
+            from mmlspark_tpu_torch.serve.server import RequestExpired
+            self.gen.kv.free(seq.seq_id)
+            self._expired.inc()
+            if events.recording_enabled():
+                events.emit("generate", "expired", model=self.model,
+                            trace_id=seq.trace_id,
+                            waited_ms=round((now - seq.enqueued) * 1e3, 3))
+            seq.future.set_exception(RequestExpired(
+                "deadline passed before prefill"))
+            return
+        gen = self.gen
+        Lp = int(seq.prompt.size)
+        info = gen.kv.reserve_info(seq.seq_id)
+        cached = min(int(info["cached_tokens"]), Lp)
+        cow = gen.kv.take_pending_cow(seq.seq_id)
+        if cow is not None:
+            # full-prefix hit: copy the final shared block into this
+            # sequence's owned block BEFORE its first (re)write
+            try:
+                gen.program_for("cow", 0)(np.int64(cow[0]), np.int64(cow[1]))
+            except Exception as e:
+                logger.error("cow copy failed for %s: %s", seq.seq_id, e)
+                self._fail_seq(seq, e)
+                return
+            gen.kv.cow_done(seq.seq_id)
+            self._cow_copies.inc()
+            if events.recording_enabled():
+                events.emit("decode", "cow", model=self.model,
+                            src=cow[0], dst=cow[1], trace_id=seq.trace_id)
+        # the whole-prompt prefill writes EVERY leading block, so any
+        # reservation that shares cached blocks must take the chunk path
+        # (it only writes from the first uncached position)
+        use_chunk = cached > 0 or (gen.prefill_chunk > 0
+                                   and Lp > gen.chunk_width)
+        if not use_chunk:
+            try:
+                self._prefill(seq)
+            except Exception as e:
+                logger.error("prefill failed for %s: %s", seq.seq_id, e)
+                self._fail_seq(seq, e)
+                return
+            self.batcher.join(seq)
+            if seq.finish:          # eos / budget hit on the first token
+                self._finish(seq)
+            return
+        # chunk path: compute only the uncached suffix, one chunk per
+        # lane step; a FULL hit recomputes just the last prompt position
+        # (into the CoW'd block) to sample its first token
+        seq.prefill_pos = cached if cached < Lp else max(Lp - 1, 0)
+        self._prefilling.append(seq)
+        self._prefill_chunk_step(seq)
+
+    def _prefill(self, seq: _Seq) -> None:
+        gen = self.gen
+        Lp = int(seq.prompt.size)
+        bucket = bucket_for(Lp, gen.prefill_buckets)
+        nb = bucket // gen.block_tokens
+        tokens = np.zeros((1, bucket), np.int32)
+        tokens[0, :Lp] = seq.prompt
+        block_ids = np.asarray(gen.kv.blocks_for(seq.seq_id)[:nb], np.int64)
+        program = gen.program_for("prefill", bucket)
+        fault_site("generate.prefill", {"model": self.model,
+                                        "bucket": bucket})
+        t0 = self.clock()
+        with spans.span("decode", "prefill", model=self.model,
+                        bucket=bucket):
+            logits = np.asarray(program(tokens, np.int64(Lp - 1), block_ids,
+                                        fetch="generate.prefill"),
+                                np.float32)
+        if seq.hashes:
+            gen.kv.register_prefix(seq.seq_id, seq.hashes)
+        self._first_token(seq, logits, t0, bucket=bucket)
+
+    def _first_token(self, seq: _Seq, logits: np.ndarray, t0: float,
+                     **fields) -> None:
+        """Sample the first token from the prompt's last logits row: the
+        sequence's time to first token."""
+        now = self.clock()
+        self._append_token(seq, logits, position=int(seq.prompt.size))
+        seq.ttft_s = now - seq.enqueued
+        seq.last_t = now
+        if metrics.metrics_enabled():
+            metrics.histogram("generate.ttft_ms").observe(
+                seq.ttft_s * 1e3, exemplar=seq.trace_id)
+        if events.recording_enabled():
+            events.emit("decode", "prefill", model=self.model,
+                        prompt=int(seq.prompt.size),
+                        prefill_ms=round((now - t0) * 1e3, 3),
+                        trace_id=seq.trace_id, **fields)
+
+    def _fail_seq(self, seq: _Seq, exc: Exception) -> None:
+        self.gen.kv.free(seq.seq_id)
+        self._failed.inc()
+        if not seq.future.done():
+            seq.future.set_exception(exc)
+
+    # -- chunked / suffix prefill ------------------------------------------
+    def _prefill_chunk_step(self, seq: _Seq) -> None:
+        """One chunk of ``seq``'s remaining prompt through the chunk
+        program. On the final chunk the sequence samples its first token
+        (TTFT), registers its prefix blocks, and joins the active set."""
+        gen = self.gen
+        Lp = int(seq.prompt.size)
+        C = gen.chunk_width
+        start = seq.prefill_pos
+        n_valid = min(C, Lp - start)
+        final = start + n_valid >= Lp
+        tokens = np.zeros((1, C), np.int32)
+        tokens[0, :n_valid] = seq.prompt[start:start + n_valid]
+        positions = (start + np.arange(C)).astype(np.int64)[None]
+        table_row = gen.kv.block_table(seq.seq_id, gen.table_width)[None]
+        program = gen.program_for("chunk", C)
+        fault_site("generate.prefill", {"model": self.model, "bucket": C,
+                                        "start": start})
+        t0 = self.clock()
+        try:
+            with spans.span("decode", "prefill_chunk", model=self.model,
+                            chunk=C, start=start):
+                row = program(tokens, positions, table_row,
+                              np.asarray([n_valid], np.int64),
+                              fetch="generate.prefill" if final else None)
+        except Exception as e:
+            logger.error("chunk prefill failed for %s: %s", seq.seq_id, e)
+            if seq in self._prefilling:
+                self._prefilling.remove(seq)
+            self._fail_seq(seq, e)
+            return
+        seq.prefill_pos = start + n_valid
+        if not final:
+            return
+        self._prefilling.remove(seq)
+        if seq.hashes:
+            gen.kv.register_prefix(seq.seq_id, seq.hashes)
+        self._first_token(seq, np.asarray(row, np.float32), t0, bucket=C,
+                          chunked=True,
+                          cached_tokens=seq.prefix_hits * gen.block_tokens)
+        self.batcher.join(seq)
+        if seq.finish:              # eos / budget hit on the first token
+            self._finish(seq)
+
+    def _decode_step(self) -> None:
+        gen = self.gen
+        active = self.batcher.active
+        bucket = bucket_for(len(active), gen.decode_buckets)
+        W = gen.table_width
+        tokens = np.zeros((bucket, 1), np.int32)
+        positions = np.zeros((bucket, 1), np.int64)
+        tables = np.full((bucket, W), RESERVED_BLOCK, np.int64)
+        n_valid = np.zeros((bucket,), np.int64)
+        for i, seq in enumerate(active):
+            tokens[i, 0] = seq.generated[-1]
+            positions[i, 0] = seq.seq_len - 1   # the fed token's position
+            tables[i] = gen.kv.block_table(seq.seq_id, W)
+            n_valid[i] = 1
+        program = gen.program_for("decode", bucket)
+        fault_site("generate.step", {"model": self.model, "batch": bucket,
+                                     "active": len(active)})
+        t0 = self.clock()
+        with spans.span("decode", "step", model=self.model, batch=bucket,
+                        active=len(active)):
+            rows = np.asarray(program(tokens, positions, tables, n_valid,
+                                      fetch="generate.step"), np.float32)
+        now = self.clock()
+        self.steps += 1
+        hot = metrics.metrics_enabled()
+        for i, seq in enumerate(active):
+            self._append_token(seq, rows[i], position=seq.seq_len)
+            gap = now - seq.last_t
+            seq.last_t = now
+            seq.itl_s.append(gap)
+            if hot:
+                metrics.histogram("generate.itl_ms").observe(
+                    gap * 1e3, exemplar=seq.trace_id)
+            if not seq.finish and seq.expired(now):
+                seq.finish = "deadline"     # partial result, not an error
+            if seq.finish:
+                self._finish(seq)
+        if events.recording_enabled():
+            events.emit("decode", "step", model=self.model, batch=bucket,
+                        active=len(active),
+                        step_ms=round((now - t0) * 1e3, 3))
+
+    def _append_token(self, seq: _Seq, logits: np.ndarray,
+                      position: int) -> None:
+        tok = sample_token(logits, temperature=seq.temperature,
+                           top_k=seq.top_k, seed=seq.seed,
+                           position=position)
+        seq.generated.append(tok)
+        if seq.eos_id is not None and tok == seq.eos_id:
+            seq.finish = "stop"
+        elif len(seq.generated) >= seq.max_new:
+            seq.finish = seq.finish or "length"
+
+    def _finish(self, seq: _Seq) -> None:
+        self.batcher.leave(seq)
+        freed = self.gen.kv.free(seq.seq_id)
+        self._completed.inc()
+        now = self.clock()
+        if events.recording_enabled():
+            itl = seq.itl_s
+            events.emit("generate", "request", model=self.model,
+                        prompt=int(seq.prompt.size),
+                        tokens=len(seq.generated), finish=seq.finish,
+                        ttft_ms=round((seq.ttft_s or 0.0) * 1e3, 3),
+                        itl_mean_ms=round(sum(itl) / len(itl) * 1e3, 3)
+                        if itl else 0.0,
+                        itl_max_ms=round(max(itl) * 1e3, 3) if itl
+                        else 0.0,
+                        total_ms=round((now - seq.enqueued) * 1e3, 3),
+                        kv_occupancy=round(self.gen.kv.occupancy(), 4),
+                        prefix_hits=seq.prefix_hits,
+                        trace_id=seq.trace_id)
+            events.emit("decode", "evict", model=self.model,
+                        blocks=freed, trace_id=seq.trace_id)
+        seq.future.set_result(seq.result())
+
+    # -- introspection -----------------------------------------------------
+    def stats(self) -> Dict[str, float]:
+        s = {"admitted": self._admitted.value,
+             "shed": self._shed.value,
+             "expired": self._expired.value,
+             "completed": self._completed.value,
+             "failed": self._failed.value,
+             "waiting": len(self.batcher),
+             "active": len(self.batcher.active),
+             "prefilling": len(self._prefilling),
+             "prefix_hits": self._prefix_hits.value,
+             "prefix_misses": self._prefix_misses.value,
+             "cow_copies": self._cow_copies.value,
+             "steps": self.steps}
+        s.update({f"kv.{k}": v for k, v in self.gen.kv.stats().items()})
+        return s

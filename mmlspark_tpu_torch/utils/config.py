@@ -36,6 +36,40 @@ _DEFAULTS: Dict[str, Any] = {
     "logging.history_max": 1000,      # MetricLogger history cap (entries)
     "observability.metrics": False,   # hot-path (per-step) metric collection
     "observability.events_path": "",  # non-empty = append JSONL events here
+    "observability.trace_slow_ms": 0.0,  # >0 = served requests at least
+                                         # this slow emit their span
+                                         # timeline (tail sampling)
+    "runtime.compile_cache_dir": "",  # the compile seam's cache root; a
+                                      # CUDA graph cannot be stored, so
+                                      # set or not every program is built
+                                      # afresh (compile_cache.py)
+    # reliability: the per-model circuit breaker of the serving registry
+    "reliability.breaker_failures": 5,    # consecutive failures -> open
+    "reliability.breaker_reset_s": 30.0,  # open -> half-open probe delay
+    # serving (micro-batching inference server; serve/)
+    "serving.max_batch": 64,          # rows per flushed micro-batch
+    "serving.max_wait_ms": 5.0,       # max coalescing wait before flush
+    "serving.queue_depth": 256,       # bounded admission queue
+    "serving.buckets": "",            # "" = {1, max/8, max/2, max}
+    "serving.default_deadline_ms": 0.0,  # 0 = requests never expire
+    "serving.drain_timeout_s": 10.0,  # graceful-drain budget before close
+    "serving.retry_after_s": 0.0,     # Retry-After hint on a queue-full shed
+    # generate (the decode lane; serve/generate.py, serve/kvcache.py)
+    "generate.max_seq_len": 512,      # hard cap on prompt + generated
+    "generate.prefill_buckets": "",   # "" = powers of two from
+                                      # kv_block_tokens up to max_seq_len
+    "generate.kv_block_tokens": 16,   # tokens per paged KV block
+    "generate.max_sequences": 8,      # in-flight sequence cap
+    "generate.max_new_tokens": 64,    # default generation budget
+    "generate.arena_mb": 0.0,         # fixed arena size; 0 = derive it from
+                                      # max_sequences x max_seq_len
+    "generate.prefix_cache": True,    # shared-prefix KV reuse
+    "generate.prefill_chunk": 0,      # >0: prompts prefill in chunks of
+                                      # this many tokens between decode steps
+    "generate.advertise_top_k": 8,    # resident prefix chains in kv stats
+    # the next slice's features: anything but "" raises
+    "generate.kv_dtype": "",          # int8 KV blocks
+    "generate.draft_model": "",       # speculative decoding's draft model
 }
 
 _lock = threading.Lock()

@@ -34,7 +34,7 @@ def test_importing_every_port_module_loads_no_jax_and_no_jax_package():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 60        # every module, feature/ stages/ io/ too
+    assert int(count) >= 76        # every module, serve/ and compile_cache too
     assert bad == "[]", bad
 
 
@@ -130,3 +130,74 @@ def test_device_key_reads_the_environment(monkeypatch):
     monkeypatch.setenv("MMLSPARK_TPU_TORCH_RUNTIME_DEVICE", "cpu")
     tconfig.unset("runtime.device")
     assert str(tconfig.resolve_device()) == "cpu"
+
+
+def _served_lm():
+    from mmlspark_tpu_torch.serve import Server
+    tconfig.set("runtime.device", "cpu")
+    try:
+        model = TorchModel().set_model("transformer_lm_tiny", seed=0)
+        return Server({"lm": model}, start=False)
+    finally:
+        tconfig.unset("runtime.device")
+
+
+def test_server_raises_instead_of_running_on_the_cpu(default_device):
+    from mmlspark_tpu_torch.serve import Server
+    model = TorchModel(inputCol="x", outputCol="f")
+    model.set_model("mlp_tabular", input_dim=4, hidden=[8], num_classes=2)
+    with pytest.raises(RuntimeError, match="is_available"):
+        Server({"mlp": model}, start=False)
+
+
+def test_enable_generate_raises_instead_of_running_on_the_cpu(
+        default_device):
+    srv = _served_lm()
+    try:
+        with pytest.raises(RuntimeError, match="is_available"):
+            srv.enable_generate("lm", start=False)
+    finally:
+        srv.close()
+
+
+def test_serve_http_raises_instead_of_running_on_the_cpu(default_device):
+    from mmlspark_tpu_torch.serve.http import serve_http
+    srv = _served_lm()
+    try:
+        with pytest.raises(RuntimeError, match="is_available"):
+            serve_http(srv, port=0)
+    finally:
+        srv.close()
+
+
+def _registry():
+    from mmlspark_tpu_torch.serve import ModelRegistry
+    return ModelRegistry()
+
+
+def _model_entry():
+    from mmlspark_tpu_torch.serve import ModelEntry
+    model = TorchModel(inputCol="x", outputCol="f")
+    model.set_model("mlp_tabular", input_dim=4, hidden=[8], num_classes=2)
+    return ModelEntry("mlp", model)
+
+
+def _kv_cache():
+    from mmlspark_tpu_torch.serve import KVCacheManager
+    return KVCacheManager(layers=1, heads=1, head_dim=2, num_blocks=4,
+                          block_tokens=2)
+
+
+def _kv_cache_from_config():
+    from mmlspark_tpu_torch.serve import KVCacheManager
+    return KVCacheManager.from_config(layers=1, heads=1, head_dim=2)
+
+
+@pytest.mark.parametrize("make", [_registry, _model_entry, _kv_cache,
+                                  _kv_cache_from_config],
+                         ids=["registry", "model_entry", "kv_cache",
+                              "kv_cache_from_config"])
+def test_serve_parts_raise_instead_of_running_on_the_cpu(default_device,
+                                                          make):
+    with pytest.raises(RuntimeError, match="is_available"):
+        make()
