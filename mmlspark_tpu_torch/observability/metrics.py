@@ -37,11 +37,30 @@ def sanitize(name: str) -> str:
     return name
 
 
+def nearest_rank(sorted_vals: Sequence[float], p: float) -> float:
+    """Nearest-rank percentile over raw ascending samples (0 when empty);
+    histogram-backed percentiles go through :func:`percentile_from_buckets`
+    instead."""
+    if not sorted_vals:
+        return 0.0
+    i = min(len(sorted_vals) - 1,
+            max(0, int(round(p / 100.0 * (len(sorted_vals) - 1)))))
+    return float(sorted_vals[i])
+
+
 def percentile_from_buckets(cumulative: Dict[Any, Any], p: float) -> float:
     """Percentile (``p`` in [0, 100]) from a cumulative ``{le: count}``
     mapping with its ``+Inf`` slot: linear interpolation inside the bucket
     holding the target rank; a rank in the overflow bucket clamps to the
     highest finite bound. An empty histogram gives 0.0."""
+    return percentile_from_buckets_ex(cumulative, p)[0]
+
+
+def percentile_from_buckets_ex(cumulative: Dict[Any, Any],
+                               p: float) -> Tuple[float, bool]:
+    """:func:`percentile_from_buckets` and whether the rank landed in the
+    ``+Inf`` overflow bucket (the value is then a floor, not an
+    estimate)."""
     finite = []
     inf_count: Optional[float] = None
     for le, c in cumulative.items():
@@ -55,16 +74,23 @@ def percentile_from_buckets(cumulative: Dict[Any, Any], p: float) -> float:
     total = inf_count if inf_count is not None else (
         finite[-1][1] if finite else 0.0)
     if total <= 0:
-        return 0.0
+        return 0.0, False
     rank = max(0.0, min(100.0, float(p))) / 100.0 * total
     prev_bound, prev_cum = 0.0, 0.0
     for bound, cum in finite:
         if cum >= rank:
             span = cum - prev_cum
             frac = (rank - prev_cum) / span if span > 0 else 1.0
-            return prev_bound + (bound - prev_bound) * frac
+            return prev_bound + (bound - prev_bound) * frac, False
         prev_bound, prev_cum = bound, cum
-    return finite[-1][0] if finite else 0.0
+    return (finite[-1][0] if finite else 0.0), bool(finite)
+
+
+def escape_label_value(value: str) -> str:
+    """A Prometheus label value with backslash, double quote and newline
+    escaped, so a quoted name cannot break an exposition line."""
+    return (str(value).replace("\\", r"\\").replace('"', r"\"")
+            .replace("\n", r"\n"))
 
 
 def metrics_enabled() -> bool:

@@ -1,14 +1,20 @@
-"""Online serving: dynamic micro-batching and the generate lane on one device.
+"""Online serving: micro-batching, the generate lane and the in-process fleet.
 
-The port of ``mmlspark_tpu/serve``'s single-replica half: a
-:class:`Server` scores requests through per-bucket CUDA graphs
-(:class:`ModelRegistry`), and its generate lane (:class:`GenerateLane` +
-:class:`KVCacheManager`) decodes continuously batched sequences over a
-paged KV arena. The fleet, router, supervisor and speculative decoding are
-later slices (ROADMAP queue A).
+The port of ``mmlspark_tpu/serve``: a :class:`Server` scores requests
+through per-bucket CUDA graphs (:class:`ModelRegistry`), and its generate
+lane (:class:`GenerateLane` + :class:`KVCacheManager`) decodes continuously
+batched sequences over a paged KV arena, with speculative decoding and
+int8 KV blocks. A :class:`Fleet` runs N in-process replicas behind a
+:class:`Router` (smooth weighted round-robin, failover, tenant fairness,
+prefix affinity); :class:`HttpReplica` puts a remote server behind the
+same router. The supervisor and the process fleet are a later slice
+(ROADMAP queue A).
 """
 from mmlspark_tpu_torch.serve.batcher import (      # noqa: F401
     MicroBatcher, Ticket, bucket_for, default_buckets, parse_buckets,
+)
+from mmlspark_tpu_torch.serve.fleet import (        # noqa: F401
+    Fleet, InProcessReplica, RolloutAborted,
 )
 from mmlspark_tpu_torch.serve.generate import (      # noqa: F401
     ContinuousBatcher, GenerateLane, GenerateRequest, GenerativeEntry,
@@ -18,6 +24,10 @@ from mmlspark_tpu_torch.serve.kvcache import (       # noqa: F401
 )
 from mmlspark_tpu_torch.serve.registry import (      # noqa: F401
     ModelEntry, ModelRegistry,
+)
+from mmlspark_tpu_torch.serve.router import (        # noqa: F401
+    HttpReplica, ReplicaUnavailable, Router, TenantThrottled,
+    WeightedFairAdmission,
 )
 from mmlspark_tpu_torch.serve.server import (        # noqa: F401
     RequestExpired, ServeError, Server, ServerClosed, ServerOverloaded,
@@ -29,4 +39,7 @@ __all__ = [
     "ServeError", "ServerOverloaded", "RequestExpired", "ServerClosed",
     "ContinuousBatcher", "GenerateLane", "GenerateRequest",
     "GenerativeEntry", "KVCacheManager", "blocks_needed",
+    "Fleet", "InProcessReplica", "RolloutAborted", "HttpReplica",
+    "ReplicaUnavailable", "Router", "TenantThrottled",
+    "WeightedFairAdmission",
 ]

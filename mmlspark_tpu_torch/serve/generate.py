@@ -1,10 +1,8 @@
 """Generative serving lane: continuous batching over a paged KV arena.
 
-The port of ``mmlspark_tpu/serve/generate.py``, without speculative
-decoding and int8 KV blocks (the next slice; ``generate.draft_model`` and
-``generate.kv_dtype`` raise when set). The ``/score`` lane batches
-REQUESTS; one generation request is hundreds of sequential single-token
-steps, so this lane batches SEQUENCES:
+The port of ``mmlspark_tpu/serve/generate.py``. The ``/score`` lane
+batches REQUESTS; one generation request is hundreds of sequential
+single-token steps, so this lane batches SEQUENCES:
 
 - :class:`GenerativeEntry` — the program half. One **prefill** program per
   prompt-length bucket (the served ``TransformerLM``'s own forward at the
@@ -15,7 +13,9 @@ steps, so this lane batches SEQUENCES:
   gathered KV pages, in plain torch as the reference's is plain jnp), the
   **chunk** program (consecutive prompt positions of one sequence over the
   paged history: chunked prefill and the uncached suffix after a prefix
-  hit) and the **cow** block copy. Every program is built through
+  hit), the **verify** program of speculative decoding (the decode program
+  widened to ``spec_tokens + 1`` positions a lane) and the **cow** block
+  copy. Every program is built through
   :meth:`GenerativeEntry._compile` — the twin of ``ModelEntry._compile``
   — and :func:`mmlspark_tpu_torch.compile_cache.load_or_compile_program`:
   on a CUDA device one CUDA graph per (kind, bucket), replayed per call
@@ -43,6 +43,20 @@ uncached suffix runs through the chunk program. A full-prompt hit
 schedules a copy-on-write of the final block and recomputes just the last
 position for its first token. Chunked prefill (``generate.prefill_chunk``)
 splits long prompts into chunks processed one per lane step.
+
+Speculative decoding (``generate.draft_model``): a second registered model
+with the same vocab gets its own :class:`GenerativeEntry` and arena. Each
+step it proposes ``generate.spec_tokens`` tokens through its own decode
+programs, the target checks the whole window in ONE verify replay, and the
+host accepts proposals left to right while they equal the target's own
+(seeded) sample, so the output is token-identical to plain decode. The
+draft reservation is best-effort: a full draft arena only turns
+speculation off for that sequence.
+
+int8 KV blocks (``generate.kv_dtype="int8"``): every program quantizes
+the rows it writes and dequantizes the rows it gathers
+(:func:`~mmlspark_tpu_torch.serve.kvcache.quantize_rows`), inside its
+graph.
 """
 from __future__ import annotations
 
@@ -65,7 +79,8 @@ from mmlspark_tpu_torch.reliability.faults import fault_site
 from mmlspark_tpu_torch.serve import programs
 from mmlspark_tpu_torch.serve.batcher import bucket_for, default_buckets
 from mmlspark_tpu_torch.serve.kvcache import (
-    RESERVED_BLOCK, KVCacheManager, blocks_needed, prefix_block_hashes,
+    RESERVED_BLOCK, KVCacheManager, blocks_needed, dequantize_rows,
+    prefix_block_hashes, quantize_rows,
 )
 from mmlspark_tpu_torch.utils import config as mmlconfig
 from mmlspark_tpu_torch.utils.logging import get_logger
@@ -156,7 +171,9 @@ class _Seq:
     __slots__ = ("seq_id", "prompt", "max_new", "temperature", "top_k",
                  "seed", "eos_id", "future", "trace_id", "enqueued",
                  "deadline", "generated", "ttft_s", "last_t", "itl_s",
-                 "finish", "prefill_pos", "hashes", "prefix_hits")
+                 "finish", "prefill_pos", "hashes", "spec_ok",
+                 "spec_proposed", "spec_accepted", "prefix_hits",
+                 "draft_hashes")
 
     def __init__(self, seq_id: str, req: GenerateRequest, future: Future,
                  enqueued: float, deadline: Optional[float]):
@@ -178,7 +195,11 @@ class _Seq:
         self.finish = ""
         self.prefill_pos = 0            # next prompt position to prefill
         self.hashes: List[str] = []     # chained full-block prefix hashes
+        self.spec_ok = False            # draft arena reserved: may ride
+        self.spec_proposed = 0          # speculation for this sequence
+        self.spec_accepted = 0
         self.prefix_hits = 0            # prefix blocks shared at reserve
+        self.draft_hashes: List[str] = []  # draft-arena prefix hashes
 
     @property
     def seq_len(self) -> int:
@@ -391,11 +412,13 @@ class GenerativeEntry:
         self.chunk_width = min(self.max_seq_len,
                                self.prefill_chunk if self.prefill_chunk > 0
                                else self.block_tokens)
+        self.spec_tokens = max(0, int(mmlconfig.get("generate.spec_tokens")))
+        self.spec_width = self.spec_tokens + 1
         # index constants of the paged forward, made once outside any
         # capture: key slots of a block table, query columns of a chunk
         self._keys = torch.arange(self.table_width * self.block_tokens,
                                   device=self.device)
-        self._cols = torch.arange(max(self.chunk_width, 1),
+        self._cols = torch.arange(max(self.chunk_width, self.spec_width),
                                   device=self.device)
         self._tap = _KVTap(module, self.depth)
         self._programs: Dict[Tuple[str, int], Callable] = {}
@@ -430,15 +453,15 @@ class GenerativeEntry:
         elif kind == "cow":
             fn, specs = self._cow_spec()
         elif kind == "verify":
-            raise NotImplementedError(
-                "the verify program serves speculative decoding, the next "
-                "slice of the port (ROADMAP queue A, slice 5b-ii)")
+            fn, specs = self._verify_spec(bucket)
         else:
             raise ValueError(f"unknown program kind {kind!r}")
         shape_key = (f"{kind}:{bucket}|arena={self.kv.num_blocks}x"
                      f"{self.block_tokens}x{self.heads}x{self.head_dim}"
                      f"|layers={self.depth}|W={self.table_width}"
                      f"|dtype={self.kv.dtype_name}")
+        if kind == "verify":
+            shape_key += f"|C={self.spec_width}"
 
         def fresh():
             pool = (self.entry.graph_pool()
@@ -465,12 +488,15 @@ class GenerativeEntry:
                 with tap.armed() as sink:
                     hidden = module.forward_hidden(tokens)
                 for i in range(self.depth):
-                    kv.arena_k[i].index_copy_(
-                        0, block_ids, sink["k"][i].reshape(shape)
-                        .to(kv.dtype))
-                    kv.arena_v[i].index_copy_(
-                        0, block_ids, sink["v"][i].reshape(shape)
-                        .to(kv.dtype))
+                    for name, arena, scales in (
+                            ("k", kv.arena_k, kv.scale_k),
+                            ("v", kv.arena_v, kv.scale_v)):
+                        rows = sink[name][i].reshape(shape)
+                        if kv.quantized:
+                            rows, sc = quantize_rows(rows)
+                            scales[i].index_copy_(0, block_ids, sc)
+                        arena[i].index_copy_(0, block_ids,
+                                             rows.to(kv.dtype))
                 row = hidden.index_select(1, last_pos.view(1))
                 return module.head(row)[0, 0]
 
@@ -480,12 +506,14 @@ class GenerativeEntry:
     def _paged_forward(self, tokens, positions, tables, n_valid):
         """``(B, C)`` tokens at ``(B, C)`` positions through every block
         over the paged arena, mirroring the module's math one position at
-        a time (the reference's decode body, with a chunk's ``C`` query
-        rows): each row's K/V is written FIRST so it attends itself, then
-        each lane's table gathers its history, masked causally at the row's
-        position. Rows at or past a lane's ``n_valid`` write the reserved
-        scratch block and their outputs are ignored. Returns the
-        final-normed fp32 activations ``(B, C, dim)``."""
+        a time (the reference's decode body, with a chunk's or a verify
+        window's ``C`` query rows): each row's K/V is written FIRST so it
+        attends itself, then each lane's table gathers its history, masked
+        causally at the row's position. Rows at or past a lane's
+        ``n_valid`` write the reserved scratch block and their outputs are
+        ignored. An int8 arena stores quantized rows and gathers them
+        dequantized to the model's dtype. Returns the final-normed fp32
+        activations ``(B, C, dim)``."""
         module, kv = self.module, self.kv
         B, C = tokens.shape
         bt, W = self.block_tokens, self.table_width
@@ -508,10 +536,10 @@ class GenerativeEntry:
             q = blk.attn_query(y).reshape(B, C, heads, hd)
             k = blk.attn_key(y).reshape(B, C, heads, hd)
             v = blk.attn_value(y).reshape(B, C, heads, hd)
-            kv.arena_k[i].index_put_((blk_idx, offs), k.to(kv.dtype))
-            kv.arena_v[i].index_put_((blk_idx, offs), v.to(kv.dtype))
-            k_all = kv.arena_k[i][tables].reshape(B, W * bt, heads, hd)
-            v_all = kv.arena_v[i][tables].reshape(B, W * bt, heads, hd)
+            k_all = self._write_gather(i, kv.arena_k, kv.scale_k, k,
+                                       blk_idx, offs, tables)
+            v_all = self._write_gather(i, kv.arena_v, kv.scale_v, v,
+                                       blk_idx, offs, tables)
             s = torch.einsum("bchd,bkhd->bchk", q.float(),
                              k_all.float()) * scale
             s = s.masked_fill(masked[:, :, None, :], float("-inf"))
@@ -522,6 +550,26 @@ class GenerativeEntry:
             y = blk.norm2(x)
             x = x + blk.mlp_down(_gelu(blk.mlp_up(y)))
         return module.final_norm(x)
+
+    def _write_gather(self, layer, arena, scales, rows, blk_idx, offs,
+                      tables):
+        """Write ``rows`` ``(B, C, heads, head_dim)`` at ``(blk_idx,
+        offs)`` of one layer's arena, then gather every lane's table as
+        ``(B, W * block_tokens, heads, head_dim)`` in the model's dtype
+        (quantized and dequantized through the scale planes when int8)."""
+        kv = self.kv
+        B = tables.shape[0]
+        K = self.table_width * self.block_tokens
+        if not kv.quantized:
+            arena[layer].index_put_((blk_idx, offs), rows.to(kv.dtype))
+            return arena[layer][tables].reshape(B, K, self.heads,
+                                                self.head_dim)
+        q, sc = quantize_rows(rows)
+        arena[layer].index_put_((blk_idx, offs), q)
+        scales[layer].index_put_((blk_idx, offs), sc)
+        return dequantize_rows(
+            arena[layer][tables].reshape(B, K, self.heads, self.head_dim),
+            scales[layer][tables].reshape(B, K)).to(self.dtype)
 
     def _decode_spec(self, batch: int):
         """Single-token decode for one batch bucket ``B``: operands tokens
@@ -559,14 +607,39 @@ class GenerativeEntry:
         return chunk, [((1, C), _I64), ((1, C), _I64), ((1, W), _I64),
                        ((1,), _I64)]
 
+    def _verify_spec(self, batch: int):
+        """Speculative VERIFY for one batch bucket: the decode program
+        widened to ``spec_width = spec_tokens + 1`` positions a lane.
+        Row ``j`` of a lane's logits is the target's next-token
+        distribution after consuming fed token ``j``; lanes feed
+        ``n_valid`` in ``[1, C]`` tokens (1 = plain decode riding the same
+        program) and rows past it write the reserved scratch block.
+        Operands tokens ``(B, C)``, positions ``(B, C)``, tables ``(B,
+        W)``, ``n_valid`` ``(B,)``; returns the logits ``(B, C, vocab)`` in
+        fp32."""
+        module = self.module
+
+        def verify(tokens, positions, tables, n_valid):
+            with torch.no_grad():
+                xf = self._paged_forward(tokens, positions, tables, n_valid)
+                return module.head(xf)
+
+        W, C = self.table_width, self.spec_width
+        return verify, [((batch, C), _I64), ((batch, C), _I64),
+                        ((batch, W), _I64), ((batch,), _I64)]
+
     def _cow_spec(self):
-        """Block copy ``src -> dst`` across every layer of both arenas —
-        the copy-on-write a full-prefix-hit joiner owes before it may
-        write its final prompt block."""
+        """Block copy ``src -> dst`` across every layer of both arenas
+        (and both scale planes when int8) — the copy-on-write a
+        full-prefix-hit joiner owes before it may write its final prompt
+        block."""
         kv = self.kv
+        planes = [kv.arena_k, kv.arena_v]
+        if kv.quantized:
+            planes += [kv.scale_k, kv.scale_v]
 
         def cow(src, dst):
-            for arena in (kv.arena_k, kv.arena_v):
+            for arena in planes:
                 arena.index_copy_(1, dst.view(1),
                                   arena.index_select(1, src.view(1)))
 
@@ -600,18 +673,30 @@ class GenerateLane:
 
     def __init__(self, server, model: str, *, clock=None,
                  start: bool = True):
-        draft_name = str(mmlconfig.get("generate.draft_model")).strip()
-        if draft_name:
-            raise NotImplementedError(
-                f"generate.draft_model={draft_name!r}: speculative decoding "
-                "is the next slice of the port (ROADMAP queue A, slice "
-                "5b-ii); leave it \"\"")
         self.server = server
         self.model = model
         self.clock = clock if clock is not None else server.clock
         entry = server.registry.get(model)
         self.gen = GenerativeEntry(entry)
         server.registry.touch(entry)
+        # speculative decoding: the draft model gets its OWN entry (its
+        # own arena + programs) sized to the same sequence envelope, so
+        # target and draft block ledgers never interact
+        self.draft: Optional[GenerativeEntry] = None
+        draft_name = str(mmlconfig.get("generate.draft_model")).strip()
+        if draft_name and self.gen.spec_tokens > 0:
+            dentry = server.registry.get(draft_name)
+            self.draft = GenerativeEntry(
+                dentry, max_seq_len=self.gen.max_seq_len,
+                max_sequences=self.gen.max_sequences)
+            if self.draft.vocab != self.gen.vocab:
+                vocab = self.draft.vocab
+                self.draft.release()
+                self.draft = None
+                raise ValueError(
+                    f"draft model {draft_name!r} vocab {vocab} != target "
+                    f"{model!r} vocab {self.gen.vocab}")
+            server.registry.touch(dentry)
         self.batcher = ContinuousBatcher(self.gen.max_sequences,
                                          clock=self.clock)
         self._prefilling: List[_Seq] = []   # joined the arena, mid-chunk
@@ -631,6 +716,9 @@ class GenerateLane:
         self._prefix_hits = server._twin("generate.prefix_hits")
         self._prefix_misses = server._twin("generate.prefix_misses")
         self._cow_copies = server._twin("generate.cow_copies")
+        self._spec_proposed = server._twin("generate.spec_proposed")
+        self._spec_accepted = server._twin("generate.spec_accepted")
+        self._draft_prefix_hits = server._twin("generate.draft_prefix_hits")
         self.steps = 0          # decode steps taken
         if events.recording_enabled():
             kv = self.gen.kv
@@ -638,7 +726,8 @@ class GenerateLane:
                         blocks=kv.num_blocks,
                         block_tokens=kv.block_tokens,
                         kv_dtype=kv.dtype_name,
-                        arena_bytes=kv.arena_bytes())
+                        arena_bytes=kv.arena_bytes(),
+                        unquantized_bytes=kv.unquantized_arena_bytes())
         if start:
             self.start()
 
@@ -672,13 +761,15 @@ class GenerateLane:
         leftovers.extend(self._prefilling)
         self._prefilling.clear()
         for seq in leftovers:
-            self.gen.kv.free(seq.seq_id)
+            self._release_blocks(seq)
             if not seq.future.done():
                 self._failed.inc()
                 seq.future.set_exception(ServerClosed(
                     "server closed mid-generation; restart from prompt "
                     "elsewhere"))
         self.gen.release()
+        if self.draft is not None:
+            self.draft.release()
 
     @property
     def closed(self) -> bool:
@@ -751,6 +842,25 @@ class GenerateLane:
             self._prefix_hits.inc(info["hits"])
         if info["misses"]:
             self._prefix_misses.inc(info["misses"])
+        if self.draft is not None:
+            # best-effort: a full draft arena only disables speculation
+            # for this sequence, it never sheds the request. The draft
+            # reservation goes through the SAME prefix-matching admission
+            # as the target's, keyed by the draft's own (name, dtype): a
+            # repeated prompt skips the draft prefill compute too.
+            dhashes: List[str] = []
+            if self.draft.prefix_cache:
+                dhashes = prefix_block_hashes(
+                    self.draft.entry.name, self.draft.kv.dtype_name,
+                    prompt, self.draft.block_tokens)
+            seq.spec_ok = self.draft.kv.try_reserve(
+                seq_id, span_tokens, prefix_hashes=dhashes,
+                prompt_tokens=int(prompt.size)) is not None
+            if seq.spec_ok:
+                seq.draft_hashes = dhashes
+                dhits = int(self.draft.kv.reserve_info(seq_id)["hits"])
+                if dhits:
+                    self._draft_prefix_hits.inc(dhits)
         if hashes and events.recording_enabled():
             events.emit("decode", "prefix", model=self.model,
                         hits=int(info["hits"]), misses=int(info["misses"]),
@@ -819,7 +929,10 @@ class GenerateLane:
         for seq in taken[:room]:
             self._admit_one(seq)
         if self.batcher.active:
-            self._decode_step()
+            if self.draft is not None:
+                self._decode_step_spec()
+            else:
+                self._decode_step()
         if metrics.metrics_enabled():
             metrics.gauge("generate.kv_occupancy").set(
                 self.gen.kv.occupancy())
@@ -828,7 +941,7 @@ class GenerateLane:
         now = self.clock()
         if seq.expired(now):
             from mmlspark_tpu_torch.serve.server import RequestExpired
-            self.gen.kv.free(seq.seq_id)
+            self._release_blocks(seq)
             self._expired.inc()
             if events.recording_enabled():
                 events.emit("generate", "expired", model=self.model,
@@ -846,7 +959,7 @@ class GenerateLane:
             # full-prefix hit: copy the final shared block into this
             # sequence's owned block BEFORE its first (re)write
             try:
-                gen.program_for("cow", 0)(np.int64(cow[0]), np.int64(cow[1]))
+                self._cow_copy(gen, cow)
             except Exception as e:
                 logger.error("cow copy failed for %s: %s", seq.seq_id, e)
                 self._fail_seq(seq, e)
@@ -898,6 +1011,7 @@ class GenerateLane:
                                 np.float32)
         if seq.hashes:
             gen.kv.register_prefix(seq.seq_id, seq.hashes)
+        self._draft_prefill(seq)
         self._first_token(seq, logits, t0, bucket=bucket)
 
     def _first_token(self, seq: _Seq, logits: np.ndarray, t0: float,
@@ -917,8 +1031,20 @@ class GenerateLane:
                         prefill_ms=round((now - t0) * 1e3, 3),
                         trace_id=seq.trace_id, **fields)
 
-    def _fail_seq(self, seq: _Seq, exc: Exception) -> None:
+    def _cow_copy(self, entry: GenerativeEntry,
+                  pair: Tuple[int, int]) -> None:
+        entry.program_for("cow", 0)(np.int64(pair[0]), np.int64(pair[1]))
+
+    def _release_blocks(self, seq: _Seq) -> None:
+        """Free every block lease the sequence holds: the target arena
+        and, when speculation reserved one, the draft arena (both
+        idempotent)."""
         self.gen.kv.free(seq.seq_id)
+        if self.draft is not None:
+            self.draft.kv.free(seq.seq_id)
+
+    def _fail_seq(self, seq: _Seq, exc: Exception) -> None:
+        self._release_blocks(seq)
         self._failed.inc()
         if not seq.future.done():
             seq.future.set_exception(exc)
@@ -960,12 +1086,184 @@ class GenerateLane:
         self._prefilling.remove(seq)
         if seq.hashes:
             gen.kv.register_prefix(seq.seq_id, seq.hashes)
+        self._draft_prefill(seq)
         self._first_token(seq, np.asarray(row, np.float32), t0, bucket=C,
                           chunked=True,
                           cached_tokens=seq.prefix_hits * gen.block_tokens)
         self.batcher.join(seq)
         if seq.finish:              # eos / budget hit on the first token
             self._finish(seq)
+
+    # -- speculative decoding ----------------------------------------------
+    def _draft_prefill(self, seq: _Seq) -> None:
+        """Materialize the draft model's KV for the prompt. Failure only
+        degrades the sequence to non-speculative decode.
+
+        Mirrors the target's prefix-reuse admission: cached leading blocks
+        (shared via the draft ledger's prefix chain) are not recomputed —
+        only the uncached suffix runs, through the draft's chunk program,
+        and a pending copy-on-write resolves before the first write. The
+        whole-prompt prefill writes EVERY leading block, so any
+        reservation with cached blocks takes the suffix path."""
+        if self.draft is None or not seq.spec_ok:
+            return
+        d = self.draft
+        try:
+            Lp = int(seq.prompt.size)
+            info = d.kv.reserve_info(seq.seq_id)
+            cached = min(int(info["cached_tokens"]), Lp)
+            cow = d.kv.take_pending_cow(seq.seq_id)
+            if cow is not None:
+                self._cow_copy(d, cow)
+                d.kv.cow_done(seq.seq_id)
+            if cached > 0:
+                # suffix-only: recompute from the first uncached
+                # position (a FULL hit redoes just the last one)
+                C = d.chunk_width
+                start = min(cached, Lp - 1)
+                while start < Lp:
+                    n_valid = min(C, Lp - start)
+                    tokens = np.zeros((1, C), np.int32)
+                    tokens[0, :n_valid] = seq.prompt[start:start + n_valid]
+                    positions = (start + np.arange(C)).astype(np.int64)[None]
+                    table_row = d.kv.block_table(seq.seq_id,
+                                                 d.table_width)[None]
+                    d.program_for("chunk", C)(
+                        tokens, positions, table_row,
+                        np.asarray([n_valid], np.int64))
+                    start += n_valid
+            else:
+                bucket = bucket_for(Lp, d.prefill_buckets)
+                nb = bucket // d.block_tokens
+                tokens = np.zeros((1, bucket), np.int32)
+                tokens[0, :Lp] = seq.prompt
+                block_ids = np.asarray(d.kv.blocks_for(seq.seq_id)[:nb],
+                                       np.int64)
+                d.program_for("prefill", bucket)(
+                    tokens, np.int64(Lp - 1), block_ids)
+            if seq.draft_hashes:
+                d.kv.register_prefix(seq.seq_id, seq.draft_hashes)
+        except Exception as e:
+            logger.warning("draft prefill failed for %s (speculation off "
+                           "for this sequence): %s", seq.seq_id, e)
+            d.kv.free(seq.seq_id)
+            seq.spec_ok = False
+
+    def _draft_propose(self, active: List[_Seq], fed: np.ndarray,
+                       drafts: np.ndarray) -> None:
+        """Run the draft model ``max(fed) - 1`` single-token decode steps
+        over the spec-riding lanes, sampling each proposal with the SAME
+        per-(seed, position) sampler the target uses — so a correct draft
+        matches the target's token exactly, in greedy and seeded-sampling
+        modes. Lanes whose window is exhausted ride as padding lanes
+        (scratch-block writes)."""
+        d = self.draft
+        B = bucket_for(len(active), d.decode_buckets)
+        W = d.table_width
+        prev = np.array([seq.generated[-1] for seq in active], np.int64)
+        for j in range(drafts.shape[1]):
+            lanes = [i for i in range(len(active)) if j < int(fed[i]) - 1]
+            if not lanes:
+                return
+            tokens = np.zeros((B, 1), np.int32)
+            positions = np.zeros((B, 1), np.int64)
+            tables = np.full((B, W), RESERVED_BLOCK, np.int64)
+            n_valid = np.zeros((B,), np.int64)
+            for i in lanes:
+                seq = active[i]
+                tokens[i, 0] = prev[i]
+                positions[i, 0] = seq.seq_len - 1 + j
+                tables[i] = d.kv.block_table(seq.seq_id, W)
+                n_valid[i] = 1
+            rows = np.asarray(d.program_for("decode", B)(
+                tokens, positions, tables, n_valid, fetch="generate.draft"),
+                np.float32)
+            for i in lanes:
+                seq = active[i]
+                tok = sample_token(rows[i], temperature=seq.temperature,
+                                   top_k=seq.top_k, seed=seq.seed,
+                                   position=seq.seq_len + j)
+                drafts[i, j] = tok
+                prev[i] = tok
+
+    def _decode_step_spec(self) -> None:
+        """One speculative step: the draft proposes up to ``spec_tokens``
+        tokens a lane, the target checks the whole window in ONE verify
+        replay, and each lane accepts proposals left to right while they
+        match what the target's own sampler emits — so the output stream
+        is token-identical to plain decode, at up to ``spec_width`` tokens
+        a target step. Lanes that cannot speculate (draft arena full,
+        window exhausted) ride the same program with a one-token window."""
+        gen = self.gen
+        active = self.batcher.active
+        B = bucket_for(len(active), gen.decode_buckets)
+        C = gen.spec_width
+        W = gen.table_width
+        fed = np.ones((len(active),), np.int64)
+        for i, seq in enumerate(active):
+            remaining = seq.max_new - len(seq.generated)
+            if seq.spec_ok and remaining > 1:
+                fed[i] = min(C, remaining)
+        gamma = int(fed.max()) - 1
+        drafts = np.zeros((len(active), max(gamma, 0)), np.int64)
+        if gamma > 0:
+            self._draft_propose(active, fed, drafts)
+        tokens = np.zeros((B, C), np.int32)
+        positions = np.zeros((B, C), np.int64)
+        tables = np.full((B, W), RESERVED_BLOCK, np.int64)
+        n_valid = np.zeros((B,), np.int64)
+        for i, seq in enumerate(active):
+            f = int(fed[i])
+            tokens[i, 0] = seq.generated[-1]
+            tokens[i, 1:f] = drafts[i, :f - 1]
+            positions[i] = seq.seq_len - 1 + np.arange(C)
+            tables[i] = gen.kv.block_table(seq.seq_id, W)
+            n_valid[i] = f
+        program = gen.program_for("verify", B)
+        fault_site("generate.step", {"model": self.model, "batch": B,
+                                     "active": len(active)})
+        t0 = self.clock()
+        with spans.span("decode", "step", model=self.model, batch=B,
+                        active=len(active), spec=True):
+            rows = np.asarray(program(tokens, positions, tables, n_valid,
+                                      fetch="generate.step"), np.float32)
+        now = self.clock()
+        self.steps += 1
+        hot = metrics.metrics_enabled()
+        emitted = 0
+        for i, seq in enumerate(active):
+            f = int(fed[i])
+            appended = 0
+            matched = 0
+            for j in range(f):
+                self._append_token(seq, rows[i, j], position=seq.seq_len)
+                appended += 1
+                if seq.finish:
+                    break
+                if j < f - 1:
+                    if seq.generated[-1] != int(drafts[i, j]):
+                        break       # divergence: the window past j is junk
+                    matched += 1
+            if f > 1:
+                seq.spec_proposed += f - 1
+                seq.spec_accepted += matched
+                self._spec_proposed.inc(f - 1)
+                self._spec_accepted.inc(matched)
+            emitted += appended
+            gap = (now - seq.last_t) / appended
+            seq.last_t = now
+            seq.itl_s.extend([gap] * appended)
+            if hot:
+                metrics.histogram("generate.itl_ms").observe(
+                    gap * 1e3, exemplar=seq.trace_id)
+            if not seq.finish and seq.expired(now):
+                seq.finish = "deadline"
+            if seq.finish:
+                self._finish(seq)
+        if events.recording_enabled():
+            events.emit("decode", "step", model=self.model, batch=B,
+                        active=len(active), tokens=emitted, spec=True,
+                        step_ms=round((now - t0) * 1e3, 3))
 
     def _decode_step(self) -> None:
         gen = self.gen
@@ -1023,6 +1321,8 @@ class GenerateLane:
     def _finish(self, seq: _Seq) -> None:
         self.batcher.leave(seq)
         freed = self.gen.kv.free(seq.seq_id)
+        if self.draft is not None:
+            self.draft.kv.free(seq.seq_id)
         self._completed.inc()
         now = self.clock()
         if events.recording_enabled():
@@ -1038,6 +1338,8 @@ class GenerateLane:
                         total_ms=round((now - seq.enqueued) * 1e3, 3),
                         kv_occupancy=round(self.gen.kv.occupancy(), 4),
                         prefix_hits=seq.prefix_hits,
+                        spec_proposed=seq.spec_proposed,
+                        spec_accepted=seq.spec_accepted,
                         trace_id=seq.trace_id)
             events.emit("decode", "evict", model=self.model,
                         blocks=freed, trace_id=seq.trace_id)
@@ -1056,6 +1358,12 @@ class GenerateLane:
              "prefix_hits": self._prefix_hits.value,
              "prefix_misses": self._prefix_misses.value,
              "cow_copies": self._cow_copies.value,
+             "spec_proposed": self._spec_proposed.value,
+             "spec_accepted": self._spec_accepted.value,
              "steps": self.steps}
         s.update({f"kv.{k}": v for k, v in self.gen.kv.stats().items()})
+        if self.draft is not None:
+            s["draft.kv.used_blocks"] = self.draft.kv.used_blocks
+            s["draft.kv.free_blocks"] = self.draft.kv.free_blocks
+            s["draft_prefix_hits"] = self._draft_prefix_hits.value
         return s

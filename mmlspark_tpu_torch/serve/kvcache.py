@@ -30,14 +30,21 @@ Contracts the rest of the lane builds on:
   num_blocks, block_tokens, heads, head_dim)`` on the lane's device, in
   the model's dtype. The programs write them in place (``index_copy_`` /
   ``index_put_``), so a CUDA graph replay needs no new allocation and the
-  arena's addresses never move; the reference's donate-and-``swap`` round
-  trip has no counterpart.
-- **Budget accounting.** ``arena_bytes()`` is charged to the owning
+  arena's addresses never move. :meth:`KVCacheManager.swap` stores a new
+  arena set for callers that built one out of place.
+- **int8 storage (optional).** ``generate.kv_dtype="int8"`` stores the
+  arena quantized with one fp32 scale per (layer, block, row), two
+  ``(layers, num_blocks, block_tokens)`` scale planes beside the int8
+  arenas: about twice the blocks of a bf16 arena at one
+  ``generate.arena_mb``. :func:`quantize_rows` / :func:`dequantize_rows`
+  are the only quantization arithmetic of the lane; the programs call
+  them inside their graphs.
+- **Budget accounting.** ``arena_bytes()`` (arena + scales, at the real
+  width) is charged to the owning
   :class:`~mmlspark_tpu_torch.serve.registry.ModelEntry` so the registry's
   ``runtime.device_cache_mb`` LRU sees params and arena as one tenant.
 
-The host ledger is the reference's, unchanged. int8 KV blocks
-(``generate.kv_dtype="int8"``) are the next slice's and raise here.
+The host ledger is the reference's, unchanged.
 """
 from __future__ import annotations
 
@@ -90,12 +97,41 @@ def dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
-def _refuse_int8(kv_dtype: Any) -> None:
-    if kv_dtype not in (None, ""):
-        raise NotImplementedError(
-            f"generate.kv_dtype={kv_dtype!r}: quantized KV blocks are the "
-            "next slice of the port (ROADMAP queue A, slice 5b-ii); leave "
-            "it \"\" for the model's dtype")
+def storage_dtype(kv_dtype: Any) -> Optional[torch.dtype]:
+    """``generate.kv_dtype`` -> the arena's storage dtype (None: the
+    model's own). Only ``"int8"`` stores differently."""
+    name = str(kv_dtype or "").strip().lower()
+    if not name:
+        return None
+    if name != "int8":
+        raise ValueError(
+            f"generate.kv_dtype={kv_dtype!r}: \"\" (the model's dtype) or "
+            "\"int8\"")
+    return torch.int8
+
+
+# ---------------------------------------------------------------------------
+# int8 block quantization, called inside the prefill / decode / chunk /
+# verify programs. Per-row scales keep incremental single-position writes
+# exact (a whole-block scale would invalidate rows already written).
+
+
+def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(..., heads, head_dim)`` float rows -> (int8 rows, fp32 scales
+    shaped ``(...,)``): symmetric per-row absmax scaling to [-127, 127],
+    rounding half to even as ``jnp.round`` does."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=(-2, -1))
+    # a tensor divisor: CUDA turns division by a Python scalar into a
+    # multiply by its reciprocal, one ulp off the reference's quotient
+    scale = torch.clamp(amax / torch.full_like(amax, 127.0), min=1e-12)
+    q = torch.clamp(torch.round(xf / scale[..., None, None]), -127.0, 127.0)
+    return q.to(torch.int8), scale
+
+
+def dequantize_rows(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Invert :func:`quantize_rows`: int8 rows + per-row scales -> fp32."""
+    return q.float() * scale[..., None, None].float()
 
 
 class KVCacheManager:
@@ -117,7 +153,6 @@ class KVCacheManager:
                  num_blocks: int, block_tokens: int,
                  dtype: torch.dtype = torch.float32, kv_dtype=None,
                  device=None):
-        _refuse_int8(kv_dtype)
         if num_blocks < 2:
             raise ValueError(
                 f"num_blocks must be >= 2 (block {RESERVED_BLOCK} is "
@@ -129,14 +164,28 @@ class KVCacheManager:
         self.head_dim = int(head_dim)
         self.num_blocks = int(num_blocks)
         self.block_tokens = int(block_tokens)
-        self.dtype = dtype
-        self.dtype_name = dtype_name(dtype)
+        self.compute_dtype = dtype
+        storage = (kv_dtype if isinstance(kv_dtype, torch.dtype)
+                   else storage_dtype(kv_dtype))
+        self.dtype = storage if storage is not None else dtype
+        self.dtype_name = dtype_name(self.dtype)
+        self.quantized = self.dtype == torch.int8
         self.device = (torch.device(device) if device is not None
                        else mmlconfig.resolve_device())
         shape = (self.layers, self.num_blocks, self.block_tokens,
                  self.heads, self.head_dim)
-        self.arena_k = torch.zeros(shape, dtype=dtype, device=self.device)
-        self.arena_v = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.arena_k = torch.zeros(shape, dtype=self.dtype,
+                                   device=self.device)
+        self.arena_v = torch.zeros(shape, dtype=self.dtype,
+                                   device=self.device)
+        if self.quantized:
+            sshape = (self.layers, self.num_blocks, self.block_tokens)
+            self.scale_k = torch.ones(sshape, dtype=torch.float32,
+                                      device=self.device)
+            self.scale_v = torch.ones(sshape, dtype=torch.float32,
+                                      device=self.device)
+        else:
+            self.scale_k = self.scale_v = None
         self._lock = threading.Lock()
         # LIFO free list: recently-freed blocks are re-leased first, which
         # keeps the hot working set compact
@@ -169,15 +218,21 @@ class KVCacheManager:
         """Size the arena from the ``generate.*`` config namespace:
         ``generate.arena_mb`` when set, else enough blocks for
         ``generate.max_sequences`` sequences of ``generate.max_seq_len``
-        tokens (plus the reserved scratch block)."""
-        _refuse_int8(str(mmlconfig.get("generate.kv_dtype")).strip())
+        tokens (plus the reserved scratch block). ``generate.kv_dtype``
+        picks the storage width: at a fixed ``arena_mb``, int8 storage buys
+        about twice the blocks of a bf16 arena."""
         if device is None:
             device = mmlconfig.resolve_device()
         bt = int(mmlconfig.get("generate.kv_block_tokens"))
         arena_mb = float(mmlconfig.get("generate.arena_mb"))
+        kv_dtype = storage_dtype(mmlconfig.get("generate.kv_dtype"))
         if arena_mb > 0:
+            storage = kv_dtype if kv_dtype is not None else dtype
             per_block = devmem.nbytes_of((2, layers, bt, heads, head_dim),
-                                         dtype)
+                                         storage)
+            if storage == torch.int8:
+                per_block += devmem.nbytes_of((2, layers, bt),
+                                              torch.float32)
             num_blocks = max(2, int(arena_mb * 1e6 // per_block))
         else:
             seqs = int(mmlconfig.get("generate.max_sequences"))
@@ -185,14 +240,37 @@ class KVCacheManager:
             num_blocks = 1 + seqs * blocks_needed(max_len, bt)
         return cls(layers=layers, heads=heads, head_dim=head_dim,
                    num_blocks=num_blocks, block_tokens=bt, dtype=dtype,
-                   device=device)
+                   kv_dtype=kv_dtype, device=device)
 
     def arena_bytes(self) -> int:
-        """Device bytes of both arenas (charged to the owning registry
+        """Device bytes of both arenas at their real storage width, plus
+        the quantization scales when int8 (charged to the owning registry
         entry); the arithmetic lives in the device-memory ledger."""
-        return 2 * devmem.nbytes_of(
+        n = 2 * devmem.nbytes_of(
             (self.layers, self.num_blocks, self.block_tokens,
              self.heads, self.head_dim), self.dtype)
+        if self.quantized:
+            n += 2 * devmem.nbytes_of(
+                (self.layers, self.num_blocks, self.block_tokens),
+                torch.float32)
+        return n
+
+    def unquantized_arena_bytes(self) -> int:
+        """What the same block count would cost at the compute dtype: the
+        denominator of the int8 savings."""
+        return 2 * devmem.nbytes_of(
+            (self.layers, self.num_blocks, self.block_tokens,
+             self.heads, self.head_dim), self.compute_dtype)
+
+    def swap(self, arena_k, arena_v, scale_k=None, scale_v=None) -> None:
+        """Store an arena set built out of place (the programs write in
+        place, so they never need this)."""
+        self.arena_k = arena_k
+        self.arena_v = arena_v
+        if scale_k is not None:
+            self.scale_k = scale_k
+        if scale_v is not None:
+            self.scale_v = scale_v
 
     # -- ledger internals (call under self._lock) --------------------------
     def _bump(self, block: int) -> None:
@@ -559,6 +637,8 @@ class KVCacheManager:
                 "sequences": len(self._leases),
                 "occupancy": used / max(1, self.num_blocks - 1),
                 "arena_bytes": self.arena_bytes(),
+                "unquantized_arena_bytes": self.unquantized_arena_bytes(),
+                "quantized": float(self.quantized),
                 "prefix_hits": self.prefix_hits,
                 "prefix_misses": self.prefix_misses,
                 "cow_copies": self.cow_copies,

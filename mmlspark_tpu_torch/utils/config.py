@@ -67,9 +67,41 @@ _DEFAULTS: Dict[str, Any] = {
     "generate.prefill_chunk": 0,      # >0: prompts prefill in chunks of
                                       # this many tokens between decode steps
     "generate.advertise_top_k": 8,    # resident prefix chains in kv stats
-    # the next slice's features: anything but "" raises
-    "generate.kv_dtype": "",          # int8 KV blocks
-    "generate.draft_model": "",       # speculative decoding's draft model
+    "generate.kv_dtype": "",          # "" = model dtype; "int8" stores KV
+                                      # blocks quantized (per-row scales)
+    "generate.draft_model": "",       # registered model name proposing
+                                      # draft tokens (speculative decode);
+                                      # "" disables speculation
+    "generate.spec_tokens": 3,        # draft tokens proposed+verified per
+                                      # target step when draft_model is set
+    # reliability: HttpReplica's per-urlopen timeout
+    "reliability.http_timeout": 30.0,
+    # fleet (the in-process multi-replica router; serve/{router,affinity,
+    # fleet}.py)
+    "fleet.replicas": 2,              # in-process replicas per Fleet
+    "fleet.failover_attempts": 2,     # routing tries per request (1 = no
+                                      # failover; 2 = one retry elsewhere)
+    "fleet.failover_delay_s": 0.0,    # backoff between failover attempts
+    "fleet.probe_interval_s": 1.0,    # background health-probe cadence
+    "fleet.capacity_rows": 0,         # tenant-fairness capacity (0 =
+                                      # derive from replica queue depths)
+    "fleet.tenant_weights": "",       # "gold=3,free=1"; unlisted tenants
+                                      # get fleet.tenant_default_weight
+    "fleet.tenant_default_weight": 1.0,
+    "fleet.affinity_enabled": True,   # False = prefix-blind WRR only
+    "fleet.affinity_min_depth": 1,    # matched blocks required before
+                                      # prefix affinity overrides WRR
+    "fleet.affinity_vnodes": 64,      # virtual nodes per replica on the
+                                      # session consistent-hash ring
+    "fleet.affinity_seed": 0,         # ring placement seed
+    "fleet.affinity_prewarm": 4,      # hottest prompt prefixes replayed
+                                      # through a rollout canary's prefill
+                                      # before it takes weight (0 = off)
+    "fleet.affinity_spill_factor": 1.5,  # an affinity leader whose
+                                      # in-flight count exceeds
+                                      # factor*(fleet mean + 1) spills the
+                                      # pick back to WRR (0 = never spill)
+    "observability.scrape_interval_s": 5.0,  # FleetScraper background poll
 }
 
 _lock = threading.Lock()

@@ -417,25 +417,31 @@ def test_deadline_mid_decode_returns_the_partial_stream():
         srv.close()
 
 
-# -- refusals of the next slice, the HTTP route, close ------------------------
+# -- the draft, int8 and verify paths; refusals; the HTTP route, close -------
 
-def test_draft_model_int8_and_verify_raise():
-    srv = Server({"lm": make_lm()}, start=False)
+def test_draft_model_int8_and_verify_build_and_run():
+    """A draft model, an int8 arena and the verify program build and run
+    through one lane: the draft entry has its own arena, the verify graph
+    is keyed by its window, and the greedy tokens equal the full
+    recompute (int8 moves values; these tiny-model tokens do not move)."""
+    tconfig.set("generate.draft_model", "draft")
+    tconfig.set("generate.kv_dtype", "int8")
+    srv = Server({"lm": make_lm(), "draft": make_lm()}, start=False)
     try:
-        tconfig.set("generate.draft_model", "draft")
-        with pytest.raises(NotImplementedError, match="speculative"):
-            srv.enable_generate("lm", start=False)
-        tconfig.unset("generate.draft_model")
-        tconfig.set("generate.kv_dtype", "int8")
-        with pytest.raises(NotImplementedError, match="quantized"):
-            srv.enable_generate("lm", start=False)
-        tconfig.unset("generate.kv_dtype")
-        with pytest.raises(NotImplementedError):
-            KVCacheManager(layers=1, heads=1, head_dim=2, num_blocks=4,
-                           block_tokens=4, kv_dtype="int8")
         lane = _lane(srv)
-        with pytest.raises(NotImplementedError, match="speculative"):
-            lane.gen.program_for("verify", 4)
+        assert lane.draft is not None and lane.gen.kv.quantized
+        assert lane.draft.kv.quantized
+        prompt = [5, 9, 17, 3, 250]
+        f = srv.submit_generate("lm", prompt, max_new_tokens=6)
+        out, = _run_lane(lane, [f])
+        assert out["tokens"] == _reference_greedy(srv, "lm", prompt, 6)
+        kinds = {k for k, _ in lane.gen.built_programs()}
+        assert kinds == {"prefill", "verify"}
+        assert {k for k, _ in lane.draft.built_programs()} \
+            == {"prefill", "decode"}
+        st = lane.stats()
+        assert st["spec_accepted"] == st["spec_proposed"] > 0
+        assert st["draft.kv.used_blocks"] == 0
     finally:
         srv.close()
 

@@ -193,11 +193,56 @@ def _kv_cache_from_config():
     return KVCacheManager.from_config(layers=1, heads=1, head_dim=2)
 
 
+def _int8_kv_cache():
+    from mmlspark_tpu_torch.serve import KVCacheManager
+    return KVCacheManager(layers=1, heads=1, head_dim=2, num_blocks=4,
+                          block_tokens=2, kv_dtype="int8")
+
+
+def _int8_kv_cache_from_config():
+    from mmlspark_tpu_torch.serve import KVCacheManager
+    tconfig.set("generate.kv_dtype", "int8")
+    try:
+        return KVCacheManager.from_config(layers=1, heads=1, head_dim=2)
+    finally:
+        tconfig.unset("generate.kv_dtype")
+
+
+def _fleet():
+    from mmlspark_tpu_torch.serve import Fleet
+    model = TorchModel(inputCol="x", outputCol="f")
+    model.set_model("mlp_tabular", input_dim=4, hidden=[8], num_classes=2)
+    return Fleet({"mlp": model}, replicas=2, start=False)
+
+
 @pytest.mark.parametrize("make", [_registry, _model_entry, _kv_cache,
-                                  _kv_cache_from_config],
+                                  _kv_cache_from_config, _int8_kv_cache,
+                                  _int8_kv_cache_from_config, _fleet],
                          ids=["registry", "model_entry", "kv_cache",
-                              "kv_cache_from_config"])
+                              "kv_cache_from_config", "int8_kv_cache",
+                              "int8_kv_cache_from_config", "fleet"])
 def test_serve_parts_raise_instead_of_running_on_the_cpu(default_device,
                                                           make):
     with pytest.raises(RuntimeError, match="is_available"):
         make()
+
+
+def test_draft_entry_raises_instead_of_running_on_the_cpu(default_device):
+    """A lane with a draft model resolves the device before it builds
+    either entry."""
+    from mmlspark_tpu_torch.serve import Server
+    tconfig.set("runtime.device", "cpu")
+    try:
+        srv = Server({"lm": TorchModel().set_model("transformer_lm_tiny",
+                                                   seed=0),
+                      "draft": TorchModel().set_model("transformer_lm_tiny",
+                                                      seed=1)}, start=False)
+    finally:
+        tconfig.unset("runtime.device")
+    tconfig.set("generate.draft_model", "draft")
+    try:
+        with pytest.raises(RuntimeError, match="is_available"):
+            srv.enable_generate("lm", start=False)
+    finally:
+        tconfig.unset("generate.draft_model")
+        srv.close()
