@@ -46,9 +46,12 @@ Six paths, each through the entry points a user calls:
   arena, one CUDA graph per (program, bucket), K3 in every prefill at
   prompt buckets of 512 and more; the same lane with speculative decoding
   (a draft model's prefill and decode graphs, the target's verify graph)
-  and with int8 KV blocks; and a ``Fleet`` of in-process replicas behind
+  and with int8 KV blocks; a ``Fleet`` of in-process replicas behind
   the ``Router`` (prefix affinity fed by the ``FleetScraper``, a kill, a
-  ``scale_up`` and a ``rollout`` under traffic).
+  ``scale_up`` and a ``rollout`` under traffic); and the process fleet:
+  ``python -m mmlspark_tpu_torch.cli serve`` worker processes sharing the
+  card under a ``Supervisor``, behind the ``Router``, scaled by the
+  ``Autopilot`` through ``ProcessFleet``, K3 in every worker's prefill.
 
 The script:
 
@@ -233,7 +236,37 @@ The script:
     and TTFT p50/p99 beside one lane's on the same 64 prompts, the share
     of requests routed by affinity, scrape ms and capture ms per replica
     are printed;
-18. prints the kernel table line (each kernel's launches on each of its
+18. ``process_fleet``: ``ProcessSpawner`` -> ``Supervisor`` -> ``Router``
+    -> ``ProcessFleet``, as ``cli fleet`` builds them: two worker
+    processes (``w0``, ``w1``) on the one card, each serving the fleet
+    phase's ``lm`` (bf16) and ``lm32`` (fp32, depth 2); one warm round a
+    worker and model (its captures and ms reported); the fleet phase's 64
+    prompts from 8 closed-loop clients through the ``Router`` (a client
+    retries a retryable failure); ``Supervisor.kill_replica("w1")`` (a
+    SIGKILL) after 24 answers; an ``Autopilot(ProcessFleet)`` ticked on an
+    injected clock with ``min_replicas`` 3 repairs through
+    ``Supervisor.add_slot`` (``w2``); after the traffic ``min_replicas`` 2
+    and the clock past the scale cooldown retire ``w2`` through
+    ``retire_slot`` (SIGTERM drain); then ``shutdown``. Gates: (a) all 64
+    requests answered; (b) the ``lm32`` greedy tokens of 4 prompts of
+    600-1000 ids (K3's CUDA-core route) through ``w0``, ``w1`` before and
+    after its restart, and ``w2`` EQUAL an in-process ``Server``'s (TF32
+    off; every worker reports TF32 off for matmuls); (c) ``w1`` restarted
+    under a new pid and the same name, back at weight 1; (d) the
+    ``scale_up`` and ``scale_down`` decisions actuated, no ``error``; (e)
+    ``w2`` exits 0; (f) ``kernels/_build`` lists the same files before and
+    after (no worker ran nvcc); (g) every spawned worker reaped (each runs
+    in its own process group, killed in a ``finally``); (h) each drained
+    worker's K3 launches, read from the ``device`` field of the
+    ``serving.summary`` event it writes at its drain, EQUAL its own
+    programs' recorded launches times their replays plus one eager run a
+    graph captured (6 tensor-core launches a ``lm`` prefill at a bucket of
+    512 or more, 2 CUDA-core ones a ``lm32`` prefill, none elsewhere); the
+    SIGKILLed incarnation wrote none. Tokens/s and TTFT p50/p99 beside the
+    in-process fleet's, spawn-to-ready ms a worker, the restart's, the
+    retire's drain s, failovers and each worker's allocator bytes are
+    printed;
+19. prints the kernel table line (each kernel's launches on each of its
     paths), the card's name and power limit, and last ``{"ok": true,
     "device": {...}}``.
 
@@ -380,6 +413,12 @@ GEN_SPEC_REQUESTS, GEN_SPEC_TOKENS, GEN_F32_DRAFT_SEED = 32, 3, 1
 FLEET_REQUESTS, FLEET_CLIENTS, FLEET_HEAD, FLEET_SUFFIX = 64, 8, 1024, 400
 FLEET_KILL_AT, FLEET_SCALE_AT, FLEET_ROLLOUT_AT = 16, 24, 32
 FLEET_SCRAPE_S, FLEET_F32_PROMPTS = 0.25, 4
+# process_fleet: two worker processes on the one card serving the fleet's
+# 64 prompts from 8 clients (a client retries a retryable failure up to 4
+# times); w1 SIGKILLed after 24 answers; the fp32 gate over 4 prompts of
+# 600-1000 ids (K3's CUDA-core route) on every worker
+PF_REQUESTS, PF_CLIENTS, PF_KILL_AT, PF_ATTEMPTS = 64, 8, 24, 4
+PF_F32_PROMPTS, PF_LM = 4, {"seed": 0}
 # fp32 operations per output element of the crop-resize-normalize kernel:
 # two row lerps (3 each), one column lerp (3), rint, clamp (2), subtract,
 # multiply
@@ -3321,6 +3360,24 @@ def _lane_programs(server, name="lm") -> list:
     return progs
 
 
+def _fleet_prompts() -> list:
+    """The fleet phases' 64 prompts (``default_rng(1)``): odd ones a
+    1024-id shared head plus a suffix of 1-399 ids, even ones 600-1900
+    ids."""
+    rng = np.random.default_rng(1)
+    head = rng.integers(0, LM_VOCAB, FLEET_HEAD)
+    prompts = []
+    for i in range(FLEET_REQUESTS):
+        if i % 2:
+            prompts.append(np.concatenate(
+                [head, rng.integers(0, LM_VOCAB,
+                                    int(rng.integers(1, FLEET_SUFFIX)))]))
+        else:
+            prompts.append(rng.integers(0, LM_VOCAB, int(rng.integers(
+                GEN_PROMPT[0], GEN_PROMPT[1] + 1))))
+    return prompts
+
+
 def phase_fleet(torch, kernels, card, single) -> dict:
     """``Fleet(replicas=2)`` of ``transformer_lm`` (bf16) on the one card,
     prefix affinity fed by a ``FleetScraper`` polling every 0.25 s. Every
@@ -3349,17 +3406,7 @@ def phase_fleet(torch, kernels, card, single) -> dict:
     tc = kernels.FLASH_ATTENTION_TC
     for k, v in GEN_CONFIG.items():
         tconfig.set(k, v)
-    rng = np.random.default_rng(1)
-    head = rng.integers(0, LM_VOCAB, FLEET_HEAD)
-    prompts = []
-    for i in range(FLEET_REQUESTS):
-        if i % 2:
-            prompts.append(np.concatenate(
-                [head, rng.integers(0, LM_VOCAB,
-                                    int(rng.integers(1, FLEET_SUFFIX)))]))
-        else:
-            prompts.append(rng.integers(0, LM_VOCAB, int(rng.integers(
-                GEN_PROMPT[0], GEN_PROMPT[1] + 1))))
+    prompts = _fleet_prompts()
     lengths = [len(p) for p in prompts] + [FLEET_HEAD]
     tm = TorchModel().set_model("transformer_lm", seed=0)
     same_traffic = _single_lane_round(tm, prompts, lengths)
@@ -3519,7 +3566,11 @@ def phase_fleet(torch, kernels, card, single) -> dict:
           tokens_per_s_before_kill=FLEET_KILL_AT * GEN_NEW_TOKENS
           / (t_kill - t_start),
           fp32_gate=gate["line"])
-    return {"bf16": launches, "fp32": gate["launches"]}
+    return {"bf16": launches, "fp32": gate["launches"],
+            "tokens_per_s": len(ok) * GEN_NEW_TOKENS / result["wall"],
+            "ttft_ms_p50": float(np.percentile(ttft, 50)),
+            "ttft_ms_p99": float(np.percentile(ttft, 99)),
+            "single_lane_same_traffic": same_traffic}
 
 
 def _single_lane_round(tm, prompts, lengths) -> dict:
@@ -3596,6 +3647,351 @@ def _fleet_fp32_gate(torch, kernels, card) -> dict:
                      "failover_restart_token_identical": True,
                      "launches": launches}}
 
+
+class _GroupSpawner:
+    """The port's ``ProcessSpawner`` with each worker in a process group of
+    its own (``start_new_session``), so that a stray worker and anything it
+    started can be killed as a group; keeps every worker it spawned."""
+
+    def __init__(self, spawner):
+        self.spawner = spawner
+        self.workers = []
+
+    def spawn(self, name):
+        import functools
+        from mmlspark_tpu_torch.serve import ProcessWorker
+        sp = self.spawner
+        os.makedirs(sp.events_dir, exist_ok=True)
+        w = ProcessWorker(
+            name, sp.build_argv(name), env=sp.build_env(name),
+            log_path=os.path.join(sp.events_dir, f"worker-{name}.log"),
+            popen=functools.partial(subprocess.Popen,
+                                    start_new_session=True))
+        self.workers.append(w)
+        return w
+
+    def kill_all(self) -> None:
+        import signal
+        for w in self.workers:
+            if w.poll() is None:
+                try:
+                    os.killpg(w.pid, signal.SIGKILL)
+                except OSError:
+                    pass
+                w.wait(10.0)
+
+
+def _worker_stats(replica) -> dict:
+    """A worker's ``Server.stats()``, from its ``/healthz``."""
+    import urllib.request
+    with urllib.request.urlopen(f"{replica.addr}/healthz",
+                                timeout=30) as resp:
+        return json.loads(resp.read().decode("utf-8"))["stats"]
+
+
+def _worker_events(events_dir, pid) -> list:
+    path = os.path.join(events_dir, f"events-{pid}.jsonl")
+    if not os.path.exists(path):
+        return []
+    with open(path, encoding="utf-8") as fh:
+        return [json.loads(line) for line in fh if line.strip()]
+
+
+def _implied_launches(report, per_prefill) -> dict:
+    """The K3 launches a drained worker's programs imply, by kernel name:
+    each program's recorded launches times its replays, plus one eager run
+    for each graph captured. Every prefill graph at a bucket of 512 or
+    more must record exactly ``per_prefill[model]`` = (kernel, count), and
+    every other program none."""
+    want = {}
+    for p in report["programs"]:
+        rec = p["launches"]
+        if p["kind"] == "prefill" and p["bucket"] >= 512 and p["graph"]:
+            kernel, n = per_prefill[p["model"]]
+            _check(rec == {kernel: n},
+                   f"{p['model']} prefill at {p['bucket']} records {rec}, "
+                   f"want {{{kernel!r}: {n}}}")
+        else:
+            _check(not rec, f"{p['model']} {p['kind']} at {p['bucket']} "
+                            f"records {rec}, want no launch")
+        for kernel, n in rec.items():
+            want[kernel] = want.get(kernel, 0) + n * (
+                p["replays"] + (1 if p["graph"] else 0))
+    return want
+
+
+def phase_process_fleet(torch, kernels, card, fleet) -> dict:
+    """The process fleet as ``cli fleet`` builds it, through the library:
+    ``ProcessSpawner`` -> ``Supervisor`` -> ``Router`` -> ``ProcessFleet``.
+    Two worker processes ``w0``, ``w1`` on the one card
+    (``devices_per_worker`` 0, each with its own CUDA context), each serving
+    ``lm`` (the fleet phase's bf16 ``transformer_lm``) and ``lm32`` (fp32,
+    depth 2) behind its own HTTP front. After one warm round per worker and
+    model, 8 closed-loop clients send the fleet phase's 64 prompts through
+    the ``Router``, retrying a retryable failure; at request 24 ``w1`` is
+    SIGKILLed, and an ``Autopilot(ProcessFleet)`` ticked on an injected
+    clock with ``min_replicas`` 3 repairs below its minimum through
+    ``Supervisor.add_slot`` (``w2``) while the supervisor restarts ``w1``.
+    After the traffic, ``min_replicas`` 2 and the clock past the scale
+    cooldown make the idle rule retire ``w2`` (SIGTERM drain), and
+    ``shutdown`` drains the rest. Gates: every request answered; the
+    ``lm32`` greedy tokens of every worker (``w1`` before and after its
+    restart, and ``w2``) EQUAL an in-process ``Server``'s (TF32 off, and
+    off in every worker); ``w1`` back under a new pid at full weight; the
+    ``scale_up`` and ``scale_down`` decisions actuated with no ``error``;
+    ``w2`` exits 0; ``kernels/_build`` lists the same files before and
+    after (no worker ran nvcc); every spawned worker reaped; each drained
+    worker's K3 launches (its ``serving.summary`` event) EQUAL what its own
+    prefill replays and captures imply, on both routes."""
+    import shutil
+    import tempfile
+    import threading
+    from mmlspark_tpu_torch.control.autopilot import Autopilot, AutopilotPolicy
+    from mmlspark_tpu_torch.kernels import build as kbuild
+    from mmlspark_tpu_torch.models.torch_model import TorchModel
+    from mmlspark_tpu_torch.observability import events as tevents
+    from mmlspark_tpu_torch.observability.slo import SloEngine
+    from mmlspark_tpu_torch.serve import (
+        ProcessFleet, ProcessSpawner, Router, Server, Supervisor,
+    )
+    from mmlspark_tpu_torch.utils import config as tconfig
+
+    tc, f32 = kernels.FLASH_ATTENTION_TC, kernels.FLASH_ATTENTION
+    build_before = sorted(os.listdir(kbuild.BUILD_DIR))
+    # the workers' event sidecars and logs; kept (and named on stderr)
+    # when a check fails, removed when the phase passes
+    events_dir = tempfile.mkdtemp(prefix="chip_smoke_process_fleet-")
+    print(f"process_fleet: worker events and logs in {events_dir}",
+          file=sys.stderr, flush=True)
+    prompts = _fleet_prompts()
+    rng = np.random.default_rng(2)
+    prompts32 = [rng.integers(0, LM_VOCAB, int(n)) for n in rng.integers(
+        GEN_F32_PROMPT[0], GEN_F32_PROMPT[1] + 1, PF_F32_PROMPTS)]
+    lm32 = {"seed": 0, "dtype": "float32", "depth": GEN_F32_DEPTH}
+    for k, v in GEN_CONFIG.items():
+        tconfig.set(k, v)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    srv = Server({"lm32": TorchModel().set_model("transformer_lm", **lm32)})
+    try:
+        want32 = [srv.generate("lm32", p, max_new_tokens=GEN_NEW_TOKENS,
+                               timeout=300)["tokens"] for p in prompts32]
+    finally:
+        srv.close()
+    env = {"MMLSPARK_TPU_TORCH_" + k.replace(".", "_").upper(): str(v)
+           for k, v in GEN_CONFIG.items()}
+    spawner = _GroupSpawner(ProcessSpawner(
+        ["lm=transformer_lm:" + json.dumps(PF_LM),
+         "lm32=transformer_lm:" + json.dumps(lm32)],
+        events_dir=events_dir, env=env, devices_per_worker=0))
+    sup_events = os.path.join(events_dir, f"events-{os.getpid()}.jsonl")
+    tconfig.set("observability.events_path", sup_events)
+    sup = Supervisor(spawner, ["w0", "w1"])
+    router = None
+    try:
+        t0 = time.perf_counter()
+        sup.start()
+        start_s = time.perf_counter() - t0
+        _check(sup.stats()["live_replicas"] == 2,
+               f"workers did not start: {sup.stats()}")
+        router = Router(sup.replicas, failover_delay_s=0.0)
+        pfleet = ProcessFleet(sup, router)
+        sup.start_monitor(poll_s=0.1)
+
+        def fp32_tokens(name):
+            rep = sup.replica(name)
+            return [rep.submit_generate("lm32", p, GEN_NEW_TOKENS)["tokens"]
+                    for p in prompts32]
+
+        def warm(name):
+            # one request per model and prefill bucket the traffic uses:
+            # the lane captures are paid here, apart from the traffic
+            rep, t = sup.replica(name), time.perf_counter()
+            for p in (prompts[0], prompts[1], prompts[2]):
+                rep.submit_generate("lm", p, 2)
+            got32 = fp32_tokens(name)
+            return (time.perf_counter() - t) * 1e3, got32
+
+        warm_ms, tokens32 = {}, {}
+        for name in ("w0", "w1"):
+            warm_ms[name], tokens32[name] = warm(name)
+        captures = {n: _worker_stats(sup.replica(n))["registry.compiles"]
+                    for n in ("w0", "w1")}
+        finished, lock, retried = [], threading.Lock(), []
+
+        def call(p):
+            for attempt in range(PF_ATTEMPTS):
+                try:
+                    out = router.submit_generate("lm", p, GEN_NEW_TOKENS)
+                    break
+                except Exception as e:
+                    if not getattr(e, "retryable", False) \
+                            or attempt == PF_ATTEMPTS - 1:
+                        raise
+                    with lock:
+                        retried.append(type(e).__name__)
+                    time.sleep(0.05)
+            with lock:
+                finished.append(time.perf_counter())
+            return out
+
+        result = {}
+
+        def drive():
+            try:
+                result["outs"], _, result["wall"] = _closed_loop(
+                    PF_CLIENTS, prompts, call)
+            except BaseException as e:      # re-raised below
+                result["error"] = e
+        traffic = threading.Thread(target=drive, daemon=True)
+        t_start = time.perf_counter()
+        traffic.start()
+        while len(finished) < PF_KILL_AT and traffic.is_alive():
+            time.sleep(0.005)
+        old_pid = sup.pid("w1")
+        t_kill = time.perf_counter()
+        _check(sup.kill_replica("w1") == old_pid, "w1 was not killed")
+        vclock = {"t": 1000.0}
+        pilot = Autopilot(pfleet, engine=SloEngine([]),
+                          policy=AutopilotPolicy(min_replicas=3,
+                                                 max_replicas=3),
+                          clock=lambda: vclock["t"])
+        t0 = time.perf_counter()
+        ups = pilot.tick()
+        scale_up_s = time.perf_counter() - t0
+        t_up = time.perf_counter()
+        deadline = time.perf_counter() + 300.0
+        while sup.stats()["replicas"]["w1"]["ready_spawns"] < 2 \
+                and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        t_restarted = time.perf_counter()
+        traffic.join(timeout=900)
+        if "error" in result:
+            raise result["error"]
+        _check(not traffic.is_alive() and "outs" in result,
+               "process fleet traffic did not finish")
+        _check(sup.stats()["replicas"]["w1"]["ready_spawns"] == 2,
+               f"w1 was not restarted: {sup.stats()['replicas']['w1']}")
+        new_pid = sup.pid("w1")
+        weights = {n: r["weight"]
+                   for n, r in router.stats()["replicas"].items()}
+        # the restarted w1 and the new w2 serve both models: the warm
+        # round again (the traffic may have ended before they were up)
+        for key, name in (("w1_restarted", "w1"), ("w2", "w2")):
+            warm_ms[key], tokens32[key] = warm(name)
+        captures_after = {
+            n: _worker_stats(sup.replica(n))["registry.compiles"]
+            for n in ("w0", "w1", "w2")}
+        failovers = router.stats()["failovers"]
+        w2 = next(w for w in spawner.workers if w.name == "w2")
+        pilot.policy = AutopilotPolicy(min_replicas=2, max_replicas=3)
+        vclock["t"] += pilot.policy.scale_cooldown_s + 1.0
+        t0 = time.perf_counter()
+        downs = pilot.tick()
+        retire_s = time.perf_counter() - t0
+        w2_rc = w2.poll()
+        t0 = time.perf_counter()
+        sup.shutdown(reason="chip_smoke")
+        shutdown_s = time.perf_counter() - t0
+        reaped = [w.poll() is not None for w in spawner.workers]
+        worker_rcs = {f"{w.name}:{w.pid}": w.poll()
+                      for w in spawner.workers}
+        sup_stats = sup.stats()
+    finally:
+        tconfig.unset("observability.events_path")
+        tevents.close()
+        if router is not None:
+            router.close()
+        sup.shutdown(reason="chip_smoke")
+        spawner.kill_all()
+        for k in GEN_CONFIG:
+            tconfig.unset(k)
+    outs = result["outs"]
+    _check(len(finished) == PF_REQUESTS and all(
+        o is not None and len(o["tokens"]) == GEN_NEW_TOKENS for o in outs),
+        f"{len(finished)} of {PF_REQUESTS} process fleet requests answered")
+    for name, got in tokens32.items():
+        _check(got == want32, f"process fleet {name}: fp32 tokens differ "
+                              f"from one Server's: {_agreement(got, want32)}")
+    _check(new_pid not in (None, old_pid) and weights.get("w1") == 1.0,
+           f"w1 restart: pid {old_pid} -> {new_pid}, weights {weights}")
+    up = [d for d in ups if d["action"] == "scale_up"]
+    down = [d for d in downs if d["action"] == "scale_down"]
+    _check(len(up) == 1 and not up[0]["suppressed"]
+           and "error" not in up[0] and up[0].get("replica") == "w2",
+           f"autopilot scale_up: {ups}")
+    _check(len(down) == 1 and not down[0]["suppressed"]
+           and "error" not in down[0] and down[0]["target"] == "w2",
+           f"autopilot scale_down: {downs}")
+    _check(w2_rc == 0, f"the retired w2 exited {w2_rc}, want 0 (drained)")
+    _check(all(reaped), f"workers alive after shutdown: {worker_rcs}")
+    build_after = sorted(os.listdir(kbuild.BUILD_DIR))
+    _check(build_after == build_before,
+           f"kernels/_build changed: {build_before} -> {build_after}")
+    per_prefill = {"lm": (tc.name, LM_DEPTH), "lm32": (f32.name,
+                                                       GEN_F32_DEPTH)}
+    drained, memory, launches = {}, {}, {tc.name: 0, f32.name: 0}
+    for w in spawner.workers:
+        if w.pid == old_pid:
+            continue                # SIGKILLed: it wrote no summary
+        summaries = [e for e in _worker_events(events_dir, w.pid)
+                     if e["type"] == "serving" and e["name"] == "summary"]
+        _check(len(summaries) == 1, f"worker {w.name} pid {w.pid}: "
+                                    f"{len(summaries)} summaries")
+        report = summaries[0]["device"]
+        want = _implied_launches(report, per_prefill)
+        got = {k: n for k, n in report["launches"].items() if n}
+        _check(got == want and want.get(tc.name, 0) > 0
+               and want.get(f32.name, 0) > 0,
+               f"worker {w.name} pid {w.pid} launched {got}, its replays "
+               f"imply {want}")
+        _check(report["tf32_matmul"] is False,
+               f"worker {w.name} runs matmuls in TF32")
+        for k in launches:
+            launches[k] += got.get(k, 0)
+        drained[f"{w.name}:{w.pid}"] = got
+        memory[f"{w.name}:{w.pid}"] = {
+            k: v / 2**20 for k, v in report["memory_bytes"].items()}
+    sup_evs = _worker_events(events_dir, os.getpid())
+    ready = [{"replica": e["replica"], "attempt": e["attempt"],
+              "spawn_to_ready_ms": e["spawn_to_ready_ms"]}
+             for e in sup_evs if e["type"] == "supervisor"
+             and e["name"] == "ready"]
+    ttft = [o["ttft_ms"] for o in outs]
+    _line(phase="process_fleet", card=_smi(), model="transformer_lm",
+          compute="bfloat16", workers_founding=2, devices_per_worker=0,
+          requests=PF_REQUESTS, clients=PF_CLIENTS,
+          new_tokens=GEN_NEW_TOKENS, completed=len(outs),
+          client_retries=len(retried),
+          client_retries_by_error={e: retried.count(e) for e in
+                                   set(retried)},
+          failovers=failovers, wall_s=result["wall"],
+          tokens_per_s=len(outs) * GEN_NEW_TOKENS / result["wall"],
+          ttft_ms_p50=float(np.percentile(ttft, 50)),
+          ttft_ms_p99=float(np.percentile(ttft, 99)),
+          in_process_fleet={k: fleet[k] for k in (
+              "tokens_per_s", "ttft_ms_p50", "ttft_ms_p99")},
+          single_lane_same_traffic=fleet["single_lane_same_traffic"],
+          start_s=start_s, spawn_to_ready_ms=ready, warm_ms=warm_ms,
+          captures_after_warm=captures, captures_after_traffic=captures_after,
+          kill_after_s=t_kill - t_start, killed_pid=old_pid,
+          restarted_pid=new_pid, weights_after_restart=weights,
+          scale_up_tick_s=scale_up_s,
+          scale_up_done_before_traffic_end=t_up <= max(finished),
+          restart_seen_after_kill_s=t_restarted - t_kill,
+          traffic_end_after_kill_s=max(finished) - t_kill,
+          retire_tick_s=retire_s, w2_rc=w2_rc, shutdown_s=shutdown_s,
+          worker_rcs=worker_rcs, supervisor=sup_stats,
+          device_memory_mib_by_worker=memory,
+          fp32_gate={"depth": GEN_F32_DEPTH, "tf32": "off",
+                     "prompt_lengths": [len(p) for p in prompts32],
+                     "tokens_equal_one_server": sorted(tokens32)},
+          kernels_build_unchanged=True, launches_drained_workers=drained,
+          launches_note="each drained worker's own counts (serving.summary "
+                        "at its drain); the SIGKILLed w1 incarnation wrote "
+                        "none and is not counted")
+    shutil.rmtree(events_dir, ignore_errors=True)
+    return launches
 
 def _profile_pass(torch, run, out_dir, name) -> None:
     """One warm ``run()`` under torch.profiler: the device time by kernel
@@ -3678,6 +4074,7 @@ def main() -> int:
     lm_serve = phase_lm_serve(torch, kernels, card)
     generate, generate32, single = phase_generate(torch, kernels, card)
     fleet = phase_fleet(torch, kernels, card, single)
+    process_fleet = phase_process_fleet(torch, kernels, card, fleet)
 
     k1k, k2k = kernels.FUSED_NORMALIZE, kernels.CROP_RESIZE_NORMALIZE
     tc, f32 = kernels.FLASH_ATTENTION_TC, kernels.FLASH_ATTENTION
@@ -3733,7 +4130,8 @@ def main() -> int:
                              "lm_serve": lm_serve[tc.name],
                              **{f"generate_{k}": v[tc.name]
                                 for k, v in generate.items()},
-                             "fleet": fleet["bf16"][tc.name]},
+                             "fleet": fleet["bf16"][tc.name],
+                             "process_fleet": process_fleet[tc.name]},
         "max_abs_err": k3["tc"]["max_abs_err"],
         "ms": k3["tc"]["ms"], "plain_ms": k3["tc"]["plain_ms"],
         "bound_ms": k3["tc"]["bound_ms"], "bound_by": k3["tc"]["bound_by"],
@@ -3748,7 +4146,8 @@ def main() -> int:
                              "lm_train_fp32": lm_train32[f32.name],
                              **{f"generate_fp32_{k}": v[f32.name]
                                 for k, v in generate32.items()},
-                             "fleet_fp32": fleet["fp32"][f32.name]},
+                             "fleet_fp32": fleet["fp32"][f32.name],
+                             "process_fleet_fp32": process_fleet[f32.name]},
         "launches_note": "lm_score's fp32 pass (16 rows): f32 is this "
                          "route's input; the bf16 main paths launch it 0 "
                          "times",

@@ -1,0 +1,604 @@
+"""``mmlspark-tpu-torch`` CLI: serve, the process fleet and its offline tools.
+
+The port's copy of the serving half of ``mmlspark_tpu/cli.py``, with the
+reference's flags and stdout contract:
+
+- ``serve``: the micro-batching server behind the stdlib HTTP front end,
+  one ``TorchModel`` per ``--model NAME=ARCH[:JSON-kwargs]``; with
+  ``--replicas > 1`` an in-process ``Fleet`` (and ``--autopilot`` over
+  it). Prints ONE JSON line announcing the bound address (first on
+  stdout: a supervisor reads it over a pipe) and drains on SIGTERM /
+  SIGINT through :mod:`~mmlspark_tpu_torch.reliability.preemption`.
+- ``fleet``: N ``serve`` worker PROCESSES under a
+  :class:`~mmlspark_tpu_torch.serve.supervisor.Supervisor` behind one
+  router (``--hosts`` fans one fleet out per host through
+  :class:`~mmlspark_tpu_torch.serve.launcher.HostLauncher`;
+  ``--autopilot`` scales real workers through ``ProcessFleet``).
+- ``loadgen``: a seeded open-loop schedule's preview and fingerprint.
+- ``autopilot replay``: the pure decision core re-run over recorded
+  ``autopilot_signals`` events, ranked against candidate policies.
+
+Workers run on ``runtime.device`` (``MMLSPARK_TPU_TORCH_RUNTIME_DEVICE``)
+and raise without CUDA unless it is ``cpu``. The reference's ``run``,
+``launch-pod``, ``info``, ``check``, ``bench``, ``chaos``, ``report`` and
+``top`` are not ported yet (ROADMAP queue A).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+from typing import List, Optional
+
+
+def cmd_loadgen(args, passthrough) -> int:
+    """Preview a seeded open-loop workload schedule (testing/loadgen):
+    prints the trace spec, arrival count, offered QPS, per-bucket
+    arrival counts, and the sha256 schedule fingerprint — the replay
+    contract (same seed + trace -> same fingerprint, byte for byte)."""
+    from mmlspark_tpu_torch.testing import loadgen
+    trace = loadgen.Trace(
+        duration_s=args.duration, rate=args.rate, shape=args.shape,
+        process=args.process, spike_start_s=args.spike_start,
+        spike_len_s=args.spike_len, spike_factor=args.spike_factor,
+        pareto_alpha=args.pareto_alpha,
+        session_turns=args.session_turns, think_s=args.think)
+    schedule = loadgen.generate(trace, args.seed)
+    fingerprint = loadgen.schedule_fingerprint(schedule)
+    buckets = loadgen.bucket_counts(schedule, args.bucket) \
+        if args.bucket > 0 else []
+    offered_qps = (len(schedule) / trace.duration_s
+                   if trace.duration_s > 0 else 0.0)
+    if getattr(args, "json", False):
+        print(json.dumps({
+            "trace": trace.describe(), "seed": args.seed,
+            "arrivals": len(schedule), "fingerprint": fingerprint,
+            "offered_qps": round(offered_qps, 4),
+            "bucket_s": args.bucket, "buckets": buckets},
+            sort_keys=True))
+        return 0
+    print(f"trace: {trace.describe()}")
+    print(f"seed {args.seed}: {len(schedule)} arrivals "
+          f"({offered_qps:.2f} offered qps)")
+    if buckets:
+        print(f"per-{args.bucket:g}s buckets: {buckets}")
+    print(f"fingerprint: {fingerprint}")
+    return 0
+
+
+def _parse_model_flag(text: str):
+    """``NAME=ARCH[:JSON-kwargs]`` -> (name, architecture, kwargs)."""
+    name, sep, rest = text.partition("=")
+    if not sep or not name or not rest:
+        raise SystemExit(
+            f"--model: expected NAME=ARCH[:JSON-kwargs], got {text!r}")
+    arch, sep2, blob = rest.partition(":")
+    kwargs = {}
+    if sep2:
+        try:
+            kwargs = json.loads(blob)
+        except json.JSONDecodeError as e:
+            raise SystemExit(f"--model {name}: bad JSON kwargs ({e})")
+        if not isinstance(kwargs, dict):
+            raise SystemExit(
+                f"--model {name}: kwargs must be a JSON object, got "
+                f"{type(kwargs).__name__}")
+    return name, arch, kwargs
+
+
+def cmd_serve(args, passthrough) -> int:
+    """Start the micro-batching inference server behind the stdlib HTTP
+    front end. Blocks until interrupted; SIGTERM/SIGINT drain gracefully —
+    admission stops (503 + Retry-After), in-flight batches finish, open
+    generate sequences are answered or failed retryably, then the server
+    closes."""
+    import threading
+    from mmlspark_tpu_torch import compile_cache
+    from mmlspark_tpu_torch.models.torch_model import TorchModel
+    from mmlspark_tpu_torch.observability import memory as devmem
+    from mmlspark_tpu_torch.reliability import preemption
+    from mmlspark_tpu_torch.serve.http import serve_http
+    from mmlspark_tpu_torch.serve.server import Server
+    from mmlspark_tpu_torch.utils import config as mmlconfig
+    if float(mmlconfig.get("reliability.stall_timeout_s")) > 0:
+        raise SystemExit(
+            "serve: reliability.stall_timeout_s > 0 needs the watchdog's "
+            "monitor thread, which is not ported yet (ROADMAP queue A, "
+            "with checkpoints and resume)")
+    if getattr(args, "events_dir", ""):
+        # per-pid sidecar convention: this worker appends to its OWN
+        # events-<pid>.jsonl under the shared directory
+        os.makedirs(args.events_dir, exist_ok=True)
+        mmlconfig.set("observability.events_path",
+                      os.path.join(args.events_dir,
+                                   f"events-{os.getpid()}.jsonl"))
+    compile_cache.enable_from_config()
+    if not args.model:
+        raise SystemExit(
+            "serve: at least one --model NAME=ARCH[:JSON-kwargs] required "
+            '(e.g. --model "mlp=mlp_tabular:{\\"input_dim\\": 8}")')
+    models = {}
+    for spec in args.model:
+        name, arch, kwargs = _parse_model_flag(spec)
+        m = TorchModel(inputCol="x", outputCol="y")
+        try:
+            m.set_model(arch, **kwargs)
+        except (KeyError, TypeError, ValueError) as e:
+            raise SystemExit(f"--model {name}: {e}")
+        models[name] = m
+    buckets = [int(b) for b in args.buckets.split(",") if b.strip()] \
+        if args.buckets else None
+    server_kwargs = dict(max_batch=args.max_batch,
+                         max_wait_ms=args.max_wait_ms,
+                         queue_depth=args.queue_depth, buckets=buckets)
+    devmem.start_audit_poller()  # no-op unless observability.memory_poll_s
+    fleet = None
+    scraper = None
+    autopilot = None
+    if args.replicas > 1:
+        # fleet mode: N in-process replicas behind the health-checked
+        # router (failover, fairness, rolling rollout)
+        from mmlspark_tpu_torch.observability.aggregate import FleetScraper
+        from mmlspark_tpu_torch.serve.fleet import Fleet
+        fleet = Fleet(models, replicas=args.replicas,
+                      server_kwargs=server_kwargs)
+        fleet.router.start_prober()
+        scraper = FleetScraper(fleet)
+        scraper.start()
+        if args.autopilot or bool(mmlconfig.get("autopilot.enabled")):
+            from mmlspark_tpu_torch.control.autopilot import Autopilot
+            autopilot = Autopilot(fleet)
+            autopilot.start()
+        front = fleet.router
+    elif args.autopilot:
+        raise SystemExit("serve: --autopilot needs --replicas > 1 "
+                         "(the levers act on a fleet)")
+    else:
+        server = Server(models, **server_kwargs)
+        front = server
+    httpd, addr = serve_http(front, host=args.host, port=args.port)
+    # stdout contract: one JSON line announcing the bound address, so
+    # wrappers can discover an ephemeral --port 0; liveness and readiness
+    # are reported SEPARATELY (the /livez vs /readyz split)
+    h = front.health()
+    print(json.dumps({"serving": addr,
+                      "models": front.registry.names(),
+                      "replicas": args.replicas, "pid": os.getpid(),
+                      "live": h["live"], "ready": h["ready"]}),
+          flush=True)  # a supervisor reads this over a block-buffered pipe
+    # graceful preemption: SIGTERM/SIGINT flip the process-wide signal;
+    # this monitor turns it into drain (stop admission, finish in-flight)
+    # then unblocks serve_forever. Handlers only install on the main
+    # thread — in-process callers off-main keep plain Ctrl-C semantics.
+    preemption.install_handlers()
+
+    def monitor():
+        preemption.get_signal().wait()
+        reason = preemption.preemption_reason() or "signal"
+        if fleet is not None:
+            fleet.drain(reason=reason)
+        else:
+            server.drain(reason=reason)
+        httpd.shutdown()
+
+    mon = threading.Thread(target=monitor, daemon=True,
+                           name="mmlspark-tpu-torch-serve-drain")
+    mon.start()
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass  # clean Ctrl-C shutdown path (no handler installed off-main)
+    finally:
+        httpd.server_close()
+        if autopilot is not None:
+            autopilot.stop()
+        if scraper is not None:
+            scraper.stop()
+        if fleet is not None:
+            fleet.close()
+        else:
+            server.close()
+        devmem.stop_audit_poller()
+    return 0
+
+
+def cmd_fleet(args, passthrough) -> int:
+    """Launch a process fleet: every replica is its own ``serve`` OS
+    process — own ephemeral port, own ``events-<pid>.jsonl`` sidecar —
+    supervised with restart-on-crash (exponential backoff + per-replica
+    circuit breaker) behind the health-checked HTTP router. SIGTERM drains
+    every child before the front closes. Args after ``--`` are forwarded
+    to each worker's ``serve`` command line verbatim.
+
+    ``--hosts h1,h2`` (or ``--hosts-file``) switches to the multi-host
+    launcher: one fleet (supervisor + workers) per host, each announced
+    front stitched behind ONE router/scraper control plane here.
+    ``--autopilot`` (single-host mode) runs the SLO-driven control loop
+    with the scale lever actuating real worker processes
+    (``Supervisor.add_slot``/``retire_slot`` via ``ProcessFleet``)."""
+    import threading
+    from mmlspark_tpu_torch.observability.aggregate import FleetScraper
+    from mmlspark_tpu_torch.reliability import preemption
+    from mmlspark_tpu_torch.serve.http import serve_http
+    from mmlspark_tpu_torch.serve.router import Router
+    from mmlspark_tpu_torch.serve.supervisor import ProcessSpawner, Supervisor
+    from mmlspark_tpu_torch.utils import config as mmlconfig
+    if not args.model:
+        raise SystemExit(
+            "fleet: at least one --model NAME=ARCH[:JSON-kwargs] required "
+            '(e.g. --model "mlp=mlp_tabular:{\\"input_dim\\": 8}")')
+    for spec in args.model:
+        _parse_model_flag(spec)  # fail fast BEFORE spawning any worker
+    replicas = args.replicas if args.replicas is not None \
+        else int(mmlconfig.get("fleet.replicas"))
+    if replicas < 1:
+        raise SystemExit(f"fleet: --replicas must be >= 1, got {replicas}")
+    hosts_spec = args.hosts or str(mmlconfig.get("fleet.hosts"))
+    if args.hosts_file:
+        from mmlspark_tpu_torch.serve.launcher import read_hosts_file
+        if hosts_spec:
+            raise SystemExit("fleet: --hosts and --hosts-file are "
+                             "mutually exclusive")
+        hosts = read_hosts_file(args.hosts_file)
+    else:
+        from mmlspark_tpu_torch.serve.launcher import parse_hosts
+        hosts = parse_hosts(hosts_spec)
+    if hosts:
+        if args.autopilot:
+            raise SystemExit(
+                "fleet: --autopilot is single-host for now (each host's "
+                "fleet supervises its own workers; run the autopilot "
+                "per host)")
+        return _fleet_multi_host(args, passthrough, hosts, replicas)
+    events_dir = args.events_dir or os.path.join(os.getcwd(), "fleet-events")
+    os.makedirs(events_dir, exist_ok=True)
+    # the supervisor writes its OWN per-pid sidecar next to the workers'
+    mmlconfig.set("observability.events_path",
+                  os.path.join(events_dir, f"events-{os.getpid()}.jsonl"))
+    cache_dir = args.compile_cache_dir \
+        or str(mmlconfig.get("runtime.compile_cache_dir"))
+    dpw = args.devices_per_worker if args.devices_per_worker is not None \
+        else int(mmlconfig.get("fleet.devices_per_worker"))
+    if dpw < 0:
+        raise SystemExit(
+            f"fleet: --devices-per-worker must be >= 0, got {dpw}")
+    spawner = ProcessSpawner(
+        args.model, host=args.host, events_dir=events_dir,
+        compile_cache_dir=cache_dir or None,
+        extra_args=list(passthrough), devices_per_worker=dpw)
+    sup = Supervisor(spawner, [f"w{i}" for i in range(replicas)])
+    scraper = None
+    httpd = None
+    autopilot = None
+    try:
+        sup.start()
+        router = Router(sup.replicas)
+        sup.attach_router(router)
+        router.probe()
+        router.start_prober()
+        scraper = FleetScraper(router)
+        scraper.start()
+        sup.start_monitor()
+        if args.autopilot or bool(mmlconfig.get("autopilot.enabled")):
+            backend = str(mmlconfig.get("autopilot.scale_backend"))
+            if backend == "inprocess":
+                raise SystemExit(
+                    "fleet: --autopilot over worker processes needs "
+                    "autopilot.scale_backend=process (or auto), got "
+                    f"{backend!r}")
+            # the scale lever actuates REAL processes: scale_up spawns a
+            # supervised worker, scale_down drains + retires one
+            from mmlspark_tpu_torch.control.autopilot import Autopilot
+            from mmlspark_tpu_torch.serve.fleet import ProcessFleet
+            autopilot = Autopilot(ProcessFleet(sup, router),
+                                  scraper=scraper)
+            autopilot.start()
+        httpd, addr = serve_http(router, host=args.host, port=args.port)
+        h = router.health()
+        print(json.dumps({"serving": addr,
+                          "replicas": replicas, "pid": os.getpid(),
+                          "workers": sup.stats(),
+                          "events_dir": events_dir,
+                          "live": h["live"], "ready": h["ready"]},
+                         default=str), flush=True)
+        # SIGTERM/SIGINT -> drain every child through its own preemption
+        # handler, stop restarting, then unblock serve_forever
+        preemption.install_handlers()
+
+        def monitor():
+            preemption.get_signal().wait()
+            reason = preemption.preemption_reason() or "signal"
+            sup.shutdown(reason=reason)
+            httpd.shutdown()
+
+        mon = threading.Thread(target=monitor, daemon=True,
+                               name="mmlspark-tpu-torch-fleet-drain")
+        mon.start()
+        try:
+            httpd.serve_forever()
+        except KeyboardInterrupt:
+            pass  # clean Ctrl-C shutdown path
+    finally:
+        if httpd is not None:
+            httpd.server_close()
+        if autopilot is not None:
+            autopilot.stop()
+        if scraper is not None:
+            scraper.stop()
+        sup.shutdown()
+    return 0
+
+
+def _fleet_multi_host(args, passthrough, hosts, replicas) -> int:
+    """The ``fleet --hosts`` control plane: one fleet process per host
+    via :class:`~mmlspark_tpu_torch.serve.launcher.HostLauncher`, every
+    announced host front behind one router + scraper here, SIGTERM
+    fanning the drain out to every host."""
+    import threading
+    from mmlspark_tpu_torch.observability.aggregate import FleetScraper
+    from mmlspark_tpu_torch.reliability import preemption
+    from mmlspark_tpu_torch.serve.http import serve_http
+    from mmlspark_tpu_torch.serve.launcher import HostLauncher
+    from mmlspark_tpu_torch.serve.router import Router
+    from mmlspark_tpu_torch.utils import config as mmlconfig
+    events_dir = args.events_dir or os.path.join(os.getcwd(), "fleet-events")
+    os.makedirs(events_dir, exist_ok=True)
+    mmlconfig.set("observability.events_path",
+                  os.path.join(events_dir, f"events-{os.getpid()}.jsonl"))
+    extra = list(passthrough)
+    if args.compile_cache_dir:
+        extra = ["--compile-cache-dir", args.compile_cache_dir] + extra
+    if args.devices_per_worker is not None:
+        extra = ["--devices-per-worker",
+                 str(args.devices_per_worker)] + extra
+    launcher = HostLauncher(hosts, args.model,
+                            replicas_per_host=replicas,
+                            events_dir=events_dir, extra_args=extra)
+    scraper = None
+    httpd = None
+    try:
+        launcher.launch()
+        router = Router(launcher.replicas())
+        router.probe()
+        router.start_prober()
+        scraper = FleetScraper(router)
+        scraper.start()
+        httpd, addr = serve_http(router, host=args.host, port=args.port)
+        h = router.health()
+        print(json.dumps({"serving": addr,
+                          "hosts": launcher.stats(),
+                          "replicas_per_host": replicas,
+                          "pid": os.getpid(),
+                          "events_dir": events_dir,
+                          "live": h["live"], "ready": h["ready"]},
+                         default=str), flush=True)
+        preemption.install_handlers()
+
+        def monitor():
+            preemption.get_signal().wait()
+            launcher.shutdown()
+            httpd.shutdown()
+
+        mon = threading.Thread(target=monitor, daemon=True,
+                               name="mmlspark-tpu-torch-hosts-drain")
+        mon.start()
+        try:
+            httpd.serve_forever()
+        except KeyboardInterrupt:
+            pass  # clean Ctrl-C shutdown path
+    finally:
+        if httpd is not None:
+            httpd.server_close()
+        if scraper is not None:
+            scraper.stop()
+        launcher.shutdown()
+    return 0
+
+
+def cmd_autopilot(args, passthrough) -> int:
+    """Autopilot offline tooling. ``replay``: re-run the pure decision
+    core over recorded ``autopilot_signals`` telemetry under the
+    recorded policy (fidelity must be byte-identical) and any number of
+    candidate threshold overrides, ranked by counterfactual shed / SLO
+    burn / action count."""
+    from mmlspark_tpu_torch.control import replay as rp
+    if args.subcommand != "replay":  # pragma: no cover - argparse gates
+        raise SystemExit(f"autopilot: unknown subcommand "
+                         f"{args.subcommand!r}")
+    log = rp.load_log(args.events)
+    if not log["ticks"]:
+        raise SystemExit(
+            "autopilot replay: no autopilot_signals/tick events in the "
+            "given log(s) — record a run with observability.events_path "
+            "set and the autopilot on")
+    recorded = rp.policy_from_fields(log["policy"] or {})
+    fidelity = rp.fidelity_check(
+        log["decisions"], rp.replay_decisions(log["ticks"], recorded))
+    candidates = {"recorded": recorded}
+    for spec in args.candidate:
+        label, sep, rest = spec.partition(":")
+        if not sep or not label:
+            raise SystemExit(
+                f"--candidate: expected LABEL:key=val[,key=val...], "
+                f"got {spec!r}")
+        try:
+            candidates[label] = rp.policy_from_fields(
+                log["policy"] or {}, rp.parse_overrides(rest))
+        except ValueError as e:
+            raise SystemExit(f"--candidate {label}: {e}")
+    ranked = rp.rank_policies(log["ticks"], candidates)
+    if args.json:
+        print(json.dumps({"fidelity": fidelity, "ranking": ranked},
+                         sort_keys=True))
+    else:
+        print(rp.format_ranking(ranked, fidelity))
+    if log["policy"] is not None and not fidelity["identical"]:
+        return 1  # the replay-sufficiency contract broke: make it loud
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="mmlspark-tpu-torch",
+        description="serving, process fleet and load tools of the PyTorch "
+                    "port")
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    serve_p = sub.add_parser(
+        "serve",
+        help="serve models over HTTP with dynamic micro-batching")
+    serve_p.add_argument("--model", action="append", default=[],
+                         metavar="NAME=ARCH[:JSON-kwargs]",
+                         help="register a model under NAME (repeatable), "
+                         'e.g. mlp=mlp_tabular:{"input_dim": 8}')
+    serve_p.add_argument("--host", default="127.0.0.1")
+    serve_p.add_argument("--port", type=int, default=8080,
+                         help="0 = pick an ephemeral port (announced on "
+                         "stdout)")
+    serve_p.add_argument("--max-batch", type=int, default=None,
+                         help="rows per micro-batch (serving.max_batch)")
+    serve_p.add_argument("--max-wait-ms", type=float, default=None,
+                         help="max coalescing wait (serving.max_wait_ms)")
+    serve_p.add_argument("--queue-depth", type=int, default=None,
+                         help="admission queue bound (serving.queue_depth)")
+    serve_p.add_argument("--buckets", default="",
+                         help='batch-shape buckets, e.g. "1,8,64" '
+                         "(serving.buckets)")
+    serve_p.add_argument("--replicas", type=int, default=1,
+                         help="in-process serving replicas behind the "
+                         "fleet router (failover, health probing, "
+                         "rolling rollout; default 1 = plain server)")
+    serve_p.add_argument("--autopilot", action="store_true",
+                         help="run the SLO-driven autopilot over the "
+                         "fleet (traffic shift, replica scale, adaptive "
+                         "admission; needs --replicas > 1). Also on when "
+                         "autopilot.enabled is set")
+    serve_p.add_argument("--events-dir", default="",
+                         help="write this process's telemetry to "
+                         "EVENTS_DIR/events-<pid>.jsonl (the per-pid "
+                         "sidecar convention)")
+    serve_p.set_defaults(fn=cmd_serve)
+
+    fleet_p = sub.add_parser(
+        "fleet",
+        help="launch N `serve` worker PROCESSES behind the router, "
+             "supervised with restart-on-crash (backoff + breaker); "
+             "SIGTERM drains every child")
+    fleet_p.add_argument("--model", action="append", default=[],
+                         metavar="NAME=ARCH[:JSON-kwargs]",
+                         help="model spec forwarded to every worker "
+                         "(repeatable)")
+    fleet_p.add_argument("--host", default="127.0.0.1")
+    fleet_p.add_argument("--port", type=int, default=8080,
+                         help="front router port (0 = ephemeral, "
+                         "announced on stdout); workers always bind "
+                         "ephemeral ports")
+    fleet_p.add_argument("--replicas", type=int, default=None,
+                         help="worker process count (default: "
+                         "fleet.replicas config)")
+    fleet_p.add_argument("--events-dir", default="",
+                         help="shared telemetry directory: every process "
+                         "(workers AND supervisor) appends its own "
+                         "events-<pid>.jsonl there (default "
+                         "./fleet-events)")
+    fleet_p.add_argument("--compile-cache-dir", default="",
+                         help="compile-cache root exported to every "
+                         "worker (default: runtime.compile_cache_dir)")
+    fleet_p.add_argument("--devices-per-worker", type=int, default=None,
+                         help="pin each worker to K disjoint cards (slot i "
+                         "sees cards [i*K, (i+1)*K) via "
+                         "CUDA_VISIBLE_DEVICES); 0 = no pinning, workers "
+                         "share the card(s), each with its own CUDA "
+                         "context (default: fleet.devices_per_worker)")
+    fleet_p.add_argument("--hosts", default="",
+                         help="comma list of hosts to fan one fleet out "
+                         "to each ('local' runs on this machine, other "
+                         "names go over ssh); the announced host fronts "
+                         "are stitched behind one router here (default: "
+                         "fleet.hosts config; empty = single host)")
+    fleet_p.add_argument("--hosts-file", default="",
+                         help="file with one host per line (# comments); "
+                         "mutually exclusive with --hosts")
+    fleet_p.add_argument("--autopilot", action="store_true",
+                         help="run the SLO-driven autopilot with the "
+                         "scale lever actuating real worker processes "
+                         "(Supervisor.add_slot/retire_slot; single-host "
+                         "mode only; also on when autopilot.enabled is "
+                         "set — see autopilot.scale_backend)")
+    fleet_p.set_defaults(fn=cmd_fleet)
+
+    autopilot_p = sub.add_parser(
+        "autopilot",
+        help="autopilot offline tooling (counterfactual policy replay "
+             "over recorded decision telemetry)")
+    ap_sub = autopilot_p.add_subparsers(dest="subcommand", required=True)
+    replay_p = ap_sub.add_parser(
+        "replay",
+        help="re-run the pure decide() core over recorded "
+             "autopilot_signals events; verify byte-identical fidelity "
+             "under the recorded policy and rank candidate threshold "
+             "overrides by counterfactual shed/SLO/action outcome")
+    replay_p.add_argument("events", nargs="+",
+                          help="event JSONL path(s) from a recorded "
+                          "autopilot run (per-pid/per-host sidecars "
+                          "merge)")
+    replay_p.add_argument("--candidate", action="append", default=[],
+                          metavar="LABEL:KEY=VAL[,KEY=VAL...]",
+                          help="candidate policy: recorded thresholds "
+                          "with these overrides (repeatable), e.g. "
+                          "eager:scale_up_queue=2,scale_cooldown_s=10")
+    replay_p.add_argument("--json", action="store_true",
+                          help="emit fidelity + ranking as one JSON "
+                          "object instead of the table")
+    replay_p.set_defaults(fn=cmd_autopilot)
+
+    loadgen_p = sub.add_parser(
+        "loadgen", help="preview a seeded open-loop workload schedule")
+    loadgen_p.add_argument("--rate", type=float, default=8.0,
+                           help="base arrivals/second (default 8)")
+    loadgen_p.add_argument("--duration", type=float, default=10.0,
+                           help="trace length in seconds (default 10)")
+    loadgen_p.add_argument("--shape", default="constant",
+                           choices=["constant", "diurnal", "spike"],
+                           help="rate curve (default constant)")
+    loadgen_p.add_argument("--process", default="poisson",
+                           choices=["poisson", "pareto"],
+                           help="arrival process (default poisson)")
+    loadgen_p.add_argument("--spike-start", type=float, default=0.0,
+                           help="spike window start (s)")
+    loadgen_p.add_argument("--spike-len", type=float, default=0.0,
+                           help="spike window length (s)")
+    loadgen_p.add_argument("--spike-factor", type=float, default=1.0,
+                           help="rate multiplier inside the spike window")
+    loadgen_p.add_argument("--pareto-alpha", type=float, default=1.5,
+                           help="pareto tail shape (must be > 1)")
+    loadgen_p.add_argument("--session-turns", type=int, default=1,
+                           help="max turns per session (default 1: no "
+                           "sessions)")
+    loadgen_p.add_argument("--think", type=float, default=0.0,
+                           help="inter-turn think time (s)")
+    loadgen_p.add_argument("--seed", type=int, default=0,
+                           help="schedule seed (default 0)")
+    loadgen_p.add_argument("--bucket", type=float, default=1.0,
+                           help="bucket size for per-bucket counts "
+                           "(default 1s; 0 disables)")
+    loadgen_p.add_argument("--json", action="store_true",
+                           help="emit the preview as one JSON object")
+    loadgen_p.set_defaults(fn=cmd_loadgen)
+    return parser
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    # split off worker passthrough args after `--`
+    passthrough: List[str] = []
+    if "--" in argv:
+        cut = argv.index("--")
+        argv, passthrough = argv[:cut], argv[cut + 1:]
+    args = build_parser().parse_args(argv)
+    return args.fn(args, passthrough)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

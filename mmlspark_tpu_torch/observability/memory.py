@@ -13,7 +13,8 @@ instead of summing bytes each on its own:
   published as ``memory.*`` gauges;
 - ``memory.pressure`` events when the registry's LRU evicts a warm model;
 - :func:`audit_device_bytes` — ``torch.cuda.memory_allocated`` against the
-  ledger, flagging the unaccounted remainder.
+  ledger, flagging the unaccounted remainder; :func:`start_audit_poller`
+  runs it every ``observability.memory_poll_s`` seconds (0 = off).
 
 On one device a tensor's shard is the whole tensor, so the ``*shard*``
 functions equal their unsharded twins. :func:`projected_shard_bytes` over
@@ -29,6 +30,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import numpy as np
 
 from mmlspark_tpu_torch.observability import events, metrics
+from mmlspark_tpu_torch.utils import config as mmlconfig
 
 KINDS = ("params", "table", "kv", "program")
 
@@ -254,3 +256,38 @@ def audit_device_bytes(ledger: Optional[MemoryLedger] = None,
     if events.recording_enabled():
         events.emit("memory", "audit", **out)
     return out
+
+
+_POLLER: Dict[str, Any] = {"thread": None, "stop": None}
+
+
+def start_audit_poller(interval_s: Optional[float] = None) -> bool:
+    """Run :func:`audit_device_bytes` on a daemon thread every
+    ``observability.memory_poll_s`` seconds (<= 0 = disabled, no thread).
+    Idempotent; returns True when a poller is running."""
+    interval = float(interval_s if interval_s is not None
+                     else mmlconfig.get("observability.memory_poll_s"))
+    if _POLLER["thread"] is not None:
+        return True
+    if interval <= 0:
+        return False
+    stop = threading.Event()
+
+    def loop() -> None:
+        while not stop.wait(interval):
+            audit_device_bytes()
+
+    t = threading.Thread(target=loop, name="mmlspark-tpu-torch-memaudit",
+                         daemon=True)
+    _POLLER["thread"], _POLLER["stop"] = t, stop
+    t.start()
+    return True
+
+
+def stop_audit_poller() -> None:
+    t, stop = _POLLER["thread"], _POLLER["stop"]
+    if t is None:
+        return
+    stop.set()
+    t.join(timeout=5.0)
+    _POLLER["thread"] = _POLLER["stop"] = None

@@ -7,14 +7,16 @@ batched sequences over a paged KV arena, with speculative decoding and
 int8 KV blocks. A :class:`Fleet` runs N in-process replicas behind a
 :class:`Router` (smooth weighted round-robin, failover, tenant fairness,
 prefix affinity); :class:`HttpReplica` puts a remote server behind the
-same router. The supervisor and the process fleet are a later slice
-(ROADMAP queue A).
+same router. A :class:`Supervisor` runs each replica as a worker process
+(``python -m mmlspark_tpu_torch.cli serve``, spawned by
+:class:`ProcessSpawner`), restarts it after a crash and drains it on
+SIGTERM; :class:`ProcessFleet` puts it behind the fleet's scale surface.
 """
 from mmlspark_tpu_torch.serve.batcher import (      # noqa: F401
     MicroBatcher, Ticket, bucket_for, default_buckets, parse_buckets,
 )
 from mmlspark_tpu_torch.serve.fleet import (        # noqa: F401
-    Fleet, InProcessReplica, RolloutAborted,
+    Fleet, InProcessReplica, ProcessFleet, RolloutAborted,
 )
 from mmlspark_tpu_torch.serve.generate import (      # noqa: F401
     ContinuousBatcher, GenerateLane, GenerateRequest, GenerativeEntry,
@@ -32,6 +34,9 @@ from mmlspark_tpu_torch.serve.router import (        # noqa: F401
 from mmlspark_tpu_torch.serve.server import (        # noqa: F401
     RequestExpired, ServeError, Server, ServerClosed, ServerOverloaded,
 )
+from mmlspark_tpu_torch.serve.supervisor import (    # noqa: F401
+    ProcessSpawner, ProcessWorker, Supervisor,
+)
 
 __all__ = [
     "MicroBatcher", "Ticket", "bucket_for", "default_buckets",
@@ -41,5 +46,6 @@ __all__ = [
     "GenerativeEntry", "KVCacheManager", "blocks_needed",
     "Fleet", "InProcessReplica", "RolloutAborted", "HttpReplica",
     "ReplicaUnavailable", "Router", "TenantThrottled",
-    "WeightedFairAdmission",
+    "WeightedFairAdmission", "ProcessFleet", "ProcessSpawner",
+    "ProcessWorker", "Supervisor",
 ]

@@ -32,8 +32,13 @@ its warm-up (:meth:`Fleet.scale_up` warms the new replica with the
 programs a live replica has built before it enters the router), and no
 replica captures after warm-up. A CUDA graph does not serialize, so the
 capture time is paid by every replica and reported, not skipped.
-Resharding over a device mesh (``Fleet.reshard``) and the process fleet
-(``ProcessFleet``) are later slices of the port.
+Resharding over a device mesh (``Fleet.reshard``) is a later slice of the
+port.
+
+- :class:`ProcessFleet` — the same scale surface over a
+  :class:`~mmlspark_tpu_torch.serve.supervisor.Supervisor`: each replica is
+  a ``python -m mmlspark_tpu_torch.cli serve`` worker process, spawned by
+  ``scale_up`` and drained by ``scale_down``.
 """
 from __future__ import annotations
 
@@ -497,6 +502,90 @@ class Fleet:
                 rep.server.close(drain=drain)
 
     def __enter__(self) -> "Fleet":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+class ProcessFleet:
+    """A supervised process-backed fleet behind the Fleet scale surface.
+
+    The adapter that gives the autopilot real hands: same
+    ``scale_up()/scale_down(name)`` actuator signature as :class:`Fleet`,
+    but routed through :meth:`~mmlspark_tpu_torch.serve.supervisor.Supervisor.
+    add_slot` / :meth:`~mmlspark_tpu_torch.serve.supervisor.Supervisor.
+    retire_slot` — each replica is a real OS worker process (which
+    captures its own CUDA graphs) drained through SIGTERM. Serving calls
+    delegate to the router (the same
+    :class:`~mmlspark_tpu_torch.serve.router.HttpReplica` objects the
+    supervisor re-registers across restarts), so
+    :class:`~mmlspark_tpu_torch.observability.aggregate.FleetScraper` and
+    :class:`~mmlspark_tpu_torch.control.autopilot.Autopilot` accept either
+    fleet flavor unchanged. Selected by ``autopilot.scale_backend``.
+    """
+
+    def __init__(self, supervisor, router: Router):
+        self.supervisor = supervisor
+        self.router = router
+        if getattr(supervisor, "router", None) is None:
+            supervisor.attach_router(router)
+
+    @property
+    def replicas(self):
+        return self.supervisor.replicas
+
+    # -- serving surface ----------------------------------------------------
+    def submit(self, model: str, x, deadline_ms: Optional[float] = None,
+               **kw) -> np.ndarray:
+        return self.router.submit(model, x, deadline_ms, **kw)
+
+    def submit_generate(self, model: str, prompt,
+                        max_new_tokens: Optional[int] = None,
+                        **kw) -> Dict:
+        return self.router.submit_generate(model, prompt,
+                                           max_new_tokens, **kw)
+
+    def health(self) -> Dict[str, object]:
+        return self.router.health()
+
+    def stats(self) -> Dict[str, object]:
+        s = self.router.stats()
+        s["supervisor"] = self.supervisor.stats()
+        return s
+
+    # -- scale actuators (the autopilot's lever) ----------------------------
+    def scale_up(self) -> str:
+        """One new supervised worker process: announce handshake,
+        ``/readyz``, router registration at full weight, pinned to its own
+        card slot when ``fleet.devices_per_worker`` > 0. Returns the new
+        slot's name."""
+        return self.supervisor.add_slot()
+
+    def scale_down(self, name: str,
+                   drain_timeout_s: Optional[float] = None) -> None:
+        """Gracefully retire one supervised worker (weight→0, SIGTERM
+        drain, SIGKILL stragglers). Idempotent on unknown names, like
+        :meth:`Fleet.scale_down`."""
+        self.supervisor.retire_slot(name, drain_timeout_s=drain_timeout_s)
+
+    def reshard(self, mesh_shape, **kw):
+        """Not yet supported for process-backed fleets: each worker
+        process owns its model placement, so an elastic reshard means a
+        rolling worker restart under a new ``parallel.mesh_shape`` —
+        future work. Raising (instead of silently no-oping) keeps the
+        autopilot honest: its actuation is recorded as failed and the
+        lever cools down."""
+        raise NotImplementedError(
+            "ProcessFleet.reshard: restart workers with a new "
+            "parallel.mesh_shape instead (rolling, via scale_up/"
+            "scale_down); the port has no device mesh yet")
+
+    # -- lifecycle ----------------------------------------------------------
+    def close(self) -> None:
+        self.supervisor.shutdown(reason="fleet_close")
+
+    def __enter__(self) -> "ProcessFleet":
         return self
 
     def __exit__(self, *exc) -> None:

@@ -235,12 +235,16 @@ def make_handler(server: Server):
                 self._reply(400, {"error": f"bad request: {e}"})
                 return
             try:
-                fut = server.submit_generate(model, prompt, **kw)
-                out = fut.result()
+                # a Server answers with a Future, a Router (the process
+                # fleet's front) with the result itself
+                out = server.submit_generate(model, prompt, **kw)
+                if hasattr(out, "result"):
+                    out = out.result()
             except ServerOverloaded as e:
                 after = getattr(e, "retry_after", None)
                 if after is None:
-                    after = 1.0 if server.draining else 0.0
+                    after = 1.0 if getattr(server, "draining", False) \
+                        else 0.0
                 self._reply(503, {"error": str(e), "retryable": True,
                                   "retry_after": after},
                             headers={"Retry-After": _fmt_after(after)})
@@ -263,9 +267,12 @@ def serve_http(server: Server, host: str = "127.0.0.1", port: int = 8080,
                poll_s: float = 0.5) -> Tuple[ThreadingHTTPServer, str]:
     """Bind and return ``(httpd, "host:port")`` without blocking; callers
     run ``httpd.serve_forever()`` or drive ``handle_request`` themselves
-    (tests). Resolves ``runtime.device`` first, as every entry point does
-    (:meth:`Server.check_device`)."""
-    server.check_device()
+    (tests). A :class:`Server` resolves ``runtime.device`` first, as every
+    entry point does (:meth:`Server.check_device`); a :class:`Router` front
+    holds no device (its replicas resolve their own)."""
+    check = getattr(server, "check_device", None)
+    if check is not None:
+        check()
     httpd = ThreadingHTTPServer((host, port), make_handler(server))
     httpd.timeout = poll_s
     addr = f"{httpd.server_address[0]}:{httpd.server_address[1]}"

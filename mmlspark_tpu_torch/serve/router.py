@@ -819,7 +819,9 @@ class _FleetRegistryView:
 class HttpReplica:
     """A remote serving process (a :class:`Server` behind
     :func:`~mmlspark_tpu_torch.serve.http.serve_http`) behind the Replica
-    protocol: scores over ``POST /score``, health over
+    protocol: scores over ``POST /score``, generation over
+    ``POST /generate`` (the reference's HttpReplica scores only; the port's
+    process fleet also generates), health over
     ``GET /healthz``. Transport failures raise
     :class:`ReplicaUnavailable`; HTTP status mapping mirrors the
     front-end's (503 -> :class:`ServerOverloaded` with the parsed
@@ -840,16 +842,42 @@ class HttpReplica:
 
     def submit(self, model: str, x, deadline_ms: Optional[float] = None,
                trace_id: str = "") -> np.ndarray:
-        import json as _json
-        import urllib.error
-        import urllib.request
         body = {"model": model, "x": np.asarray(x).tolist()}
         if deadline_ms is not None:
             body["deadline_ms"] = deadline_ms
         if trace_id:
             body["trace_id"] = trace_id
+        payload = self._post("/score", body, deadline_ms)
+        return np.asarray(payload["y"], np.float32)
+
+    def submit_generate(self, model: str, prompt,
+                        max_new_tokens: Optional[int] = None, *,
+                        temperature: float = 0.0, top_k: int = 0,
+                        seed: int = 0, eos_id: Optional[int] = None,
+                        deadline_ms: Optional[float] = None,
+                        trace_id: str = "") -> Dict:
+        """``POST /generate``: the remote lane's result dict (``tokens``,
+        ``finish_reason``, ``ttft_ms``, ...). The request waits for the
+        whole generation, so only a deadline bounds it below
+        ``reliability.http_timeout``."""
+        body = {"model": model,
+                "prompt": [int(t) for t in np.asarray(prompt).ravel()],
+                "max_new_tokens": max_new_tokens,
+                "temperature": float(temperature), "top_k": int(top_k),
+                "seed": int(seed), "eos_id": eos_id}
+        if deadline_ms is not None:
+            body["deadline_ms"] = deadline_ms
+        if trace_id:
+            body["trace_id"] = trace_id
+        return self._post("/generate", body, deadline_ms)
+
+    def _post(self, endpoint: str, body: Dict,
+              deadline_ms: Optional[float]) -> Dict:
+        import json as _json
+        import urllib.error
+        import urllib.request
         req = urllib.request.Request(
-            f"{self.addr}/score", data=_json.dumps(body).encode("utf-8"),
+            f"{self.addr}{endpoint}", data=_json.dumps(body).encode("utf-8"),
             headers={"Content-Type": "application/json"})
         timeout = self.timeout_s
         if deadline_ms is not None:
@@ -875,7 +903,7 @@ class HttpReplica:
         except (urllib.error.URLError, OSError, TimeoutError) as e:
             raise ReplicaUnavailable(
                 f"replica {self.name} unreachable: {e}") from None
-        return np.asarray(payload["y"], np.float32)
+        return payload
 
     @staticmethod
     def _error_detail(e) -> str:

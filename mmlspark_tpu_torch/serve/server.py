@@ -21,7 +21,11 @@ The port of ``mmlspark_tpu/serve/server.py``, with the same shape:
   unconditional; queue-depth + batch-occupancy gauges and the
   queue/pad/compute latency histograms gate on ``metrics_enabled()``; one
   ``serving.request`` event per request and ``serving.shed`` /
-  ``serving.expired`` events gate on the event log.
+  ``serving.expired`` events gate on the event log. The ``serving.summary``
+  event written at close carries ``device``: this process's kernel launch
+  counts, every generate-lane program's replays and recorded launches, its
+  device memory and its TF32 setting, so a worker process's launches can
+  be read after it drained.
 - **Fault sites** ``serve.enqueue`` / ``serve.batch`` / ``serve.score``
   let a FaultPlan replay overload and mid-batch-crash scenarios
   deterministically (a ``serve.score`` raise fails that batch's futures
@@ -223,6 +227,8 @@ class Server:
             self._draining = True
         if timeout_s is None:
             timeout_s = float(mmlconfig.get("serving.drain_timeout_s"))
+        # a closed lane drops its programs: hold them for the summary
+        programs = self._lane_programs() if events.events_enabled() else []
         for lane in list(self._lanes.values()):
             lane.close(timeout_s=timeout_s)
         if self._thread is not None:
@@ -252,7 +258,8 @@ class Server:
         self.registry.release()
         if events.events_enabled():
             s = self.stats()
-            events.emit("serving", "summary", **s)
+            events.emit("serving", "summary",
+                        device=_device_report(programs), **s)
 
     def drain(self, timeout_s: Optional[float] = None,
               reason: str = "drain") -> None:
@@ -700,6 +707,19 @@ class Server:
         exports it as a per-replica labeled series)."""
         return self._latency
 
+    def _lane_programs(self) -> List[tuple]:
+        """``(model, draft, kind, bucket, program)`` of every program the
+        generate lanes (and their drafts) have built."""
+        out = []
+        for name, lane in self._lanes.items():
+            entries = [(False, lane.gen)]
+            if lane.draft is not None:
+                entries.append((True, lane.draft))
+            for draft, gen in entries:
+                for (kind, bucket), prog in gen.built_programs().items():
+                    out.append((name, draft, kind, bucket, prog))
+        return out
+
     def stats(self) -> Dict[str, float]:
         s = {"admitted": self._admitted.value,
              "shed": self._shed.value,
@@ -717,3 +737,31 @@ class Server:
             s.update({f"generate.{name}.{k}": v
                       for k, v in lane.stats().items()})
         return s
+
+
+def _device_report(programs: Sequence[tuple]) -> Dict[str, object]:
+    """This process's kernel launch counts (``kernels/build.py``), each
+    lane program's replays and the launches one replay makes (recorded at
+    capture; an eager program records none), whether matmuls may use TF32,
+    and the caching allocator's bytes on the current CUDA device (none on
+    a machine without CUDA)."""
+    import torch
+
+    from mmlspark_tpu_torch.kernels import build as kbuild
+    memory = {}
+    if torch.cuda.is_available():
+        memory = {"allocated": int(torch.cuda.memory_allocated()),
+                  "max_allocated": int(torch.cuda.max_memory_allocated()),
+                  "reserved": int(torch.cuda.memory_reserved())}
+    return {
+        "launches": {name: n for name, (n, _) in
+                     kbuild.launch_counts().items()},
+        "programs": [{"model": model, "draft": draft, "kind": kind,
+                      "bucket": int(bucket), "replays": int(prog.replays),
+                      "graph": hasattr(prog, "graph"),
+                      "launches": {k: n for k, (n, _) in
+                                   prog.launches.items()}}
+                     for model, draft, kind, bucket, prog in programs],
+        "tf32_matmul": bool(torch.backends.cuda.matmul.allow_tf32),
+        "memory_bytes": memory,
+    }

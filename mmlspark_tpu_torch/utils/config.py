@@ -101,7 +101,69 @@ _DEFAULTS: Dict[str, Any] = {
                                       # in-flight count exceeds
                                       # factor*(fleet mean + 1) spills the
                                       # pick back to WRR (0 = never spill)
+    # the process fleet (serve/supervisor.py, serve/launcher.py)
+    "fleet.supervisor_min_uptime_s": 5.0,   # a child dying sooner counts
+                                            # as a crash-loop failure
+    "fleet.supervisor_base_delay_s": 0.5,   # first restart backoff
+    "fleet.supervisor_max_delay_s": 30.0,   # restart backoff cap
+    "fleet.supervisor_ready_timeout_s": 120.0,  # spawn -> ready budget
+                                                # (child imports and CUDA
+                                                # start-up included)
+    "fleet.supervisor_breaker_failures": 3,  # consecutive short-lived
+                                             # crashes -> breaker open
+    "fleet.supervisor_breaker_reset_s": 60.0,  # open -> one probe respawn
+    "fleet.supervisor_poll_s": 0.2,          # monitor thread cadence
+    "fleet.devices_per_worker": 0,    # >0: worker slot i sees cards
+                                      # [i*K, (i+1)*K) (CUDA_VISIBLE_DEVICES);
+                                      # 0 = workers share the visible cards
+    "fleet.hosts": "",                # comma list of hosts for the
+                                      # multi-host launcher; "" = one host
     "observability.scrape_interval_s": 5.0,  # FleetScraper background poll
+    "observability.memory_poll_s": 0.0,      # >0 = periodic device-memory
+                                             # ledger audit
+    "reliability.stall_timeout_s": 0.0,   # 0 = watchdog stall detection off
+    # SLO objectives (observability/slo.py)
+    "slo.availability_target": 0.999,  # 1 - bad/admitted objective
+    "slo.latency_p99_ms": 0.0,         # >0 = p99 total-latency budget (ms)
+    "slo.ttft_p99_ms": 0.0,            # >0 = generate-lane TTFT p99 budget
+    "slo.fast_window_s": 300.0,        # fast burn window
+    "slo.slow_window_s": 3600.0,       # slow burn window
+    "slo.fast_burn": 14.4,             # burn-rate threshold, fast window
+    "slo.slow_burn": 6.0,              # burn-rate threshold, slow window
+    # autopilot (control/autopilot.py): the SLO-driven control loop
+    "autopilot.enabled": False,        # `serve --autopilot` flips this on
+    "autopilot.tick_s": 5.0,           # evaluation cadence
+    "autopilot.min_replicas": 1,       # scale floor, also the repair target
+    "autopilot.max_replicas": 8,       # scale ceiling
+    "autopilot.hbm_limit_bytes": 0,    # >0 = veto scale-up past this
+                                       # projected fleet device memory
+    "autopilot.scale_up_queue": 4.0,   # mean queue depth a ready replica
+                                       # at/above which the fleet grows
+    "autopilot.scale_down_queue": 0.0,  # mean queue depth at/below which
+                                        # an idle fleet shrinks
+    "autopilot.scale_cooldown_s": 25.0,
+    "autopilot.shift_error_rate": 0.5,  # per-tick failure fraction that
+                                        # ramps traffic off a replica
+    "autopilot.shift_recover_rate": 0.05,  # fraction that ramps it back
+    "autopilot.shift_step": 0.5,       # router weight moved per action
+    "autopilot.shift_cooldown_s": 20.0,
+    "autopilot.admission_factor": 0.5,  # capacity_rows multiplier a tighten
+    "autopilot.admission_floor_frac": 0.25,  # tighten floor (of baseline)
+    "autopilot.admission_relax_burn": 1.0,  # fast burn at/below which a
+                                            # tightened quota relaxes
+    "autopilot.admission_cooldown_s": 25.0,
+    "autopilot.reshard_wide": "",      # mesh shape to reshard to under
+                                       # memory pressure ("" = off)
+    "autopilot.reshard_narrow": "",    # mesh shape to reshard to when the
+                                       # scale lever is at its ceiling
+    "autopilot.reshard_hbm_frac": 0.85,  # memory fraction of
+                                         # hbm_limit_bytes that fires wide
+    "autopilot.reshard_cooldown_s": 60.0,  # shared by both directions
+    "autopilot.window_s": 120.0,       # rolling actuation-budget window
+    "autopilot.max_actions_per_window": 8,  # decisions past it suppressed
+    "autopilot.scale_backend": "auto",  # "inprocess" = Fleet, "process" =
+                                        # supervised workers (ProcessFleet),
+                                        # "auto" = process under a supervisor
 }
 
 _lock = threading.Lock()
