@@ -4,7 +4,7 @@
     python3 chip_smoke.py                      # as the chip check runs it
     python3 chip_smoke.py --profile <dir>      # plus profiled warm passes
 
-Six paths, each through the entry points a user calls:
+Seven paths, each through the entry points a user calls:
 
 - serving, the README's transfer-learning quickstart: an
   ``ImageFeaturizer`` with a ResNet-50 (random weights from a seed) scores
@@ -51,7 +51,13 @@ Six paths, each through the entry points a user calls:
   ``scale_up`` and a ``rollout`` under traffic); and the process fleet:
   ``python -m mmlspark_tpu_torch.cli serve`` worker processes sharing the
   card under a ``Supervisor``, behind the ``Router``, scaled by the
-  ``Autopilot`` through ``ProcessFleet``, K3 in every worker's prefill.
+  ``Autopilot`` through ``ProcessFleet``, K3 in every worker's prefill;
+- streamed input and crash-safe resume: a PNG corpus on disk streams
+  through the ``data`` pipeline into ``ResilientTrainLoop.run_dataset``
+  (ResNet-20, K1 in every step) with ``TrainCheckpointer`` saves; a
+  SIGKILLed child's run is finished by a fresh process, bit-equal to an
+  uninterrupted one, and ``DeepClassifier(checkpointDir=...)`` resumes a
+  fit over a ``DiskFrame`` the same way.
 
 The script:
 
@@ -266,7 +272,44 @@ The script:
     in-process fleet's, spawn-to-ready ms a worker, the restart's, the
     retire's drain s, failovers and each worker's allocator bytes are
     printed;
-19. prints the kernel table line (each kernel's launches on each of its
+19. ``stream_resume``: crash-safe training over a streamed image corpus.
+    The train cell's 4,096 images (``default_rng(0)``) are written as
+    32x32x3 PNG files, each label in its file name, and streamed through
+    ``FileSource -> shuffle(window 1024, seed 0) -> decode(4 workers; the
+    native libpng/libjpeg codec, built by g++ at first use, else the
+    Python decoder) -> map(uint8 flat + label) -> batch(256, drop) ->
+    repeat()`` into ``ResilientTrainLoop.run_dataset``: ResNet-20 (bf16,
+    sgd(0.1, momentum 0.9), K1 in the loss) for 48 steps (16 an epoch),
+    a ``TrainCheckpointer`` save (module, optimizer, count, step,
+    generators, and the pipeline's snapshot beside it) every 5 steps.
+    Three fresh children (this script with ``--stream-child``) run in
+    deterministic mode (``use_deterministic_algorithms``, deterministic
+    cuDNN, ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` set before CUDA starts): A
+    runs all 48 steps; B, started beside A, is SIGKILLed once it reports
+    step 23 (a save may be in flight); C, started beside both, waits with
+    its imports and CUDA context up until B is dead and A done, then
+    restores B's directory and finishes (its spawn-to-first-step leaves
+    the wait out). The same children fit the deep cell's ``DeepClassifier``
+    (65,536 x 128, staged by ``CheckpointData(diskIncluded=True)`` into a
+    DiskFrame and streamed from it, a checkpoint every 100 steps): A
+    uninterrupted, B stopped by an ``InjectedFault`` at its 333rd step, C
+    refitting over B's directory. Gates: (a) C's final module, optimizer
+    state, count and step EQUAL A's; (b) C resumed from B's newest
+    committed step (>= 20), with that step's mid-epoch data snapshot; (c)
+    every step B's directory lists loads (or C quarantined it with a
+    ``restore.fallback`` event), and no ``.tmp-`` write is left after C;
+    (d) each child's K1 launches equal its steps (restoring launches
+    none), no other kernel; (e) the deep refit resumed mid-epoch and its
+    params EQUAL the uninterrupted fit's. Timed here, in the normal mode,
+    3 runs each: ``run_dataset`` rows/s over an epoch (16 steps) with
+    ``save_every`` 0 and 5, the
+    JAX bench's ``streaming_input`` host lane (2,048 64x64 BMPs, batch 64,
+    4 workers; rows/s and ``vs_baseline`` against ``read_images``), save
+    (host snapshot ms, write ms) and restore ms with MB for ResNet-20's
+    state and for ``transformer_lm``'s adamw state; C's spawn-to-first-
+    step ms split into imports, CUDA context, restore and pipeline seek;
+    whether the native codec built (and its build error if not);
+20. prints the kernel table line (each kernel's launches on each of its
     paths), the card's name and power limit, and last ``{"ok": true,
     "device": {...}}``.
 
@@ -276,14 +319,17 @@ before printing anything.
 """
 from __future__ import annotations
 
-import json
-import math
-import os
-import statistics
-import subprocess
-import sys
 import time
-import warnings
+
+_T_MODULE = time.time()     # a stream_resume child's interpreter is up
+
+import json  # noqa: E402
+import math  # noqa: E402
+import os  # noqa: E402
+import statistics  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+import warnings  # noqa: E402
 
 import numpy as np
 
@@ -419,6 +465,19 @@ FLEET_SCRAPE_S, FLEET_F32_PROMPTS = 0.25, 4
 # 600-1000 ids (K3's CUDA-core route) on every worker
 PF_REQUESTS, PF_CLIENTS, PF_KILL_AT, PF_ATTEMPTS = 64, 8, 24, 4
 PF_F32_PROMPTS, PF_LM = 4, {"seed": 0}
+# stream_resume: the train cell's 4,096 images as PNG files, streamed
+# through FileSource -> shuffle(1024, seed 0) -> decode(4 workers) -> map
+# -> batch(256, drop) -> repeat into ResNet-20 with K1 in the loss, 48 steps
+# (16 an epoch), a checkpoint every 5 steps; child B is SIGKILLed once it
+# reports step 23 or later. The deep cell's DeepClassifier (65,536 x 128,
+# 2 epochs of 256 steps) checkpoints every 100 steps, and child B's fit is
+# stopped by a fault at its 333rd step (mid-epoch 2). A child is killed
+# after 300 s.
+SR_FILES, SR_BATCH, SR_STEPS, SR_SAVE_EVERY, SR_KILL_AT = 4096, 256, 48, 5, 23
+SR_WINDOW, SR_WORKERS, SR_CHILD_TIMEOUT_S = 1024, 4, 300
+SR_DEEP_EVERY, SR_DEEP_FAULT_AT = 100, 333
+# the timed run_dataset runs (3 at save_every 0, 3 at 5): one epoch each
+SR_TIMED_STEPS = 16
 # fp32 operations per output element of the crop-resize-normalize kernel:
 # two row lerps (3 each), one column lerp (3), rint, clamp (2), subtract,
 # multiply
@@ -3993,6 +4052,664 @@ def phase_process_fleet(torch, kernels, card, fleet) -> dict:
     shutil.rmtree(events_dir, ignore_errors=True)
     return launches
 
+# -- stream_resume: streamed input, checkpoints and crash-safe resume -------
+
+def _stream_spec(work: str, deep: bool = True, **overrides) -> dict:
+    """What the three children of ``stream_resume`` share: the corpus, the
+    checkpoint directories and the constants (children read them from here,
+    so a shrunken rehearsal shrinks the children too)."""
+    spec = dict(corpus=os.path.join(work, "corpus"),
+                ckpt_a=os.path.join(work, "ckpt_A"),
+                ckpt_b=os.path.join(work, "ckpt_B"),
+                files=SR_FILES, batch=SR_BATCH, steps=SR_STEPS,
+                save_every=SR_SAVE_EVERY, kill_at=SR_KILL_AT,
+                window=SR_WINDOW, workers=SR_WORKERS, deep=deep,
+                deep_rows=DEEP_ROWS, deep_features=DEEP_FEATURES,
+                deep_every=SR_DEEP_EVERY, deep_fault_at=SR_DEEP_FAULT_AT,
+                deep_a=os.path.join(work, "deep_A"),
+                deep_b=os.path.join(work, "deep_B"),
+                events=os.path.join(work, "events_C.jsonl"))
+    spec.update(overrides)
+    return spec
+
+
+def _write_corpus(spec) -> None:
+    """The train cell's images and labels (``default_rng(0)``, as the train
+    phase draws them) as PNG files, the label in each file's name."""
+    from mmlspark_tpu_torch.io.codecs import encode_png
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (spec["files"], math.prod(TRAIN_SHAPE)),
+                          dtype=np.uint8)
+    labels = rng.integers(0, 10, spec["files"])
+    os.makedirs(spec["corpus"], exist_ok=True)
+    for i, (img, lab) in enumerate(zip(images, labels)):
+        with open(os.path.join(spec["corpus"], f"{i:05d}_{lab}.png"),
+                  "wb") as f:
+            f.write(encode_png(img.reshape(TRAIN_SHAPE)))
+
+
+def _stream_dataset(spec):
+    """FileSource -> shuffle -> decode -> map(uint8 flat + label) ->
+    batch(drop) -> repeat: the stream_resume main path's input."""
+    from mmlspark_tpu_torch.data import FileSource
+
+    def to_row(rec):
+        label = int(os.path.basename(rec["path"]).split("_")[1][:-4])
+        return {"image": rec["image"].reshape(-1), "label": np.int64(label)}
+    return (FileSource(spec["corpus"])
+            .shuffle(window=spec["window"], seed=0)
+            .decode(workers=spec["workers"])
+            .map(to_row)
+            .batch(spec["batch"], remainder="drop")
+            .repeat())
+
+
+def _stream_lane(torch, ckpt_dir, save_every):
+    """ResNet-20 CIFAR at full width (bf16, random weights from seed 0),
+    sgd(0.1, momentum 0.9), K1 in the loss, behind a ResilientTrainLoop
+    over a TrainCheckpointer in ``ckpt_dir``."""
+    import torch.nn.functional as F
+    from mmlspark_tpu_torch.models.zoo import build_model, init_state
+    from mmlspark_tpu_torch.ops.preprocess import make_preprocess_fn
+    from mmlspark_tpu_torch.parallel.checkpoint import TrainCheckpointer
+    from mmlspark_tpu_torch.parallel.optim import sgd
+    from mmlspark_tpu_torch.parallel.trainer import DistributedTrainer
+    from mmlspark_tpu_torch.reliability.resilient import ResilientTrainLoop
+
+    pre = make_preprocess_fn(TRAIN_SHAPE, CIFAR_MEAN, CIFAR_STD)
+    weights = {}
+
+    def init_fn():
+        module = build_model("resnet20_cifar", num_classes=10,
+                             dtype="bfloat16")["module"]
+        if not weights:
+            weights.update(init_state(module, seed=0))
+        module.load_state_dict({k: torch.from_numpy(v)
+                                for k, v in weights.items()})
+        return module
+
+    def loss_fn(module, batch, gen):
+        logits = module(pre(batch["image"])).float()
+        return F.cross_entropy(logits, batch["label"].long())
+    trainer = DistributedTrainer(loss_fn, sgd(0.1, momentum=0.9))
+    ckpt = TrainCheckpointer(ckpt_dir)
+    return ResilientTrainLoop(trainer, ckpt, init_fn, save_every=save_every)
+
+
+def _host_copy(torch, obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _host_copy(torch, v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host_copy(torch, v) for v in obj)
+    return obj
+
+
+def _dump_train_state(torch, state, path) -> None:
+    """The live state a resume must reproduce, on the host: module,
+    optimizer, its counts and the step."""
+    opt = state["optimizer"]
+    torch.save(_host_copy(torch, {
+        "module": state["module"].state_dict(),
+        "optimizer": opt.torch.state_dict(),
+        "count": opt.count, "step": int(state["step"])}), path)
+
+
+def _unequal(torch, a, b, where="") -> list:
+    """Where two nests of tensors and scalars differ, bit for bit (with
+    the largest |difference| of each differing tensor)."""
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return [f"{where}: {a.dtype}{tuple(a.shape)} vs "
+                    f"{b.dtype}{tuple(b.shape)}"]
+        if torch.equal(a, b):
+            return []
+        return [f"{where}: max |diff| "
+                f"{float((a.double() - b.double()).abs().max())}"]
+    if isinstance(a, dict) and isinstance(b, dict):
+        if set(a) != set(b):
+            return [f"{where}: keys {sorted(map(str, a))} vs "
+                    f"{sorted(map(str, b))}"]
+        return [d for k in a for d in _unequal(torch, a[k], b[k],
+                                                f"{where}/{k}")]
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return [f"{where}: lengths {len(a)} vs {len(b)}"]
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in _unequal(torch, x, y, f"{where}[{i}]")]
+    return [] if a == b else [f"{where}: {a!r} vs {b!r}"]
+
+
+def _deep_frame(spec, staging):
+    """The deep cell's 65,536 x 128 frame (``default_rng(5)``, as the deep
+    phase draws it), staged by ``CheckpointData(diskIncluded=True)``."""
+    from mmlspark_tpu_torch.core.disk import DiskFrame
+    from mmlspark_tpu_torch.core.frame import Frame
+    from mmlspark_tpu_torch.stages.stages import CheckpointData
+    rng = np.random.default_rng(5)
+    X = rng.normal(size=(spec["deep_rows"], spec["deep_features"])
+                   ).astype(np.float32)
+    y = (X @ rng.normal(size=spec["deep_features"]) > 0).astype(np.int64)
+    frame = Frame.from_dict({"features": X, "label": y}, num_partitions=4)
+    disk = CheckpointData(diskIncluded=True,
+                          checkpointDir=staging).transform(frame)
+    _check(isinstance(disk, DiskFrame),
+           f"CheckpointData(diskIncluded=True) gave a {type(disk).__name__}")
+    return disk
+
+
+def _deep_fit(spec, frame, ckpt_dir):
+    """DeepClassifier over the DiskFrame, streamed (deviceCache 'off': the
+    two-level DiskFrame shuffle), checkpointing every ``deep_every``
+    steps into ``ckpt_dir``; returns the fitted params."""
+    from mmlspark_tpu_torch.train.deep import DeepClassifier
+    learner = DeepClassifier(architecture="mlp_tabular", batchSize=256,
+                             epochs=2, deviceCache="off",
+                             checkpointDir=ckpt_dir,
+                             checkpointEvery=spec["deep_every"])
+    learner.set_params(featuresCol="features", labelCol="label")
+    return learner.fit(frame)._state["params"]
+
+
+def stream_child(spec: dict) -> int:
+    """One child of ``stream_resume`` (``--stream-child ROLE SPEC``): a
+    fresh process in deterministic mode. A trains the streamed ResNet-20
+    run and the deep fit uninterrupted; B stops a deep fit by an injected
+    fault, then trains the streamed run until its parent SIGKILLs it; C
+    resumes both from B's directories. C starts beside A and B and, once
+    its imports and CUDA context are up, waits for the parent's word (a
+    line on stdin) that B is dead: its start-up is measured, not waited
+    for. Each prints JSON lines (a ``child_step`` line per step with K1's
+    launches so far) and dumps its final state for the parent to
+    compare; the parent holds the gates."""
+    t_spawn = float(os.environ.get("SMOKE_SPAWN_T", time.time()))
+    import torch
+    t_torch = time.time()
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    t_flags = time.time()
+    from mmlspark_tpu_torch import kernels
+    from mmlspark_tpu_torch.observability import syncs
+    from mmlspark_tpu_torch.reliability.faults import (
+        FaultPlan, FaultSpec, InjectedFault,
+    )
+    from mmlspark_tpu_torch.utils.config import resolve_device
+    t_imported = time.time()
+    device = resolve_device()
+    torch.zeros(1, device=device)
+    syncs.synchronize("smoke.child_context", device)
+    t_context = time.time()
+    role = spec["role"]
+    if role == "C":
+        _line(child=role, ready=True)
+        if sys.stdin.readline().strip() != "go":
+            return 1            # the parent went away before B's kill
+    t_go = time.time()
+    work = os.path.dirname(spec["corpus"])
+    t_deep_b = time.perf_counter()
+    if role == "B" and spec["deep"]:
+        frame = _deep_frame(spec, os.path.join(work, "frame_B"))
+        with FaultPlan(FaultSpec("trainer.train_step",
+                                 on_hit=spec["deep_fault_at"])):
+            try:
+                _deep_fit(spec, frame, spec["deep_b"])
+            except InjectedFault:
+                pass
+            else:
+                raise RuntimeError("the deep fit was not stopped")
+        _line(child=role, deep_stopped_at=spec["deep_fault_at"],
+              deep_s=time.perf_counter() - t_deep_b)
+
+    loop = _stream_lane(torch, spec["ckpt_a"] if role == "A"
+                        else spec["ckpt_b"], spec["save_every"])
+    k1 = kernels.FUSED_NORMALIZE
+    marks = {}
+    real_restore = loop.restore_or_init
+
+    def restore_or_init():
+        marks["restore_t0"] = time.time()
+        out = real_restore()
+        marks["restore_t1"] = time.time()
+        marks["start"] = out[1]
+        return out
+    loop.restore_or_init = restore_or_init
+    it = _stream_dataset(spec).iter()
+    real_load = it.load_state_dict
+
+    def load_state_dict(snapshot):
+        marks["seek_t0"] = time.time()
+        real_load(snapshot)
+        marks["seek_t1"] = time.time()
+        marks["snapshot"] = snapshot
+    it.load_state_dict = load_state_dict
+    real_step = loop.trainer.train_step
+    done = [0]
+
+    def train_step(state, batch, rng=None):
+        out = real_step(state, batch, rng)
+        done[0] += 1
+        if done[0] == 1:
+            syncs.synchronize("smoke.child_first_step", device)
+            marks["first_step_t"] = time.time()
+        _line(child_step=marks["start"] + done[0], k1=k1.launches)
+        return out
+    loop.trainer.train_step = train_step
+
+    # the main path: counts zeroed just before, read just after
+    kernels.reset_launches()
+    t_run = time.perf_counter()
+    state = loop.run_dataset(it, spec["steps"])
+    launches = _launches(kernels)
+    run_s = time.perf_counter() - t_run
+    loop.ckpt.close()
+    _dump_train_state(torch, state, os.path.join(work, f"final_{role}.pt"))
+    out = dict(child=role, start=marks["start"], steps_run=done[0],
+               launches=launches, device=str(device),
+               deterministic=torch.are_deterministic_algorithms_enabled(),
+               snapshot=marks.get("snapshot"),
+               run_dataset_s=run_s,
+               interpreter_ms=(_T_MODULE - t_spawn) * 1e3,
+               torch_import_ms=(t_torch - _T_MODULE) * 1e3,
+               deterministic_flags_ms=(t_flags - t_torch) * 1e3,
+               package_import_ms=(t_imported - t_flags) * 1e3,
+               imports_ms=(t_imported - t_spawn) * 1e3,
+               cuda_context_ms=(t_context - t_imported) * 1e3,
+               restore_ms=(marks["restore_t1"] - marks["restore_t0"]) * 1e3,
+               seek_ms=((marks["seek_t1"] - marks["seek_t0"]) * 1e3
+                        if "seek_t0" in marks else 0.0),
+               # C's wait for B's death is left out
+               spawn_to_first_step_ms=(marks["first_step_t"] - t_go
+                                       + t_context - t_spawn) * 1e3
+               if "first_step_t" in marks else None)
+    if spec["deep"]:
+        deep_dir = spec["deep_a"] if role == "A" else spec["deep_b"]
+        listed = _listed_steps(deep_dir) if os.path.isdir(deep_dir) else []
+        out["deep_resumed_from"] = listed[-1] if listed else None
+        t_deep = time.perf_counter()
+        frame = _deep_frame(spec, os.path.join(work, f"frame_{role}"))
+        params = _deep_fit(spec, frame, deep_dir)
+        out["deep_s"] = time.perf_counter() - t_deep
+        torch.save({k: torch.from_numpy(np.ascontiguousarray(v))
+                    for k, v in params.items()},
+                   os.path.join(work, f"deep_{role}.pt"))
+    _line(**out)
+    return 0
+
+
+def _spawn_child(spec, role, log_dir, stdin=None):
+    env = dict(os.environ)
+    # cuBLAS picks a deterministic workspace only if told before CUDA starts
+    env["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    env["SMOKE_SPAWN_T"] = repr(time.time())
+    if role == "C":
+        env["MMLSPARK_TPU_TORCH_OBSERVABILITY_EVENTS_PATH"] = spec["events"]
+    err = open(os.path.join(log_dir, f"child_{role}.err"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--stream-child",
+         json.dumps(dict(spec, role=role))],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        stdin=stdin, stdout=subprocess.PIPE, stderr=err, text=True)
+    proc.err_file = err
+    return proc
+
+
+def _child_lines(proc, until=None) -> list:
+    """JSON lines from a child's stdout until it exits, or until
+    ``until(line)`` holds (the child keeps running). A child that runs
+    past ``SR_CHILD_TIMEOUT_S`` is killed."""
+    import threading
+    timer = threading.Timer(SR_CHILD_TIMEOUT_S, proc.kill)
+    timer.start()
+    lines = []
+    try:
+        for raw in proc.stdout:
+            raw = raw.strip()
+            if not raw.startswith("{"):
+                continue
+            lines.append(json.loads(raw))
+            if until is not None and until(lines[-1]):
+                break
+    finally:
+        timer.cancel()
+    return lines
+
+
+def _listed_steps(directory) -> list:
+    """The committed steps of a checkpoint directory (bare-integer
+    names), without opening a checkpointer (which would sweep it)."""
+    return sorted(int(n) for n in os.listdir(directory) if n.isdigit())
+
+
+def _stream_children(torch, kernels, spec, log_dir) -> dict:
+    """Start A, B and C together, SIGKILL B once it reports step >=
+    kill_at, then let C (ready and waiting) resume from B's directories;
+    hold the resume gates. Returns each child's report, B's directory as C
+    found it and the comparisons."""
+    import signal
+    procs = {}
+    try:
+        procs["A"] = _spawn_child(spec, "A", log_dir)
+        procs["B"] = _spawn_child(spec, "B", log_dir)
+        procs["C"] = _spawn_child(spec, "C", log_dir, stdin=subprocess.PIPE)
+        b_lines = _child_lines(
+            procs["B"], until=lambda ln: ln.get("child_step", -1)
+            >= spec["kill_at"])
+        os.kill(procs["B"].pid, signal.SIGKILL)
+        procs["B"].wait(timeout=60)
+        a_lines = _child_lines(procs["A"])
+        _check(procs["A"].wait(timeout=60) == 0, "child A failed (see "
+               f"{log_dir}/child_A.err)")
+        b_steps = [ln for ln in b_lines if "child_step" in ln]
+        _check(bool(b_steps) and b_steps[-1]["child_step"] >= spec["kill_at"],
+               f"child B exited before step {spec['kill_at']} (see "
+               f"{log_dir}/child_B.err)")
+        # B's directory as the kill left it
+        names = sorted(os.listdir(spec["ckpt_b"]))
+        b_listed = _listed_steps(spec["ckpt_b"])
+        unreadable = []
+        for s in b_listed:
+            try:
+                torch.load(os.path.join(spec["ckpt_b"], str(s), "state.pt"),
+                           map_location="cpu", weights_only=True)
+            except Exception as e:          # noqa: BLE001 - reported below
+                unreadable.append((s, f"{type(e).__name__}: {e}"))
+        b_dir = dict(names=names, listed_steps=b_listed,
+                     torn_writes=[n for n in names if ".tmp-" in n],
+                     unreadable=unreadable)
+        _check(_child_lines(procs["C"], until=lambda ln: ln.get("ready"))
+               != [], f"child C never got ready (see {log_dir}/child_C.err)")
+        procs["C"].stdin.write("go\n")
+        procs["C"].stdin.close()
+        c_lines = _child_lines(procs["C"])
+        _check(procs["C"].wait(timeout=60) == 0, "child C failed (see "
+               f"{log_dir}/child_C.err)")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+            p.err_file.close()
+    a = next(ln for ln in a_lines if "launches" in ln)
+    c = next(ln for ln in c_lines if "launches" in ln)
+    fallbacks = []
+    if os.path.exists(spec["events"]):
+        with open(spec["events"]) as f:
+            fallbacks = [e for e in map(json.loads, f)
+                         if e.get("name") == "restore.fallback"]
+    k1 = "fused_normalize"
+    steps, per_epoch = spec["steps"], spec["files"] // spec["batch"]
+
+    # gates: the uninterrupted child ran every step through K1
+    _check(a["start"] == 0 and a["steps_run"] == steps
+           and a["launches"] == _want(kernels, FUSED_NORMALIZE=steps),
+           f"child A: start {a['start']}, {a['steps_run']} steps, "
+           f"launches {a['launches']} (want 0, {steps}, K1 {steps} and no "
+           "other kernel)")
+    _check(all(ln["k1"] == ln["child_step"] for ln in b_steps),
+           f"child B: K1 launches off its steps: {b_steps[-3:]}")
+    # C resumed from B's newest committed step (at or after the last
+    # cadence step before the kill report) or, if that step did not load,
+    # from the next one after a restore.fallback
+    quarantined = [e["step"] for e in fallbacks]
+    usable = [s for s in b_listed if s not in quarantined]
+    _check(set(quarantined) <= {s for s, _ in unreadable} | set(b_listed),
+           f"C quarantined {quarantined}, B listed {b_listed}")
+    _check(not unreadable or {s for s, _ in unreadable} <= set(quarantined),
+           f"B's directory holds unreadable steps {unreadable} that C did "
+           "not quarantine")
+    _check(bool(usable) and c["start"] == max(usable)
+           and c["start"] >= spec["kill_at"] // spec["save_every"]
+           * spec["save_every"],
+           f"child C resumed from {c['start']}, B's committed steps "
+           f"{b_listed} (quarantined {quarantined})")
+    snap = c["snapshot"]
+    _check(snap is not None and snap["epoch"] == c["start"] // per_epoch
+           and (c["start"] % per_epoch == 0 or snap["items"] > 0),
+           f"child C's data snapshot {snap} for step {c['start']}")
+    _check(c["steps_run"] == steps - c["start"]
+           and c["launches"] == _want(kernels,
+                                      FUSED_NORMALIZE=c["steps_run"]),
+           f"child C ran {c['steps_run']} steps with {c['launches'][k1]} K1 "
+           f"launches, want {steps - c['start']} (restore launches none)")
+    after = sorted(os.listdir(spec["ckpt_b"]))
+    _check(not [n for n in after if ".tmp-" in n]
+           and _listed_steps(spec["ckpt_b"])[-1:] == [steps],
+           f"B's directory after C: {after}")
+    # the bit-equality gate: C's final state is A's
+    diff = _unequal(torch, torch.load(os.path.join(log_dir, "final_A.pt"),
+                                      weights_only=True),
+                    torch.load(os.path.join(log_dir, "final_C.pt"),
+                               weights_only=True))
+    _check(not diff, f"resumed ResNet-20 state differs from the "
+                     f"uninterrupted run's: {diff[:8]}")
+    deep = None
+    if spec["deep"]:
+        ddiff = _unequal(torch, torch.load(os.path.join(log_dir, "deep_A.pt"),
+                                           weights_only=True),
+                         torch.load(os.path.join(log_dir, "deep_C.pt"),
+                                    weights_only=True))
+        deep = dict(resumed_from=c["deep_resumed_from"],
+                    stopped_at_hit=spec["deep_fault_at"],
+                    checkpoint_every=spec["deep_every"],
+                    params_bit_equal=not ddiff)
+        _check(c["deep_resumed_from"] is not None
+               and 0 < c["deep_resumed_from"] < spec["deep_fault_at"],
+               f"the deep refit resumed from {c['deep_resumed_from']}")
+        _check(not ddiff, f"resumed DeepClassifier params differ: "
+                          f"{ddiff[:8]}")
+    return dict(A=a, B=dict(steps_reported=b_steps[-1]["child_step"],
+                            k1=b_steps[-1]["k1"], killed_at=b_steps[-1]
+                            ["child_step"]),
+                C=c, b_dir=b_dir, quarantined=quarantined,
+                state_bit_equal=True, deep=deep)
+
+
+def _rows_per_s(torch, spec, save_every, work) -> dict:
+    """One timed run_dataset of SR_TIMED_STEPS steps (an epoch) over the
+    corpus from a fresh lane (normal mode), from the pipeline's start to
+    its final checkpoint's commit."""
+    import shutil
+    d = os.path.join(work, f"timed_{save_every}")
+    shutil.rmtree(d, ignore_errors=True)
+    loop = _stream_lane(torch, d, save_every)
+    t0 = time.perf_counter()
+    loop.run_dataset(_stream_dataset(spec), SR_TIMED_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    loop.ckpt.close()
+    return dict(wall_s=wall,
+                rows_per_s=SR_TIMED_STEPS * spec["batch"] / wall)
+
+
+def _streaming_input_lane(work) -> dict:
+    """The JAX bench's streaming_input host lane (bench.py
+    config_streaming_input): 2,048 64x64 BMPs, FileSource -> decode(4
+    workers) -> batch(64), each batch normalized on the host, against
+    read_images then batching the column; 3 rounds, each lane timed over a
+    full epoch including its ingest."""
+    from mmlspark_tpu_torch.data import FileSource
+    from mmlspark_tpu_torch.io.codecs import encode_bmp
+    from mmlspark_tpu_torch.io.readers import read_images
+    n, hw, bs, workers = 2048, 64, 64, 4
+    root = os.path.join(work, "streaming_input")
+    os.makedirs(root)
+    rng = np.random.default_rng(11)
+    for i in range(n):
+        img = rng.integers(0, 256, size=(hw, hw, 3), dtype=np.uint8)
+        with open(os.path.join(root, f"img_{i:05d}.bmp"), "wb") as f:
+            f.write(encode_bmp(img))
+    ds = FileSource(root).decode(workers=workers).batch(bs,
+                                                        remainder="drop")
+    sink = []
+
+    def consume(batch):
+        sink.append(float((batch.astype(np.float32) / 255.0).mean()))
+
+    def run_fw():
+        with ds.iter() as it:
+            for b in it:
+                consume(b["image"])
+
+    def run_base():
+        col = read_images(root, decode_threads=workers).column("image")
+        for off in range(0, len(col) - bs + 1, bs):
+            consume(np.stack([iv.data for iv in col[off:off + bs]]))
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+    run_fw()
+    run_base()
+    rounds = [(timed(run_fw), timed(run_base)) for _ in range(3)]
+    rows = (n // bs) * bs
+    rates = [rows / fw for fw, _ in rounds]
+    return dict(rows=rows, batch=bs, decode_workers=workers,
+                rows_per_s_min=min(rates), rows_per_s_max=max(rates),
+                baseline_rows_per_s=[rows / b for _, b in rounds],
+                vs_baseline=statistics.median(b / fw for fw, b in rounds))
+
+
+def _save_restore_ms(torch, trainer, state, init_fn, work, name) -> dict:
+    """save (host snapshot, then the background write) and restore of one
+    train state, 3 times each; ms and MB."""
+    import shutil
+
+    from mmlspark_tpu_torch.parallel.checkpoint import TrainCheckpointer
+    runs = []
+    for i in range(3):
+        d = os.path.join(work, f"saverestore_{name}_{i}")
+        ckpt = TrainCheckpointer(d)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save(state, step=1)
+        returned_ms = (time.perf_counter() - t0) * 1e3
+        ckpt.wait()
+        total_ms = (time.perf_counter() - t0) * 1e3
+        timing = dict(ckpt.last_save)
+        t0 = time.perf_counter()
+        ckpt.restore(trainer, init_fn)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        ckpt.close()
+        shutil.rmtree(d, ignore_errors=True)
+        runs.append(dict(save_returned_ms=returned_ms,
+                         snapshot_ms=timing["snapshot_s"] * 1e3,
+                         write_ms=timing["write_s"] * 1e3,
+                         save_total_ms=total_ms, restore_ms=restore_ms,
+                         mb=timing["bytes"] / 1e6))
+    t0 = time.perf_counter()
+    trainer.init(init_fn)
+    torch.cuda.synchronize()
+    init_ms = (time.perf_counter() - t0) * 1e3
+    out = {"mb": runs[0]["mb"], "restore_init_ms": init_ms}
+    for key in ("snapshot_ms", "write_ms", "save_total_ms", "restore_ms"):
+        vals = [r[key] for r in runs]
+        out[key + "_min"], out[key + "_max"] = min(vals), max(vals)
+    return out
+
+
+def _lm_adamw_state(torch):
+    """The lm_train model (transformer_lm, vocab 32000, dim 512, depth 6,
+    bf16) with adamw(1e-3) state after one step on 2048 ids."""
+    import torch.nn.functional as F
+    from mmlspark_tpu_torch.models.zoo import build_model
+    from mmlspark_tpu_torch.parallel.optim import adamw
+    from mmlspark_tpu_torch.parallel.trainer import DistributedTrainer
+
+    def init_fn():
+        return build_model("transformer_lm", dtype="bfloat16")["module"]
+
+    def loss_fn(module, batch, gen):
+        x = batch["ids"]
+        logits = module(x)
+        v = logits.shape[-1]
+        return F.cross_entropy(logits[:, :-1].reshape(-1, v).float(),
+                               x[:, 1:].reshape(-1).long())
+    trainer = DistributedTrainer(loss_fn, adamw(1e-3))
+    state = trainer.init(init_fn)
+    ids = np.random.default_rng(0).integers(0, LM_VOCAB, (1, LM_LEN)
+                                            ).astype(np.int32)
+    state, _ = trainer.train_step(state, trainer.put_batch({"ids": ids}))
+    torch.cuda.synchronize()
+    return trainer, state, init_fn
+
+
+def phase_stream_resume(torch, kernels, card) -> dict:
+    """Streamed input, checkpoints and crash-safe resume (see the module
+    docstring, phase 19). Returns K1's launches in each child."""
+    import shutil
+    import tempfile
+
+    from mmlspark_tpu_torch.utils import native_loader
+    native = native_loader.native_available()
+    native_error = native_loader.load_error()
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_stream_resume-")
+    print(f"stream_resume: work dir {work}", file=sys.stderr, flush=True)
+    spec = _stream_spec(work)
+    t0 = time.perf_counter()
+    _write_corpus(spec)
+    corpus_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    children = _stream_children(torch, kernels, spec, work)
+    children_s = time.perf_counter() - t0
+
+    # timed in this process, normal (non-deterministic) mode
+    rates = {}
+    for every in (0, SR_SAVE_EVERY):
+        runs = [_rows_per_s(torch, spec, every, work) for _ in range(3)]
+        rows = [r["rows_per_s"] for r in runs]
+        rates[f"save_every_{every}"] = dict(
+            rows_per_s_min=min(rows), rows_per_s_max=max(rows),
+            wall_s=[r["wall_s"] for r in runs])
+    streaming = _streaming_input_lane(work)
+    loop = _stream_lane(torch, os.path.join(work, "resnet_state"), 0)
+    state = loop.run_dataset(_stream_dataset(spec), SR_SAVE_EVERY)
+    loop.ckpt.close()
+    resnet = _save_restore_ms(torch, loop.trainer, state,
+                              loop.init_params_fn, work, "resnet20")
+    lm_trainer, lm_state, lm_init = _lm_adamw_state(torch)
+    lm = _save_restore_ms(torch, lm_trainer, lm_state, lm_init, work, "lm")
+    c = children["C"]
+    _line(phase="stream_resume", card=_smi(), model="resnet20_cifar",
+          corpus=dict(files=spec["files"], format="png",
+                      shape=list(TRAIN_SHAPE), write_s=corpus_s),
+          native_codec=dict(native_available=native,
+                            build_error_tail=(native_error or "")[-600:]
+                            or None),
+          pipeline=(f"FileSource -> shuffle(window {spec['window']}, "
+                    f"seed 0) -> decode(workers {spec['workers']}) -> "
+                    f"map(uint8 flat + label) -> batch({spec['batch']}, "
+                    "drop) -> repeat()"),
+          steps=spec["steps"], save_every=spec["save_every"],
+          kill_at=spec["kill_at"], children_s=children_s,
+          child_A=children["A"], child_B=children["B"], child_C=c,
+          b_dir_after_kill=children["b_dir"],
+          quarantined=children["quarantined"],
+          state_bit_equal=children["state_bit_equal"],
+          deep=children["deep"],
+          restart_ms=dict(spawn_to_first_step=c["spawn_to_first_step_ms"],
+                          imports=c["imports_ms"],
+                          interpreter=c["interpreter_ms"],
+                          torch_import=c["torch_import_ms"],
+                          deterministic_flags=c["deterministic_flags_ms"],
+                          package_import=c["package_import_ms"],
+                          cuda_context=c["cuda_context_ms"],
+                          restore=c["restore_ms"], seek=c["seek_ms"]),
+          run_dataset=dict(steps=SR_TIMED_STEPS, **rates),
+          streaming_input=streaming,
+          save_restore=dict(resnet20_sgd_momentum=resnet,
+                            transformer_lm_adamw=lm),
+          phase_s=time.perf_counter() - t_phase)
+    shutil.rmtree(work, ignore_errors=True)
+    return {"A": children["A"]["launches"]["fused_normalize"],
+            "B": children["B"]["k1"],
+            "C": c["launches"]["fused_normalize"]}
+
+
 def _profile_pass(torch, run, out_dir, name) -> None:
     """One warm ``run()`` under torch.profiler: the device time by kernel
     (top 25) and the device's busy share of the run, as a JSON line; the
@@ -4021,6 +4738,9 @@ def _profile_pass(torch, run, out_dir, name) -> None:
 
 
 def main() -> int:
+    if "--stream-child" in sys.argv[1:]:
+        return stream_child(json.loads(
+            sys.argv[sys.argv.index("--stream-child") + 1]))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4075,6 +4795,7 @@ def main() -> int:
     generate, generate32, single = phase_generate(torch, kernels, card)
     fleet = phase_fleet(torch, kernels, card, single)
     process_fleet = phase_process_fleet(torch, kernels, card, fleet)
+    stream_resume = phase_stream_resume(torch, kernels, card)
 
     k1k, k2k = kernels.FUSED_NORMALIZE, kernels.CROP_RESIZE_NORMALIZE
     tc, f32 = kernels.FLASH_ATTENTION_TC, kernels.FLASH_ATTENTION
@@ -4084,7 +4805,11 @@ def main() -> int:
         "replaces": "mmlspark_tpu/ops/pallas_preprocess.py:43",
         "launches": train[k1k.name],
         "launches_by_path": {"train": train[k1k.name],
-                             "train_large": train_large[k1k.name]},
+                             "train_large": train_large[k1k.name],
+                             "stream_resume": stream_resume},
+        "launches_note": "stream_resume: each child's own run (A "
+                         "uninterrupted, B up to its SIGKILL, C from its "
+                         "restored step); one launch a step",
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],

@@ -98,14 +98,10 @@ def cmd_serve(args, passthrough) -> int:
     from mmlspark_tpu_torch.models.torch_model import TorchModel
     from mmlspark_tpu_torch.observability import memory as devmem
     from mmlspark_tpu_torch.reliability import preemption
+    from mmlspark_tpu_torch.reliability.watchdog import Watchdog
     from mmlspark_tpu_torch.serve.http import serve_http
     from mmlspark_tpu_torch.serve.server import Server
     from mmlspark_tpu_torch.utils import config as mmlconfig
-    if float(mmlconfig.get("reliability.stall_timeout_s")) > 0:
-        raise SystemExit(
-            "serve: reliability.stall_timeout_s > 0 needs the watchdog's "
-            "monitor thread, which is not ported yet (ROADMAP queue A, "
-            "with checkpoints and resume)")
     if getattr(args, "events_dir", ""):
         # per-pid sidecar convention: this worker appends to its OWN
         # events-<pid>.jsonl under the shared directory
@@ -172,6 +168,8 @@ def cmd_serve(args, passthrough) -> int:
     # then unblocks serve_forever. Handlers only install on the main
     # thread — in-process callers off-main keep plain Ctrl-C semantics.
     preemption.install_handlers()
+    watchdog = Watchdog() \
+        if float(mmlconfig.get("reliability.stall_timeout_s")) > 0 else None
 
     def monitor():
         preemption.get_signal().wait()
@@ -199,6 +197,8 @@ def cmd_serve(args, passthrough) -> int:
             fleet.close()
         else:
             server.close()
+        if watchdog is not None:
+            watchdog.close()
         devmem.stop_audit_poller()
     return 0
 

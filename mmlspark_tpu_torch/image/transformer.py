@@ -1,8 +1,9 @@
 """ImageTransformer + UnrollImage: declarative per-row image pipelines.
 
 Re-expression of ``image-transformer/src/main/scala/ImageTransformer.scala``:
-the stage list is a JSON-able param (the reference's ArrayMapParam) and
-stages apply in order per image.
+the stage list is a JSON-able param (the reference's ArrayMapParam), stages
+apply in order per image, and the transformer accepts image OR raw binary
+input (decoding first, ``transform`` ``:272-304``).
 
 UnrollImage converts an image row to a flat float32 vector
 (``UnrollImage.scala:18-42``). Deliberate difference: unroll order is HWC
@@ -20,9 +21,8 @@ ImageFeaturizer routes uniform uint8 inputs through automatically — same
 half-pixel and uint8-rounding semantics, pinned by tests, so host and
 device paths are interchangeable.
 
-This is the PyTorch port's copy of ``mmlspark_tpu/image/transformer.py``.
-Binary input needs the image codecs and the native loader, which the port
-does not have yet: it raises ``NotImplementedError``.
+This is the PyTorch port's copy of ``mmlspark_tpu/image/transformer.py``;
+binary input decodes through the port's ``io/codecs.py``.
 """
 from __future__ import annotations
 
@@ -38,6 +38,7 @@ from mmlspark_tpu_torch.core.pipeline import Transformer
 from mmlspark_tpu_torch.core.schema import ColumnSchema, DType, ImageValue, SchemaError
 from mmlspark_tpu_torch.core.serialization import register_stage
 from mmlspark_tpu_torch.image import ops
+from mmlspark_tpu_torch.io.codecs import decode_image
 
 STAGE_REGISTRY = {
     "resize": lambda img, p: ops.resize(img, p["height"], p["width"]),
@@ -102,18 +103,21 @@ class ImageTransformer(HasInputCol, HasOutputCol, Transformer):
         for s in stages:
             if s.get("op") not in STAGE_REGISTRY:
                 raise SchemaError(f"unknown image stage {s.get('op')!r}")
-        if in_col.dtype == DType.BINARY:
-            raise NotImplementedError(
-                "decoding binary images needs the io codecs, which the "
-                "PyTorch port does not have yet; decode to ImageValue rows "
-                "first")
 
         def run(p):
             arr = p[self.inputCol]
             paths: List[Optional[str]] = []
             datas: List[np.ndarray] = []
-            for v in arr:
-                if in_col.dtype == DType.IMAGE:
+            for i, v in enumerate(arr):
+                if in_col.dtype == DType.BINARY:
+                    data = decode_image(v)
+                    if data is None:
+                        raise SchemaError(
+                            f"undecodable bytes at row {i}; use read_images "
+                            "to drop undecodable files instead")
+                    paths.append(None)
+                    datas.append(data)
+                elif in_col.dtype == DType.IMAGE:
                     paths.append(v.path)
                     datas.append(v.data)
                 else:

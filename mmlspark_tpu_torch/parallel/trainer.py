@@ -6,10 +6,12 @@ here the step is eager PyTorch on ``runtime.device`` (one card), with the
 same contracts:
 
 - **state**: :meth:`DistributedTrainer.init` returns ``{"module",
-  "optimizer", "step"}``: the ``nn.Module`` with fp32 master parameters,
-  the built optimizer (``parallel/optim.py``), and a device int32 step
-  counter. Steps update all three in place (PyTorch's way; JAX returned
-  new arrays) and return the same dict.
+  "optimizer", "step", "generators"}``: the ``nn.Module`` with fp32
+  master parameters, the built optimizer (``parallel/optim.py``), a
+  device int32 step counter, and the trainer's generators by seed (what a
+  checkpoint must carry for a resumed run's draws to repeat). Steps
+  update them in place (PyTorch's way; JAX returned new arrays) and
+  return the same dict.
 - **loss**: ``loss_fn(module, batch, gen) -> scalar fp32 tensor``, where
   ``gen`` is a ``torch.Generator`` on the device, seeded once from the
   ``rng`` the caller passes and advancing with every draw.
@@ -38,6 +40,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from mmlspark_tpu_torch.data.pipeline import Dataset
 from mmlspark_tpu_torch.data.prefetch import DevicePrefetcher
 from mmlspark_tpu_torch.observability import events as obsevents
 from mmlspark_tpu_torch.observability import metrics as obsmetrics
@@ -211,7 +214,8 @@ class DistributedTrainer:
         return {"module": module,
                 "optimizer": self.optimizer.init(module.parameters()),
                 "step": torch.zeros((), dtype=torch.int32,
-                                    device=self.device)}
+                                    device=self.device),
+                "generators": self._gens}
 
     # -- steps -------------------------------------------------------------
     def flush_steps(self) -> int:
@@ -350,6 +354,11 @@ class DistributedTrainer:
             collect_losses: bool = True) -> Tuple[Dict[str, Any], list]:
         """Drive an epoch of host batches through the step.
 
+        ``batches`` is any iterable of host-batch dicts — a list, a
+        generator, or a streaming ``mmlspark_tpu_torch.data.Dataset`` (its
+        iterator is built here and closed on exit; pass the Dataset
+        itself, not ``.iter()``, unless the caller owns mid-epoch state).
+
         A :class:`DevicePrefetcher` assembles host batches ahead of the
         loop and each :meth:`put_batch` copies without blocking, so the
         copy overlaps the running step. ``log_every`` > 0 logs through a
@@ -357,6 +366,8 @@ class DistributedTrainer:
         counted sync. Returns ``(state, per-step losses)``, the losses
         fetched in one transfer at the end (an empty list with
         ``collect_losses=False``)."""
+        if isinstance(batches, Dataset):
+            batches = batches.iter()
         losses: List[torch.Tensor] = []
         metric_log = (MetricLogger(every=log_every)
                       if log_every and log_fn is None else None)
@@ -394,6 +405,9 @@ class DistributedTrainer:
         finally:
             hb.close()
             prefetcher.close()
+            closer = getattr(batches, "close", None)
+            if callable(closer):  # pipeline iterators own decode pools
+                closer()
         if telemetry and steps:
             # steady-state syncs per step, net of the ring reads (amortized
             # bookkeeping, not per-step stalls), sampled before the

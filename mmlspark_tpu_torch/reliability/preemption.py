@@ -8,9 +8,10 @@ that notice into a corrupt half-written step; this module turns it into a
 process-wide flag that the long-running loops POLL at their own safe
 points:
 
-- the reference's ``ResilientTrainLoop`` checks :func:`preempted` every
-  step and, on preemption, writes a final checkpoint (the port's is a
-  later slice);
+- :class:`~mmlspark_tpu_torch.reliability.resilient.ResilientTrainLoop`
+  checks :func:`preempted` every step and, on preemption, writes a final
+  checkpoint + data-state sidecar and returns cleanly — the next run
+  resumes bit-identically;
 - ``serve.Server`` / ``mmlspark-tpu-torch serve`` drain: stop admission (503 +
   ``Retry-After``), finish in-flight batches, then close.
 

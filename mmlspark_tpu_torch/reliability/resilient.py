@@ -1,0 +1,195 @@
+"""ResilientTrainLoop: preemption-tolerant training driver.
+
+The port of ``mmlspark_tpu/reliability/resilient.py``. It composes
+``DistributedTrainer`` + ``TrainCheckpointer`` into a loop whose contract
+is: kill the process at ANY point — mid-step, mid-checkpoint-write —
+rerun the same program, and the resumed run's final state is
+bit-identical to an uninterrupted run's.
+
+What makes that hold:
+
+- batches come from a DETERMINISTIC ``batch_fn(step)`` (step -> host
+  batch) or a resumable ``data.Dataset`` whose ``state_dict`` saves with
+  every checkpoint, so a restart replays the exact data order;
+- the checkpoint carries the trainer's generators, so a loss that draws
+  (dropout) repeats its draws after a restart;
+- checkpoint saves commit atomically (``TrainCheckpointer`` writes into a
+  temporary directory and renames), so a crash mid-write leaves either
+  the previous steps or the new one — never a half-step;
+- restore VALIDATES: if the newest checkpoint fails to load, it is
+  quarantined (renamed aside, preserved for forensics) and restore falls
+  back to the next-newest step, down to a fresh init when none survive.
+
+The reference's elastic-mesh lever, :meth:`ResilientTrainLoop.reshard_to`
+(a restore onto a new device mesh), waits for the multi-device layers
+(ROADMAP slice 6) and raises.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional, Tuple
+
+from mmlspark_tpu_torch.reliability import preemption
+from mmlspark_tpu_torch.utils.logging import get_logger
+
+_LOG = get_logger("reliability.resilient")
+
+
+class ResilientTrainLoop:
+    """Crash-safe driver over a trainer + checkpointer pair.
+
+    ``save_every`` is the checkpoint cadence in steps (the crash-loss
+    window); the final step always commits with ``wait=True`` so a clean
+    exit never loses the tail. ``trainer_factory(mesh) -> trainer`` is
+    kept for the reference's signature; the reshard it serves is slice 6.
+    """
+
+    def __init__(self, trainer, checkpointer,
+                 init_params_fn: Callable[[], Any], save_every: int = 1,
+                 trainer_factory: Optional[Callable[[Any], Any]] = None):
+        self.trainer = trainer
+        self.ckpt = checkpointer
+        self.init_params_fn = init_params_fn
+        self.save_every = save_every
+        self.trainer_factory = trainer_factory
+
+    def reshard_to(self, mesh_shape: str) -> None:
+        """Refused: a mid-run mesh change restores the state onto a new
+        device mesh, which needs the multi-device layers (ROADMAP slice
+        6). A request that can never be honoured is not accepted."""
+        raise NotImplementedError(
+            f"reshard_to({mesh_shape!r}): resharding onto a new mesh is "
+            "ROADMAP slice 6; the port trains on one device")
+
+    def restore_or_init(self) -> Tuple[Dict[str, Any], int]:
+        """(state, start_step): newest VALID checkpoint, else fresh init.
+
+        A checkpoint that fails to restore is quarantined (kept under a
+        ``corrupt-<step>`` name, no longer listed) and the next-newest step
+        is tried, so a torn write or bitrot in the latest step costs
+        ``save_every`` steps of progress instead of the whole run.
+        """
+        while True:
+            step = self.ckpt.latest_step()
+            if step is None:
+                return self.trainer.init(self.init_params_fn), 0
+            try:
+                state = self.ckpt.restore(self.trainer, self.init_params_fn,
+                                          step=step)
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except Exception as e:
+                # any load failure means this step is unusable on THIS
+                # disk; quarantine and fall back rather than crash the run
+                quarantined = self.ckpt.quarantine_step(step)
+                _LOG.warning(
+                    "checkpoint step %d failed to restore (%s: %s); "
+                    "quarantined to %s, falling back to %s", step,
+                    type(e).__name__, e, quarantined,
+                    self.ckpt.latest_step())
+                from mmlspark_tpu_torch.observability import events
+                if events.events_enabled():
+                    events.emit("event", "restore.fallback", step=step,
+                                error=f"{type(e).__name__}: {e}",
+                                fallback=self.ckpt.latest_step())
+                continue
+            return state, step
+
+    def run(self, batch_fn: Callable[[int], Dict], total_steps: int,
+            rng: Optional[Any] = None) -> Dict[str, Any]:
+        """Train to ``total_steps`` (1-based), resuming from the newest
+        valid checkpoint. ``batch_fn(step)`` must be deterministic in
+        ``step``. ``rng`` is the trainer's seed (default 0) or a
+        ``torch.Generator``."""
+        rng = 0 if rng is None else rng
+        state, start = self.restore_or_init()
+        if start > 0:
+            _LOG.info("resuming from checkpoint step %d", start)
+        if start >= total_steps:
+            return state
+        for step in range(start + 1, total_steps + 1):
+            if preemption.preempted():
+                return self._drain(state, step - 1)
+            batch = self.trainer.put_batch(batch_fn(step))
+            state, _metrics = self.trainer.train_step(state, batch, rng)
+            self.ckpt.maybe_save(state, every=self.save_every, step=step)
+        # final commit: wait for any in-flight async save first so a
+        # cadence-aligned last step doesn't double-save
+        self.ckpt.wait()
+        if self.ckpt.latest_step() != total_steps:
+            self.ckpt.save(state, step=total_steps, wait=True)
+        return state
+
+    def _drain(self, state: Dict[str, Any], step: int,
+               data_state: Any = None) -> Dict[str, Any]:
+        """Preemption exit: force a synchronous final checkpoint (plus the
+        input-pipeline sidecar when streaming) so the next run resumes from
+        THIS step instead of the last cadence-aligned save."""
+        reason = preemption.preemption_reason() or "preempted"
+        _LOG.warning("preempted (%s) at step %d: committing a final "
+                     "checkpoint before exit", reason, step)
+        self.ckpt.wait()
+        if step > 0 and self.ckpt.latest_step() != step:
+            if data_state is not None:
+                self.ckpt.put_data_state(step, data_state)
+            self.ckpt.save(state, step=step, wait=True)
+        from mmlspark_tpu_torch.observability import events, metrics
+        metrics.counter("reliability.preemption_drains").inc()
+        if events.events_enabled():
+            events.emit("event", "preemption.drain", step=step,
+                        reason=reason, kind="train")
+        return state
+
+    def run_dataset(self, data, total_steps: int,
+                    rng: Optional[Any] = None) -> Dict[str, Any]:
+        """Crash-safe training over a streaming input pipeline.
+
+        ``data`` is a ``mmlspark_tpu_torch.data.Dataset`` (typically ending
+        in ``.batch(...).repeat(...)``) or an already-built
+        ``PipelineIterator``. The pipeline's ``state_dict`` persists with
+        EVERY checkpoint (``TrainCheckpointer.put_data_state``), so a
+        restart restores both the state and the input cursor and replays
+        the interrupted batch stream mid-epoch, bit for bit. The snapshot
+        writes BEFORE the (async) checkpoint save: an orphan snapshot is
+        harmless, a committed step without one would restart the stream.
+        """
+        from mmlspark_tpu_torch.data.pipeline import Dataset
+        rng = 0 if rng is None else rng
+        state, start = self.restore_or_init()
+        if start > 0:
+            _LOG.info("resuming from checkpoint step %d", start)
+        it = data.iter() if isinstance(data, Dataset) else data
+        try:
+            if start > 0:
+                snapshot = self.ckpt.get_data_state(start)
+                if snapshot is not None:
+                    it.load_state_dict(snapshot)
+                else:
+                    _LOG.warning(
+                        "checkpoint step %d has no input-pipeline snapshot; "
+                        "the stream restarts from its beginning", start)
+            if start >= total_steps:
+                return state
+            for step in range(start + 1, total_steps + 1):
+                if preemption.preempted():
+                    return self._drain(state, step - 1,
+                                       data_state=it.state_dict())
+                try:
+                    host = next(it)
+                except StopIteration:
+                    raise ValueError(
+                        f"dataset exhausted at step {step} of {total_steps};"
+                        " add .repeat() for multi-epoch runs") from None
+                batch = self.trainer.put_batch(host)
+                state, _metrics = self.trainer.train_step(state, batch, rng)
+                if self.save_every > 0 and step % self.save_every == 0:
+                    self.ckpt.put_data_state(step, it.state_dict())
+                    self.ckpt.save(state, step=step)
+            self.ckpt.wait()
+            if self.ckpt.latest_step() != total_steps:
+                self.ckpt.put_data_state(total_steps, it.state_dict())
+                self.ckpt.save(state, step=total_steps, wait=True)
+            return state
+        finally:
+            closer = getattr(it, "close", None)
+            if callable(closer):
+                closer()

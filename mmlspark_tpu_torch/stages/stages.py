@@ -18,6 +18,7 @@ the multi-host version takes (per-host partials + one small allreduce).
 from __future__ import annotations
 
 import datetime as _dt
+import tempfile
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -394,10 +395,13 @@ class CheckpointData(Transformer):
     """Persist/unpersist stage (``CheckpointData.scala:31-70``).
 
     MEMORY_ONLY semantics are a no-op here — Frame partitions are already
-    materialized host arrays. ``diskIncluded=True`` (the JAX package stages
-    the frame as memory-mapped chunks and returns a DiskFrame) raises: the
-    out-of-core frame (``core/disk.py``) is not ported yet (ROADMAP, queue A
-    "I/O and the rest").
+    materialized host arrays. ``diskIncluded=True`` is the
+    MEMORY_AND_DISK analogue done the out-of-core way: the frame is
+    STAGED as memory-mapped chunks (``core/disk.py``) and a DiskFrame
+    over them is returned, so everything downstream streams with page
+    eviction instead of holding the arrays in RAM. Numeric/vector
+    columns only (the DiskFrame contract); ``removeCheckpoint`` on a
+    DiskFrame re-materializes it in memory.
     """
 
     diskIncluded = BooleanParam("diskIncluded", "also spill to disk", False)
@@ -407,11 +411,28 @@ class CheckpointData(Transformer):
         "('' = a fresh temp dir)", "")
 
     def transform(self, frame: Frame) -> Frame:
-        if self.diskIncluded and not self.removeCheckpoint:
-            raise NotImplementedError(
-                "CheckpointData(diskIncluded=True) needs the out-of-core "
-                "DiskFrame, which is not ported yet (ROADMAP queue A); "
-                "use diskIncluded=False")
+        import shutil
+        from mmlspark_tpu_torch.core.disk import DiskFrame, write_frame
         if self.removeCheckpoint:
+            if isinstance(frame, DiskFrame):
+                # np.array (not ascontiguousarray): a REAL writable copy —
+                # a zero-copy view would still page from (and pin) the
+                # chunk files this branch is about to reclaim
+                out = Frame(frame.schema,
+                            [{n: np.array(p[n])
+                              for n in frame.schema.names}
+                             for p in frame.partitions])
+                staged = getattr(frame, "_checkpoint_dir", None)
+                if staged:  # self-created staging only; user dirs are theirs
+                    shutil.rmtree(staged, ignore_errors=True)
+                return out
             return frame.unpersist()
-        return frame.cache()
+        if not self.diskIncluded:
+            return frame.cache()
+        directory = self.checkpointDir or tempfile.mkdtemp(
+            prefix="mmlspark_ckpt_")
+        write_frame(frame, directory)
+        out = DiskFrame.open(directory)
+        if not self.checkpointDir:
+            out._checkpoint_dir = directory  # removeCheckpoint reclaims it
+        return out

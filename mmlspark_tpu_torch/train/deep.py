@@ -21,11 +21,19 @@ same architecture (the reference's CNTKLearner round trip,
 - the fitted ``DeepClassifierModel`` hands out a ``TorchModel`` for
   feature extraction (:meth:`DeepClassifierModel.to_torch_model`).
 
+- ``checkpointDir`` checkpoints every ``checkpointEvery`` steps through
+  ``parallel/checkpoint.py::TrainCheckpointer``; a fit over the same
+  directory resumes: whole epochs already trained are skipped
+  arithmetically, only the partial epoch streams batches past, the
+  recorded ``batch_order`` (cached or streamed) pins the mode, early
+  stopping's state rides the metadata sidecar, and a fully resumed fit
+  runs zero steps. The resumed fit's parameters equal an uninterrupted
+  fit's bit for bit.
+
 Every optimizer of the reference trains (``adamw``, ``adam``, ``sgd``,
 ``lamb``, ``adafactor``; ``parallel/optim.py`` holds optax's rules). Not
-ported yet, and raising ``NotImplementedError``: ``checkpointDir``
-(checkpointing needs ``parallel/checkpoint.py``) and a non-None
-``meshSpec`` (ROADMAP slice 6).
+ported yet, and raising ``NotImplementedError``: a non-None ``meshSpec``
+(ROADMAP slice 6).
 """
 from __future__ import annotations
 
@@ -81,6 +89,10 @@ def _train_val_split(frame: Frame, frac: float, seed: int
     keep their row order and partitioning), the reference's split."""
     if not frame.schema.names:
         raise ValueError("cannot split an empty-schema frame")
+    if getattr(frame, "_out_of_core", False):
+        raise ValueError(
+            "validationSplit would materialize an out-of-core DiskFrame; "
+            "stage separate train/val DiskFrame directories instead")
     rng = np.random.default_rng([seed, 715])
     first = frame.schema.names[0]
     tr_parts, va_parts = [], []
@@ -158,8 +170,7 @@ class _DeepEstimatorBase(TorchEstimator):
         "meshSpec", "training over a device mesh; not ported yet, must be "
         "None (one device)", None)
     checkpointDir = StringParam(
-        "checkpointDir", "checkpoint dir ('' = off); checkpointing is not "
-        "ported yet", "")
+        "checkpointDir", "checkpoint dir for elastic resume ('' = off)", "")
     checkpointEvery = IntParam(
         "checkpointEvery", "save every N steps when checkpointDir is set", 100)
     logEvery = IntParam("logEvery", "log train metrics every N steps (0=off)", 0)
@@ -215,18 +226,14 @@ class _DeepEstimatorBase(TorchEstimator):
     # -- fit ---------------------------------------------------------------
     def fit(self, frame: Frame):
         from mmlspark_tpu_torch.data.prefetch import DevicePrefetcher
-        from mmlspark_tpu_torch.parallel.trainer import DistributedTrainer
         from mmlspark_tpu_torch.train.learners import _epoch_device_cache
         from mmlspark_tpu_torch.utils.logging import MetricLogger
+        from mmlspark_tpu_torch.parallel.trainer import DistributedTrainer
 
         if self.get("meshSpec") is not None:
             raise NotImplementedError(
                 "meshSpec: training over a device mesh is ROADMAP slice 6; "
                 "leave it None to train on runtime.device")
-        if self.checkpointDir:
-            raise NotImplementedError(
-                "checkpointDir: checkpointing is not ported yet (ROADMAP, "
-                "slice 2 left-outs: parallel/checkpoint.py)")
         device = resolve_device()
         fcol, lcol = self.featuresCol, self.labelCol
         self.validation_history = []
@@ -268,81 +275,162 @@ class _DeepEstimatorBase(TorchEstimator):
             self._make_loss(prep, ymu, ysigma),
             self._build_optimizer(total_steps), accum_steps=accum,
             remat=self.remat, device=device)
-        state = trainer.init(lambda: _module_with(
-            spec, self._init_params(spec["module"], seed)))
+        def init_fn():
+            return _module_with(spec, self._init_params(spec["module"], seed))
 
-        mode = self.get("deviceCache")
-        cache = None if mode == "off" else _epoch_device_cache(
-            frame, fcol, lcol, bs, self._y_dtype, device=device, seed=seed,
-            force=mode == "on")
-
-        def host_batches(epoch):
-            """Padded fixed-shape batches of one epoch in the JAX
-            package's numpy order (seeded by (seed, epoch))."""
-            epoch_rng = np.random.default_rng([seed, epoch])
-            for hb in frame.shuffled_batches(bs, cols=[fcol, lcol],
-                                             rng=epoch_rng):
-                yield self._pad_batch(hb, fcol, lcol, bs)
-
-        metric_log = MetricLogger(every=self.logEvery,
-                                  name=type(self).__name__)
-        val_fn = finalize = None
-        val_dev = []
-        if val_frame is not None:
-            # the held-out split pads once and stays on the device
-            val_fn, finalize = self._make_val_step(prep, ymu, ysigma)
-            val_dev = [trainer.put_batch(self._pad_batch(hb, fcol, lcol, bs))
-                       for hb in val_frame.batches(bs, cols=[fcol, lcol])]
-            val_log = MetricLogger(every=1, name=type(self).__name__ + ".val")
-
-        best_val, stale = float("inf"), 0
-        step, last_loss = 0, None
-        for epoch in range(self.epochs):
-            if cache is not None:
-                it, closer = cache.batches(epoch), None
+        ckpt = None
+        if self.checkpointDir:
+            from mmlspark_tpu_torch.parallel.checkpoint import (
+                TrainCheckpointer,
+            )
+            ckpt = TrainCheckpointer(self.checkpointDir)
+        try:
+            if ckpt is not None:
+                state, resumed = ckpt.restore_or_init(trainer, init_fn)
             else:
-                it = closer = DevicePrefetcher(host_batches(epoch),
-                                               trainer.put_batch)
-            try:
-                for batch in it:
-                    state, metrics = trainer.train_step(state, batch, seed)
-                    last_loss = metrics["loss"]
-                    step += 1
-                    metric_log(step, {"loss": last_loss}, batch_rows=bs)
-            finally:
-                if closer is not None:
-                    closer.close()
-            if val_fn is not None:
-                module = state["module"]
-                with torch.no_grad():
-                    # the metric sums accumulate on the device: one host
-                    # round trip per epoch
-                    sums = sum(val_fn(module, b) for b in val_dev)
-                vm = finalize(obssyncs.device_get(sums, "deep.validation"))
-                val_log(epoch + 1, vm)
-                self.validation_history.append({"epoch": epoch + 1, **vm})
-                if vm["val_loss"] < best_val - 1e-12:
-                    best_val, stale = vm["val_loss"], 0
-                else:
-                    stale += 1
-                    if patience and stale >= patience:
-                        break
+                state, resumed = trainer.init(init_fn), False
+            # elastic resume: whole epochs already trained are skipped
+            # arithmetically; only the partial epoch streams batches past
+            done = 0
+            if resumed:
+                done = min(int(obssyncs.device_get(state["step"],
+                                                   "deep.resume_step")),
+                           total_steps)
+            start_epoch = done // steps_per_epoch
+            skip_in_epoch = done - start_epoch * steps_per_epoch
 
-        module = state["module"]
-        fetched = obssyncs.device_get(
-            {"params": dict(module.state_dict()), "final_loss": last_loss},
-            "deep.fetch_params")
-        state_arrays = {
-            "params": {k: np.ascontiguousarray(v)
-                       for k, v in fetched["params"].items()},
-            "mu": mu, "sigma": sigma,
-            "standardize": np.asarray(standardize),
-            "final_loss": np.asarray(float(fetched["final_loss"])),
-            # JSON side of the state: survives save/load
-            "validation_history": list(self.validation_history),
-        }
-        return self._build_fitted(fcol, lcol, resolved_args, state_arrays,
-                                  n_out, ymu, ysigma)
+            # a fully resumed fit runs zero steps: no epoch transfer
+            cache = None
+            if done < total_steps:
+                mode = self.get("deviceCache")
+                if resumed:
+                    # the two batch-order modes draw different
+                    # permutations (numpy on the host, torch on the
+                    # device), so a resume in the other mode would replay
+                    # or omit rows of the partial epoch: pin the recorded
+                    # mode
+                    recorded = ckpt.get_meta().get("batch_order")
+                    mode = {"streamed": "off", "cached": "on"}.get(recorded,
+                                                                   mode)
+                cache = None if mode == "off" else _epoch_device_cache(
+                    frame, fcol, lcol, bs, self._y_dtype, device=device,
+                    seed=seed, force=mode == "on")
+                if ckpt is not None:
+                    ckpt.put_meta(batch_order="cached" if cache is not None
+                                  else "streamed")
+
+            def host_batches(epoch):
+                """Padded fixed-shape batches of one epoch in the JAX
+                package's numpy order (seeded by (seed, epoch)), the
+                resumed epoch's finished batches skipped."""
+                epoch_rng = np.random.default_rng([seed, epoch])
+                for j, hb in enumerate(frame.shuffled_batches(
+                        bs, cols=[fcol, lcol], rng=epoch_rng)):
+                    if not (epoch == start_epoch and j < skip_in_epoch):
+                        yield self._pad_batch(hb, fcol, lcol, bs)
+
+            def cached_batches(epoch):
+                for j, b in enumerate(cache.batches(epoch)):
+                    if not (epoch == start_epoch and j < skip_in_epoch):
+                        yield b
+
+            metric_log = MetricLogger(every=self.logEvery,
+                                      name=type(self).__name__)
+            val_fn = finalize = None
+            val_dev = []
+            if val_frame is not None and done < total_steps:
+                # the held-out split pads once and stays on the device
+                val_fn, finalize = self._make_val_step(prep, ymu, ysigma)
+                val_dev = [
+                    trainer.put_batch(self._pad_batch(hb, fcol, lcol, bs))
+                    for hb in val_frame.batches(bs, cols=[fcol, lcol])]
+                val_log = MetricLogger(every=1,
+                                       name=type(self).__name__ + ".val")
+
+            best_val, stale, stopped = float("inf"), 0, False
+            if resumed:
+                # early-stopping state rides the metadata sidecar, so a
+                # restart neither trains past a recorded stop nor resets
+                # the patience
+                es = ckpt.get_meta().get("early_stop") or {}
+                best_val = float(es.get("best_val", best_val))
+                stale = int(es.get("stale", stale))
+                stopped = bool(es.get("stopped", False))
+                self.validation_history = list(es.get("history", []))
+            step, last_loss = done, None
+            for epoch in range(start_epoch, start_epoch if stopped
+                               else self.epochs):
+                if cache is not None:
+                    it, closer = cached_batches(epoch), None
+                else:
+                    it = closer = DevicePrefetcher(host_batches(epoch),
+                                                   trainer.put_batch)
+                try:
+                    for batch in it:
+                        state, metrics = trainer.train_step(state, batch,
+                                                            seed)
+                        last_loss = metrics["loss"]
+                        step += 1
+                        metric_log(step, {"loss": last_loss}, batch_rows=bs)
+                        if ckpt is not None:
+                            ckpt.maybe_save(
+                                state, every=self.checkpointEvery, step=step)
+                finally:
+                    if closer is not None:
+                        closer.close()
+                if val_fn is not None:
+                    module = state["module"]
+                    with torch.no_grad():
+                        # the metric sums accumulate on the device: one
+                        # host round trip per epoch
+                        sums = sum(val_fn(module, b) for b in val_dev)
+                    vm = finalize(obssyncs.device_get(sums,
+                                                      "deep.validation"))
+                    val_log(epoch + 1, vm)
+                    self.validation_history.append({"epoch": epoch + 1,
+                                                    **vm})
+                    if vm["val_loss"] < best_val - 1e-12:
+                        best_val, stale = vm["val_loss"], 0
+                    else:
+                        stale += 1
+                        stopped = bool(patience and stale >= patience)
+                    if ckpt is not None:
+                        ckpt.put_meta(early_stop={
+                            "best_val": best_val, "stale": stale,
+                            "stopped": stopped,
+                            "history": self.validation_history})
+                    if stopped:
+                        break
+            if ckpt is not None:
+                ckpt.wait()
+                if ckpt.latest_step() != step:
+                    ckpt.save(state, step=step, wait=True)
+            if last_loss is None:
+                # fully resumed fit (no step ran): the restored params' loss
+                hb = next(iter(frame.batches(bs, cols=[fcol, lcol])))
+                last_loss = trainer.eval_step(
+                    state,
+                    trainer.put_batch(self._pad_batch(hb, fcol, lcol, bs)),
+                    seed)
+
+            module = state["module"]
+            fetched = obssyncs.device_get(
+                {"params": dict(module.state_dict()),
+                 "final_loss": last_loss}, "deep.fetch_params")
+            state_arrays = {
+                "params": {k: np.ascontiguousarray(v)
+                           for k, v in fetched["params"].items()},
+                "mu": mu, "sigma": sigma,
+                "standardize": np.asarray(standardize),
+                "final_loss": np.asarray(float(fetched["final_loss"])),
+                # JSON side of the state: survives save/load
+                "validation_history": list(self.validation_history),
+            }
+            return self._build_fitted(fcol, lcol, resolved_args,
+                                      state_arrays, n_out, ymu, ysigma)
+        finally:
+            if ckpt is not None:
+                ckpt.close()
 
 
 @register_stage

@@ -122,6 +122,11 @@ _DEFAULTS: Dict[str, Any] = {
     "observability.memory_poll_s": 0.0,      # >0 = periodic device-memory
                                              # ledger audit
     "reliability.stall_timeout_s": 0.0,   # 0 = watchdog stall detection off
+    "reliability.watchdog_poll_s": 1.0,   # monitor thread poll cadence
+    # the streaming input pipeline (data/pipeline.py)
+    "data.shuffle_window": 1024,   # records per windowed-shuffle block
+    "data.decode_workers": 4,      # parallel decode worker threads
+    "data.prefetch_depth": 0,      # to_device_iterator queue depth
     # SLO objectives (observability/slo.py)
     "slo.availability_target": 0.999,  # 1 - bad/admitted objective
     "slo.latency_p99_ms": 0.0,         # >0 = p99 total-latency budget (ms)

@@ -290,18 +290,22 @@ def test_deep_classifier_lamb_adafactor_track_jax(monkeypatch, opt):
         got[-1]["val_accuracy"] >= got[0]["val_accuracy"]
 
 
-def test_lamb_adafactor_checkpoint_and_mesh_raise():
-    """lamb and adafactor train now (above); with them, as with any
-    optimizer, ``checkpointDir`` and a mesh raise until their layers are
-    ported, and early stopping needs a validation split."""
+def test_lamb_adafactor_checkpoint_and_mesh_raise(tmp_path):
+    """lamb and adafactor train (above) and checkpoint: with
+    ``checkpointDir`` a fit commits its last step, and a refit over the
+    same directory runs zero steps and returns the same params (their
+    host-side counts ride the checkpoint). A mesh still raises until its
+    layer is ported, and early stopping needs a validation split."""
     X, y = _xor(n=64)
     frame = Frame.from_dict({"features": X, "label": y})
     for name in ("lamb", "adafactor"):
-        with pytest.raises(NotImplementedError, match="checkpoint"):
-            _learner(optimizer=name, checkpointDir="/nonexistent/ck").fit(
-                frame)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        _learner(checkpointDir="/nonexistent/ck").fit(frame)
+        ckdir = str(tmp_path / name)
+        first = _learner(optimizer=name, checkpointDir=ckdir).fit(frame)
+        from mmlspark_tpu_torch.parallel.checkpoint import TrainCheckpointer
+        assert TrainCheckpointer(ckdir).all_steps() == [4]
+        again = _learner(optimizer=name, checkpointDir=ckdir).fit(frame)
+        for k, v in first._state["params"].items():
+            np.testing.assert_array_equal(again._state["params"][k], v)
     with pytest.raises(NotImplementedError, match="slice 6"):
         _learner(meshSpec={"data": 2}).fit(frame)
     with pytest.raises(ValueError, match="validationSplit"):
@@ -374,3 +378,142 @@ def test_early_stopping_stops():
     model = learner.fit(Frame.from_dict({"features": X, "label": y}))
     assert len(learner.validation_history) == 3
     assert model.validation_history == learner.validation_history
+
+
+# -- checkpointDir: elastic resume ---------------------------------------------
+
+def _count_steps(monkeypatch):
+    """Count train steps and raise InjectedFault at the ``fail_at``-th
+    (set later through the returned dict)."""
+    from mmlspark_tpu_torch.parallel.trainer import DistributedTrainer
+    from mmlspark_tpu_torch.reliability.faults import InjectedFault
+    real = DistributedTrainer.train_step
+    calls = {"n": 0, "fail_at": None}
+
+    def step(self, state, batch, rng=None):
+        calls["n"] += 1
+        if calls["n"] == calls["fail_at"]:
+            raise InjectedFault("simulated preemption")
+        return real(self, state, batch, rng)
+    monkeypatch.setattr(DistributedTrainer, "train_step", step)
+    return calls
+
+
+def _params_equal(a, b):
+    pa, pb = a._state["params"], b._state["params"]
+    assert pa.keys() == pb.keys()
+    for k in pa:
+        np.testing.assert_array_equal(pa[k], pb[k])
+
+
+@pytest.mark.parametrize("cache", ["off", "on"])
+def test_checkpoint_resume_skips_finished_epochs_and_equals_uninterrupted(
+        tmp_path, monkeypatch, cache):
+    """3 epochs of 4 steps, a checkpoint every step, a fault at step 6
+    (mid-epoch 2): the refit runs only steps 6..12 (whole epochs skipped,
+    the partial one streamed past) and its params equal an uninterrupted
+    fit's bit for bit; a third fit over the finished directory runs zero
+    steps and returns them again."""
+    from mmlspark_tpu_torch.reliability.faults import InjectedFault
+    X, y = _xor(n=128, seed=7)
+    frame = Frame.from_dict({"features": X, "label": y})
+    kw = dict(epochs=3, checkpointEvery=1, deviceCache=cache)
+    ref = _learner(checkpointDir=str(tmp_path / "ref"), **kw).fit(frame)
+    calls = _count_steps(monkeypatch)
+    calls["fail_at"] = 6
+    ckdir = str(tmp_path / "ck")
+    with pytest.raises(InjectedFault):
+        _learner(checkpointDir=ckdir, **kw).fit(frame)
+    calls.update(n=0, fail_at=None)
+    resumed = _learner(checkpointDir=ckdir, **kw).fit(frame)
+    assert calls["n"] == 12 - 5
+    _params_equal(ref, resumed)
+    np.testing.assert_array_equal(resumed._state["final_loss"],
+                                  ref._state["final_loss"])
+    calls["n"] = 0
+    again = _learner(checkpointDir=ckdir, **kw).fit(frame)
+    assert calls["n"] == 0
+    _params_equal(ref, again)
+
+
+def test_checkpoint_resume_pins_the_recorded_batch_order(tmp_path,
+                                                         monkeypatch):
+    """Interrupt a deviceCache='off' fit, resume with 'auto' (which would
+    cache this small frame): the recorded 'streamed' order wins, and the
+    result equals the uninterrupted 'off' fit bit for bit."""
+    from mmlspark_tpu_torch.parallel.checkpoint import TrainCheckpointer
+    from mmlspark_tpu_torch.reliability.faults import InjectedFault
+    X, y = _xor(n=128, seed=7)
+    frame = Frame.from_dict({"features": X, "label": y})
+    kw = dict(epochs=3, checkpointEvery=1)
+    ref = _learner(checkpointDir=str(tmp_path / "ref"), deviceCache="off",
+                   **kw).fit(frame)
+    calls = _count_steps(monkeypatch)
+    calls["fail_at"] = 6
+    ckdir = str(tmp_path / "ck")
+    with pytest.raises(InjectedFault):
+        _learner(checkpointDir=ckdir, deviceCache="off", **kw).fit(frame)
+    assert TrainCheckpointer(ckdir).get_meta()["batch_order"] == "streamed"
+    calls["fail_at"] = None
+    resumed = _learner(checkpointDir=ckdir, deviceCache="auto",
+                       **kw).fit(frame)
+    _params_equal(ref, resumed)
+
+
+def test_early_stopping_state_survives_a_restart(tmp_path, monkeypatch):
+    """With patience 1 the uninterrupted fit stops after some epoch; a fit
+    killed in the epoch after its first validation resumes with the
+    recorded best loss, stale count and history, and stops at the same
+    epoch with the same params and history."""
+    from mmlspark_tpu_torch.parallel.checkpoint import TrainCheckpointer
+    from mmlspark_tpu_torch.reliability.faults import InjectedFault
+    X, y = _xor(n=96, seed=4)
+    frame = Frame.from_dict({"features": X, "label": y})
+    kw = dict(epochs=8, checkpointEvery=1, validationSplit=0.25,
+              earlyStoppingPatience=1, learningRate=0.3, optimizer="sgd",
+              deviceCache="off")
+    ref = _learner(checkpointDir=str(tmp_path / "ref"), **kw).fit(frame)
+    stopped_after = len(ref.validation_history)
+    assert stopped_after < 8           # early stopping fired
+    calls = _count_steps(monkeypatch)
+    calls["fail_at"] = 4              # in epoch 2 (3 steps an epoch)
+    ckdir = str(tmp_path / "ck")
+    with pytest.raises(InjectedFault):
+        _learner(checkpointDir=ckdir, **kw).fit(frame)
+    es = TrainCheckpointer(ckdir).get_meta()["early_stop"]
+    assert len(es["history"]) == 1 and not es["stopped"]
+    calls["fail_at"] = None
+    resumed = _learner(checkpointDir=ckdir, **kw).fit(frame)
+    assert resumed.validation_history == ref.validation_history
+    _params_equal(ref, resumed)
+    assert TrainCheckpointer(ckdir).get_meta()["early_stop"]["stopped"]
+
+
+def test_resumed_fit_tracks_the_jax_fit(tmp_path, monkeypatch):
+    """A port fit killed mid-epoch and resumed from its checkpoint ends
+    within the epoch-by-epoch test's tolerance (rtol 1e-4) of the JAX
+    package's uninterrupted fit from the same init and batch order."""
+    from mmlspark_tpu_torch.reliability.faults import InjectedFault
+    X, y = _xor(n=128, seed=7)
+    kw = dict(architecture="mlp_tabular", architectureArgs={"hidden": [16]},
+              batchSize=32, epochs=2, learningRate=3e-3,
+              trainDtype="float32", deviceCache="off")
+    jl = JaxDeepClassifier(meshSpec=data_parallel_mesh(jax.devices()[:1]),
+                           **kw)
+    jl.set_params(featuresCol="features", labelCol="label")
+    jmodel = jl.fit(JaxFrame.from_dict({"features": X, "label": y}))
+    jparams = _jax_init(6, hidden=[16], num_classes=2, dtype="float32")
+    monkeypatch.setattr(tdeep._DeepEstimatorBase, "_init_params",
+                        lambda self, module, seed: from_jax_params(jparams))
+    calls = _count_steps(monkeypatch)
+    calls["fail_at"] = 6
+    frame = Frame.from_dict({"features": X, "label": y})
+    ckdir = str(tmp_path / "ck")
+    with pytest.raises(InjectedFault):
+        _learner(checkpointDir=ckdir, checkpointEvery=2, **kw).fit(frame)
+    calls["fail_at"] = None
+    tmodel = _learner(checkpointDir=ckdir, checkpointEvery=2,
+                      **kw).fit(frame)
+    for k, v in from_jax_params(jmodel._state["params"]).items():
+        np.testing.assert_allclose(tmodel._state["params"][k], v,
+                                   rtol=1e-4, atol=1e-6)

@@ -357,9 +357,25 @@ def test_stage_matches_the_jax_package(case):
 
 
 def test_checkpoint_to_disk_is_not_ported_yet():
-    frame = Frame.from_dict(_basic())
-    with pytest.raises(NotImplementedError, match="DiskFrame"):
-        tstages.CheckpointData(diskIncluded=True).transform(frame)
+    """``CheckpointData(diskIncluded=True)`` is ported now (the name is
+    kept from when it raised): numeric columns stage as a DiskFrame with
+    the JAX package's rows, and ``removeCheckpoint`` brings them back in
+    memory; object columns are refused as the reference refuses them."""
+    from mmlspark_tpu_torch.core.disk import DiskFrame
+    data = {"x": np.arange(12, dtype=np.float32).reshape(6, 2),
+            "n": np.arange(6, dtype=np.int64)}
+    want = jstages.CheckpointData(diskIncluded=True).transform(
+        JFrame.from_dict(data, num_partitions=2))
+    got = tstages.CheckpointData(diskIncluded=True).transform(
+        Frame.from_dict(data, num_partitions=2))
+    assert isinstance(got, DiskFrame)
+    for name in ("x", "n"):
+        np.testing.assert_array_equal(got.column(name), want.column(name))
+    back = tstages.CheckpointData(removeCheckpoint=True).transform(got)
+    assert type(back) is Frame and back.count() == 6
+    with pytest.raises(Exception, match="numeric"):
+        tstages.CheckpointData(diskIncluded=True).transform(
+            Frame.from_dict(_basic()))
 
 
 # -- read_csv ----------------------------------------------------------------

@@ -26,7 +26,9 @@ from mmlspark_tpu.image.featurizer import ImageFeaturizer as JImageFeaturizer
 from mmlspark_tpu.models.jax_model import JaxModel
 from mmlspark_tpu.models.zoo import build_model as jbuild
 from mmlspark_tpu_torch.core.frame import Frame
-from mmlspark_tpu_torch.core.schema import ColumnSchema, DType, ImageValue
+from mmlspark_tpu_torch.core.schema import (
+    ColumnSchema, DType, ImageValue, SchemaError,
+)
 from mmlspark_tpu_torch.core.serialization import load_stage, save_stage
 from mmlspark_tpu_torch.image.featurizer import ImageFeaturizer
 from mmlspark_tpu_torch.image.transformer import ImageTransformer
@@ -275,11 +277,13 @@ def test_unported_options_raise():
     model.set_model("resnet20_cifar", **ARCH)
     with pytest.raises(NotImplementedError, match="named layer"):
         model.transform(frame)
+    # binary input decodes now (io/codecs.py); bytes no codec reads are
+    # refused as the reference refuses them
     tframe, _ = _frames(_u8_images(10, 1, 4, 4))
     binary = tframe.with_column_values(
         ColumnSchema("raw", DType.BINARY),
         np.array([b"\x89PNG"], dtype=object))
-    with pytest.raises(NotImplementedError, match="codecs"):
+    with pytest.raises(SchemaError, match="undecodable"):
         ImageTransformer(inputCol="raw", outputCol="img").transform(binary)
 
 

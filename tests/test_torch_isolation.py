@@ -34,10 +34,11 @@ def test_importing_every_port_module_loads_no_jax_and_no_jax_package():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    # every module: serve/ and compile_cache too, and the process fleet's
+    # every module: serve/ and compile_cache too, the process fleet's
     # cli, control/, testing/, supervisor, launcher, slo, goodput and
-    # preemption
-    assert int(count) >= 92
+    # preemption, and the streamed input and resume slice's codecs,
+    # native loader, data pipeline, checkpointer, resilient loop and disk
+    assert int(count) >= 98
     assert bad == "[]", bad
 
 
@@ -249,3 +250,51 @@ def test_draft_entry_raises_instead_of_running_on_the_cpu(default_device):
     finally:
         tconfig.unset("generate.draft_model")
         srv.close()
+
+
+def _linear():
+    import torch
+    return torch.nn.Linear(2, 2)
+
+
+def _loss(module, batch, gen):
+    return module(batch["x"]).sum()
+
+
+def test_resilient_train_loop_raises_instead_of_running_on_the_cpu(
+        default_device, tmp_path):
+    """A loop's trainer resolves ``runtime.device``: without CUDA the loop
+    cannot be built over one, so no step or checkpoint ever lands on the
+    CPU unasked."""
+    from mmlspark_tpu_torch.parallel.checkpoint import TrainCheckpointer
+    from mmlspark_tpu_torch.parallel.optim import sgd
+    from mmlspark_tpu_torch.parallel.trainer import DistributedTrainer
+    from mmlspark_tpu_torch.reliability.resilient import ResilientTrainLoop
+    ckpt = TrainCheckpointer(str(tmp_path / "ck"))
+    try:
+        with pytest.raises(RuntimeError, match="is_available"):
+            ResilientTrainLoop(DistributedTrainer(_loss, sgd(0.1)), ckpt,
+                               _linear, save_every=1)
+    finally:
+        ckpt.close()
+
+
+def test_checkpoint_restore_raises_instead_of_loading_onto_the_cpu(
+        default_device, tmp_path):
+    """A checkpoint written on the CPU (asked for explicitly) does not
+    restore onto the CPU by default: the restoring trainer resolves
+    ``runtime.device`` and raises without CUDA."""
+    from mmlspark_tpu_torch.parallel.checkpoint import TrainCheckpointer
+    from mmlspark_tpu_torch.parallel.optim import sgd
+    from mmlspark_tpu_torch.parallel.trainer import DistributedTrainer
+    cpu_trainer = DistributedTrainer(_loss, sgd(0.1), device="cpu")
+    ckpt = TrainCheckpointer(str(tmp_path / "ck"))
+    try:
+        ckpt.save(cpu_trainer.init(_linear), step=1, wait=True)
+        with pytest.raises(RuntimeError, match="is_available"):
+            ckpt.restore(DistributedTrainer(_loss, sgd(0.1)), _linear)
+        with pytest.raises(RuntimeError, match="is_available"):
+            ckpt.restore_or_init(DistributedTrainer(_loss, sgd(0.1)),
+                                 _linear)
+    finally:
+        ckpt.close()

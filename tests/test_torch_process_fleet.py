@@ -265,11 +265,21 @@ def _reference_on_cpu():
 
 
 def test_cli_serve_refuses_the_unported_watchdog(monkeypatch):
+    """The watchdog's monitor is ported now (the name is kept from when
+    ``cli serve`` refused a stall timeout): with one set, ``serve`` no
+    longer exits at the watchdog and goes on to build its server, which
+    here, with ``runtime.device`` at its default and no card, raises the
+    port's no-CUDA error instead of running on the CPU."""
+    import torch
     from mmlspark_tpu_torch import cli
+    if torch.cuda.is_available():
+        pytest.skip("the check is for a machine without CUDA")
+    monkeypatch.delenv("MMLSPARK_TPU_TORCH_RUNTIME_DEVICE", raising=False)
     tconfig.set("reliability.stall_timeout_s", 1.0)
     try:
-        with pytest.raises(SystemExit, match="watchdog"):
-            cli.main(["serve", "--model", "m=mlp_tabular"])
+        with pytest.raises(RuntimeError, match="is_available"):
+            cli.main(["serve", "--model",
+                      'm=mlp_tabular:{"input_dim": 4}'])
     finally:
         tconfig.unset("reliability.stall_timeout_s")
 

@@ -313,7 +313,7 @@ def test_train_step_has_a_fault_site():
         tr.train_step(state, batch)
         with pytest.raises(InjectedFault):
             tr.train_step(state, batch)
-    assert plan.triggered == [("trainer.train_step", 2)]
+    assert plan.triggered == [("trainer.train_step", 2, "raise")]
     assert int(state["step"]) == 1
 
 
