@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py                      # as the chip check runs it
     python3 chip_smoke.py --profile <dir>      # plus profiled warm passes
+    python3 chip_smoke.py --mesh-only [--mesh-cards 4]   # the mesh phase
 
-Seven paths, each through the entry points a user calls:
+Eight paths, each through the entry points a user calls:
 
 - serving, the README's transfer-learning quickstart: an
   ``ImageFeaturizer`` with a ResNet-50 (random weights from a seed) scores
@@ -57,7 +58,13 @@ Seven paths, each through the entry points a user calls:
   (ResNet-20, K1 in every step) with ``TrainCheckpointer`` saves; a
   SIGKILLed child's run is finished by a fresh process, bit-equal to an
   uninterrupted one, and ``DeepClassifier(checkpointDir=...)`` resumes a
-  fit over a ``DiskFrame`` the same way.
+  fit over a ``DiskFrame`` the same way;
+- meshed training: ``python -m mmlspark_tpu_torch.cli run chip_smoke.py
+  --nprocs 2`` starts two ranks (``--mesh-child``) sharing the card over
+  gloo; each builds ``DeviceMesh``es, places ``transformer_lm``'s shards
+  by the sharding rules and trains it split over ``tensor`` (K3 on each
+  rank's heads) and over ``seq`` (Ulysses' all-to-all, then K3), and
+  ResNet-20 data parallel (K1 on each rank's half of the batch).
 
 The script:
 
@@ -309,7 +316,38 @@ The script:
     state and for ``transformer_lm``'s adamw state; C's spawn-to-first-
     step ms split into imports, CUDA context, restore and pipeline seek;
     whether the native codec built (and its build error if not);
-20. prints the kernel table line (each kernel's launches on each of its
+20. ``mesh``: first the one-rank runs the meshed ones are held against
+    (the same seed-0 params and batches, the trainer without a mesh),
+    then two ranks sharing the card over gloo (NCCL refuses two ranks on
+    one device), started by ``cli run --nprocs 2 --platform cuda``, each
+    on ``cuda:0``: ``transformer_lm`` at the zoo's width (bf16, global
+    batch 8 of 2048 ids from a resident epoch split over the data axes,
+    adam(1e-3), ``next_token_loss``) at ``tensor=2`` and at ``seq=2``
+    with Ulysses, 3 warm-up and 8 timed steps each (step ms, tokens/s a
+    rank, counted syncs in the window: 0, host copies); the fp32 gate at
+    depth 2 (global batch 4, 5 steps, TF32 off) at ``tensor=2``,
+    ``seq=2`` Ulysses and ``seq=2`` ring; a checkpoint saved at
+    ``tensor=2``, restored at ``data=2`` and back (``TrainCheckpointer``
+    gathers to rank 0), 2 steps on each; ResNet-20 bf16 data parallel
+    (the train cell's 4,096 images, global batch 256, sgd(0.1, momentum
+    0.9), one epoch of 16 steps, K1 on each rank's 128 rows) and its fp32
+    twin (TF32 off). Gates: (a) bf16 LM losses within
+    ``LM_BF16_TRAIN_TOL`` of the one-rank run, fp32 within
+    ``MESH_F32_TOL``; (b) every rank's ``flash_attention_tc`` 6 a step
+    (11 steps), ``flash_attention`` 2 a step under tensor and Ulysses and
+    none under the ring, K1 once a ResNet step, no other kernel; (c) every
+    restore equal to the save bit for bit, on the new mesh's shards; (d)
+    both ranks' ResNet parameters bit-equal after the epoch (bf16 and
+    fp32); against one rank the first step's loss (bf16 within
+    ``LM_BF16_TRAIN_TOL``, fp32 within ``MESH_F32_TOL``) and the fp32
+    first update (norm-wise within ``MESH_UPDATE_TOL`` of the update):
+    the run is chaotic beyond it, every step's loss difference printed. Printed: the ranks' devices,
+    spawn-to-mesh ms, allocator bytes, images/s a rank, all labelled as
+    two ranks sharing one card (not a scaling figure). ``--mesh-only
+    --mesh-cards 4`` runs just this phase on four cards, one rank a card
+    over NCCL, at ``data=2 x tensor=2``, ``data=2 x seq=2`` and
+    ResNet-20 at ``data=4`` (it raises with fewer cards);
+21. prints the kernel table line (each kernel's launches on each of its
     paths), the card's name and power limit, and last ``{"ok": true,
     "device": {...}}``.
 
@@ -478,6 +516,36 @@ SR_WINDOW, SR_WORKERS, SR_CHILD_TIMEOUT_S = 1024, 4, 300
 SR_DEEP_EVERY, SR_DEEP_FAULT_AT = 100, 333
 # the timed run_dataset runs (3 at save_every 0, 3 at 5): one epoch each
 SR_TIMED_STEPS = 16
+# mesh: meshed training. On one card two ranks share it over gloo (NCCL
+# refuses two ranks on one device, "Duplicate GPU detected", probed on the
+# card's machine); with --mesh-cards 4 one rank a card over NCCL.
+# transformer_lm at the zoo's width (bf16, global batch 8, adam(1e-3)):
+# 3 warm-up and 8 timed steps a mesh; the fp32 gate at depth 2 (global
+# batch 4, 5 steps, TF32 off); ResNet-20 data parallel over the train
+# cell's 4,096 images at global batch 256, one epoch of 16 steps, K1 in
+# the loss; a checkpoint saved on one mesh shape, restored on another and
+# back, 2 steps on each. A launch of the ranks is killed after
+# MESH_CHILD_TIMEOUT_S.
+MESH_LM_BATCH, MESH_LM_WARMUP, MESH_LM_STEPS = 8, 3, 8
+MESH_F32_BATCH, MESH_F32_STEPS, MESH_CKPT_STEPS = 4, 5, 2
+MESH_RESNET_STEPS, MESH_CHILD_TIMEOUT_S = 16, 420
+# gates, each the largest relative difference of a per-step loss from the
+# one-rank run on the same params and batches: bf16 LM_BF16_TRAIN_TOL (a
+# quarter of one bf16 step: the split layers round their partial sums in
+# bf16 at other places); fp32 1e-5 (sums reordered over ranks, TF32 off).
+# ResNet-20 on these random images is chaotic: on the CPU a 1e-7 change of
+# one weight moves the one-device loss by 3e-6 at step 3 and 6e-3 by step
+# 12 (sgd 0.1, momentum 0.9; 2e-4 by step 16 at sgd 0.01), and the card's
+# first data-parallel run read 2.3e-5 within 3 fp32 steps. So its data
+# parallel update is held where chaos has not acted: the first step's
+# loss (the forward of the same weights; bf16 within LM_BF16_TRAIN_TOL,
+# fp32 within MESH_F32_TOL) and the fp32 first update, norm-wise within
+# MESH_UPDATE_TOL of the update itself: a conv's weight gradient sums
+# 262,144 products (256 images x 32 x 32), which other batch splits and
+# algorithms add in other orders, about sqrt(n) * 2^-24 = 3e-5 of their
+# magnitude and more where they cancel (the card read 5.2e-4 at data 2,
+# the CPU 8.9e-7); every step's loss is printed
+MESH_F32_TOL, MESH_UPDATE_TOL = 1e-5, 1e-3
 # fp32 operations per output element of the crop-resize-normalize kernel:
 # two row lerps (3 each), one column lerp (3), rint, clamp (2), subtract,
 # multiply
@@ -4710,6 +4778,488 @@ def phase_stream_resume(torch, kernels, card) -> dict:
             "C": c["launches"]["fused_normalize"]}
 
 
+def _mesh_configs(cards: int) -> dict:
+    """The meshes of each run: on one card two ranks (tensor 2, seq 2),
+    on four (data 2 x tensor 2, data 2 x seq 2, data 4)."""
+    if cards == 1:
+        lm = [("tensor2", {"data": 1, "tensor": 2}, "full"),
+              ("seq2_ulysses", {"data": 1, "seq": 2}, "ulysses")]
+        ring = ("seq2_ring", {"data": 1, "seq": 2}, "ring")
+        return {"lm": lm, "f32": lm + [ring], "resnet": {"data": 2},
+                "ckpt": ["1x2", "2x1", "1x2"]}
+    lm = [("data2_tensor2", {"data": 2, "tensor": 2}, "full"),
+          ("data2_seq2_ulysses", {"data": 2, "seq": 2}, "ulysses")]
+    ring = ("data2_seq2_ring", {"data": 2, "seq": 2}, "ring")
+    return {"lm": lm, "f32": lm + [ring], "resnet": {"data": cards},
+            "ckpt": ["2x2", "4x1", "2x2"]}
+
+
+def _mesh_lm_ids(batch, steps) -> np.ndarray:
+    return np.random.default_rng(5).integers(
+        0, LM_VOCAB, (batch * steps, LM_LEN)).astype(np.int64)
+
+
+def _mesh_lm(torch, kernels, mesh, impl, f32, warmup, steps):
+    """transformer_lm (bf16 at the zoo's width, or fp32 at depth 2) from
+    the seed-0 host init, adam(1e-3), next-token cross-entropy, batches
+    from a resident epoch (each rank's block of it on a mesh). Returns
+    the per-step losses, the timed steps' ms, the counted syncs in the
+    timed window, and the launches of the steps."""
+    from mmlspark_tpu_torch.models.zoo import build_model, init_state
+    from mmlspark_tpu_torch.models.zoo.transformer import next_token_loss
+    from mmlspark_tpu_torch.observability import syncs
+    from mmlspark_tpu_torch.parallel.mesh import mesh_shape
+    from mmlspark_tpu_torch.parallel.optim import adam
+    from mmlspark_tpu_torch.parallel.sequence import make_attention_fn
+    from mmlspark_tpu_torch.parallel.trainer import (
+        DeviceEpochCache, DistributedTrainer,
+    )
+    arch = dict(dtype="float32", depth=LM_F32_DEPTH) if f32 \
+        else dict(dtype="bfloat16")
+    batch = MESH_F32_BATCH if f32 else MESH_LM_BATCH
+    seq = "seq" if mesh is not None and mesh_shape(mesh)["seq"] > 1 \
+        else None
+    attn = make_attention_fn(mesh, impl) if mesh is not None else None
+
+    def init_fn():
+        module = build_model("transformer_lm", attention_fn=attn,
+                             **arch)["module"]
+        module.load_state_dict({k: torch.from_numpy(v) for k, v in
+                                init_state(module, seed=0).items()})
+        return module
+    trainer = DistributedTrainer(
+        lambda m, b, g: next_token_loss(m, b["ids"]), adam(1e-3),
+        mesh=mesh, seq_axis=seq)
+    state = trainer.init(init_fn)
+    cache = DeviceEpochCache({"ids": _mesh_lm_ids(batch, warmup + steps)},
+                             batch, mesh=mesh, seq_axis=seq)
+    batches = list(cache.batches(0))
+    kernels.reset_launches()
+    losses = []
+    for b in batches[:warmup]:
+        state, m = trainer.train_step(state, b, 0)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    sync0, t0 = syncs.total(), time.perf_counter()
+    for b in batches[warmup:]:
+        state, m = trainer.train_step(state, b, 0)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / max(steps, 1)
+    window_syncs = syncs.total() - sync0
+    launches = _launches(kernels)
+    out = {"losses": [float(x) for x in torch.stack(losses).cpu()],
+           "step_ms": step_ms, "window_syncs": window_syncs,
+           "launches": launches, "tokens_per_step": batch * LM_LEN}
+    if mesh is not None and not f32 and \
+            torch.distributed.get_backend() == "nccl":
+        # NCCL's kernels' device time a step, over two profiled steps
+        # after the counted ones (gloo's collectives run on the host)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for b in batches[-2:]:
+                state, m = trainer.train_step(state, b, 0)
+            torch.cuda.synchronize()
+        nccl_us = sum(getattr(e, "device_time_total", 0)
+                      for e in prof.key_averages()
+                      if "nccl" in e.key.lower())
+        out["nccl_ms_per_step"] = nccl_us / 1e3 / 2
+    return out
+
+
+def _mesh_resnet(torch, kernels, mesh, f32=False):
+    """ResNet-20 (bf16, or fp32 with ``f32``; seed-0 init), sgd(0.1,
+    momentum 0.9), K1 in the loss, one unshuffled epoch of the train
+    cell's images at batch 256 through a (meshed) DeviceEpochCache.
+    Returns the losses, the step ms, the launches and the final
+    parameters (host fp32)."""
+    import torch.nn.functional as F
+    from mmlspark_tpu_torch.models.zoo import build_model, init_state
+    from mmlspark_tpu_torch.ops.preprocess import make_preprocess_fn
+    from mmlspark_tpu_torch.parallel.optim import sgd
+    from mmlspark_tpu_torch.parallel.trainer import (
+        DeviceEpochCache, DistributedTrainer,
+    )
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (TRAIN_ROWS, math.prod(TRAIN_SHAPE)),
+                          dtype=np.uint8)
+    labels = rng.integers(0, 10, TRAIN_ROWS).astype(np.int32)
+    dtype = torch.float32 if f32 else torch.bfloat16
+    pre = make_preprocess_fn(TRAIN_SHAPE, CIFAR_MEAN, CIFAR_STD,
+                             out_dtype=dtype)
+
+    def init_fn():
+        module = build_model("resnet20_cifar", num_classes=10,
+                             dtype=dtype)["module"]
+        module.load_state_dict({k: torch.from_numpy(v) for k, v in
+                                init_state(module, seed=0).items()})
+        return module
+
+    def loss_fn(module, batch, gen):
+        return F.cross_entropy(module(pre(batch["image"])).float(),
+                               batch["label"].long())
+    trainer = DistributedTrainer(loss_fn, sgd(0.1, momentum=0.9), mesh=mesh)
+    state = trainer.init(init_fn)
+    cache = DeviceEpochCache({"image": images, "label": labels},
+                             TRAIN_BATCH, mesh=mesh)
+    kernels.reset_launches()
+    losses, first = [], None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in list(cache.batches(0))[:MESH_RESNET_STEPS]:
+        state, m = trainer.train_step(state, b, 0)
+        losses.append(m["loss"])
+        if first is None and f32:
+            first = {n: p.detach().cpu().numpy().copy()
+                     for n, p in state["module"].named_parameters()}
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / MESH_RESNET_STEPS
+    launches = _launches(kernels)
+    return {"losses": [float(x) for x in torch.stack(losses).cpu()],
+            "step_ms": step_ms, "launches": launches,
+            "local_rows": cache.local_batch, "first_update": first,
+            "params": {n: p.detach().float().cpu().numpy()
+                       for n, p in state["module"].named_parameters()}}
+
+
+def _mesh_checkpoint(torch, kernels, shapes, directory) -> dict:
+    """The fp32 depth-2 LM: MESH_CKPT_STEPS steps on each mesh shape in
+    turn, saved at the end of each and restored on the next; each
+    restore's whole parameters must equal the saved ones bit for bit."""
+    from mmlspark_tpu_torch.models.zoo import build_model, init_state
+    from mmlspark_tpu_torch.models.zoo.transformer import next_token_loss
+    from mmlspark_tpu_torch.parallel.checkpoint import TrainCheckpointer
+    from mmlspark_tpu_torch.parallel.mesh import make_mesh, parse_mesh_shape
+    from mmlspark_tpu_torch.parallel.optim import adam
+    from mmlspark_tpu_torch.parallel.sharding import whole_state_dict
+    from mmlspark_tpu_torch.parallel.trainer import DistributedTrainer
+    arch = dict(dtype="float32", depth=LM_F32_DEPTH)
+
+    def init_fn():
+        module = build_model("transformer_lm", **arch)["module"]
+        module.load_state_dict({k: torch.from_numpy(v) for k, v in
+                                init_state(module, seed=0).items()})
+        return module
+    ids = _mesh_lm_ids(MESH_F32_BATCH, MESH_CKPT_STEPS * len(shapes))
+    saved, out = None, []
+    for i, shape in enumerate(shapes):
+        mesh = make_mesh(parse_mesh_shape(shape))
+        trainer = DistributedTrainer(
+            lambda m, b, g: next_token_loss(m, b["ids"]), adam(1e-3),
+            mesh=mesh)
+        ckpt = TrainCheckpointer(directory)
+        state = trainer.init(init_fn) if i == 0 else \
+            ckpt.restore(trainer, init_fn)
+        whole = whole_state_dict(state["module"])
+        equal = saved is None or all(torch.equal(whole[k].cpu(), v)
+                                     for k, v in saved.items())
+        losses = []
+        for j in range(MESH_CKPT_STEPS):
+            rows = ids[(i * MESH_CKPT_STEPS + j) * MESH_F32_BATCH:][
+                :MESH_F32_BATCH]
+            state, m = trainer.train_step(
+                state, trainer.put_batch({"ids": rows}), 0)
+            losses.append(float(m["loss"]))
+        saved = {k: v.cpu() for k, v in
+                 whole_state_dict(state["module"]).items()}
+        ckpt.save(state, wait=True)
+        ckpt.close()
+        out.append({"mesh": shape, "restored_equal": equal,
+                    "losses": losses, "step": int(state["step"]),
+                    "local_query_rows": int(
+                        state["module"].block0.attn_query.weight.shape[0])})
+    return out
+
+
+def mesh_child(spec: dict) -> int:
+    """One rank of the mesh phase, started by ``cli run --nprocs`` (the
+    process group is joined and ``runtime.device`` set): every run of
+    the phase on its mesh, each with the counts zeroed just before and
+    read just after; writes its results beside the others'."""
+    import torch
+    import torch.distributed as dist
+    from mmlspark_tpu_torch import kernels
+    from mmlspark_tpu_torch.parallel import collectives
+    from mmlspark_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from mmlspark_tpu_torch.utils import config
+    rank, world = dist.get_rank(), dist.get_world_size()
+    card = config.resolve_device()
+    torch.cuda.set_device(card)
+    kernels.build_all()
+    configs = _mesh_configs(spec["cards"])
+    out = {"rank": rank, "world": world, "device": str(card),
+           "card_name": torch.cuda.get_device_name(card),
+           "backend": dist.get_backend(), "lm": {}, "f32": {}}
+    make_mesh(MeshSpec(data=-1))
+    out["spawn_to_mesh_ms"] = (time.time() - spec["spawn_t"]) * 1e3
+    torch.cuda.reset_peak_memory_stats(card)
+    for name, axes, impl in configs["lm"]:
+        collectives.reset_host_copies()
+        run = _mesh_lm(torch, kernels, make_mesh(MeshSpec(**axes)), impl,
+                       False, MESH_LM_WARMUP, MESH_LM_STEPS)
+        run["host_copies"] = collectives.host_copies()
+        out["lm"][name] = run
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for name, axes, impl in configs["f32"]:
+        out["f32"][name] = _mesh_lm(torch, kernels,
+                                    make_mesh(MeshSpec(**axes)), impl, True,
+                                    0, MESH_F32_STEPS)
+    out["checkpoint"] = _mesh_checkpoint(
+        torch, kernels, configs["ckpt"], os.path.join(spec["work"], "ckpt"))
+    f32_resnet = _mesh_resnet(torch, kernels,
+                              make_mesh(MeshSpec(**configs["resnet"])), True)
+    np.savez(os.path.join(spec["work"], f"resnet_f32_rank{rank}.npz"),
+             **f32_resnet.pop("params"))
+    np.savez(os.path.join(spec["work"], f"resnet_f32_first_rank{rank}.npz"),
+             **f32_resnet.pop("first_update"))
+    out["resnet_f32"] = f32_resnet
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    collectives.reset_host_copies()
+    res = _mesh_resnet(torch, kernels,
+                       make_mesh(MeshSpec(**configs["resnet"])))
+    res["host_copies"] = collectives.host_copies()
+    res.pop("first_update")
+    np.savez(os.path.join(spec["work"], f"resnet_rank{rank}.npz"),
+             **res.pop("params"))
+    out["resnet"] = res
+    out["max_allocated_bytes"] = int(torch.cuda.max_memory_allocated(card))
+    with open(os.path.join(spec["work"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _mesh_reference(torch, kernels) -> dict:
+    """The one-rank, one-card runs the meshed ones are held against: the
+    same params, batches and steps through the trainer without a mesh."""
+    ref = {"lm": _mesh_lm(torch, kernels, None, "full", False,
+                          MESH_LM_WARMUP, MESH_LM_STEPS)}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ref["f32"] = _mesh_lm(torch, kernels, None, "full", True, 0,
+                          MESH_F32_STEPS)
+    ref["resnet_f32"] = _mesh_resnet(torch, kernels, None, True)
+    from mmlspark_tpu_torch.models.zoo import build_model, init_state
+    ref["resnet_f32"]["init"] = init_state(build_model(
+        "resnet20_cifar", num_classes=10, dtype="float32")["module"], seed=0)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    ref["resnet"] = _mesh_resnet(torch, kernels, None)
+    torch.cuda.empty_cache()
+    return ref
+
+
+def phase_mesh(torch, kernels, card, cards: int = 1) -> dict:
+    """Meshed training (see the module docstring, phase 20): the
+    one-rank reference here, then ``cards`` ranks (two sharing this
+    card when ``cards`` is 1) through ``python -m mmlspark_tpu_torch.cli
+    run chip_smoke.py --nprocs N --platform cuda -- --mesh-child SPEC``.
+    Returns each kernel's launches per rank and run."""
+    import shutil
+    import signal
+    import tempfile
+    if cards > 1 and torch.cuda.device_count() < cards:
+        raise RuntimeError(f"--mesh-cards {cards} needs {cards} cards; "
+                           f"{torch.cuda.device_count()} are visible")
+    t_phase = time.perf_counter()
+    ref = _mesh_reference(torch, kernels)
+    ranks_n = 2 if cards == 1 else cards
+    backend = "gloo" if cards == 1 else "nccl"
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh-")
+    print(f"mesh: work dir {work}", file=sys.stderr, flush=True)
+    spec = {"cards": cards, "work": work, "spawn_t": time.time()}
+    env = dict(os.environ, MMLSPARK_TPU_TORCH_RUNTIME_DIST_BACKEND=backend)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    argv = [sys.executable, "-m", "mmlspark_tpu_torch.cli", "run",
+            os.path.abspath(__file__), "--nprocs", str(ranks_n),
+            "--platform", "cuda", "--", "--mesh-child", json.dumps(spec)]
+    proc = subprocess.Popen(argv, cwd=root, env=env, start_new_session=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    try:
+        log, _ = proc.communicate(timeout=MESH_CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        log, _ = proc.communicate()
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    ranks_s = time.perf_counter() - t_phase
+    if proc.returncode != 0:
+        print(log[-6000:], file=sys.stderr, flush=True)
+    _check(proc.returncode == 0, f"mesh ranks exited {proc.returncode}")
+    ranks = []
+    for r in range(ranks_n):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    stated = [json.loads(line) for line in log.splitlines()
+              if line.startswith('{"rank"')]
+    out = _mesh_report(kernels, cards, ref, ranks, work, stated=stated,
+                       ranks_s=ranks_s, backend=backend,
+                       phase_s=time.perf_counter() - t_phase)
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def _mesh_report(kernels, cards, ref, ranks, work, **extra) -> dict:
+    """The mesh phase's gates over the ranks' results, and its line
+    (printed with the failed gates, which then fail the phase)."""
+    ranks_n = len(ranks)
+    failed = []
+
+    def _check(ok, what):
+        if not ok:
+            failed.append(what)
+    tc, f32, k1 = (kernels.FLASH_ATTENTION_TC.name,
+                   kernels.FLASH_ATTENTION.name, kernels.FUSED_NORMALIZE.name)
+    steps = MESH_LM_WARMUP + MESH_LM_STEPS
+    report = {"lm": {}, "f32": {}}
+    # bf16 LM: losses against the one-rank run, K3's tensor-core kernel 6
+    # times a step on every rank, no other kernel, no counted sync between
+    # the timed steps (no flush falls in the window)
+    for name, _, _ in _mesh_configs(cards)["lm"]:
+        runs = [r["lm"][name] for r in ranks]
+        rel = max(_max_step_rel(run["losses"], ref["lm"]["losses"])
+                  for run in runs)
+        _check(rel <= LM_BF16_TRAIN_TOL,
+               f"mesh {name}: bf16 losses {rel} from one rank")
+        for run in runs:
+            _check(run["launches"] == _want(kernels, FLASH_ATTENTION_TC=
+                                            LM_DEPTH * steps),
+                   f"mesh {name}: launches {run['launches']}")
+            _check(run["window_syncs"] == 0,
+                   f"mesh {name}: {run['window_syncs']} counted syncs")
+        step_ms = max(run["step_ms"] for run in runs)
+        report["lm"][name] = dict(
+            max_step_rel=rel, losses=runs[0]["losses"],
+            step_ms=[run["step_ms"] for run in runs],
+            tokens_per_s_per_rank=runs[0]["tokens_per_step"]
+            / (step_ms / 1e3) / ranks_n,
+            one_rank_step_ms=ref["lm"]["step_ms"],
+            one_rank_tokens_per_s=ref["lm"]["tokens_per_step"]
+            / (ref["lm"]["step_ms"] / 1e3),
+            window_syncs=[run["window_syncs"] for run in runs],
+            nccl_ms_per_step=[run.get("nccl_ms_per_step") for run in runs],
+            transport_host_copies=[run["host_copies"] for run in runs],
+            launches={f"rank{r}": run["launches"][tc]
+                      for r, run in enumerate(runs)})
+    # the fp32 gate: 1e-5, K3's CUDA-core kernel twice a step but none
+    # under the ring (plain torch, as the reference's jnp body)
+    for name, _, impl in _mesh_configs(cards)["f32"]:
+        runs = [r["f32"][name] for r in ranks]
+        rel = max(_max_step_rel(run["losses"], ref["f32"]["losses"])
+                  for run in runs)
+        _check(rel <= MESH_F32_TOL, f"mesh {name}: fp32 losses {rel}")
+        want = _want(kernels, FLASH_ATTENTION=0 if impl == "ring" else
+                     LM_F32_DEPTH * MESH_F32_STEPS)
+        for run in runs:
+            _check(run["launches"] == want,
+                   f"mesh {name} fp32: launches {run['launches']}")
+        report["f32"][name] = dict(
+            max_step_rel=rel, launches={f"rank{r}": run["launches"][f32]
+                                        for r, run in enumerate(runs)})
+    # ResNet-20 data parallel: K1 once a step on each rank's rows, every
+    # rank's parameters bit-equal, the losses near the one-rank run's
+    res = [r["resnet"] for r in ranks]
+    params = [np.load(os.path.join(work, f"resnet_rank{r}.npz"))
+              for r in range(ranks_n)]
+    bit_equal = all(np.array_equal(p[k], params[0][k])
+                    for p in params[1:] for k in params[0].files)
+    _check(bit_equal, "mesh resnet: ranks' parameters differ")
+    rel = max(_max_step_rel(run["losses"], ref["resnet"]["losses"])
+              for run in res)
+    first = max(_max_step_rel(run["losses"][:1], ref["resnet"]["losses"][:1])
+                for run in res)
+    _check(first <= LM_BF16_TRAIN_TOL, f"mesh resnet: first loss {first}")
+    per_step = [_max_step_rel([a], [b]) for a, b in
+                zip(res[0]["losses"], ref["resnet"]["losses"])]
+    param_diff = max(float(np.max(np.abs(params[0][k] -
+                                          ref["resnet"]["params"][k])))
+                     for k in params[0].files)
+    for run in res:
+        _check(run["launches"] == _want(kernels, FUSED_NORMALIZE=
+                                        MESH_RESNET_STEPS),
+               f"mesh resnet: launches {run['launches']}")
+        _check(run["local_rows"] == TRAIN_BATCH // ranks_n,
+               f"mesh resnet: {run['local_rows']} rows a rank")
+    # the fp32 twin (TF32 off): the data-parallel sums alone
+    res32 = [r["resnet_f32"] for r in ranks]
+    params32 = [np.load(os.path.join(work, f"resnet_f32_rank{r}.npz"))
+                for r in range(ranks_n)]
+    rel32 = max(_max_step_rel(run["losses"], ref["resnet_f32"]["losses"])
+                for run in res32)
+    first32 = max(_max_step_rel(run["losses"][:1],
+                                ref["resnet_f32"]["losses"][:1])
+                  for run in res32)
+    _check(first32 <= MESH_F32_TOL, f"mesh resnet fp32: first loss {first32}")
+    per_step32 = [_max_step_rel([a], [b]) for a, b in
+                  zip(res32[0]["losses"], ref["resnet_f32"]["losses"])]
+    want = ref["resnet_f32"]["first_update"]
+    start = ref["resnet_f32"]["init"]
+    update = math.sqrt(sum(float(np.sum((want[k] - start[k]) ** 2))
+                           for k in want))
+    update_diff = max_abs = 0.0
+    for r in range(ranks_n):
+        got = np.load(os.path.join(work, f"resnet_f32_first_rank{r}.npz"))
+        update_diff = max(update_diff, math.sqrt(sum(
+            float(np.sum((got[k] - want[k]) ** 2)) for k in got.files)))
+        max_abs = max(max_abs, max(float(np.max(np.abs(got[k] - want[k])))
+                                   for k in got.files))
+    _check(update_diff <= MESH_UPDATE_TOL * update,
+           f"mesh resnet fp32: first update off by {update_diff} "
+           f"(norm of the update {update})")
+    _check(all(np.array_equal(p[k], params32[0][k]) for p in params32[1:]
+               for k in params32[0].files),
+           "mesh resnet fp32: ranks' parameters differ")
+    param_diff32 = max(float(np.max(np.abs(
+        params32[0][k] - ref["resnet_f32"]["params"][k])))
+        for k in params32[0].files)
+    step_ms = max(run["step_ms"] for run in res)
+    report["resnet"] = dict(
+        first_step_rel=first, step_rel=per_step, fp32_first_step_rel=first32,
+        fp32_first_update_rel=update_diff / update,
+        fp32_first_update_max_abs_diff=max_abs, fp32_step_rel=per_step32,
+        fp32_max_step_rel=rel32,
+        fp32_max_param_abs_diff_vs_one_rank=param_diff32,
+        mesh=_mesh_configs(cards)["resnet"], max_step_rel=rel,
+        ranks_bit_equal=bit_equal, max_param_abs_diff_vs_one_rank=param_diff,
+        step_ms=[run["step_ms"] for run in res],
+        images_per_s_per_rank=TRAIN_BATCH / (step_ms / 1e3) / ranks_n,
+        one_rank_images_per_s=TRAIN_BATCH
+        / (ref["resnet"]["step_ms"] / 1e3),
+        transport_host_copies=[run["host_copies"] for run in res],
+        launches={f"rank{r}": run["launches"][k1]
+                  for r, run in enumerate(res)})
+    # the checkpoint: every restore equal to the save, on the new shape
+    for r in ranks:
+        for i, c in enumerate(r["checkpoint"]):
+            _check(c["restored_equal"], f"mesh checkpoint {c['mesh']}: "
+                                        "restored params differ")
+            _check(c["step"] == MESH_CKPT_STEPS * (i + 1) and all(
+                math.isfinite(x) for x in c["losses"]),
+                f"mesh checkpoint {c['mesh']}: {c}")
+    report["checkpoint"] = [
+        {k: c[k] for k in ("mesh", "step", "local_query_rows",
+                           "restored_equal")}
+        for c in ranks[0]["checkpoint"]]
+    _line(phase="mesh", card=_smi(), cards=cards, ranks=ranks_n,
+          sharing=("two ranks share one card over gloo: the step times "
+                   "are not a scaling figure" if cards == 1 else
+                   "one rank a card over NCCL"),
+          devices=[r["device"] for r in ranks],
+          spawn_to_mesh_ms=[r["spawn_to_mesh_ms"] for r in ranks],
+          max_allocated_bytes=[r["max_allocated_bytes"] for r in ranks],
+          failed=failed, **report, **extra)
+    if failed:
+        raise RuntimeError(f"chip_smoke check failed: mesh: {failed}")
+    return {"tc": {n: v["launches"] for n, v in report["lm"].items()},
+            "f32": {n: v["launches"] for n, v in report["f32"].items()},
+            "k1": report["resnet"]["launches"]}
+
+
 def _profile_pass(torch, run, out_dir, name) -> None:
     """One warm ``run()`` under torch.profiler: the device time by kernel
     (top 25) and the device's busy share of the run, as a JSON line; the
@@ -4741,6 +5291,9 @@ def main() -> int:
     if "--stream-child" in sys.argv[1:]:
         return stream_child(json.loads(
             sys.argv[sys.argv.index("--stream-child") + 1]))
+    if "--mesh-child" in sys.argv[1:]:
+        return mesh_child(json.loads(
+            sys.argv[sys.argv.index("--mesh-child") + 1]))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4773,6 +5326,17 @@ def main() -> int:
         _check(not spills, f"{k.name} spills: {spills}")
 
     card = torch.device("cuda", 0)
+    if "--mesh-only" in sys.argv[1:]:
+        cards = 1
+        if "--mesh-cards" in sys.argv[1:]:
+            cards = int(sys.argv[sys.argv.index("--mesh-cards") + 1])
+        mesh = phase_mesh(torch, kernels, card, cards)
+        _line(mesh_launches=mesh)
+        print(_smi(), flush=True)
+        _line(ok=True, device={"platform": "gpu",
+                               "kind": torch.cuda.get_device_name(0),
+                               "count": torch.cuda.device_count()})
+        return 0
     k1 = phase_kernel_check_k1(torch, tpre, kernels.FUSED_NORMALIZE, card)
     k2 = phase_kernel_check(torch, tpre, kernels.CROP_RESIZE_NORMALIZE, card)
     k3 = phase_kernel_check_k3(torch, tatt, kernels, card)
@@ -4796,6 +5360,7 @@ def main() -> int:
     fleet = phase_fleet(torch, kernels, card, single)
     process_fleet = phase_process_fleet(torch, kernels, card, fleet)
     stream_resume = phase_stream_resume(torch, kernels, card)
+    mesh = phase_mesh(torch, kernels, card)
 
     k1k, k2k = kernels.FUSED_NORMALIZE, kernels.CROP_RESIZE_NORMALIZE
     tc, f32 = kernels.FLASH_ATTENTION_TC, kernels.FLASH_ATTENTION
@@ -4806,10 +5371,14 @@ def main() -> int:
         "launches": train[k1k.name],
         "launches_by_path": {"train": train[k1k.name],
                              "train_large": train_large[k1k.name],
-                             "stream_resume": stream_resume},
+                             "stream_resume": stream_resume,
+                             "mesh": mesh["k1"]},
         "launches_note": "stream_resume: each child's own run (A "
                          "uninterrupted, B up to its SIGKILL, C from its "
-                         "restored step); one launch a step",
+                         "restored step); one launch a step. mesh: each "
+                         "rank's ResNet-20 data-parallel steps (two ranks "
+                         "sharing the card), one launch a step on its "
+                         "half of the batch",
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
@@ -4856,7 +5425,11 @@ def main() -> int:
                              **{f"generate_{k}": v[tc.name]
                                 for k, v in generate.items()},
                              "fleet": fleet["bf16"][tc.name],
-                             "process_fleet": process_fleet[tc.name]},
+                             "process_fleet": process_fleet[tc.name],
+                             **{f"mesh_{k}": v
+                                for k, v in mesh["tc"].items()}},
+        "launches_note": "mesh_*: each rank's count over the 11 steps of "
+                         "a meshed transformer_lm run (6 a step)",
         "max_abs_err": k3["tc"]["max_abs_err"],
         "ms": k3["tc"]["ms"], "plain_ms": k3["tc"]["plain_ms"],
         "bound_ms": k3["tc"]["bound_ms"], "bound_by": k3["tc"]["bound_by"],
@@ -4872,7 +5445,9 @@ def main() -> int:
                              **{f"generate_fp32_{k}": v[f32.name]
                                 for k, v in generate32.items()},
                              "fleet_fp32": fleet["fp32"][f32.name],
-                             "process_fleet_fp32": process_fleet[f32.name]},
+                             "process_fleet_fp32": process_fleet[f32.name],
+                             **{f"mesh_fp32_{k}": v
+                                for k, v in mesh["f32"].items()}},
         "launches_note": "lm_score's fp32 pass (16 rows): f32 is this "
                          "route's input; the bf16 main paths launch it 0 "
                          "times",

@@ -1,4 +1,4 @@
-"""``mmlspark-tpu-torch`` CLI: serve, the process fleet and its offline tools.
+"""``mmlspark-tpu-torch`` CLI: serve, the process fleet, its offline tools, run.
 
 The port's copy of the serving half of ``mmlspark_tpu/cli.py``, with the
 reference's flags and stdout contract:
@@ -18,8 +18,17 @@ reference's flags and stdout contract:
 - ``autopilot replay``: the pure decision core re-run over recorded
   ``autopilot_signals`` events, ranked against candidate policies.
 
+- ``run``: a script in a ``torch.distributed`` process group, the
+  reference's launcher: ``--mesh`` sets ``runtime.mesh`` (which
+  ``mesh_from_config``, the trainer and ``DeepClassifier`` read),
+  ``--coordinator`` / ``--num-processes`` / ``--process-id`` (or
+  ``--hosts`` and ``--port``) join the group, ``--platform`` picks the
+  device (``cuda``: card ``local_rank % device_count``; ``cpu``), and
+  ``--nprocs N`` starts N local ranks of the same command and waits for
+  them. Each rank states its rank, device and backend on stderr.
+
 Workers run on ``runtime.device`` (``MMLSPARK_TPU_TORCH_RUNTIME_DEVICE``)
-and raise without CUDA unless it is ``cpu``. The reference's ``run``,
+and raise without CUDA unless it is ``cpu``. The reference's
 ``launch-pod``, ``info``, ``check``, ``bench``, ``chaos``, ``report`` and
 ``top`` are not ported yet (ROADMAP queue A).
 """
@@ -438,6 +447,174 @@ def cmd_autopilot(args, passthrough) -> int:
     return 0
 
 
+def _resolve_hosts(args) -> None:
+    """Fill the rendezvous from the environment and ``--hosts`` (the
+    reference's rules: host 0 coordinates, this host's index is
+    ``MMLSPARK_HOST_INDEX`` or its hostname's place in the list)."""
+    def env_int(name):
+        raw = os.environ.get(name)
+        if raw is None:
+            return None
+        try:
+            val = int(raw)
+        except ValueError:
+            raise SystemExit(f"{name}={raw!r} is not an integer")
+        if val < 0:
+            raise SystemExit(f"{name}={val} must be >= 0")
+        return val
+
+    if args.coordinator is None:
+        args.coordinator = os.environ.get("MMLSPARK_COORDINATOR")
+    if args.num_processes is None:
+        args.num_processes = env_int("MMLSPARK_NUM_PROCESSES")
+    if args.process_id is None:
+        args.process_id = env_int("MMLSPARK_PROCESS_ID")
+    if args.hosts:
+        hosts = [h.strip() for h in args.hosts.split(",") if h.strip()]
+        if not hosts:
+            raise SystemExit("--hosts: empty host list")
+        if args.coordinator is None:
+            args.coordinator = f"{hosts[0]}:{args.port}"
+        if args.num_processes is None:
+            args.num_processes = len(hosts)
+        if args.process_id is None:
+            if os.environ.get("MMLSPARK_HOST_INDEX") is not None:
+                args.process_id = env_int("MMLSPARK_HOST_INDEX")
+            else:
+                import socket
+                me = {socket.gethostname(), socket.getfqdn(),
+                      socket.gethostname().split(".")[0]}
+                matches = [i for i, h in enumerate(hosts)
+                           if h in me or h.split(".")[0] in me]
+                if len(matches) != 1:
+                    raise SystemExit(
+                        f"--hosts: cannot identify this host among {hosts} "
+                        f"(I am {sorted(me)}); set MMLSPARK_HOST_INDEX or "
+                        "pass --process-id")
+                args.process_id = matches[0]
+    if args.process_id is not None and args.num_processes is not None \
+            and args.process_id >= args.num_processes:
+        raise SystemExit(f"process id {args.process_id} out of range for "
+                         f"{args.num_processes} processes")
+
+
+def _run_local_ranks(args, passthrough) -> int:
+    """``--nprocs N``: N ranks of this command on this host (rendezvous on
+    a free localhost port, ``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE`` set),
+    waited for; the first rank to fail stops the others. Returns the
+    first non-zero exit code, else 0."""
+    import subprocess
+    import time
+    from mmlspark_tpu_torch.testing.ranks import free_port
+    n = args.nprocs
+    coordinator = f"127.0.0.1:{free_port()}"
+    procs = []
+    try:
+        for rank in range(n):
+            argv = [sys.executable, "-m", "mmlspark_tpu_torch.cli", "run",
+                    args.script, "--coordinator", coordinator,
+                    "--num-processes", str(n), "--process-id", str(rank)]
+            if args.mesh:
+                argv += ["--mesh", args.mesh]
+            if args.platform:
+                argv += ["--platform", args.platform]
+            env = dict(os.environ, LOCAL_RANK=str(rank),
+                       LOCAL_WORLD_SIZE=str(n))
+            procs.append(subprocess.Popen(argv + ["--"] + passthrough,
+                                          env=env))
+        rc = 0
+        while any(p.poll() is None for p in procs):
+            failed = [p.returncode for p in procs
+                      if p.returncode not in (None, 0)]
+            if failed:
+                rc = failed[0]
+                break
+            time.sleep(0.1)
+        return rc or next((p.returncode for p in procs if p.returncode),
+                          0)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            try:
+                p.wait(10)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+
+
+def cmd_run(args, passthrough) -> int:
+    """Run ``args.script`` as ``__main__`` inside the process group, with
+    ``runtime.mesh`` and the device set for it; both are restored when
+    the script ends."""
+    import runpy
+    from mmlspark_tpu_torch.utils import config
+    script = args.script
+    if not os.path.exists(script):
+        raise SystemExit(f"script not found: {script}")
+    if args.mesh:
+        from mmlspark_tpu_torch.parallel.mesh import parse_mesh_axes
+        try:
+            parse_mesh_axes(args.mesh)
+        except ValueError as e:
+            raise SystemExit(f"--mesh: {e}")
+    if args.nprocs:
+        if args.coordinator or args.hosts or args.process_id is not None:
+            raise SystemExit("--nprocs starts every rank on this host; it "
+                             "takes no --coordinator, --hosts or "
+                             "--process-id")
+        return _run_local_ranks(args, passthrough)
+    _resolve_hosts(args)
+    saved = {k: config._overrides.get(k) for k in ("runtime.mesh",
+                                                   "runtime.device")}
+    joined = False
+    try:
+        if args.mesh:
+            config.set("runtime.mesh", args.mesh)
+        if args.platform:
+            config.set("runtime.device", args.platform)
+        device = config.resolve_device()
+        if device.type == "cuda" and device.index is None:
+            import torch
+            local = int(os.environ.get("LOCAL_RANK", args.process_id or 0))
+            device = torch.device("cuda", local % torch.cuda.device_count())
+            config.set("runtime.device", str(device))
+            torch.cuda.set_device(device)
+        from mmlspark_tpu_torch.parallel import mesh as meshlib
+        was = meshlib.is_initialized()
+        try:
+            meshlib.initialize_multihost(args.coordinator,
+                                         args.num_processes, args.process_id)
+        except (ValueError, RuntimeError) as e:
+            raise SystemExit(str(e))
+        joined = meshlib.is_initialized() and not was
+        summary = meshlib.device_count_summary()
+        print(json.dumps({"rank": summary["process_index"],
+                          "world": summary["process_count"],
+                          "device": str(device),
+                          "backend": str(config.get("runtime.dist_backend"))
+                          if meshlib.is_initialized() else None}),
+              file=sys.stderr, flush=True)
+        saved_argv, saved_path = sys.argv, list(sys.path)
+        sys.argv = [script] + passthrough
+        sys.path.insert(0, os.path.dirname(os.path.abspath(script)))
+        try:
+            runpy.run_path(script, run_name="__main__")
+        finally:
+            sys.argv, sys.path[:] = saved_argv, saved_path
+    finally:
+        if joined:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+        for key, value in saved.items():
+            if value is None:
+                config.unset(key)
+            else:
+                config.set(key, value)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="mmlspark-tpu-torch",
@@ -586,6 +763,29 @@ def build_parser() -> argparse.ArgumentParser:
     loadgen_p.add_argument("--json", action="store_true",
                            help="emit the preview as one JSON object")
     loadgen_p.set_defaults(fn=cmd_loadgen)
+
+    run_p = sub.add_parser("run", help="run a script in the process group")
+    run_p.add_argument("script")
+    run_p.add_argument("--mesh", default="",
+                       help="axis sizes, e.g. data=-1,tensor=2 (-1 absorbs)")
+    run_p.add_argument("--coordinator", default=None,
+                       help="host:port of rank 0's rendezvous")
+    run_p.add_argument("--num-processes", type=int, default=None)
+    run_p.add_argument("--process-id", type=int, default=None)
+    run_p.add_argument("--hosts", default="",
+                       help="comma list of participating hosts; run the "
+                       "same command on every host and each derives its "
+                       "process id, with host 0 as coordinator")
+    run_p.add_argument("--port", type=int, default=8476,
+                       help="coordinator port used with --hosts")
+    run_p.add_argument("--platform", default=None, choices=["cpu", "cuda"],
+                       help="the device each rank computes on "
+                       "(runtime.device); cuda takes card local_rank %% "
+                       "device_count")
+    run_p.add_argument("--nprocs", type=int, default=0,
+                       help="start this many ranks on this host and wait "
+                       "for them")
+    run_p.set_defaults(fn=cmd_run)
     return parser
 
 

@@ -2,8 +2,9 @@
 
 The PyTorch port's own copy of ``mmlspark_tpu/core/serialization.py``,
 with its own stage registry: port stages register and resolve here, never
-in the JAX package's registry. The reference's codec for mesh-valued
-params is left out until the port has a multi-device layer.
+in the JAX package's registry. Mesh-valued params (``meshSpec``: a
+``MeshSpec`` or a ``DeviceMesh``) persist as the reference's axis-size
+dicts, which ``parallel.mesh.resolve_mesh`` takes back.
 
 Replaces the reference's three serialization mechanisms with one:
 - Spark ML param JSON (``PipelineUtilities.saveMetadata``,
@@ -90,7 +91,33 @@ def _encode(obj: Any, arrays: Dict[str, np.ndarray], path: str) -> Any:
         return [_encode(v, arrays, f"{path}/{i}") for i, v in enumerate(obj)]
     if obj is None or isinstance(obj, (bool, int, float, str)):
         return obj
+    mesh_dict = _mesh_to_dict(obj)
+    if mesh_dict is not None:
+        return _encode(mesh_dict, arrays, path)
     raise TypeError(f"cannot serialize {type(obj).__name__} at state path {path!r}")
+
+
+def _mesh_to_dict(obj: Any):
+    """Mesh-shaped param values (DeepClassifier's ``meshSpec``) persist as
+    axis-size dicts: a live ``DeviceMesh`` is bound to its process group
+    (its ranks mean nothing in another run), and ``resolve_mesh`` accepts
+    the dict back, so save/load round-trips the SHAPE, the portable part.
+    None for anything else."""
+    from dataclasses import asdict
+    from mmlspark_tpu_torch.parallel.mesh import AXES, MeshSpec, mesh_shape
+    if isinstance(obj, MeshSpec):
+        return asdict(obj)
+    from torch.distributed.device_mesh import DeviceMesh
+    if isinstance(obj, DeviceMesh):
+        names = obj.mesh_dim_names or ()
+        bad = sorted(set(names) - set(AXES)) if names else ["<unnamed>"]
+        if bad:
+            raise TypeError(
+                f"cannot persist a DeviceMesh with non-standard axes {bad}: "
+                "resolve_mesh could not rebuild it at load; use the "
+                f"standard axis names {AXES}")
+        return mesh_shape(obj)
+    return None
 
 
 def _decode(obj: Any, arrays: Dict[str, np.ndarray]) -> Any:

@@ -68,7 +68,7 @@ class TorchModel(HasInputCol, HasOutputCol, Model):
         "({} = off; crop/resize each optional). uint8 input runs crop + "
         "resize + requantize + normalize as ONE kernel launch.", {})
     meshSpec = AnyParam(
-        "meshSpec", "scoring over a device mesh; not ported yet, must be "
+        "meshSpec", "scoring over a device mesh (slice 6b); not ported yet, must be "
         "None (single-device scoring)", None)
     deviceCache = StringParam(
         "deviceCache", "keep the coerced input resident on the device "
@@ -130,8 +130,8 @@ class TorchModel(HasInputCol, HasOutputCol, Model):
         one device batch."""
         if self.get("meshSpec") is not None:
             raise NotImplementedError(
-                "TorchModel: scoring over a device mesh is not ported yet; "
-                "leave meshSpec None")
+                "TorchModel: scoring over a device mesh is slice 6b of the "
+                "port, not ported yet; leave meshSpec None")
         spec = self._spec()
         module = spec["module"]
         module.load_state_dict(

@@ -23,9 +23,26 @@ Numerics held to flax's:
   position table is cast to the activations' dtype;
 - the tied head is an fp32 product against the fp32 table, and ``hidden``
   is the final-normed fp32 activation.
+
+On a mesh (``parallel/trainer.py`` calls each module's ``bind_mesh``),
+what GSPMD did for the reference from the sharding rules is written out:
+
+- **tensor**: a block whose q/k/v and ``mlp_up`` weights are split by
+  output features and ``attn_out`` / ``mlp_down`` by input features over
+  ``tensor`` computes on its shards (Megatron's column and row split):
+  the attention function sees only the rank's heads, and the row split's
+  partial outputs are summed over ``tensor`` (:func:`collectives
+  .reduce_from`) before the replicated bias. A vocabulary split over
+  ``tensor`` looks up its rows and sums, and the tied head returns the
+  rank's slice of the logits, never the whole (B, L, vocab) tensor:
+  :func:`next_token_loss` takes the cross entropy over the slices;
+- **seq**: each rank holds a slice of the sequence, adds the positions of
+  its slice, and its blocks must attend through a sequence-parallel
+  ``attention_fn`` (``make_attention_fn(mesh, "ring" | "ulysses")``).
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -34,6 +51,7 @@ from torch import nn
 
 from mmlspark_tpu_torch.models.zoo import register_model, resolve_dtype
 from mmlspark_tpu_torch.models.zoo.resnet import Dense
+from mmlspark_tpu_torch.parallel import collectives
 from mmlspark_tpu_torch.parallel.sequence import full_attention
 
 
@@ -98,8 +116,68 @@ class DecoderBlock(nn.Module):
         else:
             self.mlp_up = Dense(dim, dim * mlp_ratio, self.dtype)
             self.mlp_down = Dense(dim * mlp_ratio, dim, self.dtype)
+        self._tp = None          # the tensor group once bound to a mesh
+
+    # weights a tensor-split block computes on, and the dim split over
+    # `tensor`: columns (output features, 0) or rows (input features, 1)
+    _COLUMNS = ("attn_query", "attn_key", "attn_value", "mlp_up")
+    _ROWS = ("attn_out", "mlp_down")
+
+    def bind_mesh(self, layout, shardings) -> set:
+        """Compute on the rank's shards when the rules split this block
+        Megatron's way over ``tensor`` (``shardings``: this block's
+        leaves by name); returns the weights it so consumes whole-shard.
+        Otherwise it stays unbound and its split weights are gathered."""
+        self._tp = None
+        t = layout.size("tensor")
+        if t == 1 or self.heads % t:
+            return set()
+        want = {f"{n}.weight": 0 for n in self._COLUMNS}
+        want.update({f"{n}.weight": 1 for n in self._ROWS})
+        want = {k: d for k, d in want.items() if k in shardings}
+        if len(want) != (4 if self.has_ffn else 6) or any(
+                shardings[k].spec[d] != "tensor" for k, d in want.items()):
+            return set()
+        if any(shardings[n.replace(".weight", ".bias")].sharded
+               for n, d in want.items() if d == 0):
+            return set()
+        self._tp = layout.group("tensor")
+        return set(want)
+
+    def _columns(self, dense: Dense, y: torch.Tensor) -> torch.Tensor:
+        """A column-split Dense: the rank's output features (the bias,
+        replicated, sliced to them)."""
+        bias = collectives.slice_of(dense.bias, 0, self._tp)
+        return F.linear(y.to(dense.dtype), dense.weight.to(dense.dtype),
+                        bias.to(dense.dtype))
+
+    def _rows(self, dense: Dense, h: torch.Tensor) -> torch.Tensor:
+        """A row-split Dense: partial products summed over ``tensor``,
+        then the bias."""
+        part = F.linear(h.to(dense.dtype), dense.weight.to(dense.dtype))
+        return collectives.reduce_from(part, self._tp) \
+            + dense.bias.to(dense.dtype)
+
+    def _forward_split(self, x: torch.Tensor) -> torch.Tensor:
+        B, L, _ = x.shape
+        heads = self.heads // collectives.size(self._tp)
+        attn_fn = self.attention_fn or full_attention
+        y = collectives.copy_to(self.norm1(x), self._tp)
+        shape = (B, L, heads, self.dim // self.heads)
+        o = attn_fn(self._columns(self.attn_query, y).reshape(shape),
+                    self._columns(self.attn_key, y).reshape(shape),
+                    self._columns(self.attn_value, y).reshape(shape),
+                    causal=True)
+        x = x + self._rows(self.attn_out, o.reshape(B, L, -1))
+        if self.has_ffn:
+            return x + self.ffn(self.norm2(x))
+        y = collectives.copy_to(self.norm2(x), self._tp)
+        return x + self._rows(self.mlp_down,
+                              gelu(self._columns(self.mlp_up, y)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self._tp is not None:
+            return self._forward_split(x)
         B, L, _ = x.shape
         attn_fn = self.attention_fn or full_attention
         y = self.norm1(x)
@@ -140,20 +218,63 @@ class TransformerLM(nn.Module):
                                        attention_fn=attention_fn))
             self.add_module(name, block)
         self.final_norm = LayerNorm(dim)
+        self._vocab = None       # the tensor group of a split vocabulary
+        self._seq = None         # the seq group of a split sequence
+
+    def bind_mesh(self, layout, shardings) -> set:
+        """Look up and score over a vocabulary split by rows over
+        ``tensor``, and take a split sequence's positions; returns the
+        leaves it consumes whole-shard. A split sequence needs every
+        block to attend through a sequence-parallel ``attention_fn``."""
+        self._vocab = self._seq = None
+        claimed = set()
+        emb = shardings.get("token_embedding.embedding")
+        if emb is not None and emb.spec == ("tensor", None):
+            self._vocab = layout.group("tensor")
+            claimed.add("token_embedding.embedding")
+        if layout.seq_axis:
+            for i in range(self.depth):
+                block = getattr(self, f"block{i}")
+                fn = getattr(block, "attention_fn", None)
+                if getattr(fn, "seq_parallel", None) != layout.seq_axis:
+                    raise ValueError(
+                        f"block{i} attends with {fn!r} but the sequence is "
+                        f"split over {layout.seq_axis!r}: build the LM "
+                        "with attention_fn=make_attention_fn(mesh, 'ring' "
+                        "or 'ulysses')")
+            self._seq = layout.group(layout.seq_axis)
+        return claimed
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        if self._vocab is None:
+            return self.token_embedding(tokens)
+        # the rank's rows of the table; ids outside them look up zeros,
+        # and the sum over `tensor` leaves each id its one row
+        table = self.token_embedding.embedding
+        n = table.shape[0]
+        local = tokens - collectives.rank(self._vocab) * n
+        inside = (local >= 0) & (local < n)
+        rows = F.embedding(torch.where(inside, local, 0),
+                           table.to(self.token_embedding.dtype))
+        rows = rows.masked_fill(~inside[..., None], 0)
+        return collectives.reduce_from(rows, self._vocab)
 
     def forward_hidden(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens (B, L) -> the final-normed fp32 activations (B, L, dim):
-        the ``hidden`` layer."""
+        the ``hidden`` layer (on a split sequence, this rank's slice)."""
         L = tokens.shape[1]
-        x = self.token_embedding(tokens)
-        x = x + self.pos_embedding[:, :L].to(x.dtype)
+        start = collectives.rank(self._seq) * L
+        x = self._embed(tokens)
+        x = x + self.pos_embedding[:, start:start + L].to(x.dtype)
         for i in range(self.depth):
             x = getattr(self, f"block{i}")(x)
         return self.final_norm(x)
 
     def head(self, hidden: torch.Tensor) -> torch.Tensor:
-        """The tied head in fp32 (flax's ``Embed.attend`` would demote it)."""
-        return torch.einsum("bld,vd->blv", hidden.float(),
+        """The tied head in fp32 (flax's ``Embed.attend`` would demote it);
+        over a split vocabulary, this rank's slice of the logits."""
+        return torch.einsum("bld,vd->blv",
+                            collectives.copy_to(hidden.float(), self._vocab),
                             self.token_embedding.embedding.float())
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -175,6 +296,73 @@ class TransformerLM(nn.Module):
         if aux:
             inters["moe_aux"] = torch.stack(aux).sum()
         return logits, inters
+
+
+class _SplitVocabCrossEntropy(torch.autograd.Function):
+    """Cross entropy of logits whose vocabulary is split over a group:
+    (N, V/t) fp32 slices and (N,) labels -> (N,) losses, the max, the
+    label's logit and the exp-sum each summed (or maxed) over the group,
+    so no rank ever holds the (N, V) logits."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, group):
+        n = logits.shape[-1]
+        local = labels - collectives.rank(group) * n
+        inside = (local >= 0) & (local < n)
+        idx = torch.where(inside, local, 0)
+        top = collectives.all_reduce(logits.amax(dim=-1), group, "max")
+        shifted = logits - top[:, None]
+        picked = shifted.gather(1, idx[:, None]).squeeze(1)
+        picked = collectives.all_reduce(picked.masked_fill(~inside, 0),
+                                        group)
+        e = torch.exp(shifted)
+        total = collectives.all_reduce(e.sum(dim=-1), group)
+        ctx.save_for_backward(e, total, idx, inside)
+        return torch.log(total) - picked
+
+    @staticmethod
+    def backward(ctx, g):
+        e, total, idx, inside = ctx.saved_tensors
+        grad = e / total[:, None]
+        grad.scatter_add_(1, idx[:, None], -inside.to(grad.dtype)[:, None])
+        return grad * g[:, None], None, None
+
+
+def next_token_loss(module: "TransformerLM",
+                    tokens: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy of ``module`` on ``tokens`` (B, L):
+    position i predicts token i + 1, the last position predicts nothing.
+
+    Alone it is ``F.cross_entropy(logits[:, :-1], tokens[:, 1:])``. Inside
+    a meshed step (``parallel.sharding.current()``) ``tokens`` is this
+    rank's block: on a split sequence the label of the slice's last
+    position is the first token of the next rank's slice (one ring step),
+    over a split vocabulary the cross entropy runs on the logits' slices,
+    and the result is this rank's share, scaled so that the trainer's
+    mean over the data and sequence ranks is the global mean."""
+    from mmlspark_tpu_torch.parallel import sharding
+    layout = sharding.current()
+    logits = module(tokens)
+    if layout is None or (module._seq is None and module._vocab is None):
+        v = logits.shape[-1]
+        return F.cross_entropy(logits[:, :-1].reshape(-1, v).float(),
+                               tokens[:, 1:].reshape(-1).long())
+    B, L = tokens.shape
+    seq = module._seq
+    s, last = collectives.size(seq), collectives.rank(seq) == \
+        collectives.size(seq) - 1
+    following = collectives.ring_shift(tokens[:, :1].contiguous(), seq, -1)
+    labels = torch.cat([tokens[:, 1:], following], dim=1).reshape(-1).long()
+    flat = logits.reshape(B * L, -1).float()
+    if module._vocab is not None:
+        ce = _SplitVocabCrossEntropy.apply(flat, labels, module._vocab)
+    else:
+        ce = F.cross_entropy(flat, labels, reduction="none")
+    ce = ce.reshape(B, L)
+    if last:
+        ce = ce[:, :-1]
+    rows = B * math.prod(layout.size(a) for a in layout.batch_axes)
+    return ce.sum() * (layout.n_grad / (rows * (L * s - 1)))
 
 
 def _lm_spec(module: nn.Module, dim: int, max_len: int) -> dict:

@@ -16,9 +16,13 @@ instead of summing bytes each on its own:
   ledger, flagging the unaccounted remainder; :func:`start_audit_poller`
   runs it every ``observability.memory_poll_s`` seconds (0 = off).
 
-On one device a tensor's shard is the whole tensor, so the ``*shard*``
-functions equal their unsharded twins. :func:`projected_shard_bytes` over
-a mesh is the multi-device slice's (ROADMAP slice 6) and raises.
+A parameter a meshed trainer placed carries its ``_mesh_sharding``
+(``parallel/sharding.py``): it holds its rank's shard, whose bytes are
+what :func:`shard_bytes_of` charges, while :func:`param_bytes` counts the
+whole (unsharded) parameter. On one device a shard is the whole tensor,
+so the ``*shard*`` functions equal their unsharded twins.
+:func:`projected_shard_bytes` sizes a host state dict's shards on a mesh
+under the sharding rules before anything is placed.
 """
 from __future__ import annotations
 
@@ -62,38 +66,57 @@ def _leaves(params: Any):
     return [(str(i), leaf) for i, leaf in enumerate(params)]
 
 
+def _whole_shape(leaf: Any) -> Sequence[int]:
+    sh = getattr(leaf, "_mesh_sharding", None)
+    return sh.shape if sh is not None else leaf.shape
+
+
 def param_bytes(params: Any) -> int:
-    """Summed bytes of every tensor or array in a flat state dict (or a
-    sequence of them); 0 for None."""
+    """Summed bytes of every tensor or array in a flat state dict, a
+    module's parameters or a sequence of them, each counted whole (a
+    meshed shard as the parameter it is part of); 0 for None."""
     if params is None:
         return 0
-    return sum(nbytes_of(leaf.shape, leaf.dtype)
+    if hasattr(params, "named_parameters"):
+        params = dict(params.named_parameters())
+    return sum(nbytes_of(_whole_shape(leaf), leaf.dtype)
                for _, leaf in _leaves(params)
                if hasattr(leaf, "shape") and hasattr(leaf, "dtype"))
 
 
 def shard_bytes_of(leaf: Any) -> int:
-    """Bytes of one tensor as resident on one device: the whole tensor."""
+    """Bytes of one tensor as resident on one device: its shard on a mesh
+    (a placed parameter holds just that), else the whole tensor."""
     if not (hasattr(leaf, "shape") and hasattr(leaf, "dtype")):
         return 0
     return nbytes_of(leaf.shape, leaf.dtype)
 
 
 def param_shard_bytes(params: Any) -> int:
-    """Per-device resident bytes of a state dict: :func:`param_bytes`."""
-    return param_bytes(params)
+    """Per-device resident bytes of a state dict (or a module's
+    parameters): the sum of :func:`shard_bytes_of`."""
+    if params is None:
+        return 0
+    if hasattr(params, "named_parameters"):
+        params = dict(params.named_parameters())
+    return sum(shard_bytes_of(leaf) for _, leaf in _leaves(params))
 
 
 def projected_shard_bytes(params: Any, mesh: Any = None,
                           rules: Any = None) -> int:
-    """Per-device bytes a host state dict would pin once placed: the full
-    bytes on one device. Placement over a mesh waits for the multi-device
-    slice."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "projected bytes over a device mesh need the multi-device "
-            "layers (ROADMAP slice 6), not ported yet")
-    return param_bytes(params)
+    """Per-device bytes a host state dict (or module) would pin once
+    placed: with a mesh, each leaf's shard under
+    ``parallel.sharding.param_shardings(params, mesh, rules)`` (``mesh``
+    a DeviceMesh or an ``{axis: size}`` dict); without one, the whole."""
+    if mesh is None:
+        return param_bytes(params)
+    from mmlspark_tpu_torch.parallel.sharding import param_shardings
+    if hasattr(params, "named_parameters"):
+        params = dict(params.named_parameters())
+    total = 0
+    for name, sh in param_shardings(params, mesh, rules).items():
+        total += nbytes_of(sh.shard_shape(), params[name].dtype)
+    return total
 
 
 def split_param_shard_bytes(params: Any) -> Tuple[int, int]:

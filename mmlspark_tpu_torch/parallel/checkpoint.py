@@ -31,6 +31,17 @@ saves through ``torch.save``:
   into it with ``map_location=trainer.device``: the module's tensors are
   copied into the live parameters, which keep their layout (channels-last
   on a card).
+- **on a mesh** (a state from a meshed trainer, which carries its
+  ``layout``) every rank gathers the whole of each split parameter and
+  optimizer state tensor (``optim.state_sharding`` says how each is
+  split), and rank 0 alone writes them: a gather to rank 0, one file a
+  step, the same as a one-device checkpoint's. A restore reads the whole
+  tensors on every rank and keeps the shards of the TARGET trainer's
+  mesh, so a step saved on one mesh shape restores on another (4x1 ->
+  2x2 -> 1x4) or on one device, and a one-device step on a mesh. Every
+  rank saves, waits and restores together: :meth:`wait` (so a save with
+  ``wait=True``, and a restore) meets the other ranks at a barrier after
+  rank 0's commits, so none reads a step before it is committed.
 
 Usage::
 
@@ -61,6 +72,9 @@ from mmlspark_tpu_torch.observability import events as obsevents
 from mmlspark_tpu_torch.observability import metrics as obsmetrics
 from mmlspark_tpu_torch.observability import syncs
 from mmlspark_tpu_torch.observability.spans import span
+from mmlspark_tpu_torch.parallel.sharding import (
+    local_state_dict, mine, whole, whole_state_dict,
+)
 from mmlspark_tpu_torch.reliability.faults import fault_site
 from mmlspark_tpu_torch.utils.logging import get_logger
 
@@ -127,6 +141,7 @@ class TrainCheckpointer:
         self._inflight: set = set()
         self._error: Optional[BaseException] = None
         self.last_save: Dict[str, float] = {}
+        self._meshed = False     # a meshed state was saved or restored
         os.makedirs(self.directory, exist_ok=True)
         self._sweep_torn_writes()
         self._pool = ThreadPoolExecutor(
@@ -148,9 +163,19 @@ class TrainCheckpointer:
     def save(self, state: Dict[str, Any], step: Optional[int] = None,
              wait: bool = False) -> int:
         """Save (async by default); step defaults to ``state['step']``.
-        Returns once the state is on the host: the caller may step on."""
+        Returns once the state is on the host: the caller may step on. On
+        a mesh every rank calls it (the gathers are collective) and rank 0
+        writes."""
         if step is None:
             step = int(syncs.device_get(state["step"], "checkpoint.step"))
+        layout = state.get("layout")
+        self._meshed = self._meshed or layout is not None
+        if layout is not None and _process_index() != 0:
+            with span("checkpoint", "save", step=step):
+                self._host_state(state, step)
+            if wait:
+                self.wait()
+            return step
         stale = os.path.join(self.directory, str(step))
         if os.path.isdir(stale):
             # A dead run's save for this step committed after restore
@@ -179,10 +204,14 @@ class TrainCheckpointer:
         """Everything a resume needs, copied to the host; returns after the
         copies have landed (one counted wait per device)."""
         opt = state["optimizer"]
-        device_state = {
-            "module": state["module"].state_dict(),
-            "optimizer": opt.torch.state_dict(),
-        }
+        if state.get("layout") is not None:
+            device_state = {"module": whole_state_dict(state["module"]),
+                            "optimizer": _whole_optimizer(opt.torch)}
+        else:
+            device_state = {
+                "module": state["module"].state_dict(),
+                "optimizer": opt.torch.state_dict(),
+            }
         devices = {t.device for t in _tensors(device_state)
                    if t.device.type == "cuda"}
         payload = _snapshot(device_state, pinned=bool(devices))
@@ -242,7 +271,9 @@ class TrainCheckpointer:
 
     def wait(self) -> None:
         """Block until every in-flight async save has committed; raises
-        the first background failure (once)."""
+        the first background failure (once). Once this checkpointer has
+        handled a meshed state, every rank calls it and they meet at a
+        barrier after rank 0's commits, so all list the same steps."""
         with self._lock:
             pending, self._pending = self._pending, []
         for fut in pending:
@@ -252,6 +283,8 @@ class TrainCheckpointer:
                 pass
         with self._lock:
             err, self._error = self._error, None
+        if self._meshed:
+            _barrier()
         if err is not None:
             raise err
 
@@ -400,12 +433,23 @@ class TrainCheckpointer:
         with span("checkpoint", "restore", step=step):
             fault_site("checkpoint.restore")
             state = trainer.init(init_fn)
+            meshed = state.get("layout") is not None
+            if meshed:
+                self._meshed = True
+                self.wait()
             with open(os.path.join(self.directory, str(step), _STATE_FILE),
                       "rb") as f:
-                payload = torch.load(f, map_location=trainer.device,
-                                     weights_only=True)
-            state["module"].load_state_dict(payload["module"], strict=True)
+                payload = torch.load(
+                    f, map_location="cpu" if meshed else trainer.device,
+                    weights_only=True)
             opt = state["optimizer"]
+            if meshed:
+                payload["module"] = local_state_dict(state["module"],
+                                                     payload["module"],
+                                                     state["layout"])
+                payload["optimizer"] = _local_optimizer(
+                    opt.torch, payload["optimizer"], state["layout"])
+            state["module"].load_state_dict(payload["module"], strict=True)
             opt.torch.load_state_dict(payload["optimizer"])
             opt.count = int(payload["optimizer_count"])
             if payload["optimizer_own_count"] is not None:
@@ -465,6 +509,41 @@ class TrainCheckpointer:
             self.wait()
         finally:
             self._pool.shutdown(wait=True)
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    dist.barrier()
+
+
+def _opt_params(opt: torch.optim.Optimizer) -> List[torch.nn.Parameter]:
+    """The optimizer's parameters in its ``state_dict`` index order."""
+    return [p for group in opt.param_groups for p in group["params"]]
+
+
+def _whole_optimizer(opt: torch.optim.Optimizer) -> Dict[str, Any]:
+    from mmlspark_tpu_torch.parallel.optim import state_sharding
+    params = _opt_params(opt)
+    sd = opt.state_dict()
+    sd["state"] = {
+        i: {k: whole(v, state_sharding(params[i], k, v.shape),
+                     getattr(params[i], "_mesh_layout", None))
+            if torch.is_tensor(v) else v for k, v in st.items()}
+        for i, st in sd["state"].items()}
+    return sd
+
+
+def _local_optimizer(opt: torch.optim.Optimizer, whole: Dict[str, Any],
+                     layout) -> Dict[str, Any]:
+    from mmlspark_tpu_torch.parallel.optim import state_sharding
+    params = _opt_params(opt)
+    out = dict(whole)
+    out["state"] = {
+        i: {k: mine(v, state_sharding(params[int(i)], k, v.shape,
+                                      whole=True), layout)
+            if torch.is_tensor(v) else v for k, v in st.items()}
+        for i, st in whole["state"].items()}
+    return out
 
 
 def _tensors(obj: Any):

@@ -17,6 +17,13 @@ The JAX package builds its optimizers from optax (``train/deep.py``,
   another decay and eps), so :class:`Lamb` and :class:`Adafactor` are
   written here from optax 0.2.6's chains, their state in float32.
 
+On a mesh (``parallel/trainer.py``) each rank steps the shards it holds.
+adam, adamw and sgd are elementwise; Lamb's trust-ratio norms and
+Adafactor's factored moments and RMS are reductions over a whole
+parameter, so over a split parameter their sums run over the ranks that
+hold its shards (:func:`_sum_over`), and :func:`state_sharding` says how
+each state tensor is split, for checkpoints.
+
 An :class:`Optimizer` is a recipe, like an optax ``GradientTransformation``:
 :meth:`Optimizer.init` builds the torch optimizer over the parameters it is
 given. A learning rate may be a float or a schedule, a plain function of
@@ -32,6 +39,8 @@ from typing import Callable, Iterable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+
+from mmlspark_tpu_torch.parallel import collectives
 
 Schedule = Callable[[int], float]
 LearningRate = Union[float, Schedule]
@@ -92,6 +101,51 @@ def adamw(lr: LearningRate, b1: float = 0.9, b2: float = 0.999,
                      weight_decay=weight_decay)
 
 
+def _sharding(p):
+    """The mesh placement the trainer gave ``p``, or None."""
+    sh = getattr(p, "_mesh_sharding", None)
+    return sh if sh is not None and sh.sharded else None
+
+
+def _dim_group(p, dim: int):
+    """The group over which ``p``'s dim ``dim`` is split, or None."""
+    sh = _sharding(p)
+    if sh is None or sh.spec[dim] is None:
+        return None
+    from mmlspark_tpu_torch.parallel.sharding import _axes
+    return p._mesh_layout.group(*_axes(sh.spec[dim]))
+
+
+def _sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    return collectives.all_reduce(x, group) if group is not None else x
+
+
+def _norm(x: torch.Tensor, p) -> torch.Tensor:
+    """The L2 norm of the whole parameter ``x`` is (a shard) of."""
+    if _sharding(p) is None:
+        return torch.linalg.vector_norm(x)
+    return torch.sqrt(_sum_over((x * x).sum(), p._mesh_group))
+
+
+def _mean(x: torch.Tensor, p) -> torch.Tensor:
+    """The mean over the whole parameter ``x`` is (a shard) of."""
+    sh = _sharding(p)
+    if sh is None:
+        return torch.mean(x)
+    return _sum_over(x.sum(), p._mesh_group) / math.prod(sh.shape)
+
+
+def _mean_dim(x: torch.Tensor, dim: int, p, pdim: int,
+              keepdim: bool = False) -> torch.Tensor:
+    """The mean of ``x`` over its ``dim``, which is ``p``'s dim
+    ``pdim`` (split or not)."""
+    group = _dim_group(p, pdim)
+    if group is None:
+        return x.mean(dim=dim, keepdim=keepdim)
+    return _sum_over(x.sum(dim=dim, keepdim=keepdim), group) \
+        / _sharding(p).shape[pdim]
+
+
 class Lamb(torch.optim.Optimizer):
     """optax.lamb: ``scale_by_adam(b1=0.9, b2=0.999, eps=1e-6,
     eps_root=0)``, then ``add_decayed_weights(weight_decay)`` on every
@@ -131,8 +185,7 @@ class Lamb(torch.optim.Optimizer):
                 w = p.float()
                 if wd:
                     u = u + wd * w
-                p_norm = torch.linalg.vector_norm(w)
-                u_norm = torch.linalg.vector_norm(u)
+                p_norm, u_norm = _norm(w, p), _norm(u, p)
                 ratio = torch.where((p_norm == 0) | (u_norm == 0),
                                     torch.ones_like(p_norm), p_norm / u_norm)
                 p.sub_((u * ratio * lr).to(p.dtype))
@@ -193,7 +246,8 @@ class Adafactor(torch.optim.Optimizer):
     def _update(self, p, lr: float, decay: float) -> torch.Tensor:
         g = p.grad.float()
         state = self.state[p]
-        dims = _factored_dims(tuple(p.shape))
+        sh = _sharding(p)
+        dims = _factored_dims(sh.shape if sh is not None else tuple(p.shape))
         g2 = g * g + self.EPS
         if dims is not None:
             d1, d0 = dims
@@ -201,10 +255,12 @@ class Adafactor(torch.optim.Optimizer):
                 state["v_row"] = torch.zeros_like(g.mean(dim=d0))
                 state["v_col"] = torch.zeros_like(g.mean(dim=d1))
             v_row, v_col = state["v_row"], state["v_col"]
-            v_row.mul_(decay).add_(g2.mean(dim=d0), alpha=1.0 - decay)
-            v_col.mul_(decay).add_(g2.mean(dim=d1), alpha=1.0 - decay)
+            v_row.mul_(decay).add_(_mean_dim(g2, d0, p, d0),
+                                   alpha=1.0 - decay)
+            v_col.mul_(decay).add_(_mean_dim(g2, d1, p, d1),
+                                   alpha=1.0 - decay)
             reduced_d1 = d1 - 1 if d1 > d0 else d1
-            row_col_mean = v_row.mean(dim=reduced_d1, keepdim=True)
+            row_col_mean = _mean_dim(v_row, reduced_d1, p, d1, keepdim=True)
             row_factor = (v_row / row_col_mean).rsqrt()
             u = g * row_factor.unsqueeze(d0) * v_col.rsqrt().unsqueeze(d1)
         else:
@@ -213,11 +269,31 @@ class Adafactor(torch.optim.Optimizer):
             v = state["v"]
             v.mul_(decay).add_(g2, alpha=1.0 - decay)
             u = g * v.rsqrt()
-        u = u / torch.clamp(torch.sqrt(torch.mean(u * u)) / self.CLIP,
+        u = u / torch.clamp(torch.sqrt(_mean(u * u, p)) / self.CLIP,
                             min=1.0)
         w = p.float()
-        scale = torch.clamp(torch.sqrt(torch.mean(w * w)), min=self.MIN_SCALE)
+        scale = torch.clamp(torch.sqrt(_mean(w * w, p)), min=self.MIN_SCALE)
         return u * lr * scale
+
+
+def state_sharding(p, key: str, shape, whole: bool = False):
+    """How the optimizer state ``key`` of parameter ``p`` is split on the
+    mesh (a ``ParamSharding``), or None when it is replicated: a tensor
+    shaped like the parameter is split like it, Adafactor's factored
+    moments like the parameter without the dim they average over.
+    ``shape`` is the state's local shape, or its whole shape when
+    ``whole``."""
+    sh = _sharding(p)
+    if sh is None:
+        return None
+    from mmlspark_tpu_torch.parallel.sharding import ParamSharding
+    if key in ("v_row", "v_col"):
+        d1, d0 = _factored_dims(sh.shape)
+        drop = d0 if key == "v_row" else d1
+        return ParamSharding(sh.spec[:drop] + sh.spec[drop + 1:],
+                             sh.shape[:drop] + sh.shape[drop + 1:], sh.sizes)
+    like = sh.shape if whole else tuple(p.shape)
+    return sh if tuple(shape) == like else None
 
 
 def lamb(lr: LearningRate, weight_decay: float = 0.0) -> Optimizer:

@@ -1,0 +1,491 @@
+"""Sharding rules: which dims of which parameter lie split over which axes.
+
+The port of ``mmlspark_tpu/parallel/sharding.py``. The reference wrote
+(regex, PartitionSpec) rules on flax's '/'-joined parameter paths and let
+GSPMD place every leaf; the port keeps the rules and the fitting, written
+on its own names and layouts:
+
+- a leaf is named by its state-dict key, lower-cased (``block0.attn_query
+  .weight``), and a spec's dims are in the torch layout
+  (``models/convert.py``: a dense ``kernel`` (in, out) is ``weight`` (out,
+  in), a conv kernel HWIO is OIHW, a norm ``scale`` is a 1-D ``weight``).
+  So a rule for kernels matches ``.weight`` of rank >= 2 (the third entry
+  of a rule is the least rank it applies to);
+- an entry of a spec is None (not split), an axis name, or a tuple of axis
+  names; a dim split over two axes is split in the mesh's axis order
+  (DTensor's), where the reference split it in the spec's order (the
+  same axes hold the same dims);
+- :func:`param_shardings` returns one :class:`ParamSharding` a leaf: the
+  spec, fitted to the leaf's shape and the mesh as ``_fit_spec`` does,
+  and its DTensor placements (``Shard(d)`` / ``Replicate()`` per mesh
+  dimension).
+
+The trainer (``parallel/trainer.py``) stores each parameter as the shard
+its rank holds; a module that can compute on its shards
+(``bind_mesh``, the transformer's tensor-parallel blocks) does so, every
+other use gathers the shard first. The batch helpers below give each
+rank its block of a global batch: the rows of its coordinate on the data
+axes and, under a ``seq`` axis, its slice of the sequence.
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+import re
+import threading
+from collections.abc import Mapping
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from mmlspark_tpu_torch.parallel.mesh import AXES, mesh_shape
+
+Entry = Any                      # None | axis name | tuple of axis names
+Spec = Tuple[Entry, ...]
+Rules = Sequence[Tuple[str, Spec, int]]
+
+# The reference's DEFAULT_RULES on the port's names, torch-order dims:
+# - large matmul weights: output features over `tensor` where the layer is
+#   split by columns (q/k/v, mlp up, heads), input features where it is
+#   split by rows (attention out, mlp down); the other dim over `fsdp`;
+# - embedding tables: rows (the vocabulary) over `tensor`;
+# - every other weight of rank >= 2: its output features (torch dim 0)
+#   over `fsdp`; biases and norm scales replicated.
+DEFAULT_RULES: List[Tuple[str, Spec, int]] = [
+    (r".*experts?_(up|wi|gate).*", ("expert", "fsdp", "tensor"), 0),
+    (r".*experts?_(down|wo|out).*", ("expert", "tensor", "fsdp"), 0),
+    (r".*router.*", (), 0),
+    (r".*(attention|attn).*(query|key|value|qkv).*\.weight",
+     ("tensor", "fsdp"), 2),
+    # flax MultiHeadDotProductAttention's "out" (heads, head_dim, out)
+    # kernel is (out, heads * head_dim) here
+    (r".*(attention|attn).*\.out\.weight", (None, ("tensor", "fsdp")), 2),
+    (r".*(attention|attn).*out.*\.weight", ("fsdp", "tensor"), 2),
+    (r".*mlp.*(up|gate|wi|fc1|intermediate).*\.weight",
+     ("tensor", "fsdp"), 2),
+    (r".*mlp.*(down|wo|fc2|output).*\.weight", ("fsdp", "tensor"), 2),
+    # embedding LEAVES only (the name ends in 'embedding'): a conv named
+    # *_embedding keeps its spatial dims whole
+    (r".*embedding$", ("tensor", None), 0),
+    (r".*(head|logits|classifier).*\.weight", ("tensor", "fsdp"), 2),
+    (r".*\.weight", ("fsdp",), 2),
+    (r".*", (), 0),
+]
+
+# catch-alls whose specs are not stretched onto a leaf of rank > 2 under
+# the default rules: such a leaf gets the spatial-safe spec instead
+_GENERIC_PATTERNS = {r".*\.weight", r".*"}
+BATCH_AXES = ("data", "fsdp")
+
+
+def _axes(entry: Entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def _conv_safe(name: str, ndim: int) -> Spec:
+    """A kernel of rank > 2 never splits its spatial dims: only its output
+    features over ``fsdp`` (torch dim 0 of a ``weight``, the last dim of
+    a leaf kept in flax's layout)."""
+    if name.endswith(".weight") or name == "weight":
+        return ("fsdp",) + (None,) * (ndim - 1)
+    return (None,) * (ndim - 1) + ("fsdp",)
+
+
+def _fit_spec(spec: Spec, ndim: int, shape: Sequence[int],
+              sizes: Dict[str, int]) -> Spec:
+    """Clamp a spec to the leaf's rank and divisibility: an entry whose
+    axes the mesh lacks, whose size is 1, or that does not divide the dim
+    becomes None; axes of size 1 drop out of an entry. Axes are kept in
+    the mesh's order."""
+    entries = (list(spec) + [None] * ndim)[:ndim]
+    fixed: List[Entry] = []
+    for dim, entry in zip(shape, entries):
+        axes = _axes(entry)
+        # axes of size 1 split nothing (a dim merged from two flax dims
+        # keeps the axis of the one that is split)
+        live = tuple(a for a in AXES if a in axes and sizes.get(a, 1) > 1)
+        size = math.prod(sizes[a] for a in live)
+        if not axes or not all(a in sizes for a in axes) or not live \
+                or dim % size:
+            fixed.append(None)
+            continue
+        fixed.append(live[0] if len(live) == 1 else live)
+    return tuple(fixed)
+
+
+class ParamSharding:
+    """One leaf's placement: ``spec`` (per torch dim), the leaf's global
+    ``shape``, and the mesh's axis sizes."""
+
+    def __init__(self, spec: Spec, shape: Sequence[int],
+                 sizes: Dict[str, int]):
+        self.spec = tuple(spec)
+        self.shape = tuple(int(s) for s in shape)
+        self.sizes = dict(sizes)
+
+    def __repr__(self) -> str:
+        return f"ParamSharding(spec={self.spec}, shape={self.shape})"
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        """Every axis some dim is split over, in mesh order."""
+        used = {a for e in self.spec for a in _axes(e)}
+        return tuple(a for a in AXES if a in used)
+
+    @property
+    def sharded(self) -> bool:
+        return bool(self.axes)
+
+    def dim_of(self, axis: str) -> Optional[int]:
+        for d, e in enumerate(self.spec):
+            if axis in _axes(e):
+                return d
+        return None
+
+    def shard_shape(self) -> Tuple[int, ...]:
+        out = list(self.shape)
+        for d, e in enumerate(self.spec):
+            out[d] //= math.prod(self.sizes[a] for a in _axes(e))
+        return tuple(out)
+
+    def slices(self, coord: Dict[str, int]) -> Tuple[slice, ...]:
+        """The index of the shard held at mesh coordinate ``coord``."""
+        out = []
+        for d, e in enumerate(self.spec):
+            axes = _axes(e)
+            if not axes:
+                out.append(slice(None))
+                continue
+            idx = 0
+            for a in axes:              # mesh order: major to minor
+                idx = idx * self.sizes[a] + coord[a]
+            step = self.shape[d] // math.prod(self.sizes[a] for a in axes)
+            out.append(slice(idx * step, (idx + 1) * step))
+        return tuple(out)
+
+    def placements(self) -> list:
+        """DTensor placements, one a mesh dimension in :data:`AXES`."""
+        from torch.distributed.tensor import Replicate, Shard
+        out = []
+        for a in AXES:
+            d = self.dim_of(a)
+            out.append(Replicate() if d is None else Shard(d))
+        return out
+
+
+def _leaves(params: Any):
+    """(name, leaf) pairs of a module's parameters or a flat state dict."""
+    if hasattr(params, "named_parameters"):
+        return list(params.named_parameters())
+    if isinstance(params, Mapping):
+        return list(params.items())
+    raise TypeError(f"want an nn.Module or a state dict, got "
+                    f"{type(params).__name__}")
+
+
+def param_shardings(params: Any, mesh, rules: Optional[Rules] = None
+                    ) -> Dict[str, ParamSharding]:
+    """``{name: ParamSharding}`` of a module's parameters (or a state
+    dict) from name-pattern rules: the first rule whose pattern matches
+    the lower-cased name in full, and whose least rank the leaf reaches,
+    decides. ``mesh`` is a DeviceMesh or an ``{axis: size}`` dict."""
+    sizes = mesh_shape(mesh)
+    using_defaults = rules is None
+    rules = list(DEFAULT_RULES if rules is None else rules)
+    out: Dict[str, ParamSharding] = {}
+    for name, leaf in _leaves(params):
+        shape = tuple(getattr(leaf, "shape", ()))
+        ndim = len(shape)
+        key = str(name).lower()
+        spec = _conv_safe(key, ndim) if ndim > 2 else ()
+        for rule in rules:
+            pattern, rule_spec = rule[0], rule[1]
+            least = rule[2] if len(rule) > 2 else 0
+            if ndim >= least and re.fullmatch(pattern, key):
+                spec = rule_spec
+                if ndim > 2 and using_defaults \
+                        and pattern in _GENERIC_PATTERNS:
+                    spec = _conv_safe(key, ndim)
+                break
+        out[str(name)] = ParamSharding(_fit_spec(spec, ndim, shape, sizes),
+                                       shape, sizes)
+    return out
+
+
+def replicated(mesh=None) -> Spec:
+    """The spec of a replicated leaf."""
+    return ()
+
+
+def tensor_axis_size(mesh) -> int:
+    """Size of the model (``tensor``) axis; 1 for no mesh / axis absent."""
+    return 1 if mesh is None else mesh_shape(mesh).get("tensor", 1)
+
+
+def active_batch_axes(mesh, batch_axes: Sequence[str] = BATCH_AXES):
+    """The non-trivial data-parallel axes of this mesh (None if all size
+    1): the one definition of which axes split the batch."""
+    sizes = mesh_shape(mesh)
+    return tuple(a for a in batch_axes if sizes.get(a, 1) > 1) or None
+
+
+def batch_sharding(mesh, batch_axes: Sequence[str] = BATCH_AXES,
+                   seq_axis: Optional[str] = None) -> Spec:
+    """Batch dim over the data axes; with ``seq_axis`` the second dim
+    (the sequence) over it."""
+    axes = active_batch_axes(mesh, batch_axes)
+    if seq_axis and mesh_shape(mesh).get(seq_axis, 1) > 1:
+        return (axes, seq_axis)
+    return (axes,)
+
+
+def epoch_cache_sharding(mesh, ndim: int,
+                         seq_axis: Optional[str] = None) -> Spec:
+    """Spec of a resident epoch array (steps, batch, ...): steps
+    replicated, batch over the data axes, the third dim over ``seq`` for
+    arrays of rank > 2 when asked."""
+    axes = active_batch_axes(mesh)
+    if ndim > 2 and seq_axis and mesh_shape(mesh).get(seq_axis, 1) > 1:
+        return (None, axes, seq_axis)
+    return (None, axes)
+
+
+def mesh_spans_processes(mesh) -> bool:
+    """True when the mesh holds ranks other than this one (with one rank
+    a process, any mesh of more than one rank)."""
+    return mesh is not None and mesh.size() > 1
+
+
+def is_cpu_mesh(mesh) -> bool:
+    return mesh.device_type == "cpu"
+
+
+def coordinate(mesh) -> Dict[str, int]:
+    """This rank's coordinate on each axis."""
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise RuntimeError("this rank is not in the mesh")
+    return dict(zip(mesh.mesh_dim_names, (int(c) for c in coord)))
+
+
+def batch_share(mesh, axes: Optional[Tuple[str, ...]] = None
+                ) -> Tuple[int, int]:
+    """(local, total) batch-dim blocks for this rank: the batch splits
+    into ``total`` blocks over the data axes, and a rank holds one of
+    them (``(1, 1)`` when no axis splits it)."""
+    axes = active_batch_axes(mesh) if axes is None else axes
+    if not axes:
+        return 1, 1
+    sizes = mesh_shape(mesh)
+    return 1, math.prod(sizes[a] for a in axes)
+
+
+def batch_block(mesh) -> int:
+    """This rank's block of the batch: its coordinates on the data axes,
+    row-major in mesh order (rank 0's rows come first)."""
+    sizes, coord = mesh_shape(mesh), coordinate(mesh)
+    idx = 0
+    for a in active_batch_axes(mesh) or ():
+        idx = idx * sizes[a] + coord[a]
+    return idx
+
+
+def local_batch_rows(mesh, global_rows: int) -> int:
+    """Rows of a ``global_rows`` batch this rank holds: THE one place the
+    division of labour is computed."""
+    local, total = batch_share(mesh)
+    if global_rows % total:
+        raise ValueError(
+            f"global batch of {global_rows} rows does not split into "
+            f"{total} equal batch shards")
+    return global_rows // total * local
+
+
+def _block(x: np.ndarray, axis: int, index: int, n: int) -> np.ndarray:
+    cut = [slice(None)] * x.ndim
+    cut[axis] = slice(index * n, (index + 1) * n)
+    return x[tuple(cut)]
+
+
+def local_rows(mesh, x: np.ndarray, axis: int = 0) -> np.ndarray:
+    """This rank's block of a global host array along its batch ``axis``."""
+    return _block(x, axis, batch_block(mesh),
+                  local_batch_rows(mesh, x.shape[axis]))
+
+
+def local_seq(mesh, x: np.ndarray, seq_axis: Optional[str],
+              axis: int = 1) -> np.ndarray:
+    """This rank's slice of dim ``axis`` (the sequence) over ``seq_axis``."""
+    s = mesh_shape(mesh).get(seq_axis, 1) if seq_axis else 1
+    if s == 1 or x.ndim <= axis:
+        return x
+    if x.shape[axis] % s:
+        raise ValueError(f"sequence of {x.shape[axis]} does not split over "
+                         f"|{seq_axis}|={s}")
+    return _block(x, axis, coordinate(mesh)[seq_axis], x.shape[axis] // s)
+
+
+def shard_batch(mesh, batch: Any, seq_axis: Optional[str] = None,
+                device=None) -> Any:
+    """This rank's block of a GLOBAL host batch, on ``device``: its rows
+    over the data axes and, for arrays of rank > 1 under ``seq_axis``,
+    its slice of the sequence. Every rank passes the same global batch
+    (the one-host contract of the port; feeding each host its own rows is
+    slice 6b's meshed ``run_dataset``)."""
+    from mmlspark_tpu_torch.parallel.trainer import to_device
+    from mmlspark_tpu_torch.utils import config
+    device = config.resolve_device() if device is None else device
+
+    def put(x):
+        x = local_seq(mesh, local_rows(mesh, np.asarray(x)), seq_axis)
+        return to_device(np.ascontiguousarray(x), device)
+    if isinstance(batch, Mapping):
+        return {k: put(v) for k, v in batch.items()}
+    return put(batch)
+
+
+# -- process groups over axes ------------------------------------------------
+
+_groups: Dict[Tuple, Any] = {}
+_groups_lock = threading.Lock()
+
+
+def axis_group(mesh, axes: Sequence[str]):
+    """The process group of the ranks that differ from this one only on
+    ``axes`` (None when those axes are all of size 1). Group ranks ascend
+    with global rank: row-major over ``axes`` in mesh order. Groups of
+    several axes are made once per mesh layout; every rank must ask for
+    the same ones in the same order (``new_group`` is collective)."""
+    sizes = mesh_shape(mesh)
+    axes = tuple(a for a in AXES if a in axes and sizes.get(a, 1) > 1)
+    if not axes:
+        return None
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    grid = mesh.mesh.numpy() if hasattr(mesh.mesh, "numpy") \
+        else np.asarray(mesh.mesh)
+    key = (tuple(grid.shape), tuple(grid.flatten().tolist()), axes)
+    with _groups_lock:
+        if key in _groups:
+            return _groups[key]
+    import torch.distributed as dist
+    keep = [AXES.index(a) for a in axes]
+    rest = [i for i in range(grid.ndim) if i not in keep]
+    blocks = np.transpose(grid, rest + keep).reshape(
+        -1, math.prod(grid.shape[i] for i in keep))
+    mine = None
+    for ranks in blocks.tolist():
+        group = dist.new_group(sorted(ranks))
+        if dist.get_rank() in ranks:
+            mine = group
+    with _groups_lock:
+        _groups[key] = mine
+    return mine
+
+
+class MeshLayout:
+    """What a meshed step needs of its mesh: the axis sizes, this rank's
+    coordinate, the axes whose ranks see different data (``grad_axes``:
+    the data axes, and ``seq`` when the sequence is split), and the
+    process groups over them."""
+
+    def __init__(self, mesh, seq_axis: Optional[str] = None):
+        self.mesh = mesh
+        self.sizes = mesh_shape(mesh)
+        self.coord = coordinate(mesh)
+        self.seq_axis = seq_axis if seq_axis \
+            and self.sizes.get(seq_axis, 1) > 1 else None
+        self.batch_axes = active_batch_axes(mesh) or ()
+        self.grad_axes = tuple(a for a in AXES if a in self.batch_axes
+                               or a == self.seq_axis)
+        self.n_grad = math.prod(self.sizes[a] for a in self.grad_axes)
+
+    def size(self, axis: str) -> int:
+        return self.sizes.get(axis, 1)
+
+    def group(self, *axes: str):
+        return axis_group(self.mesh, axes)
+
+
+_active = threading.local()
+
+
+def current() -> Optional[MeshLayout]:
+    """The layout of the meshed step running on this thread, else None."""
+    return getattr(_active, "layout", None)
+
+
+@contextlib.contextmanager
+def activate(layout: Optional[MeshLayout]):
+    """Make ``layout`` :func:`current` while a step runs its loss."""
+    prev = current()
+    _active.layout = layout
+    try:
+        yield layout
+    finally:
+        _active.layout = prev
+
+
+def global_mean(total, count, floor: float = 1.0):
+    """``total / max(count, floor)`` over the GLOBAL batch, as GSPMD
+    computes a loss: inside a meshed step each rank holds the sums of its
+    own rows, so the count is summed over the data ranks and the result
+    scaled so that the trainer's mean over them is the global mean.
+    Outside a meshed step it is the plain local expression."""
+    import torch
+    layout = current()
+    if layout is None or not layout.grad_axes:
+        return total / torch.clamp(count, min=floor)
+    from mmlspark_tpu_torch.parallel import collectives
+    n = collectives.all_reduce(count.detach().float(),
+                               layout.group(*layout.grad_axes))
+    return total * layout.n_grad / torch.clamp(n, min=floor)
+
+
+# -- whole tensors and shards ------------------------------------------------
+
+def whole(t, sh: Optional[ParamSharding], layout):
+    """The whole of ``t``, a shard split as ``sh`` says (None: not split),
+    gathered dim by dim over the ranks holding the other shards. Every
+    rank of the mesh must call it (the gathers are collective)."""
+    from mmlspark_tpu_torch.parallel import collectives
+    t = t.detach()
+    if sh is not None:
+        for d, e in enumerate(sh.spec):
+            if _axes(e):
+                t = collectives.all_gather(t.contiguous(), d,
+                                           layout.group(*_axes(e)))
+    return t
+
+
+def mine(full, sh: Optional[ParamSharding], layout):
+    """This rank's shard of a whole tensor split as ``sh`` says."""
+    if sh is None or not sh.sharded:
+        return full
+    return full[sh.slices(layout.coord)].contiguous()
+
+
+def _split_of(p) -> Optional[ParamSharding]:
+    sh = getattr(p, "_mesh_sharding", None)
+    return sh if sh is not None and sh.sharded else None
+
+
+def whole_state_dict(module) -> Dict[str, Any]:
+    """``module.state_dict()`` with every split parameter gathered whole
+    (collective on a mesh; the plain state dict otherwise)."""
+    params = dict(module.named_parameters())
+    return {name: t if name not in params
+            else whole(t, _split_of(params[name]),
+                       getattr(params[name], "_mesh_layout", None))
+            for name, t in module.state_dict().items()}
+
+
+def local_state_dict(module, full: Dict[str, Any], layout) -> Dict[str, Any]:
+    """A whole state dict cut to the shards ``module``'s parameters hold
+    on this rank (what ``module.load_state_dict`` takes)."""
+    params = dict(module.named_parameters())
+    return {name: t if name not in params
+            else mine(t, _split_of(params[name]), layout)
+            for name, t in full.items()}

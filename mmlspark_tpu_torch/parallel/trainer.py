@@ -29,11 +29,33 @@ same contracts:
   summed and divided by the count, as the reference's scan did; ``remat``
   recomputes the forward in the backward (``torch.utils.checkpoint``).
 
-Meshes, sharding rules, a sequence axis and multi-process training raise
-``NotImplementedError``: they are ROADMAP slice 6.
+**On a mesh** (``mesh=``, or the launcher's ``runtime.mesh`` once a
+process group is joined) each rank runs the step on its own device and
+the collectives GSPMD inserted for the reference are written out
+(``parallel/collectives.py``):
+
+- :meth:`DistributedTrainer.init` builds the module on the host, then
+  moves to the device only the shard of each parameter its rank holds
+  (``parallel/sharding.py``'s rules; no device ever holds a whole split
+  leaf) and binds the modules that compute on their shards (the
+  transformer's tensor split); every other split leaf is gathered for
+  its use and its gradient scattered back;
+- the loss is the mean over the GLOBAL batch: each rank's ``loss_fn``
+  sees its block of the batch (:meth:`put_batch`, a sequence slice under
+  ``seq_axis``), the gradients are summed over the ranks that saw other
+  data (``data``, ``fsdp``, and ``seq`` when the sequence is split) and
+  divided by their count, and the metrics ring holds the global mean,
+  the same on every rank. ``loss_fn`` returns its block's mean (or, for
+  uneven shares, ``sharding.global_mean``; the LM's
+  ``transformer.next_token_loss``);
+- no host read in the step, as on one device: on NCCL the collectives
+  queue on the card. gloo (ranks sharing one card, or the CPU) waits on
+  the host for its transfers, counted apart in
+  ``collectives.host_copies()``.
 """
 from __future__ import annotations
 
+import contextlib
 import warnings
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
@@ -42,6 +64,9 @@ import torch
 
 from mmlspark_tpu_torch.data.pipeline import Dataset
 from mmlspark_tpu_torch.data.prefetch import DevicePrefetcher
+from mmlspark_tpu_torch.parallel import collectives
+from mmlspark_tpu_torch.parallel import mesh as meshlib
+from mmlspark_tpu_torch.parallel import sharding
 from mmlspark_tpu_torch.observability import events as obsevents
 from mmlspark_tpu_torch.observability import metrics as obsmetrics
 from mmlspark_tpu_torch.observability import syncs as obssyncs
@@ -52,12 +77,6 @@ from mmlspark_tpu_torch.utils.logging import MetricLogger
 
 LossFn = Callable[[torch.nn.Module, Dict[str, torch.Tensor],
                    torch.Generator], torch.Tensor]
-
-
-def _not_ported(what: str) -> None:
-    raise NotImplementedError(
-        f"{what} is not ported yet: meshes, sharding and multi-process "
-        "training are ROADMAP slice 6; the port trains on one device")
 
 
 def _device(device) -> torch.device:
@@ -99,17 +118,25 @@ class DeviceEpochCache:
     epoch)``: the same seed and epoch give the same order in every run
     (the reference's ``fold_in(seed, epoch)`` contract; the orders
     themselves differ from ``jax.random``'s).
+
+    On a ``mesh``, ``data`` is the GLOBAL epoch (every rank passes the
+    same arrays) and ``batch_size`` the global batch: each rank uploads
+    only its block of every batch (``local_batch`` rows, and under
+    ``seq_axis`` its slice of the third dim of arrays of rank > 2), once;
+    a shuffled epoch keeps the global rows on the host and uploads the
+    rank's block of each epoch's order, the one-device cache's order.
     """
 
     def __init__(self, data: Dict[str, np.ndarray], batch_size: int,
                  mesh=None, seq_axis: Optional[str] = None,
                  shuffle: bool = False, seed: int = 0, device=None):
-        if mesh is not None:
-            _not_ported("DeviceEpochCache over a mesh")
-        if seq_axis is not None:
-            _not_ported("a sequence-sharded DeviceEpochCache")
+        if seq_axis is not None and mesh is None:
+            raise ValueError("a sequence-split epoch needs a mesh")
+        self.mesh, self.seq_axis = mesh, seq_axis
         self.device = _device(device)
         self.batch_size = int(batch_size)
+        self.local_batch = (self.batch_size if mesh is None else
+                            sharding.local_batch_rows(mesh, self.batch_size))
         n = next(iter(data.values())).shape[0]
         self.steps_per_epoch = n // self.batch_size
         if self.steps_per_epoch < 1:
@@ -126,14 +153,36 @@ class DeviceEpochCache:
                 "; pad-and-mask the tail first (learners._pad_xyw) to train "
                 "on every row", stacklevel=2)
         shape = (self.steps_per_epoch, self.batch_size)
-        self._base = {
-            k: torch.from_numpy(np.ascontiguousarray(
-                np.asarray(v)[:keep].reshape(shape + np.asarray(v).shape[1:])
-            )).to(self.device)
-            for k, v in data.items()}
+        host = {k: np.asarray(v)[:keep].reshape(shape + np.asarray(v).shape[1:])
+                for k, v in data.items()}
+        if mesh is not None:
+            # each rank uploads only its block of every batch; a shuffled
+            # epoch keeps the global rows on the host and uploads the
+            # rank's block of each epoch's order
+            self._host = host if shuffle else None
+            self._base = None
+            self._batches = None if shuffle else self._split(
+                self._upload(host))
+            self._nbytes = sum(self._local(v).nbytes for v in host.values())
+            return
+        self._base = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+            self.device) for k, v in host.items()}
         self._nbytes = sum(t.numel() * t.element_size()
                            for t in self._base.values())
         self._batches = None if shuffle else self._split(self._base)
+
+    def _local(self, x: np.ndarray) -> np.ndarray:
+        """This rank's block of a (steps, batch, ...) host epoch: its rows
+        of every batch, and for arrays of rank > 2 its slice of the third
+        dim (the sequence) under ``seq_axis``."""
+        x = sharding.local_rows(self.mesh, x, axis=1)
+        if x.ndim > 2:
+            x = sharding.local_seq(self.mesh, x, self.seq_axis, axis=2)
+        return np.ascontiguousarray(x)
+
+    def _upload(self, host: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        return {k: to_device(self._local(v), self.device)
+                for k, v in host.items()}
 
     @property
     def nbytes(self) -> int:
@@ -164,6 +213,13 @@ class DeviceEpochCache:
 
     def batches(self, epoch: int = 0):
         """Device batch dicts for one epoch (shuffled iff ``shuffle``)."""
+        if self.shuffle and self._epoch != epoch and self.mesh is not None:
+            perm = self._permutation(epoch).numpy()
+            m = perm.size
+            self._batches = self._split(self._upload({
+                k: v.reshape((m,) + v.shape[2:])[perm].reshape(v.shape)
+                for k, v in self._host.items()}))
+            self._epoch = epoch
         if self.shuffle and self._epoch != epoch:
             perm = self._permutation(epoch).to(self.device, non_blocking=True)
             m = perm.numel()
@@ -176,19 +232,29 @@ class DeviceEpochCache:
 
 
 class DistributedTrainer:
-    """Train steps of ``loss_fn`` on one device; see the module docstring
-    for the state and loss contracts."""
+    """Train steps of ``loss_fn`` on one device, or on each rank of a
+    mesh; see the module docstring for the state and loss contracts.
+
+    ``mesh`` defaults to the launcher's (``mesh.mesh_from_config``) once
+    a process group is joined, else None: one device, ``runtime.device``.
+    ``rules`` are the sharding rules (``sharding.DEFAULT_RULES`` when
+    None); ``seq_axis`` names the axis the batch's second dim (the
+    sequence) is split over."""
 
     def __init__(self, loss_fn: LossFn, optimizer, mesh=None, rules=None,
                  accum_steps: int = 1, seq_axis: Optional[str] = None,
                  remat: bool = False, device=None):
-        for name, value in (("mesh", mesh), ("rules", rules),
-                            ("seq_axis", seq_axis)):
-            if value is not None:
-                _not_ported(f"DistributedTrainer({name}=...)")
+        if mesh is None and meshlib.is_initialized():
+            mesh = meshlib.mesh_from_config()
+        if seq_axis is not None and mesh is None:
+            raise ValueError(f"seq_axis={seq_axis!r} splits the sequence "
+                             "over a mesh axis: pass a mesh")
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.device = _device(device)
+        self.mesh, self.rules, self.seq_axis = mesh, rules, seq_axis
+        self.layout = (None if mesh is None
+                       else sharding.MeshLayout(mesh, seq_axis))
         self.accum_steps = int(accum_steps)
         self.remat = remat
         self._ring: Optional[Dict[str, torch.Tensor]] = None
@@ -197,25 +263,144 @@ class DistributedTrainer:
         self._flops_per_step: Optional[float] = None
         self._gens: Dict[int, torch.Generator] = {}
         self.last_flush: Optional[Dict[str, np.ndarray]] = None
+        self._shardings: Optional[Dict[str, sharding.ParamSharding]] = None
+        self._gathers: List[tuple] = []
+        self._reduce: List[Tuple[Any, List[torch.nn.Parameter]]] = []
 
     # -- state -------------------------------------------------------------
     def init(self, init_fn: Callable[[], torch.nn.Module]) -> Dict[str, Any]:
         """``init_fn()`` returns the module with its initial parameters
         (float32 master weights); it is moved to the device (channels-last
         on a card, the layout the convs run in) and the optimizer is built
-        over its parameters."""
+        over its parameters. On a mesh only this rank's shard of each
+        parameter reaches the device."""
         module = init_fn()
         if not isinstance(module, torch.nn.Module):
             raise TypeError("init_fn must return an nn.Module, got "
                             f"{type(module).__name__}")
+        if self.layout is not None:
+            self._place(module)
         module = module.to(self.device).train()
         if self.device.type == "cuda":
             module = module.to(memory_format=torch.channels_last)
-        return {"module": module,
-                "optimizer": self.optimizer.init(module.parameters()),
-                "step": torch.zeros((), dtype=torch.int32,
-                                    device=self.device),
-                "generators": self._gens}
+        state = {"module": module,
+                 "optimizer": self.optimizer.init(module.parameters()),
+                 "step": torch.zeros((), dtype=torch.int32,
+                                     device=self.device),
+                 "generators": self._gens}
+        if self.layout is not None:
+            state["layout"] = self.layout
+        return state
+
+    def state_sharding_spec(self) -> Optional[Dict[str, Any]]:
+        """``{name: ParamSharding}`` of the module's parameters on the
+        mesh (None before :meth:`init`, or without a mesh)."""
+        return self._shardings
+
+    def _place(self, module: torch.nn.Module) -> None:
+        """Put each parameter's shard on the device, bind the modules that
+        compute on shards, and plan the gathers and gradient sums."""
+        layout = self.layout
+        shardings = sharding.param_shardings(module, self.mesh, self.rules)
+        self._shardings = shardings
+        params = dict(module.named_parameters())
+        for name, p in params.items():
+            sh = shardings[name]
+            local = p.data[sh.slices(layout.coord)] if sh.sharded else p.data
+            p.data = local.contiguous().to(self.device)
+            p._mesh_sharding = sh
+            p._mesh_layout = layout
+            p._mesh_group = layout.group(*sh.axes) if sh.sharded else None
+        claimed = set()
+        for prefix, sub in module.named_modules():
+            bind = getattr(sub, "bind_mesh", None)
+            if callable(bind):
+                head = f"{prefix}." if prefix else ""
+                mine = {n[len(head):]: sh for n, sh in shardings.items()
+                        if n.startswith(head)}
+                claimed |= {head + n for n in bind(layout, mine)}
+        self._gathers = []
+        for name, p in params.items():
+            sh = shardings[name]
+            keep = ("tensor",) if name in claimed else ()
+            ops = [(d, tuple(a for a in sharding._axes(e) if a not in keep))
+                   for d, e in enumerate(sh.spec)]
+            ops = [(d, axes) for d, axes in ops if axes]
+            if ops:
+                owner_name, _, attr = name.rpartition(".")
+                self._gathers.append(
+                    (module.get_submodule(owner_name), attr, p, ops))
+        plan: Dict[Tuple[str, ...], List[torch.nn.Parameter]] = {}
+        for name, p in params.items():
+            axes = tuple(a for a in layout.grad_axes
+                         if a not in shardings[name].axes)
+            plan.setdefault(axes, []).append(p)
+        self._reduce = [(layout.group(*axes), ps)
+                        for axes, ps in plan.items()]
+
+    @contextlib.contextmanager
+    def mesh_context(self):
+        """Run code on the state's module as the step does (evaluation,
+        validation sums): on a mesh the layout is :func:`sharding.current`
+        and split parameters a module uses whole are gathered; nothing
+        without a mesh."""
+        if self.layout is None:
+            yield
+            return
+        with sharding.activate(self.layout), self._gathered():
+            yield
+
+    def batch_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the ranks that hold other rows (identity
+        without a mesh): per-rank sums of a batch -> the global batch's."""
+        if self.layout is None:
+            return x
+        return collectives.all_reduce(
+            x, self.layout.group(*self.layout.grad_axes))
+
+    @contextlib.contextmanager
+    def _gathered(self):
+        """Swap each split parameter that a module uses whole for its
+        gather (differentiable: its gradient lands on the shard) while
+        the step's forward and backward run."""
+        layout = self.layout
+        swapped = []
+        try:
+            for owner, attr, p, ops in self._gathers:
+                full = p
+                for d, axes in ops:
+                    full = collectives.gather_from(
+                        full, d, layout.group(*axes),
+                        sum_grads=any(a in layout.grad_axes for a in axes))
+                del owner._parameters[attr]
+                swapped.append((owner, attr, p))
+                setattr(owner, attr, full)
+            yield
+        finally:
+            for owner, attr, p in reversed(swapped):
+                delattr(owner, attr)
+                owner._parameters[attr] = p
+
+    def _sum_grads(self, module: torch.nn.Module) -> None:
+        """Sum each gradient over the ranks that saw other data (one
+        flat buffer per group and dtype) and divide by their count: the
+        gradient of the global mean loss."""
+        n = self.layout.n_grad
+        for group, params in self._reduce:
+            by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+            for p in params:
+                if p.grad is not None:
+                    by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+            for grads in by_dtype.values():
+                if collectives.size(group) > 1:
+                    flat = torch.cat([g.reshape(-1) for g in grads])
+                    flat = collectives.all_reduce(flat, group)
+                    offset = 0
+                    for g in grads:
+                        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+                        offset += g.numel()
+                if n > 1:
+                    torch._foreach_div_(grads, float(n))
 
     # -- steps -------------------------------------------------------------
     def flush_steps(self) -> int:
@@ -250,6 +435,21 @@ class DistributedTrainer:
         return self.loss_fn(module, batch, gen)
 
     def _forward_backward(self, module, batch, gen) -> torch.Tensor:
+        """The step's loss (a device scalar) with the gradients in
+        ``.grad``; on a mesh the global mean of both."""
+        if self.layout is None:
+            return self._local_forward_backward(module, batch, gen)
+        with self.mesh_context():
+            loss = self._local_forward_backward(module, batch, gen)
+        self._sum_grads(module)
+        return self._global_mean(loss)
+
+    def _global_mean(self, loss: torch.Tensor) -> torch.Tensor:
+        layout = self.layout
+        total = collectives.all_reduce(loss, layout.group(*layout.grad_axes))
+        return total / layout.n_grad if layout.n_grad > 1 else total
+
+    def _local_forward_backward(self, module, batch, gen) -> torch.Tensor:
         accum = self.accum_steps
         if accum == 1:
             loss = self._loss(module, batch, gen)
@@ -316,13 +516,25 @@ class DistributedTrainer:
 
     def eval_step(self, state: Dict[str, Any], batch: Dict[str, torch.Tensor],
                   rng=None) -> torch.Tensor:
-        """The loss without gradients (a device scalar)."""
+        """The loss without gradients (a device scalar; on a mesh the
+        global mean)."""
         with torch.no_grad():
-            return self.loss_fn(state["module"], batch, self._generator(rng))
+            if self.layout is None:
+                return self.loss_fn(state["module"], batch,
+                                    self._generator(rng))
+            with self.mesh_context():
+                loss = self.loss_fn(state["module"], batch,
+                                    self._generator(rng))
+            return self._global_mean(loss)
 
     # -- data --------------------------------------------------------------
     def put_batch(self, batch: Dict[str, np.ndarray]
                   ) -> Dict[str, torch.Tensor]:
+        """A host batch on the device; on a mesh the GLOBAL batch, of
+        which this rank uploads its block (``sharding.shard_batch``)."""
+        if self.mesh is not None:
+            return sharding.shard_batch(self.mesh, batch, self.seq_axis,
+                                        self.device)
         return {k: to_device(v, self.device) for k, v in batch.items()}
 
     # -- telemetry ---------------------------------------------------------

@@ -20,12 +20,15 @@ What makes that hold:
   quarantined (renamed aside, preserved for forensics) and restore falls
   back to the next-newest step, down to a fresh init when none survive.
 
-The reference's elastic-mesh lever, :meth:`ResilientTrainLoop.reshard_to`
-(a restore onto a new device mesh), waits for the multi-device layers
-(ROADMAP slice 6) and raises.
+The elastic-mesh lever, :meth:`ResilientTrainLoop.reshard_to`, moves a
+run onto a new mesh of the same ranks at a step boundary: drain to a
+checkpoint, build the trainer on the new ``DeviceMesh``, restore across
+mesh shapes, go on. ``run_dataset`` on a mesh (per-rank data-state files
+of a streamed input) is slice 6b of the port and raises.
 """
 from __future__ import annotations
 
+import threading
 from typing import Any, Callable, Dict, Optional, Tuple
 
 from mmlspark_tpu_torch.reliability import preemption
@@ -39,8 +42,8 @@ class ResilientTrainLoop:
 
     ``save_every`` is the checkpoint cadence in steps (the crash-loss
     window); the final step always commits with ``wait=True`` so a clean
-    exit never loses the tail. ``trainer_factory(mesh) -> trainer`` is
-    kept for the reference's signature; the reshard it serves is slice 6.
+    exit never loses the tail. ``trainer_factory(mesh) -> trainer``
+    enables :meth:`reshard_to`.
     """
 
     def __init__(self, trainer, checkpointer,
@@ -51,14 +54,60 @@ class ResilientTrainLoop:
         self.init_params_fn = init_params_fn
         self.save_every = save_every
         self.trainer_factory = trainer_factory
+        self._reshard_lock = threading.Lock()
+        self._pending_reshard: Optional[str] = None
 
+    # -- elastic mesh --------------------------------------------------------
     def reshard_to(self, mesh_shape: str) -> None:
-        """Refused: a mid-run mesh change restores the state onto a new
-        device mesh, which needs the multi-device layers (ROADMAP slice
-        6). A request that can never be honoured is not accepted."""
-        raise NotImplementedError(
-            f"reshard_to({mesh_shape!r}): resharding onto a new mesh is "
-            "ROADMAP slice 6; the port trains on one device")
+        """Request a mid-run mesh change (``'4x1'``, ``'2x2'``, ...), the
+        same ranks laid out anew.
+
+        Thread-safe and asynchronous: the request is honoured at the next
+        step boundary, where the loop drains to a consistent checkpoint,
+        rebuilds the trainer with ``trainer_factory`` on the new
+        ``DeviceMesh``, restores the state across mesh shapes and goes on
+        with the same batches. Every rank must make the same request
+        before the same step. Needs ``trainer_factory`` (raises at once
+        otherwise: a request that could never be honoured is not
+        accepted)."""
+        if self.trainer_factory is None:
+            raise RuntimeError(
+                "reshard_to needs a trainer_factory(mesh) -> trainer; "
+                "construct ResilientTrainLoop with one")
+        from mmlspark_tpu_torch.parallel.mesh import parse_mesh_shape
+        parse_mesh_shape(mesh_shape)
+        with self._reshard_lock:
+            self._pending_reshard = mesh_shape
+
+    def _take_pending_reshard(self) -> Optional[str]:
+        with self._reshard_lock:
+            shape, self._pending_reshard = self._pending_reshard, None
+            return shape
+
+    def _maybe_reshard(self, state: Any, step: int) -> Any:
+        """The step-boundary rendezvous: when a reshard is pending, drain
+        to a checkpoint of ``step``, swap the trainer onto the new mesh
+        and restore the state into its placement."""
+        if step <= 0:
+            return state   # nothing checkpointable yet; stays pending
+        shape = self._take_pending_reshard()
+        if shape is None:
+            return state
+        from mmlspark_tpu_torch.parallel.mesh import (make_mesh,
+                                                      parse_mesh_shape)
+        _LOG.warning("resharding at step %d to mesh %s", step, shape)
+        self.ckpt.wait()
+        if self.ckpt.latest_step() != step:
+            self.ckpt.save(state, step=step, wait=True)
+        self.trainer = self.trainer_factory(make_mesh(parse_mesh_shape(shape)))
+        state = self.ckpt.restore(self.trainer, self.init_params_fn,
+                                  step=step)
+        from mmlspark_tpu_torch.observability import events, metrics
+        metrics.counter("reliability.reshards").inc()
+        if events.events_enabled():
+            events.emit("event", "train.reshard", step=step,
+                        mesh_shape=shape)
+        return state
 
     def restore_or_init(self) -> Tuple[Dict[str, Any], int]:
         """(state, start_step): newest VALID checkpoint, else fresh init.
@@ -109,6 +158,7 @@ class ResilientTrainLoop:
         for step in range(start + 1, total_steps + 1):
             if preemption.preempted():
                 return self._drain(state, step - 1)
+            state = self._maybe_reshard(state, step - 1)
             batch = self.trainer.put_batch(batch_fn(step))
             state, _metrics = self.trainer.train_step(state, batch, rng)
             self.ckpt.maybe_save(state, every=self.save_every, step=step)
@@ -153,6 +203,11 @@ class ResilientTrainLoop:
         harmless, a committed step without one would restart the stream.
         """
         from mmlspark_tpu_torch.data.pipeline import Dataset
+        if getattr(self.trainer, "mesh", None) is not None:
+            raise NotImplementedError(
+                "run_dataset on a mesh (each rank's streamed input and its "
+                "own data-state files) is slice 6b of the port; drive a "
+                "meshed run with run(batch_fn, ...)")
         rng = 0 if rng is None else rng
         state, start = self.restore_or_init()
         if start > 0:

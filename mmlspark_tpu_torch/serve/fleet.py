@@ -367,12 +367,12 @@ class Fleet:
         return report
 
     def reshard(self, mesh_shape, **kw) -> Dict:
-        """Resharding the serving fleet over a device mesh is the
-        multi-device slice of the port (ROADMAP queue A)."""
+        """Resharding the serving fleet over a device mesh is the serving
+        half of the port's multi-device layers, slice 6b."""
         raise NotImplementedError(
-            "Fleet.reshard needs the port's multi-device layers (ROADMAP "
-            "queue A, the multi-device slice); the in-process fleet runs "
-            "every replica on one device")
+            "Fleet.reshard needs the port's multi-device layers for serving "
+            "(slice 6b: meshed scoring, shard_kv); the in-process fleet "
+            "runs every replica on one device")
 
     # -- warm-up ------------------------------------------------------------
     def _wait_lane_idle(self, lane, timeout_s: float) -> None:

@@ -31,9 +31,15 @@ same architecture (the reference's CNTKLearner round trip,
   fit's bit for bit.
 
 Every optimizer of the reference trains (``adamw``, ``adam``, ``sgd``,
-``lamb``, ``adafactor``; ``parallel/optim.py`` holds optax's rules). Not
-ported yet, and raising ``NotImplementedError``: a non-None ``meshSpec``
-(ROADMAP slice 6).
+``lamb``, ``adafactor``; ``parallel/optim.py`` holds optax's rules).
+
+``meshSpec`` (a ``MeshSpec``, an axis-size dict, ``"data=2"`` or a
+``DeviceMesh``; None consults the launcher's ``runtime.mesh`` once a
+process group is joined, else one device) fits data parallel through the
+trainer: every rank runs the fit on the same frame, the batch rounds up
+to a multiple of the data ranks (times ``accumSteps``), each rank
+uploads its block of every batch, and the weighted loss is the global
+batch's (``sharding.global_mean``), as the reference's GSPMD step.
 """
 from __future__ import annotations
 
@@ -55,6 +61,7 @@ from mmlspark_tpu_torch.core.serialization import register_stage
 from mmlspark_tpu_torch.models.zoo import init_state
 from mmlspark_tpu_torch.observability import syncs as obssyncs
 from mmlspark_tpu_torch.parallel import optim
+from mmlspark_tpu_torch.parallel.sharding import global_mean
 from mmlspark_tpu_torch.train.learners import (
     FeaturizeHints, TorchEstimator, _pad_xyw, _score_classifier,
     _score_regressor,
@@ -167,8 +174,9 @@ class _DeepEstimatorBase(TorchEstimator):
         "standardize", "z-score features with fit-time statistics", True)
     seed = IntParam("seed", "seed of the init and the batch order", 0)
     meshSpec = AnyParam(
-        "meshSpec", "training over a device mesh; not ported yet, must be "
-        "None (one device)", None)
+        "meshSpec", "MeshSpec / axis-size dict / DeviceMesh (None = the "
+        "launcher's runtime.mesh in a process group, else one device)",
+        None)
     checkpointDir = StringParam(
         "checkpointDir", "checkpoint dir for elastic resume ('' = off)", "")
     checkpointEvery = IntParam(
@@ -230,15 +238,19 @@ class _DeepEstimatorBase(TorchEstimator):
         from mmlspark_tpu_torch.utils.logging import MetricLogger
         from mmlspark_tpu_torch.parallel.trainer import DistributedTrainer
 
-        if self.get("meshSpec") is not None:
-            raise NotImplementedError(
-                "meshSpec: training over a device mesh is ROADMAP slice 6; "
-                "leave it None to train on runtime.device")
+        from mmlspark_tpu_torch.parallel.mesh import mesh_shape, resolve_mesh
+        from mmlspark_tpu_torch.parallel.sharding import (
+            active_batch_axes, whole_state_dict,
+        )
         device = resolve_device()
+        mesh = resolve_mesh(self.get("meshSpec"))
         fcol, lcol = self.featuresCol, self.labelCol
         self.validation_history = []
         accum = int(self.accumSteps)
-        bs = int(math.ceil(self.batchSize / accum) * accum)
+        # the batch splits evenly over the data ranks and the microbatches
+        dp = math.prod(mesh_shape(mesh)[a] for a in
+                       active_batch_axes(mesh) or ()) if mesh else 1
+        bs = int(math.ceil(self.batchSize / (dp * accum)) * dp * accum)
         seed = self.seed
         patience = int(self.get("earlyStoppingPatience"))
         val_frac = float(self.get("validationSplit"))
@@ -273,7 +285,7 @@ class _DeepEstimatorBase(TorchEstimator):
         total_steps = steps_per_epoch * self.epochs
         trainer = DistributedTrainer(
             self._make_loss(prep, ymu, ysigma),
-            self._build_optimizer(total_steps), accum_steps=accum,
+            self._build_optimizer(total_steps), mesh=mesh, accum_steps=accum,
             remat=self.remat, device=device)
         def init_fn():
             return _module_with(spec, self._init_params(spec["module"], seed))
@@ -314,7 +326,7 @@ class _DeepEstimatorBase(TorchEstimator):
                                                                    mode)
                 cache = None if mode == "off" else _epoch_device_cache(
                     frame, fcol, lcol, bs, self._y_dtype, device=device,
-                    seed=seed, force=mode == "on")
+                    seed=seed, force=mode == "on", mesh=mesh)
                 if ckpt is not None:
                     ckpt.put_meta(batch_order="cached" if cache is not None
                                   else "streamed")
@@ -380,10 +392,11 @@ class _DeepEstimatorBase(TorchEstimator):
                         closer.close()
                 if val_fn is not None:
                     module = state["module"]
-                    with torch.no_grad():
+                    with torch.no_grad(), trainer.mesh_context():
                         # the metric sums accumulate on the device: one
                         # host round trip per epoch
-                        sums = sum(val_fn(module, b) for b in val_dev)
+                        sums = trainer.batch_sum(
+                            sum(val_fn(module, b) for b in val_dev))
                     vm = finalize(obssyncs.device_get(sums,
                                                       "deep.validation"))
                     val_log(epoch + 1, vm)
@@ -415,7 +428,7 @@ class _DeepEstimatorBase(TorchEstimator):
 
             module = state["module"]
             fetched = obssyncs.device_get(
-                {"params": dict(module.state_dict()),
+                {"params": whole_state_dict(module),
                  "final_loss": last_loss}, "deep.fetch_params")
             state_arrays = {
                 "params": {k: np.ascontiguousarray(v)
@@ -445,7 +458,7 @@ class DeepClassifier(_DeepEstimatorBase):
             logits = module(prep(batch["x"])).float()
             ce = F.cross_entropy(logits, batch["y"].long(), reduction="none")
             w = batch["w"]
-            return (ce * w).sum() / torch.clamp(w.sum(), min=1.0)
+            return global_mean((ce * w).sum(), w.sum())
         return loss_fn
 
     def _make_val_step(self, prep, ymu, ysigma):
@@ -568,8 +581,7 @@ class DeepRegressor(_DeepEstimatorBase):
             pred = module(prep(batch["x"]))[:, 0].float()
             target = (batch["y"] - ymu_) / ysig_
             w = batch["w"]
-            return (((pred - target) ** 2) * w).sum() / torch.clamp(
-                w.sum(), min=1.0)
+            return global_mean((((pred - target) ** 2) * w).sum(), w.sum())
         return loss_fn
 
     def _make_val_step(self, prep, ymu, ysigma):

@@ -17,7 +17,7 @@ torch: forward, ``backward()``, the optimizer step, then the proximal
 step; it reads nothing back from the device until the fitted parameters
 come home in one counted fetch. The learners fit on one device: inside a
 ``torch.distributed`` group of more than one process they raise
-(multi-process fits are ROADMAP slice 6).
+(multi-process fits are ROADMAP slice 6b).
 """
 from __future__ import annotations
 
@@ -158,7 +158,7 @@ def _pad_xyw(hb: Dict[str, np.ndarray], fcol: str, lcol: str, bs: int,
 
 def _epoch_device_cache(frame: Frame, fcol: str, lcol: str, batch_size: int,
                         y_dtype, device=None, seed: int = 0,
-                        force: bool = False):
+                        force: bool = False, mesh=None):
     """Pad-and-masked epoch -> shuffled ``DeviceEpochCache``, or None when
     it exceeds ``runtime.device_cache_mb`` (unless ``force``).
 
@@ -166,7 +166,8 @@ def _epoch_device_cache(frame: Frame, fcol: str, lcol: str, batch_size: int,
     frame costs no host materialization; the tail rows are padded once
     with zero weight and ride through every shuffled epoch masked out of
     the loss. A single-batch epoch skips the shuffle: batch composition
-    does not change under a permutation."""
+    does not change under a permutation. On a ``mesh`` the epoch is the
+    global one and each rank uploads its block of every batch."""
     from mmlspark_tpu_torch.parallel.trainer import DeviceEpochCache
     n = frame.count()
     if n == 0:
@@ -186,8 +187,8 @@ def _epoch_device_cache(frame: Frame, fcol: str, lcol: str, batch_size: int,
     epoch = dict(zip(("x", "y", "w"),
                      _pad_xyw({fcol: x, lcol: y}, fcol, lcol, padded,
                               y_dtype)))
-    return DeviceEpochCache(epoch, batch_size, shuffle=shuffle, seed=seed,
-                            device=device)
+    return DeviceEpochCache(epoch, batch_size, mesh=mesh, shuffle=shuffle,
+                            seed=seed, device=device)
 
 
 def _single_process(what: str) -> None:
@@ -199,7 +200,7 @@ def _single_process(what: str) -> None:
             and dist.get_world_size() > 1:
         raise NotImplementedError(
             f"{what}: multi-process fits are not ported yet (ROADMAP slice "
-            "6); the port's learners fit on one device")
+            "6b); the port's learners fit on one device")
 
 
 def _leaves(tree) -> list:

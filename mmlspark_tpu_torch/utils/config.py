@@ -9,6 +9,9 @@ read them. The JAX package's ``observability.peak_tflops`` is a TPU peak
 and is not carried: the port's MFU divides by the H100 data-sheet peak
 ``observability.metrics.H100_SXM_BF16_DENSE_FLOPS``.
 
+``runtime.dist_backend`` (the port's own) names the ``torch.distributed``
+backend a process group joins with (``parallel/mesh.py``).
+
 ``runtime.device`` names the torch device every entry point runs on. It
 defaults to ``"cuda"``; when CUDA is missing the entry points raise
 (:func:`resolve_device`) instead of carrying on on the CPU, so a run never
@@ -26,6 +29,14 @@ _DEFAULTS: Dict[str, Any] = {
     "runtime.device_cache_mb": 1024,  # device-memory budget for resident
                                       # scoring inputs and epoch caches
     "runtime.prefetch_depth": 2,      # host->device prefetch queue depth
+    "runtime.mesh": "",               # launcher default, e.g. "data=-1,tensor=2"
+    "runtime.dist_backend": "nccl",   # torch.distributed backend: "nccl"
+                                      # (one card a rank) or "gloo" (the
+                                      # CPU, or ranks sharing a card)
+    # parallel (mesh topology; parallel/mesh.py)
+    "parallel.mesh_shape": "",        # "DxT" shorthand, e.g. "4x2" =
+                                      # data 4 x tensor 2; overrides
+                                      # runtime.mesh; "" defers to it
     "train.metrics_flush_steps": 16,  # steps between reads of the trainer's
                                       # device-resident metrics ring
     "evaluate.device_rows": 1_000_000,  # rows from which

@@ -237,12 +237,15 @@ def test_tensor_core_arithmetic_is_within_its_gate(d, causal):
 
 
 def test_make_attention_fn_gives_full_attention_and_refuses_meshes():
+    """Without a mesh "auto" and "full" are full attention; "ring" and
+    "ulysses" are the sequence-parallel functions (held against the JAX
+    ones on gloo ranks in tests/test_torch_sequence_parallel.py), bound to
+    their mesh and axis; an unknown impl is refused."""
     assert tseq.make_attention_fn(None) is tseq.full_attention
     assert tseq.make_attention_fn(None, "full") is tseq.full_attention
-    for impl in ("ring", "ulysses"):
-        with pytest.raises(NotImplementedError, match="slice 6"):
-            tseq.make_attention_fn(None, impl)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        tseq.make_attention_fn(object(), "auto")
+    for impl, fn in (("ring", tseq.ring_attention),
+                     ("ulysses", tseq.ulysses_attention)):
+        got = tseq.make_attention_fn(None, impl)
+        assert got.func is fn and got.seq_parallel == "seq"
     with pytest.raises(ValueError, match="unknown"):
         tseq.make_attention_fn(None, "sparse")

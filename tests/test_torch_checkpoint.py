@@ -402,9 +402,16 @@ def test_resilient_loop_noop_when_already_complete(tmp_path):
 
 
 def test_reshard_to_is_refused_until_slice_6(tmp_path):
+    """Without a ``trainer_factory`` a reshard can never be honoured, so it
+    is refused at the call (the reference's rule); a bad shape is refused
+    before it is queued. The reshard itself runs on gloo ranks in
+    tests/test_torch_trainer_mesh.py."""
     loop = _loop(str(tmp_path / "ck"))
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(RuntimeError, match="trainer_factory"):
         loop.reshard_to("4x2")
+    loop.trainer_factory = lambda mesh: loop.trainer
+    with pytest.raises(ValueError, match="mesh shape"):
+        loop.reshard_to("4x2x2x2")
     loop.ckpt.close()
 
 

@@ -54,8 +54,9 @@ def test_config_defaults_equal_the_reference_on_every_shared_key():
     for key in sorted(shared):
         want, got = jconfig._DEFAULTS[key], tconfig._DEFAULTS[key]
         assert got == want and type(got) is type(want), key
+    # the port's own keys: its device, and its torch.distributed backend
     assert set(tconfig._DEFAULTS) - set(jconfig._DEFAULTS) == \
-        {"runtime.device"}
+        {"runtime.device", "runtime.dist_backend"}
     for ns in ("slo.", "autopilot.", "fleet.supervisor_"):
         keys = {k for k in jconfig._DEFAULTS if k.startswith(ns)}
         assert keys and keys <= set(tconfig._DEFAULTS), ns

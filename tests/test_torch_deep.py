@@ -294,8 +294,9 @@ def test_lamb_adafactor_checkpoint_and_mesh_raise(tmp_path):
     """lamb and adafactor train (above) and checkpoint: with
     ``checkpointDir`` a fit commits its last step, and a refit over the
     same directory runs zero steps and returns the same params (their
-    host-side counts ride the checkpoint). A mesh still raises until its
-    layer is ported, and early stopping needs a validation split."""
+    host-side counts ride the checkpoint). A mesh needs a process group
+    (its fit runs on gloo ranks in tests/test_torch_trainer_mesh.py), and
+    early stopping needs a validation split."""
     X, y = _xor(n=64)
     frame = Frame.from_dict({"features": X, "label": y})
     for name in ("lamb", "adafactor"):
@@ -306,7 +307,7 @@ def test_lamb_adafactor_checkpoint_and_mesh_raise(tmp_path):
         again = _learner(optimizer=name, checkpointDir=ckdir).fit(frame)
         for k, v in first._state["params"].items():
             np.testing.assert_array_equal(again._state["params"][k], v)
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(RuntimeError, match="process group"):
         _learner(meshSpec={"data": 2}).fit(frame)
     with pytest.raises(ValueError, match="validationSplit"):
         _learner(earlyStoppingPatience=2).fit(frame)

@@ -36,9 +36,10 @@ def test_importing_every_port_module_loads_no_jax_and_no_jax_package():
     count, bad = out.stdout.strip().split(" ", 1)
     # every module: serve/ and compile_cache too, the process fleet's
     # cli, control/, testing/, supervisor, launcher, slo, goodput and
-    # preemption, and the streamed input and resume slice's codecs,
-    # native loader, data pipeline, checkpointer, resilient loop and disk
-    assert int(count) >= 98
+    # preemption, the streamed input and resume slice's codecs, native
+    # loader, data pipeline, checkpointer, resilient loop and disk, and
+    # the meshed layers' mesh, sharding, collectives and rank pool
+    assert int(count) >= 102
     assert bad == "[]", bad
 
 
@@ -298,3 +299,32 @@ def test_checkpoint_restore_raises_instead_of_loading_onto_the_cpu(
                                  _linear)
     finally:
         ckpt.close()
+
+
+def test_nccl_refuses_too_few_cards_and_never_switches_to_gloo(
+        monkeypatch):
+    """``runtime.dist_backend="nccl"`` (the default) with fewer visible
+    cards than local ranks raises before any rendezvous, naming gloo as
+    the caller's choice, and leaves no process group behind: nothing
+    picks another backend by itself. gloo is accepted."""
+    import torch
+    import torch.distributed as dist
+    from mmlspark_tpu_torch.parallel import mesh
+    from mmlspark_tpu_torch.testing.ranks import free_port
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    with pytest.raises(RuntimeError, match="gloo"):
+        mesh.check_backend("nccl", cards + 1)
+    mesh.check_backend("gloo", cards + 2)
+    with pytest.raises(ValueError, match="nccl"):
+        mesh.check_backend("mpi", 1)
+    tconfig.set("runtime.dist_backend", "nccl")
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", str(cards + 1))
+    try:
+        with pytest.raises(RuntimeError, match="one CUDA card a rank"):
+            mesh.initialize_multihost(f"127.0.0.1:{free_port()}",
+                                      cards + 1, 0, timeout_s=5)
+        assert not dist.is_initialized()
+    finally:
+        tconfig.unset("runtime.dist_backend")
+    with pytest.raises(ValueError, match="coordinator_address"):
+        mesh.initialize_multihost(num_processes=2, process_id=0)

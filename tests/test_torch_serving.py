@@ -423,8 +423,10 @@ def test_split_param_bytes_puts_embeddings_in_the_table_kind():
              "block0.attn_query.weight": np.zeros((4, 4), np.float32)}
     assert devmem.split_param_shard_bytes(state) == (64, 256)
     assert devmem.param_bytes(state) == 320
-    with pytest.raises(NotImplementedError):
-        devmem.projected_shard_bytes(state, mesh=object())
+    # over a mesh of data 2 x tensor 2 the table's rows and the query's
+    # output features split over tensor; the position table stays whole
+    assert devmem.projected_shard_bytes(
+        state, mesh={"data": 2, "tensor": 2}) == 20 * 4 + 96 + 8 * 4
 
 
 # -- fault sites, metrics, events ---------------------------------------------

@@ -341,12 +341,16 @@ def test_device_get_on_the_cpu_returns_copies():
 
 
 def test_meshes_and_sequence_axes_raise():
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        DistributedTrainer(_linear_loss, sgd(0.1), mesh=object())
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    """Meshed training runs on gloo ranks (tests/test_torch_trainer_mesh
+    .py); here, without a process group, a mesh cannot be built and a
+    sequence axis has no mesh to split over."""
+    from mmlspark_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    with pytest.raises(RuntimeError, match="process group"):
+        make_mesh(MeshSpec(data=2))
+    with pytest.raises(ValueError, match="seq_axis"):
         DistributedTrainer(_linear_loss, sgd(0.1), seq_axis="seq")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        DeviceEpochCache({"x": np.zeros((8, 1))}, 4, mesh=object())
+    with pytest.raises(ValueError, match="mesh"):
+        DeviceEpochCache({"x": np.zeros((8, 1))}, 4, seq_axis="seq")
     with pytest.raises(TypeError, match="nn.Module"):
         DistributedTrainer(_linear_loss, sgd(0.1)).init(lambda: {"w": 0})
 
