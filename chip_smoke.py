@@ -64,7 +64,11 @@ Eight paths, each through the entry points a user calls:
   gloo; each builds ``DeviceMesh``es, places ``transformer_lm``'s shards
   by the sharding rules and trains it split over ``tensor`` (K3 on each
   rank's heads) and over ``seq`` (Ulysses' all-to-all, then K3), and
-  ResNet-20 data parallel (K1 on each rank's half of the batch).
+  ResNet-20 data parallel (K1 on each rank's half of the batch); then the
+  MoE LM split over ``expert`` (K3 on every rank), a pipelined MLP over
+  ``pipe`` (with a ``reshard_to`` onto the pipe and back) and the DLRM
+  with its tables split by rows over ``tensor`` (the fused lookup, the
+  sparse gradient).
 
 The script:
 
@@ -346,7 +350,36 @@ The script:
     two ranks sharing one card (not a scaling figure). ``--mesh-only
     --mesh-cards 4`` runs just this phase on four cards, one rank a card
     over NCCL, at ``data=2 x tensor=2``, ``data=2 x seq=2`` and
-    ResNet-20 at ``data=4`` (it raises with fewer cards);
+    ResNet-20 at ``data=4`` (it raises with fewer cards). Then, in the
+    same ranks, with one-rank references run first here:
+    ``mesh.moe``: ``transformer_lm_moe`` at the zoo's width (vocab 32000,
+    dim 512, depth 6, 8 heads, 8 experts, top 2, capacity 1.25, L 2048,
+    bf16, global batch 8, adam(1e-3), next-token CE + 0.01 x moe_aux) at
+    ``expert=2`` (four cards: ``data=2 x expert=2``), 2 warm-up and 4
+    timed steps, and its fp32 twin at depth 2 (batch 4, 3 steps, TF32
+    off); gates: bf16 losses within ``MESH_MOE_BF16_TOL`` of one rank's,
+    fp32 within ``MESH_F32_TOL`` with the first step's gate indices and
+    slot positions of every MoE block EQUAL to one rank's rows of them,
+    ``flash_attention_tc`` 6 a step (fp32: ``flash_attention`` 2) on
+    every rank, each rank holding E/|expert| experts of every bank.
+    ``mesh.pipe``: the JAX bench's ``fleet_reshard`` train half (a
+    residual MLP, d 1024, hidden 2048, batch 16, adam(1e-4), 2
+    microbatches, fp32, TF32 off) with 2 stages and with 4 (two a rank) at
+    ``pipe=2`` (four cards: ``tensor=2 x pipe=2``), 6 steps, and a
+    ``ResilientTrainLoop`` of 6 steps from ``data=2`` resharded onto
+    ``pipe=2`` at step 3 and back at step 5 (four cards: data 4 and data
+    2 x pipe 2); gates: losses within ``MESH_F32_TOL`` of the sequential
+    one-rank run, every restore equal to its save, the stage hops' host
+    copies counted on gloo (none on NCCL). ``mesh.dlrm``: the JAX bench's
+    ``config_recommender`` train half (dense 16, 4 slots, embed 16, two
+    tables of 524,288 rows, towers (64,), batch 2048, sgd(0.05), rows from
+    ``testing/loadgen.recommender_rows(seed=31)``, 4 steps) at
+    ``tensor=2`` (four cards: ``data=2 x tensor=2``); gates: the fused
+    lookup of the first batch BIT-equal to ``bag_lookup_reference`` on
+    the whole table here, losses within ``MESH_DLRM_TOL`` of the one-rank
+    unsharded run, a rank's table bytes half the logical bytes, and the
+    collectives' own counters: the steps' all-reduces carry the dense
+    gradients and the loss only, never a table's gradient;
 21. prints the kernel table line (each kernel's launches on each of its
     paths), the card's name and power limit, and last ``{"ok": true,
     "device": {...}}``.
@@ -546,6 +579,31 @@ MESH_RESNET_STEPS, MESH_CHILD_TIMEOUT_S = 16, 420
 # magnitude and more where they cancel (the card read 5.2e-4 at data 2,
 # the CPU 8.9e-7); every step's loss is printed
 MESH_F32_TOL, MESH_UPDATE_TOL = 1e-5, 1e-3
+# the slice-6b-i runs of the mesh phase (module docstring, phase 20): the
+# MoE LM (bf16: 2 warm-up + 4 timed steps at global batch 8; fp32 at
+# depth 2: 3 steps at batch 4), the pipelined MLP of the JAX bench's
+# fleet_reshard lane (6 steps; the reshard's at 3 and 5) and its
+# recommender lane's DLRM (4 steps of 2048 rows)
+MESH_MOE_BATCH, MESH_MOE_WARMUP, MESH_MOE_STEPS = 8, 2, 4
+MESH_MOE_F32_BATCH, MESH_MOE_F32_STEPS = 4, 3
+MESH_PIPE_D, MESH_PIPE_HIDDEN, MESH_PIPE_BATCH = 1024, 2048, 16
+MESH_PIPE_STEPS, MESH_PIPE_LR, MESH_PIPE_MICRO = 6, 1e-4, 2
+MESH_PIPE_RESHARD_AT = (3, 5)
+MESH_DLRM_DENSE, MESH_DLRM_SLOTS, MESH_DLRM_EMBED = 16, 4, 16
+MESH_DLRM_TABLES = (("user", 524288), ("item", 524288))
+MESH_DLRM_BATCH, MESH_DLRM_STEPS, MESH_DLRM_LR = 2048, 4, 0.05
+# the MoE LM's bf16 losses against one rank's: in the bf16 runs the
+# experts' fp32 GEMMs run on TF32, whose rounding depends on the GEMM's
+# shape (4 experts a rank against 8), and a token whose top-2 gates
+# nearly tie can then take another expert and move by O(1); so the MoE
+# is held wider than the dense LM's LM_BF16_TRAIN_TOL. The first card
+# run read 8.75e-4 over 6 steps at expert 2 (fp32 with TF32 off: 8.8e-8,
+# the routing equal)
+MESH_MOE_BF16_TOL = 3e-3
+# the DLRM's losses against the one-rank unsharded run: the lookup and
+# the table gradient are exact, the dense towers' sums split otherwise
+# (the JAX test's bound)
+MESH_DLRM_TOL = 2e-6
 # fp32 operations per output element of the crop-resize-normalize kernel:
 # two row lerps (3 each), one column lerp (3), rint, clamp (2), subtract,
 # multiply
@@ -4786,12 +4844,20 @@ def _mesh_configs(cards: int) -> dict:
               ("seq2_ulysses", {"data": 1, "seq": 2}, "ulysses")]
         ring = ("seq2_ring", {"data": 1, "seq": 2}, "ring")
         return {"lm": lm, "f32": lm + [ring], "resnet": {"data": 2},
-                "ckpt": ["1x2", "2x1", "1x2"]}
+                "ckpt": ["1x2", "2x1", "1x2"],
+                "moe": ("expert2", {"data": 1, "expert": 2}),
+                "pipe": [("pipe2", "1x1x2", 2),
+                         ("pipe2_virtual4", "1x1x2", 4)],
+                "reshard": ["2", "1x1x2", "2"], "dlrm": "1x2"}
     lm = [("data2_tensor2", {"data": 2, "tensor": 2}, "full"),
           ("data2_seq2_ulysses", {"data": 2, "seq": 2}, "ulysses")]
     ring = ("data2_seq2_ring", {"data": 2, "seq": 2}, "ring")
     return {"lm": lm, "f32": lm + [ring], "resnet": {"data": cards},
-            "ckpt": ["2x2", "4x1", "2x2"]}
+            "ckpt": ["2x2", "4x1", "2x2"],
+            "moe": ("data2_expert2", {"data": 2, "expert": 2}),
+            "pipe": [("tensor2_pipe2", "1x2x2", 2),
+                     ("tensor2_pipe2_virtual4", "1x2x2", 4)],
+            "reshard": ["4", "2x1x2", "4"], "dlrm": "2x2"}
 
 
 def _mesh_lm_ids(batch, steps) -> np.ndarray:
@@ -4971,6 +5037,297 @@ def _mesh_checkpoint(torch, kernels, shapes, directory) -> dict:
     return out
 
 
+def _mesh_moe(torch, kernels, mesh, f32, warmup, steps, record=False):
+    """``transformer_lm_moe`` (bf16 at the zoo's width, or fp32 at depth
+    2) from the seed-0 host init, adam(1e-3), next-token CE + 0.01 x
+    moe_aux, batches from a resident epoch (each rank's block of it on a
+    mesh). Returns the per-step losses, the timed steps' ms, the counted
+    syncs in the timed window, the launches, the experts a rank holds,
+    and with ``record`` the first step's gate indices and slot positions
+    of every MoE block (host arrays) with this rank's batch block."""
+    from mmlspark_tpu_torch.models.zoo import build_model, init_state
+    from mmlspark_tpu_torch.models.zoo.moe import MoeMlp, moe_aux_loss
+    from mmlspark_tpu_torch.models.zoo.transformer import next_token_loss
+    from mmlspark_tpu_torch.observability import syncs
+    from mmlspark_tpu_torch.parallel import collectives, sharding
+    from mmlspark_tpu_torch.parallel.optim import adam
+    from mmlspark_tpu_torch.parallel.trainer import (
+        DeviceEpochCache, DistributedTrainer,
+    )
+    arch = dict(dtype="float32", depth=LM_F32_DEPTH) if f32 \
+        else dict(dtype="bfloat16")
+    batch = MESH_MOE_F32_BATCH if f32 else MESH_MOE_BATCH
+
+    def init_fn():
+        module = build_model("transformer_lm_moe", **arch)["module"]
+        module.load_state_dict({k: torch.from_numpy(v) for k, v in
+                                init_state(module, seed=0).items()})
+        return module
+    trainer = DistributedTrainer(
+        lambda m, b, g: next_token_loss(m, b["ids"])
+        + 0.01 * moe_aux_loss(m), adam(1e-3), mesh=mesh)
+    state = trainer.init(init_fn)
+    cache = DeviceEpochCache({"ids": _mesh_lm_ids(batch, warmup + steps)},
+                             batch, mesh=mesh)
+    batches = list(cache.batches(0))
+    moes = [m for m in state["module"].modules() if isinstance(m, MoeMlp)]
+    kernels.reset_launches()
+    collectives.reset_host_copies()
+    losses, routing = [], None
+    torch.cuda.synchronize()
+    sync0, t0 = syncs.total(), time.perf_counter()
+    for i, b in enumerate(batches):
+        if i == warmup:
+            torch.cuda.synchronize()
+            sync0, t0 = syncs.total(), time.perf_counter()
+        for m in moes:
+            m.record_routing = record and i == 0
+        state, out = trainer.train_step(state, b, 0)
+        losses.append(out["loss"])
+        if record and i == 0:
+            routing = {f"{n}_{j}": moe.routing[n].cpu().numpy()
+                       for j, moe in enumerate(moes)
+                       for n in ("gate_idx", "position")}
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / max(steps, 1)
+    out = {"losses": [float(x) for x in torch.stack(losses).cpu()],
+           "step_ms": step_ms, "window_syncs": syncs.total() - sync0,
+           "launches": _launches(kernels),
+           "host_copies": collectives.host_copies(),
+           "tokens_per_step": batch * LM_LEN,
+           "experts_held": sorted({(tuple(m.experts_up.shape),
+                                    tuple(m.experts_down.shape))
+                                   for m in moes}),
+           "block": sharding.batch_block(mesh) if mesh is not None else 0}
+    if routing is not None:
+        out["routing"] = routing
+    return out
+
+
+def _pipe_host(n_stages):
+    """The bench's fleet_reshard host init (seed 0): stacked stage
+    kernels (S, d, hidden) / (S, hidden, d) and the head (d, 1), in the
+    port's torch layouts."""
+    rng = np.random.default_rng(0)
+    d, h = MESH_PIPE_D, MESH_PIPE_HIDDEN
+    up = rng.normal(0, 0.02, (n_stages, d, h)).astype(np.float32)
+    down = rng.normal(0, 0.02, (n_stages, h, d)).astype(np.float32)
+    head = rng.normal(0, 0.02, (d, 1)).astype(np.float32)
+    return {"up": np.ascontiguousarray(up.transpose(0, 2, 1)),
+            "down": np.ascontiguousarray(down.transpose(0, 2, 1)),
+            "head": np.ascontiguousarray(head.T)}
+
+
+def _pipe_batch(step):
+    r = np.random.default_rng(1000 + step)
+    x = r.normal(0, 1, (MESH_PIPE_BATCH, MESH_PIPE_D)).astype(np.float32)
+    return {"x": x, "y": (x[:, 0] * 0.5).astype(np.float32)}
+
+
+def _pipe_parts(torch, n_stages):
+    """(init_fn, loss_fn) of the pipelined residual MLP: a ``StageStack``
+    under ``stages`` and a head outside the pipeline."""
+    from mmlspark_tpu_torch.parallel.pipeline_parallel import StageStack
+    host = _pipe_host(n_stages)
+
+    def init_fn():
+        module = torch.nn.Module()
+        module.stages = StageStack({"mlp_up": {"weight": host["up"]},
+                                    "mlp_down": {"weight": host["down"]}})
+        module.head = torch.nn.Linear(MESH_PIPE_D, 1, bias=False)
+        with torch.no_grad():
+            module.head.weight.copy_(torch.from_numpy(host["head"]))
+        return module
+
+    def stage(p, x):
+        return x + torch.tanh(x @ p["mlp_up"]["weight"].T) \
+            @ p["mlp_down"]["weight"].T
+
+    def loss_fn(module, batch, gen):
+        h = module.stages(stage, batch["x"], MESH_PIPE_MICRO)
+        return ((module.head(h)[:, 0] - batch["y"]) ** 2).mean()
+    return init_fn, loss_fn
+
+
+def _pipe_trainer(torch, mesh, loss_fn, losses=None):
+    """A trainer of the pipelined MLP (``pipeline_stacked_rules``); with
+    ``losses``, each step's loss is appended to it."""
+    from mmlspark_tpu_torch.parallel.optim import adam
+    from mmlspark_tpu_torch.parallel.sharding import pipeline_stacked_rules
+    from mmlspark_tpu_torch.parallel.trainer import DistributedTrainer
+
+    class Recording(DistributedTrainer):
+        def train_step(self, state, batch, rng=None):
+            state, out = super().train_step(state, batch, rng)
+            if losses is not None:
+                losses.append(out["loss"])
+            return state, out
+    return Recording(loss_fn, adam(MESH_PIPE_LR), mesh=mesh,
+                     rules=pipeline_stacked_rules())
+
+
+def _mesh_pipe(torch, mesh, n_stages):
+    """The pipelined MLP, ``n_stages`` stages, MESH_PIPE_STEPS steps
+    (fp32; the caller turns TF32 off): the losses, the ms of the steps
+    after the first, the stage hops' host copies and this rank's
+    stage-leaf shape."""
+    from mmlspark_tpu_torch.parallel import collectives
+    init_fn, loss_fn = _pipe_parts(torch, n_stages)
+    losses = []
+    trainer = _pipe_trainer(torch, mesh, loss_fn, losses)
+    state = trainer.init(init_fn)
+    collectives.reset_host_copies()
+    collectives.reset_traffic()
+    for step in range(1, MESH_PIPE_STEPS + 1):
+        if step == 2:   # the first step counts its FLOPs: not timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, _ = trainer.train_step(state, trainer.put_batch(
+            _pipe_batch(step)), 0)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (MESH_PIPE_STEPS - 1)
+    return {"losses": [float(x) for x in torch.stack(losses).cpu()],
+            "step_ms": step_ms, "host_copies": collectives.host_copies(),
+            "stage_shifts": collectives.traffic().get(
+                "stage_shift", {"calls": 0})["calls"],
+            "up_shape": list(state["module"].stages.mlp_up.weight.shape)}
+
+
+def _mesh_pipe_reshard(torch, shapes, directory):
+    """``ResilientTrainLoop.run`` of the 2-stage pipelined MLP from mesh
+    ``shapes[0]``, ``reshard_to(shapes[1])`` requested while step
+    MESH_PIPE_RESHARD_AT[0] runs and ``reshard_to(shapes[2])`` at [1]:
+    the losses, whether every restore equalled its save (the whole
+    parameters), and the mesh the run ended on."""
+    from mmlspark_tpu_torch.parallel.checkpoint import TrainCheckpointer
+    from mmlspark_tpu_torch.parallel.mesh import make_mesh, mesh_shape
+    from mmlspark_tpu_torch.parallel.mesh import parse_mesh_shape
+    from mmlspark_tpu_torch.parallel.sharding import whole_state_dict
+    from mmlspark_tpu_torch.reliability.resilient import ResilientTrainLoop
+    init_fn, loss_fn = _pipe_parts(torch, 2)
+    losses, equal = [], []
+
+    class Checked(TrainCheckpointer):
+        saved = None
+
+        def save(self, state, *args, **kwargs):
+            Checked.saved = {k: v.cpu().clone() for k, v in
+                             whole_state_dict(state["module"]).items()}
+            return super().save(state, *args, **kwargs)
+
+        def restore(self, trainer, init, step=None):
+            state = super().restore(trainer, init, step)
+            got = whole_state_dict(state["module"])
+            equal.append(all(torch.equal(got[k].cpu(), v)
+                             for k, v in Checked.saved.items()))
+            return state
+
+    def factory(mesh):
+        return _pipe_trainer(torch, mesh, loss_fn, losses)
+    loop = ResilientTrainLoop(factory(make_mesh(parse_mesh_shape(shapes[0]))),
+                              Checked(directory), init_fn, save_every=0,
+                              trainer_factory=factory)
+    at = dict(zip(MESH_PIPE_RESHARD_AT, shapes[1:]))
+
+    def batch_fn(step):
+        if step in at:
+            loop.reshard_to(at[step])
+        return _pipe_batch(step)
+    loop.run(batch_fn, MESH_PIPE_STEPS)
+    loop.ckpt.close()
+    return {"losses": [float(x) for x in torch.stack(losses).cpu()],
+            "restores_equal": equal,
+            "mesh": mesh_shape(loop.trainer.mesh)}
+
+
+def _dlrm_parts(torch):
+    """(init_fn, loss_fn, host rows, labels) of the bench's recommender
+    train half: the DLRM (seed-0 host init) on the loadgen's rows."""
+    import torch.nn.functional as F
+    from mmlspark_tpu_torch.models.zoo import build_model, init_state
+    from mmlspark_tpu_torch.testing import loadgen
+    kw = dict(dense_dim=MESH_DLRM_DENSE, tables=MESH_DLRM_TABLES,
+              embed_dim=MESH_DLRM_EMBED, slots=MESH_DLRM_SLOTS,
+              bottom=(64,), top=(64,))
+    x = loadgen.recommender_rows(
+        MESH_DLRM_BATCH * MESH_DLRM_STEPS, dense=MESH_DLRM_DENSE,
+        tables=tuple((rows, MESH_DLRM_SLOTS)
+                     for _, rows in MESH_DLRM_TABLES), seed=31)
+    y = (x[:, 0] > 0).astype(np.float32)
+
+    def init_fn():
+        module = build_model("recommender_dlrm", **kw)["module"]
+        module.load_state_dict({k: torch.from_numpy(v) for k, v in
+                                init_state(module, seed=0).items()})
+        return module
+
+    def loss_fn(module, batch, gen):
+        return F.binary_cross_entropy_with_logits(module(batch["x"])[:, 0],
+                                                  batch["y"])
+    return init_fn, loss_fn, x, y
+
+
+def _first_bags(torch, module, x, lookup):
+    """The user table's bags of the first batch's rows ``x`` (this rank's
+    block) through ``lookup``, on the initial table."""
+    from mmlspark_tpu_torch.embed.tables import PAD_ID
+    off = MESH_DLRM_DENSE
+    ids = x[:, off:off + MESH_DLRM_SLOTS].long()
+    with torch.no_grad():
+        return lookup(module.user_embedding, ids, (ids != PAD_ID).float())
+
+
+def _mesh_dlrm(torch, mesh):
+    """The DLRM, MESH_DLRM_STEPS sgd steps over the loadgen's rows (each
+    rank's block of every batch on a mesh): the losses, the ms of the
+    steps after the first, the
+    first batch's fused bags (gathered over the data ranks), the table
+    bytes a rank holds, the dense bytes, and the collectives' traffic of
+    the steps by op."""
+    from mmlspark_tpu_torch.embed.tables import bag_lookup_reference
+    from mmlspark_tpu_torch.parallel import collectives, sharding
+    from mmlspark_tpu_torch.parallel.optim import sgd
+    from mmlspark_tpu_torch.parallel.trainer import (
+        DeviceEpochCache, DistributedTrainer,
+    )
+    init_fn, loss_fn, x, y = _dlrm_parts(torch)
+    trainer = DistributedTrainer(loss_fn, sgd(MESH_DLRM_LR), mesh=mesh)
+    state = trainer.init(init_fn)
+    module = state["module"]
+    cache = DeviceEpochCache({"x": x, "y": y}, MESH_DLRM_BATCH, mesh=mesh)
+    batches = list(cache.batches(0))
+    bags = _first_bags(torch, module, batches[0]["x"],
+                       module.lookup_fn or bag_lookup_reference)
+    if mesh is not None:
+        bags = collectives.all_gather(
+            bags, 0, sharding.axis_group(
+                mesh, sharding.active_batch_axes(mesh) or ()))
+    collectives.reset_traffic()
+    collectives.reset_host_copies()
+    losses = []
+    for i, b in enumerate(batches):
+        if i == 1:      # the first step counts its FLOPs: not timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, out = trainer.train_step(state, b, 0)
+        losses.append(out["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (len(batches) - 1)
+    tables = [p for n, p in module.named_parameters()
+              if n.endswith("_embedding")]
+    return {"losses": [float(v) for v in torch.stack(losses).cpu()],
+            "step_ms": step_ms, "bags": bags.cpu().numpy(),
+            "table_bytes": sum(p.numel() * p.element_size() for p in tables),
+            "logical_table_bytes": sum(
+                rows * MESH_DLRM_EMBED * 4 for _, rows in MESH_DLRM_TABLES),
+            "dense_bytes": sum(p.numel() * p.element_size() for n, p in
+                               module.named_parameters()
+                               if not n.endswith("_embedding")),
+            "traffic": collectives.traffic(),
+            "host_copies": collectives.host_copies(),
+            "summed": list(getattr(module, "summed_grads", ()))}
+
+
 def mesh_child(spec: dict) -> int:
     """One rank of the mesh phase, started by ``cli run --nprocs`` (the
     process group is joined and ``runtime.device`` set): every run of
@@ -4980,7 +5337,8 @@ def mesh_child(spec: dict) -> int:
     import torch.distributed as dist
     from mmlspark_tpu_torch import kernels
     from mmlspark_tpu_torch.parallel import collectives
-    from mmlspark_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from mmlspark_tpu_torch.parallel.mesh import (MeshSpec, make_mesh,
+                                                  parse_mesh_shape)
     from mmlspark_tpu_torch.utils import config
     rank, world = dist.get_rank(), dist.get_world_size()
     card = config.resolve_device()
@@ -5025,6 +5383,33 @@ def mesh_child(spec: dict) -> int:
              **res.pop("params"))
     out["resnet"] = res
     out["max_allocated_bytes"] = int(torch.cuda.max_memory_allocated(card))
+    # slice 6b-i: the MoE LM over `expert`, the pipelined MLP over `pipe`,
+    # the DLRM's tables over `tensor`
+    name, axes = configs["moe"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(card)
+    moe = _mesh_moe(torch, kernels, make_mesh(MeshSpec(**axes)), False,
+                    MESH_MOE_WARMUP, MESH_MOE_STEPS)
+    moe["max_allocated_bytes"] = int(torch.cuda.max_memory_allocated(card))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    moe32 = _mesh_moe(torch, kernels, make_mesh(MeshSpec(**axes)), True, 0,
+                      MESH_MOE_F32_STEPS, record=True)
+    np.savez(os.path.join(spec["work"], f"moe_routing_rank{rank}.npz"),
+             **moe32.pop("routing"))
+    out["moe"] = {"bf16": moe, "f32": moe32}
+    torch.cuda.empty_cache()
+    out["pipe"] = {n: _mesh_pipe(torch, make_mesh(parse_mesh_shape(shape)),
+                                 stages)
+                   for n, shape, stages in configs["pipe"]}
+    out["pipe_reshard"] = _mesh_pipe_reshard(
+        torch, configs["reshard"], os.path.join(spec["work"], "reshard"))
+    dlrm = _mesh_dlrm(torch, make_mesh(parse_mesh_shape(configs["dlrm"])))
+    np.save(os.path.join(spec["work"], f"dlrm_bags_rank{rank}.npy"),
+            dlrm.pop("bags"))
+    out["dlrm"] = dlrm
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
     with open(os.path.join(spec["work"], f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     return 0
@@ -5046,6 +5431,18 @@ def _mesh_reference(torch, kernels) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
     ref["resnet"] = _mesh_resnet(torch, kernels, None)
+    torch.cuda.empty_cache()
+    ref["moe"] = _mesh_moe(torch, kernels, None, False, MESH_MOE_WARMUP,
+                           MESH_MOE_STEPS)
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ref["moe32"] = _mesh_moe(torch, kernels, None, True, 0,
+                             MESH_MOE_F32_STEPS, record=True)
+    ref["pipe"] = {n: _mesh_pipe(torch, None, n) for n in (2, 4)}
+    ref["dlrm"] = _mesh_dlrm(torch, None)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
     torch.cuda.empty_cache()
     return ref
 
@@ -5095,12 +5492,27 @@ def phase_mesh(torch, kernels, card, cards: int = 1) -> dict:
     for r in range(ranks_n):
         with open(os.path.join(work, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
-    stated = [json.loads(line) for line in log.splitlines()
-              if line.startswith('{"rank"')]
-    out = _mesh_report(kernels, cards, ref, ranks, work, stated=stated,
+    out = _mesh_report(kernels, cards, ref, ranks, work,
+                       stated=_stated(log),
                        ranks_s=ranks_s, backend=backend,
                        phase_s=time.perf_counter() - t_phase)
     shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def _stated(log: str) -> list:
+    """The ranks' device statements (the JSON objects ``cli run``'s ranks
+    print on stderr; two ranks may write theirs onto one line)."""
+    dec, out = json.JSONDecoder(), []
+    for line in log.splitlines():
+        i = line.find('{"rank"')
+        while i >= 0:
+            try:
+                obj, end = dec.raw_decode(line, i)
+            except ValueError:
+                break
+            out.append(obj)
+            i = line.find('{"rank"', end)
     return out
 
 
@@ -5245,6 +5657,8 @@ def _mesh_report(kernels, cards, ref, ranks, work, **extra) -> dict:
         {k: c[k] for k in ("mesh", "step", "local_query_rows",
                            "restored_equal")}
         for c in ranks[0]["checkpoint"]]
+    report.update(_mesh_report_6b(kernels, cards, ref, ranks, work,
+                                  _check))
     _line(phase="mesh", card=_smi(), cards=cards, ranks=ranks_n,
           sharing=("two ranks share one card over gloo: the step times "
                    "are not a scaling figure" if cards == 1 else
@@ -5255,9 +5669,147 @@ def _mesh_report(kernels, cards, ref, ranks, work, **extra) -> dict:
           failed=failed, **report, **extra)
     if failed:
         raise RuntimeError(f"chip_smoke check failed: mesh: {failed}")
-    return {"tc": {n: v["launches"] for n, v in report["lm"].items()},
-            "f32": {n: v["launches"] for n, v in report["f32"].items()},
+    name = _mesh_configs(cards)["moe"][0]
+    return {"tc": {**{n: v["launches"] for n, v in report["lm"].items()},
+                   f"moe_{name}": report["moe"]["launches"]},
+            "f32": {**{n: v["launches"] for n, v in report["f32"].items()},
+                    f"moe_{name}": report["moe"]["fp32_launches"]},
             "k1": report["resnet"]["launches"]}
+
+
+def _mesh_report_6b(kernels, cards, ref, ranks, work, _check) -> dict:
+    """The gates of the mesh phase's slice-6b-i runs (module docstring,
+    phase 20) and their part of its line."""
+    cfg = _mesh_configs(cards)
+    tc, f32 = kernels.FLASH_ATTENTION_TC.name, kernels.FLASH_ATTENTION.name
+    ranks_n = len(ranks)
+    # the MoE LM: losses against one rank, K3 on every rank, E/|expert|
+    # experts a rank; fp32: the first step's routing equal to one rank's
+    name, axes = cfg["moe"]
+    e = axes["expert"]
+    runs = [r["moe"]["bf16"] for r in ranks]
+    rel = max(_max_step_rel(run["losses"], ref["moe"]["losses"])
+              for run in runs)
+    _check(rel <= MESH_MOE_BF16_TOL, f"mesh moe {name}: bf16 losses {rel}")
+    step_rel = [_max_step_rel([a], [b]) for a, b in
+                zip(runs[0]["losses"], ref["moe"]["losses"])]
+    steps = MESH_MOE_WARMUP + MESH_MOE_STEPS
+    held = [[[8 // e, 512, 2048], [8 // e, 2048, 512]]]
+    for run in runs:
+        _check(run["launches"] == _want(kernels, FLASH_ATTENTION_TC=LM_DEPTH
+                                        * steps),
+               f"mesh moe {name}: launches {run['launches']}")
+        _check(run["window_syncs"] == 0,
+               f"mesh moe {name}: {run['window_syncs']} counted syncs")
+        _check(run["experts_held"] == held,
+               f"mesh moe {name}: experts held {run['experts_held']}")
+    runs32 = [r["moe"]["f32"] for r in ranks]
+    rel32 = max(_max_step_rel(run["losses"], ref["moe32"]["losses"])
+                for run in runs32)
+    _check(rel32 <= MESH_F32_TOL, f"mesh moe {name}: fp32 losses {rel32}")
+    routing_equal = True
+    for r, run in enumerate(runs32):
+        _check(run["launches"] == _want(kernels, FLASH_ATTENTION=LM_F32_DEPTH
+                                        * MESH_MOE_F32_STEPS),
+               f"mesh moe {name} fp32: launches {run['launches']}")
+        got = np.load(os.path.join(work, f"moe_routing_rank{r}.npz"))
+        for key in got.files:
+            n = got[key].shape[0]
+            want = ref["moe32"]["routing"][key][run["block"] * n:
+                                                (run["block"] + 1) * n]
+            routing_equal &= bool(np.array_equal(got[key], want))
+    _check(routing_equal, f"mesh moe {name} fp32: the first step's gate "
+                          "indices or slot positions differ from one rank's")
+    step_ms = max(run["step_ms"] for run in runs)
+    moe = dict(
+        mesh=axes, max_step_rel=rel, step_rel=step_rel, bound=
+        MESH_MOE_BF16_TOL, losses=runs[0]["losses"],
+        fp32_max_step_rel=rel32, fp32_routing_equal=routing_equal,
+        step_ms=[run["step_ms"] for run in runs],
+        tokens_per_s_per_rank=runs[0]["tokens_per_step"]
+        / (step_ms / 1e3) / ranks_n,
+        one_rank_step_ms=ref["moe"]["step_ms"],
+        one_rank_tokens_per_s=ref["moe"]["tokens_per_step"]
+        / (ref["moe"]["step_ms"] / 1e3),
+        window_syncs=[run["window_syncs"] for run in runs],
+        transport_host_copies=[run["host_copies"] for run in runs],
+        max_allocated_bytes=[run["max_allocated_bytes"] for run in runs],
+        experts_held=runs[0]["experts_held"],
+        launches={f"rank{i}": run["launches"][tc]
+                  for i, run in enumerate(runs)},
+        fp32_launches={f"rank{i}": run["launches"][f32]
+                       for i, run in enumerate(runs32)})
+    # the pipelines: losses against the sequential one-rank run, the hops'
+    # host copies counted on gloo; the reshard's restores equal its saves
+    gloo = cards == 1
+    pipe = {}
+    for pname, shape, stages in cfg["pipe"]:
+        runs = [r["pipe"][pname] for r in ranks]
+        prel = max(_max_step_rel(run["losses"], ref["pipe"][stages]["losses"])
+                   for run in runs)
+        _check(prel <= MESH_F32_TOL, f"mesh pipe {pname}: losses {prel}")
+        for run in runs:
+            _check(run["stage_shifts"] > 0 and (
+                run["host_copies"] >= run["stage_shifts"] if gloo
+                else run["host_copies"] == 0),
+                f"mesh pipe {pname}: {run['host_copies']} host copies for "
+                f"{run['stage_shifts']} stage hops")
+        pipe[pname] = dict(
+            mesh=shape, stages=stages, max_step_rel=prel,
+            losses=runs[0]["losses"],
+            step_ms=[run["step_ms"] for run in runs],
+            one_rank_step_ms=ref["pipe"][stages]["step_ms"],
+            stage_hops=[run["stage_shifts"] for run in runs],
+            transport_host_copies=[run["host_copies"] for run in runs],
+            stage_leaf_shape=[run["up_shape"] for run in runs])
+    runs = [r["pipe_reshard"] for r in ranks]
+    rrel = max(_max_step_rel(run["losses"], ref["pipe"][2]["losses"])
+               for run in runs)
+    _check(rrel <= MESH_F32_TOL, f"mesh pipe reshard: losses {rrel}")
+    for run in runs:
+        _check(run["restores_equal"] == [True, True],
+               f"mesh pipe reshard: restores {run['restores_equal']}")
+        _check(run["mesh"]["pipe"] == 1 and len(run["losses"])
+               == MESH_PIPE_STEPS, f"mesh pipe reshard: {run}")
+    pipe["reshard"] = dict(shapes=cfg["reshard"], at=MESH_PIPE_RESHARD_AT,
+                           max_step_rel=rrel,
+                           restores_equal=runs[0]["restores_equal"])
+    # the DLRM: the fused lookup bit-equal to the reference, losses within
+    # MESH_DLRM_TOL, half the table bytes a rank at tensor 2, and no table
+    # gradient in any all-reduce (the collectives' own counters)
+    runs = [r["dlrm"] for r in ranks]
+    t = int(cfg["dlrm"].split("x")[1])
+    data = int(cfg["dlrm"].split("x")[0])
+    bags_equal = all(np.array_equal(
+        np.load(os.path.join(work, f"dlrm_bags_rank{r}.npy")),
+        ref["dlrm"]["bags"]) for r in range(ranks_n))
+    _check(bags_equal, "mesh dlrm: the fused lookup differs from "
+                       "bag_lookup_reference")
+    drel = max(float(np.max(np.abs(np.asarray(run["losses"])
+                                   - np.asarray(ref["dlrm"]["losses"]))))
+               for run in runs)
+    _check(drel <= MESH_DLRM_TOL, f"mesh dlrm: losses {drel} from one rank")
+    for run in runs:
+        _check(run["table_bytes"] * t == run["logical_table_bytes"],
+               f"mesh dlrm: {run['table_bytes']} table bytes a rank")
+        reduced = run["traffic"].get("all_reduce", {}).get("bytes", 0)
+        want = MESH_DLRM_STEPS * (run["dense_bytes"] + 4) if data > 1 else 0
+        _check(reduced == want and len(run["summed"]) == 2,
+               f"mesh dlrm: all-reduced {reduced} bytes, dense gradients "
+               f"and losses are {want}; summed {run['summed']}")
+    step_ms = max(run["step_ms"] for run in runs)
+    dlrm = dict(
+        mesh=cfg["dlrm"], max_abs_loss_diff=drel, fused_bags_bit_equal=
+        bags_equal, losses=runs[0]["losses"],
+        one_rank_losses=ref["dlrm"]["losses"],
+        step_ms=[run["step_ms"] for run in runs],
+        rows_per_s_per_rank=MESH_DLRM_BATCH / (step_ms / 1e3) / ranks_n,
+        one_rank_step_ms=ref["dlrm"]["step_ms"],
+        table_bytes_per_rank=runs[0]["table_bytes"],
+        logical_table_bytes=runs[0]["logical_table_bytes"],
+        traffic=[run["traffic"] for run in runs],
+        transport_host_copies=[run["host_copies"] for run in runs])
+    return {"moe": moe, "pipe": pipe, "dlrm": dlrm}
 
 
 def _profile_pass(torch, run, out_dir, name) -> None:
@@ -5429,7 +5981,9 @@ def main() -> int:
                              **{f"mesh_{k}": v
                                 for k, v in mesh["tc"].items()}},
         "launches_note": "mesh_*: each rank's count over the 11 steps of "
-                         "a meshed transformer_lm run (6 a step)",
+                         "a meshed transformer_lm run (6 a step); "
+                         "mesh_moe_*: over the 6 steps of the MoE LM split "
+                         "over expert (6 a step)",
         "max_abs_err": k3["tc"]["max_abs_err"],
         "ms": k3["tc"]["ms"], "plain_ms": k3["tc"]["plain_ms"],
         "bound_ms": k3["tc"]["bound_ms"], "bound_by": k3["tc"]["bound_by"],

@@ -6,8 +6,8 @@ architecture registers under the same stable name with the same spec dict
 ``layer_names``), so stages and saved state name models the same way in
 both packages. ``module`` is an ``nn.Module`` whose parameters are
 allocated but not initialized; :func:`init_state` fills a state dict from a
-seed. Registered so far: the ResNets, the tabular MLP, TextCNN, the
-transformer LM and its MoE variant, and the ViTs.
+seed. Registered: the ResNets, the tabular MLP, TextCNN, the
+transformer LM and its MoE variant, the ViTs and the DLRM recommender.
 """
 from __future__ import annotations
 
@@ -71,6 +71,8 @@ def init_state(module: torch.nn.Module, seed: int = 0) -> Dict[str, np.ndarray]:
       last, as flax's ``variance_scaling`` counts a rank-3 kernel;
     - ``Embed``'s ``embedding`` (V, D): ``variance_scaling(1.0, "fan_in",
       "normal", out_axis=0)``, an untruncated normal of variance 1 / D;
+      the DLRM's ``<table>_embedding`` (rows, D): ``normal(D ** -0.5)``,
+      the same draw;
     - ``pos_embedding``: ``normal(0.02)``;
     - norm weights one; biases and everything else (ViT's ``cls``) zero.
 
@@ -83,7 +85,9 @@ def init_state(module: torch.nn.Module, seed: int = 0) -> Dict[str, np.ndarray]:
         leaf = name.rsplit(".", 1)[-1]
         if leaf in ("experts_up", "experts_down"):
             value = _truncated_lecun(p.shape, math.prod(p.shape[:-1]), gen)
-        elif leaf == "embedding":
+        elif leaf == "embedding" or (leaf.endswith("_embedding")
+                                     and leaf != "pos_embedding"
+                                     and p.ndim == 2):
             value = torch.randn(p.shape, generator=gen) \
                 * math.sqrt(1.0 / p.shape[1])
         elif leaf == "pos_embedding":
@@ -122,3 +126,4 @@ from mmlspark_tpu_torch.models.zoo import cnn1d as _cnn1d  # noqa: E402,F401
 from mmlspark_tpu_torch.models.zoo import vit as _vit  # noqa: E402,F401
 from mmlspark_tpu_torch.models.zoo import transformer as _transformer  # noqa: E402,F401
 from mmlspark_tpu_torch.models.zoo import moe as _moe  # noqa: E402,F401
+from mmlspark_tpu_torch.embed import model as _recommender  # noqa: E402,F401

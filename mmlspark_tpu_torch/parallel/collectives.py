@@ -20,7 +20,14 @@ op                        forward                     backward
 :func:`exchange`          all-to-all of dim-0 chunks  the same all-to-all
 :func:`shift`             send to rank+k, receive     send to rank-k,
                           from rank-k                 receive from rank+k
+:func:`from_last`         broadcast from the last     the cotangent kept on
+                          rank                        the last rank only
 ========================  ==========================  ====================
+
+:func:`stage_shift` is the pipeline's hop (no autograd: the schedule in
+``parallel/pipeline_parallel.py`` runs its transpose itself): rank r sends
+to r + k and receives from r - k, with no wrap-around, so the first k
+ranks receive zeros; ``k = -1`` is the transpose of ``k = 1``.
 
 A group of one rank costs nothing: every op returns its input.
 
@@ -32,6 +39,9 @@ gives them). For the rest this module copies through the host itself and
 counts each copy in :func:`host_copies` (``transport_host_copies``), apart
 from the counted syncs of ``observability/syncs.py``: such a copy waits
 for the card, and is the price of ranks that share one card over gloo.
+:func:`traffic` counts every collective's calls and payload bytes by op
+(what a check reads to hold, say, that no dense table gradient was
+all-reduced).
 """
 from __future__ import annotations
 
@@ -42,13 +52,34 @@ import torch
 from mmlspark_tpu_torch.observability import metrics as obsmetrics
 
 # gloo collectives that take CUDA tensors themselves (torch 2.11 on the
-# card's machine, probed there: these, and broadcast, do; its send/recv
-# fails with "writev ... Bad address"); the others copy through the host
-# here
-GLOO_CUDA_DIRECT = frozenset({"all_reduce", "all_gather", "all_to_all"})
+# card's machine, probed there; its send/recv fails with "writev ... Bad
+# address"); the others copy through the host here
+GLOO_CUDA_DIRECT = frozenset({"all_reduce", "all_gather", "all_to_all",
+                              "broadcast"})
 
 _lock = threading.Lock()
 _host_copies = 0
+_traffic: dict = {}
+
+
+def traffic() -> dict:
+    """``{op: {"calls": n, "bytes": b}}`` of the collectives run over
+    groups of more than one rank (bytes: this rank's payload), since the
+    process started or the last :func:`reset_traffic`."""
+    with _lock:
+        return {op: dict(v) for op, v in _traffic.items()}
+
+
+def reset_traffic() -> None:
+    with _lock:
+        _traffic.clear()
+
+
+def _sent(op: str, x: torch.Tensor) -> None:
+    with _lock:
+        entry = _traffic.setdefault(op, {"calls": 0, "bytes": 0})
+        entry["calls"] += 1
+        entry["bytes"] += x.numel() * x.element_size()
 
 
 def host_copies() -> int:
@@ -108,6 +139,7 @@ def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
         return x
     dist = _dist()
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    _sent("all_reduce", x)
     host = _via_host("all_reduce", group, x)
     y = _to_host(x) if host else x.detach().clone()
     dist.all_reduce(y, op=red, group=group)
@@ -120,6 +152,7 @@ def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     if n == 1:
         return x
     dist = _dist()
+    _sent("all_gather", x)
     host = _via_host("all_gather", group, x)
     src = _to_host(x) if host else x.detach().contiguous()
     parts = [torch.empty_like(src) for _ in range(n)]
@@ -137,6 +170,7 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     if x.shape[0] != n:
         raise ValueError(f"all_to_all wants a leading dim of {n}, got "
                          f"{tuple(x.shape)}")
+    _sent("all_to_all", x)
     host = _via_host("all_to_all", group, x)
     src = _to_host(x) if host else x.detach().contiguous()
     y = torch.empty_like(src)
@@ -155,6 +189,7 @@ def ring_shift(x: torch.Tensor, group, offset: int = 1) -> torch.Tensor:
     me = rank(group)
     to = dist.get_global_rank(group, (me + offset) % n)
     frm = dist.get_global_rank(group, (me - offset) % n)
+    _sent("ring_shift", x)
     host = _via_host("ring_shift", group, x)
     src = _to_host(x) if host else x.detach().contiguous()
     y = torch.empty_like(src)
@@ -162,6 +197,49 @@ def ring_shift(x: torch.Tensor, group, offset: int = 1) -> torch.Tensor:
            dist.P2POp(dist.irecv, y, frm, group)]
     for work in dist.batch_isend_irecv(ops):
         work.wait()
+    return _back(y, x) if host else y
+
+
+def stage_shift(x: torch.Tensor, group, offset: int = 1) -> torch.Tensor:
+    """The ``x`` of group rank ``rank - offset``, or zeros where there is
+    none; this rank's ``x`` goes to ``rank + offset`` when that rank
+    exists (``jax.lax.ppermute`` with ``perm=[(j, j + offset)]`` for the
+    j that stay in the group). Every rank of the group must call it."""
+    n = size(group)
+    dist = _dist()
+    me = rank(group)
+    dst, src = me + offset, me - offset
+    host = _via_host("stage_shift", group, x)
+    if 0 <= dst < n:
+        _sent("stage_shift", x)
+    ops = []
+    if 0 <= dst < n:
+        buf = _to_host(x) if host else x.detach().contiguous()
+        ops.append(dist.P2POp(dist.isend, buf,
+                              dist.get_global_rank(group, dst), group))
+    y = torch.zeros(x.shape, dtype=x.dtype,
+                    device="cpu" if host else x.device)
+    if 0 <= src < n:
+        ops.append(dist.P2POp(dist.irecv, y,
+                              dist.get_global_rank(group, src), group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    if host:
+        return _back(y, x) if 0 <= src < n else y.to(x.device)
+    return y
+
+
+def broadcast(x: torch.Tensor, group, src: int) -> torch.Tensor:
+    """Group rank ``src``'s ``x`` on every rank of the group (a new
+    tensor)."""
+    if size(group) == 1:
+        return x
+    dist = _dist()
+    _sent("broadcast", x)
+    host = _via_host("broadcast", group, x)
+    y = _to_host(x) if host else x.detach().clone()
+    dist.broadcast(y, src=dist.get_global_rank(group, src), group=group)
     return _back(y, x) if host else y
 
 
@@ -240,6 +318,18 @@ class _Shift(torch.autograd.Function):
         return ring_shift(g.contiguous(), ctx.group, -ctx.offset), None, None
 
 
+class _FromLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return broadcast(x, group, size(group) - 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        last = rank(ctx.group) == size(ctx.group) - 1
+        return (g if last else torch.zeros_like(g)), None
+
+
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:
     """Identity forward; the gradient summed over ``group`` (a replicated
     activation entering a layer split over the group)."""
@@ -278,3 +368,10 @@ def shift(x: torch.Tensor, group, offset: int = 1) -> torch.Tensor:
     way, as ppermute's transpose does."""
     return x if size(group) == 1 else _Shift.apply(x, group, offset)
 
+
+def from_last(x: torch.Tensor, group) -> torch.Tensor:
+    """The last group rank's ``x`` on every rank (the reference's psum of
+    a tensor masked to the last pipeline stage). Every rank then computes
+    the same loss from it, so each holds the same cotangent: the backward
+    hands it to the last rank ONCE and zeros to the others."""
+    return x if size(group) == 1 else _FromLast.apply(x, group)

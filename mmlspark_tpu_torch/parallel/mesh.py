@@ -7,9 +7,11 @@ world's ranks out on the same named axes, as a
 ``torch.distributed.device_mesh.DeviceMesh``:
 
 - ``data`` (batch), ``fsdp`` (batch, with parameters sharded and gathered
-  on use), ``pipe`` and ``expert`` (their layers are slice 6b), ``seq``
-  (sequence / context parallelism), ``tensor`` (heads and hidden features
-  split inside a layer) -- in the JAX order, ``tensor`` and ``seq`` last;
+  on use), ``pipe`` (stacked pipeline stages, ``parallel/
+  pipeline_parallel.py``), ``expert`` (MoE expert banks, ``models/zoo/
+  moe.py``), ``seq`` (sequence / context parallelism), ``tensor`` (heads
+  and hidden features split inside a layer, embedding table rows) -- in
+  the JAX order, ``tensor`` and ``seq`` last;
 - :func:`initialize_multihost` joins the process group
   (``init_process_group``) with the reference's argument checks; its
   backend is the port's ``runtime.dist_backend`` key: ``"nccl"`` on the

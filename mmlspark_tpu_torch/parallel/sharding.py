@@ -138,6 +138,16 @@ class ParamSharding:
     def sharded(self) -> bool:
         return bool(self.axes)
 
+    def keeping(self, axes: Sequence[str]) -> "ParamSharding":
+        """This placement with only ``axes`` left split (the tensor a
+        partial gather of the shard gives)."""
+        spec = []
+        for e in self.spec:
+            live = tuple(a for a in _axes(e) if a in axes)
+            spec.append(None if not live else
+                        live[0] if len(live) == 1 else live)
+        return ParamSharding(spec, self.shape, self.sizes)
+
     def dim_of(self, axis: str) -> Optional[int]:
         for d, e in enumerate(self.spec):
             if axis in _axes(e):
@@ -214,6 +224,24 @@ def param_shardings(params: Any, mesh, rules: Optional[Rules] = None
     return out
 
 
+def pipeline_stacked_rules(base: Optional[Rules] = None,
+                           prefix: str = "stages") -> List[Tuple[str, Spec,
+                                                                 int]]:
+    """Rules for a state holding a STACKED pipeline-stage subtree (leaves
+    under ``prefix``, e.g. ``stages.mlp_up.weight``, carry a leading stage
+    dim, as ``pipeline_parallel.stack_stage_params`` builds them): every
+    base rule mirrored with ``prefix`` required in the name, ``pipe``
+    prepended to its spec and its least rank raised by one (the stage dim
+    over ``pipe``, the other dims placed as their unstacked twins'), ahead
+    of the base rules for the leaves outside the pipelined region."""
+    base = list(base) if base is not None else list(DEFAULT_RULES)
+    anchor = r"(?=.*" + re.escape(prefix) + r"\.)"
+    staged = [(anchor + rule[0], ("pipe",) + tuple(rule[1]),
+               (rule[2] + 1 if len(rule) > 2 and rule[2] else 0))
+              for rule in base]
+    return staged + base
+
+
 def replicated(mesh=None) -> Spec:
     """The spec of a replicated leaf."""
     return ()
@@ -222,6 +250,22 @@ def replicated(mesh=None) -> Spec:
 def tensor_axis_size(mesh) -> int:
     """Size of the model (``tensor``) axis; 1 for no mesh / axis absent."""
     return 1 if mesh is None else mesh_shape(mesh).get("tensor", 1)
+
+
+def embedding_table_sharding(mesh) -> Spec:
+    """Spec of an embedding table (rows, dim): rows over ``tensor`` (each
+    rank holds a contiguous row range), replicated when the mesh has no
+    ``tensor`` axis of more than one rank."""
+    return ("tensor", None) if tensor_axis_size(mesh) > 1 else ()
+
+
+def embedding_lookup_specs(mesh) -> Tuple[Spec, Spec, Spec]:
+    """``(table, ids, out)`` specs of the fused lookup: table rows over
+    ``tensor``; the id (and weight) block over the data axes, replicated
+    over ``tensor`` (every row shard sees every id of its batch block, to
+    answer for the rows it holds); the bags back over the data axes."""
+    axes = active_batch_axes(mesh)
+    return ("tensor", None), (axes, None), (axes, None)
 
 
 def active_batch_axes(mesh, batch_axes: Sequence[str] = BATCH_AXES):

@@ -37,9 +37,15 @@ the collectives GSPMD inserted for the reference are written out
 - :meth:`DistributedTrainer.init` builds the module on the host, then
   moves to the device only the shard of each parameter its rank holds
   (``parallel/sharding.py``'s rules; no device ever holds a whole split
-  leaf) and binds the modules that compute on their shards (the
-  transformer's tensor split); every other split leaf is gathered for
-  its use and its gradient scattered back;
+  leaf) and binds the modules that compute on their shards: each
+  module's ``bind_mesh`` returns the leaves it claims with the axes it
+  keeps split (the transformer's ``tensor`` split, the MoE's ``expert``
+  banks, a pipeline ``StageStack``'s ``pipe`` split, the DLRM's row-split
+  tables), and every other split (a claimed leaf's other axes included)
+  is gathered for its use and its gradient scattered back. A module may
+  list ``summed_grads``: leaves whose gradient it already summed over the
+  data ranks (the DLRM's sparse table gradient), which leave the data
+  all-reduce and are divided by the ranks' count like every gradient;
 - the loss is the mean over the GLOBAL batch: each rank's ``loss_fn``
   sees its block of the batch (:meth:`put_batch`, a sequence slice under
   ``seq_axis``), the gradients are summed over the ranks that saw other
@@ -311,29 +317,41 @@ class DistributedTrainer:
             p._mesh_sharding = sh
             p._mesh_layout = layout
             p._mesh_group = layout.group(*sh.axes) if sh.sharded else None
-        claimed = set()
+        # a module that computes on its shards claims them: {leaf: the
+        # axes it keeps split} (a set of names keeps ``tensor``), and may
+        # name leaves whose gradient it sums over the data ranks itself
+        claimed: Dict[str, Tuple[str, ...]] = {}
+        summed = set()
         for prefix, sub in module.named_modules():
             bind = getattr(sub, "bind_mesh", None)
             if callable(bind):
                 head = f"{prefix}." if prefix else ""
                 mine = {n[len(head):]: sh for n, sh in shardings.items()
                         if n.startswith(head)}
-                claimed |= {head + n for n in bind(layout, mine)}
+                got = bind(layout, mine)
+                if not isinstance(got, dict):
+                    got = {n: ("tensor",) for n in got}
+                claimed.update({head + n: tuple(a) for n, a in got.items()})
+                summed |= {head + n for n in getattr(sub, "summed_grads", ())}
         self._gathers = []
         for name, p in params.items():
             sh = shardings[name]
-            keep = ("tensor",) if name in claimed else ()
+            keep = claimed.get(name, ())
             ops = [(d, tuple(a for a in sharding._axes(e) if a not in keep))
                    for d, e in enumerate(sh.spec)]
             ops = [(d, axes) for d, axes in ops if axes]
             if ops:
                 owner_name, _, attr = name.rpartition(".")
                 self._gathers.append(
-                    (module.get_submodule(owner_name), attr, p, ops))
+                    (module.get_submodule(owner_name), attr, p, ops,
+                     sh.keeping(keep) if keep else None))
+        # the gradient sums: over the data ranks that saw other rows and
+        # hold the same part of the leaf (none for a leaf whose module
+        # summed it itself); every gradient is then divided by their count
         plan: Dict[Tuple[str, ...], List[torch.nn.Parameter]] = {}
         for name, p in params.items():
-            axes = tuple(a for a in layout.grad_axes
-                         if a not in shardings[name].axes)
+            axes = () if name in summed else tuple(
+                a for a in layout.grad_axes if a not in shardings[name].axes)
             plan.setdefault(axes, []).append(p)
         self._reduce = [(layout.group(*axes), ps)
                         for axes, ps in plan.items()]
@@ -366,12 +384,15 @@ class DistributedTrainer:
         layout = self.layout
         swapped = []
         try:
-            for owner, attr, p, ops in self._gathers:
+            for owner, attr, p, ops, kept in self._gathers:
                 full = p
                 for d, axes in ops:
                     full = collectives.gather_from(
                         full, d, layout.group(*axes),
                         sum_grads=any(a in layout.grad_axes for a in axes))
+                if kept is not None:
+                    # still a shard over the axes its module computes on
+                    full._mesh_sharding = kept
                 del owner._parameters[attr]
                 swapped.append((owner, attr, p))
                 setattr(owner, attr, full)

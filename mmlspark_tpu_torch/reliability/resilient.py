@@ -23,8 +23,9 @@ What makes that hold:
 The elastic-mesh lever, :meth:`ResilientTrainLoop.reshard_to`, moves a
 run onto a new mesh of the same ranks at a step boundary: drain to a
 checkpoint, build the trainer on the new ``DeviceMesh``, restore across
-mesh shapes, go on. ``run_dataset`` on a mesh (per-rank data-state files
-of a streamed input) is slice 6b of the port and raises.
+mesh shapes, go on (the stage, expert and table leaves of slice 6b-i
+too). ``run_dataset`` on a mesh (per-rank data-state files of a streamed
+input) is slice 6b-iii of the port and raises.
 """
 from __future__ import annotations
 

@@ -37,6 +37,16 @@ _DEFAULTS: Dict[str, Any] = {
     "parallel.mesh_shape": "",        # "DxT" shorthand, e.g. "4x2" =
                                       # data 4 x tensor 2; overrides
                                       # runtime.mesh; "" defers to it
+    # embed (row-sharded recommender tables; embed/)
+    "embed.row_multiple": 8,          # table rows round up to this multiple
+                                      # so any tensor axis up to it splits
+                                      # every table evenly (rows beyond
+                                      # the declared count are zero pad)
+    "embed.fused_lookup": True,       # tensor meshes use the fused
+                                      # bucketize/all-to-all lookup and the
+                                      # sparse all-gather scatter-add
+                                      # gradient; False gathers each table
+                                      # for the reference lookup
     "train.metrics_flush_steps": 16,  # steps between reads of the trainer's
                                       # device-resident metrics ring
     "evaluate.device_rows": 1_000_000,  # rows from which

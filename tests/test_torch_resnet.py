@@ -137,11 +137,14 @@ def test_from_jax_params_layout_rules():
 
 
 def test_zoo_registry_and_specs_match_the_jax_zoo():
+    from mmlspark_tpu.models.zoo import available_models as javailable
     from mmlspark_tpu.models.zoo import build_model as jbuild
-    assert available_models() == [
-        "mlp_tabular", "resnet20_cifar", "resnet50", "textcnn",
-        "transformer_lm", "transformer_lm_moe", "transformer_lm_moe_tiny",
-        "transformer_lm_tiny", "vit_b16", "vit_tiny"]
+    # every architecture of the JAX zoo (the DLRM's embed/ since slice 6b)
+    assert available_models() == javailable() == [
+        "mlp_tabular", "recommender_dlrm", "resnet20_cifar", "resnet50",
+        "textcnn", "transformer_lm", "transformer_lm_moe",
+        "transformer_lm_moe_tiny", "transformer_lm_tiny", "vit_b16",
+        "vit_tiny"]
     for name in available_models():
         t, j = build_model(name), jbuild(name)
         for key in ("input_shape", "feature_layer", "feature_dim",
@@ -150,7 +153,7 @@ def test_zoo_registry_and_specs_match_the_jax_zoo():
         for key in ("input_dtype", "seq_attention"):
             assert t.get(key) == j.get(key)
     with pytest.raises(KeyError):
-        build_model("recommender_dlrm")    # embed/: slice 6 of the port
+        build_model("no_such_model")
 
 
 def test_resnet50_parameter_names_and_shapes_match_flax():
