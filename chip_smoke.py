@@ -379,7 +379,36 @@ The script:
     the whole table here, losses within ``MESH_DLRM_TOL`` of the one-rank
     unsharded run, a rank's table bytes half the logical bytes, and the
     collectives' own counters: the steps' all-reduces carry the dense
-    gradients and the loss only, never a table's gradient;
+    gradients and the loss only, never a table's gradient. The bf16 MoE
+    runs once more with TF32 off, meshed and one-rank, every step's gate
+    indices and slot positions recorded: its losses within
+    ``LM_BF16_TRAIN_TOL`` of one rank's, the first step's first MoE
+    block routing EQUAL to one rank's (its input is the same computation
+    on both), and every step's and block's differing entries counted.
+    ``mesh_serve`` (serving on the mesh, ``parallel/leader.py``): rank 0
+    leads, the other ranks follow; one-rank
+    references run on rank 0 first. ``transformer_lm`` (bf16, ``hidden``)
+    behind a ``Server`` at ``tensor=2`` (four cards: ``data=2 x
+    tensor=2``) under lm_serve's traffic (128 rows of 2048 ids, 8 clients,
+    buckets 1/4/8), rows within ``LM_BF16_MAX``/``LM_BF16_MEAN`` of the
+    one-rank server's, ``flash_attention_tc`` 6 a program call on every
+    rank; the fp32 depth-2 LM (TF32 off): logits of 2 x 512 ids within
+    ``MESH_SERVE_F32_TOL`` of one rank's and greedy tokens of 2 prompts
+    equal to one rank's lane; the generate lane at the zoo's width
+    (``GEN_CONFIG``, ``MESH_SERVE_GEN_REQUESTS`` prompts of 600-1900 ids,
+    32 new tokens, 8 clients) with the arena head-sharded
+    (``arena_shard_bytes`` = ``arena_bytes`` / 2), ``flash_attention_tc``
+    6 a prefill on every rank; the ``mesh.dlrm`` recommender served at
+    ``tensor=2`` (four cards: ``data=2 x tensor=2``), its scores
+    BIT-equal to the one-rank server's and a rank's table bytes half the
+    logical; ``Fleet.reshard`` of two in-process replicas of it, one
+    device -> the mesh -> one device under closed-loop fire, every answer
+    bit-equal, no failed request, both replicas ``resharded`` each time;
+    ResNet-50 ``ImageFeaturizer`` at ``data=2`` (four cards: 4) on 128
+    uint8 images 256^2 -> 224^2, K2 once on every rank, features within
+    the featurize phase's 2% of one rank's. Printed per configuration:
+    rows/s or tokens/s beside one rank's, p50/p99, allocator bytes and
+    host copies a rank, each rank's launches;
 21. prints the kernel table line (each kernel's launches on each of its
     paths), the card's name and power limit, and last ``{"ok": true,
     "device": {...}}``.
@@ -400,6 +429,7 @@ import os  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
+import threading  # noqa: E402
 import warnings  # noqa: E402
 
 import numpy as np
@@ -604,6 +634,15 @@ MESH_MOE_BF16_TOL = 3e-3
 # the table gradient are exact, the dense towers' sums split otherwise
 # (the JAX test's bound)
 MESH_DLRM_TOL = 2e-6
+# mesh_serve: the generate round's prompts (8 sequences in flight), the
+# recommender's served rows and bucket, the fleet's replicas and the
+# fp32 gate's logits bound (sums reordered over the tensor ranks, TF32
+# off; MESH_F32_TOL's bound on one logit)
+MESH_SERVE_GEN_REQUESTS, MESH_SERVE_DLRM_ROWS = 16, 4096
+MESH_SERVE_DLRM_BUCKET, MESH_SERVE_FLEET_REPLICAS = 256, 2
+MESH_SERVE_F32_LEN, MESH_SERVE_F32_ROWS, MESH_SERVE_F32_NEW = 512, 2, 8
+MESH_SERVE_F32_TOL = 1e-5
+MESH_SERVE_IMAGES = 128
 # fp32 operations per output element of the crop-resize-normalize kernel:
 # two row lerps (3 each), one column lerp (3), rint, clamp (2), subtract,
 # multiply
@@ -5044,7 +5083,8 @@ def _mesh_moe(torch, kernels, mesh, f32, warmup, steps, record=False):
     mesh). Returns the per-step losses, the timed steps' ms, the counted
     syncs in the timed window, the launches, the experts a rank holds,
     and with ``record`` the first step's gate indices and slot positions
-    of every MoE block (host arrays) with this rank's batch block."""
+    of every MoE block (host arrays) with this rank's batch block
+    (``record="all"``: every step's, keyed ``s<step>_...``)."""
     from mmlspark_tpu_torch.models.zoo import build_model, init_state
     from mmlspark_tpu_torch.models.zoo.moe import MoeMlp, moe_aux_loss
     from mmlspark_tpu_torch.models.zoo.transformer import next_token_loss
@@ -5080,14 +5120,17 @@ def _mesh_moe(torch, kernels, mesh, f32, warmup, steps, record=False):
         if i == warmup:
             torch.cuda.synchronize()
             sync0, t0 = syncs.total(), time.perf_counter()
+        every = record == "all"
         for m in moes:
-            m.record_routing = record and i == 0
+            m.record_routing = bool(record) and (every or i == 0)
         state, out = trainer.train_step(state, b, 0)
         losses.append(out["loss"])
-        if record and i == 0:
-            routing = {f"{n}_{j}": moe.routing[n].cpu().numpy()
-                       for j, moe in enumerate(moes)
-                       for n in ("gate_idx", "position")}
+        if record and (every or i == 0):
+            tag = f"s{i}_" if every else ""
+            routing = routing or {}
+            routing.update({f"{tag}{n}_{j}": moe.routing[n].cpu().numpy()
+                            for j, moe in enumerate(moes)
+                            for n in ("gate_idx", "position")})
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / max(steps, 1)
     out = {"losses": [float(x) for x in torch.stack(losses).cpu()],
@@ -5393,11 +5436,16 @@ def mesh_child(spec: dict) -> int:
     moe["max_allocated_bytes"] = int(torch.cuda.max_memory_allocated(card))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the bf16 MoE with TF32 off, every step's routing recorded
+    moe_nt = _mesh_moe(torch, kernels, make_mesh(MeshSpec(**axes)), False,
+                       MESH_MOE_WARMUP, MESH_MOE_STEPS, record="all")
+    np.savez(os.path.join(spec["work"], f"moe_notf32_routing_rank{rank}.npz"),
+             **moe_nt.pop("routing"))
     moe32 = _mesh_moe(torch, kernels, make_mesh(MeshSpec(**axes)), True, 0,
                       MESH_MOE_F32_STEPS, record=True)
     np.savez(os.path.join(spec["work"], f"moe_routing_rank{rank}.npz"),
              **moe32.pop("routing"))
-    out["moe"] = {"bf16": moe, "f32": moe32}
+    out["moe"] = {"bf16": moe, "f32": moe32, "bf16_tf32_off": moe_nt}
     torch.cuda.empty_cache()
     out["pipe"] = {n: _mesh_pipe(torch, make_mesh(parse_mesh_shape(shape)),
                                  stages)
@@ -5410,9 +5458,365 @@ def mesh_child(spec: dict) -> int:
     out["dlrm"] = dlrm
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
+    # serving on the mesh: rank 0 leads, the others follow
+    from mmlspark_tpu_torch.parallel import leader
+    torch.cuda.empty_cache()
+    if rank == 0:
+        with leader.lead() as ch:
+            out["serve"] = _mesh_serve(torch, kernels, card, ch,
+                                       spec["cards"])
+    else:
+        out["serve"] = {"follower_commands": leader.follow()}
     with open(os.path.join(spec["work"], f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     return 0
+
+
+def _mesh_serve_configs(cards: int) -> dict:
+    """The meshes of mesh_serve: on one card two ranks, on four the
+    reference's data 2 x tensor 2 (featurize over data 4)."""
+    t2 = {"data": 1, "tensor": 2}
+    if cards == 1:
+        return {"lm": t2, "f32": t2, "gen": t2, "dlrm": t2,
+                "reshard": "1x2", "featurize": {"data": 2}}
+    # the recommender stays at tensor 2 (ranks 0-1, a sub-mesh of the
+    # world): a data split changes the dense GEMMs' row counts, and with
+    # them cuBLAS's algorithms, where the gate wants bit-equal scores
+    d2t2 = {"data": 2, "tensor": 2}
+    return {"lm": d2t2, "f32": d2t2, "gen": d2t2, "dlrm": t2,
+            "reshard": "1x2", "featurize": {"data": cards}}
+
+
+def _rank_launches(stats, name) -> list:
+    """Each rank's launches of kernel ``name`` from ``rank_stats``."""
+    return [s["launches"].get(name, (0, {}))[0] for s in stats]
+
+
+def _mesh_serve(torch, kernels, card, ch, cards) -> dict:
+    """Serving on the mesh (module docstring, phase 20), on rank 0 as the
+    leader of the ranks: each configuration's one-rank reference here,
+    then the same traffic on the mesh, every rank's counts zeroed just
+    before and read just after. Returns the numbers and the failed
+    gates."""
+    from mmlspark_tpu_torch.core.frame import Frame
+    from mmlspark_tpu_torch.models.torch_model import TorchModel
+    from mmlspark_tpu_torch.observability import memory as devmem
+    from mmlspark_tpu_torch.serve import Server
+    from mmlspark_tpu_torch.serve.fleet import Fleet
+    from mmlspark_tpu_torch.testing import loadgen
+    from mmlspark_tpu_torch.utils import config
+    cfg = _mesh_serve_configs(cards)
+    tc, f32 = kernels.FLASH_ATTENTION_TC.name, kernels.FLASH_ATTENTION.name
+    k2 = kernels.CROP_RESIZE_NORMALIZE.name
+    failed, out = [], {"meshes": cfg}
+    t_phase = time.perf_counter()
+
+    def check(ok, what):
+        if not ok:
+            failed.append(what)
+
+    def serve_lm(tm, ids):
+        with Server({"lm": tm}, max_batch=LM_SERVE_BUCKETS[-1],
+                    buckets=LM_SERVE_BUCKETS, max_wait_ms=2.0) as srv:
+            entry = srv.registry.get("lm")
+            for b in LM_SERVE_BUCKETS:
+                entry.program_for(b, ids[:b])
+            ch.rank_stats(reset=True)
+            served, lat, wall = _closed_loop(
+                LM_SERVE_CLIENTS, list(range(len(ids))),
+                lambda i: srv.submit("lm", ids[i], timeout=300))
+            stats = ch.rank_stats()
+            progs = entry.built_programs()
+            replays = sum(p.replays for p in progs.values())
+        return np.concatenate(served), lat, wall, stats, replays
+
+    # -- the LM behind a Server (bf16, hidden) --
+    ids = np.random.default_rng(0).integers(
+        0, LM_VOCAB, (LM_SERVE_REQUESTS, LM_LEN)).astype(np.int32)
+    one, lat1, wall1, _, _ = serve_lm(
+        _lm_scorer("transformer_lm", "hidden", LM_SERVE_BUCKETS[-1]), ids)
+    tm = _lm_scorer("transformer_lm", "hidden", LM_SERVE_BUCKETS[-1])
+    tm.set_params(meshSpec=cfg["lm"])
+    got, lat, wall, stats, replays = serve_lm(tm, ids)
+    tm.release_placement()
+    cross = _diff_stats(got, one)
+    check(cross["max_abs"] <= LM_BF16_MAX and cross["mean_abs"]
+          <= LM_BF16_MEAN, f"mesh_serve lm: rows vs one rank {cross}")
+    check(got.shape == one.shape and bool(np.isfinite(got).all()),
+          f"mesh_serve lm: rows {got.shape}")
+    k3 = _rank_launches(stats, tc)
+    check(k3 == [LM_DEPTH * replays] * len(stats) and replays > 0,
+          f"mesh_serve lm: {tc} launches {k3} a rank, want {LM_DEPTH} x "
+          f"{replays} program calls")
+    out["lm"] = dict(
+        mesh=cfg["lm"], requests=LM_SERVE_REQUESTS, clients=LM_SERVE_CLIENTS,
+        tokens_per_s=LM_SERVE_REQUESTS * LM_LEN / wall,
+        tokens_per_s_per_rank=LM_SERVE_REQUESTS * LM_LEN / wall / len(stats),
+        one_rank_tokens_per_s=LM_SERVE_REQUESTS * LM_LEN / wall1,
+        p50_ms=_pct_ms(lat, 50), p99_ms=_pct_ms(lat, 99),
+        one_rank_p50_ms=_pct_ms(lat1, 50), one_rank_p99_ms=_pct_ms(lat1, 99),
+        vs_one_rank=cross, program_calls=replays,
+        launches={f"rank{r}": n for r, n in enumerate(k3)},
+        host_copies=[st["host_copies"] for st in stats],
+        max_allocated_bytes=[st["max_allocated_bytes"] for st in stats])
+    del one, got
+    torch.cuda.empty_cache()
+
+    # -- fp32, TF32 off on every rank: logits and greedy tokens equal to
+    # one rank's --
+    ch.set_tf32(False)
+    arch32 = dict(dtype="float32", depth=LM_F32_DEPTH)
+    ids32 = np.random.default_rng(7).integers(
+        0, LM_VOCAB, (MESH_SERVE_F32_ROWS, MESH_SERVE_F32_LEN)).astype(
+        np.int32)
+    frame32 = Frame.from_dict({"ids": ids32})
+
+    def lm32(mesh):
+        m = _lm_scorer("transformer_lm", "logits", MESH_SERVE_F32_ROWS,
+                       **arch32)
+        m.set_params(deviceCache="off")
+        if mesh is not None:
+            m.set_params(meshSpec=mesh)
+        return m
+    want = np.asarray(lm32(None).transform(frame32).column("h"))
+    m32 = lm32(cfg["f32"])
+    ch.rank_stats(reset=True)
+    got = np.asarray(m32.transform(frame32).column("h"))
+    stats = ch.rank_stats()
+    m32.release_placement()
+    logit_diff = float(np.abs(got - want).max())
+    check(logit_diff <= MESH_SERVE_F32_TOL,
+          f"mesh_serve fp32: logits {logit_diff} from one rank")
+    f32_score = _rank_launches(stats, f32)
+    check(f32_score == [LM_F32_DEPTH] * len(stats),
+          f"mesh_serve fp32: {f32} launches {f32_score} a rank")
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, LM_VOCAB, int(n)).tolist() for n in
+               rng.integers(GEN_F32_PROMPT[0], GEN_F32_PROMPT[1],
+                            MESH_SERVE_F32_ROWS)]
+    for k, v in GEN_CONFIG.items():
+        config.set(k, v)
+
+    def greedy(mesh):
+        m = lm32(mesh)
+        with Server({"lm": m}) as srv:
+            srv.enable_generate("lm")
+            toks = [srv.submit_generate(
+                "lm", p, max_new_tokens=MESH_SERVE_F32_NEW).result(300)
+                ["tokens"] for p in prompts]
+        m.release_placement()
+        return toks
+    want_toks = greedy(None)
+    ch.rank_stats(reset=True)
+    got_toks = greedy(cfg["f32"])
+    stats = ch.rank_stats()
+    check(got_toks == want_toks, "mesh_serve fp32: greedy tokens differ "
+                                 f"from one rank's: {got_toks} {want_toks}")
+    f32_gen = _rank_launches(stats, f32)
+    check(all(n >= LM_F32_DEPTH for n in f32_gen),
+          f"mesh_serve fp32 generate: {f32} launches {f32_gen} a rank")
+    ch.set_tf32(True)
+    out["fp32"] = dict(mesh=cfg["f32"], depth=LM_F32_DEPTH, tf32=False,
+                       logits_max_abs_diff=logit_diff,
+                       bound=MESH_SERVE_F32_TOL, tokens_equal=True,
+                       tokens=got_toks,
+                       launches_score={f"rank{r}": n
+                                       for r, n in enumerate(f32_score)},
+                       launches_generate={f"rank{r}": n
+                                          for r, n in enumerate(f32_gen)})
+    torch.cuda.empty_cache()
+
+    # -- the generate lane at the zoo's width, the arena head-sharded --
+    rng = np.random.default_rng(9)
+    lengths = rng.integers(GEN_PROMPT[0], GEN_PROMPT[1],
+                           MESH_SERVE_GEN_REQUESTS)
+    gprompts = [rng.integers(0, LM_VOCAB, int(n)).tolist() for n in lengths]
+
+    def gen_round(mesh):
+        m = TorchModel(inputCol="ids", outputCol="h").set_model(
+            "transformer_lm", seed=0)
+        if mesh is not None:
+            m.set_params(meshSpec=mesh)
+        with Server({"lm": m}) as srv:
+            lane = srv.enable_generate("lm")
+            _warm_lane(lane, lengths)
+            ch.rank_stats(reset=True)
+            res, lat, wall = _closed_loop(
+                GEN_CLIENTS, gprompts, lambda p: srv.submit_generate(
+                    "lm", p, max_new_tokens=GEN_NEW_TOKENS).result(300))
+            stats = ch.rank_stats()
+            gen = lane.gen
+            kv = dict(arena_bytes=gen.kv.arena_bytes(),
+                      arena_shard_bytes=gen.kv.arena_shard_bytes(),
+                      spec=list(gen.kv.arena_sharding or ()))
+            prefills = sum(p.replays for (k, _), p in
+                           gen.built_programs().items() if k == "prefill")
+        m.release_placement()
+        toks = sum(len(r["tokens"]) for r in res)
+        return toks, lat, wall, stats, kv, prefills, res
+    t1, lat1, wall1, _, kv1, _, _ = gen_round(None)
+    t2, lat2, wall2, stats, kv, prefills, res = gen_round(cfg["gen"])
+    check(all(len(r["tokens"]) == GEN_NEW_TOKENS for r in res),
+          "mesh_serve generate: a request fell short of its tokens")
+    check(kv["arena_shard_bytes"] * 2 == kv["arena_bytes"]
+          and "tensor" in kv["spec"],
+          f"mesh_serve generate: arena {kv}, want head-sharded halves")
+    k3g = _rank_launches(stats, tc)
+    check(k3g == [LM_DEPTH * prefills] * len(stats) and prefills > 0,
+          f"mesh_serve generate: {tc} launches {k3g} a rank, want "
+          f"{LM_DEPTH} x {prefills} prefills")
+    out["generate"] = dict(
+        mesh=cfg["gen"], requests=MESH_SERVE_GEN_REQUESTS,
+        new_tokens=GEN_NEW_TOKENS, tokens_per_s=t2 / wall2,
+        tokens_per_s_per_rank=t2 / wall2 / len(stats),
+        one_rank_tokens_per_s=t1 / wall1,
+        p50_ms=_pct_ms(lat2, 50), p99_ms=_pct_ms(lat2, 99),
+        one_rank_p50_ms=_pct_ms(lat1, 50), one_rank_p99_ms=_pct_ms(lat1, 99),
+        arena=kv, one_rank_arena_bytes=kv1["arena_bytes"],
+        prefill_calls=prefills,
+        launches={f"rank{r}": n for r, n in enumerate(k3g)},
+        host_copies=[st["host_copies"] for st in stats],
+        max_allocated_bytes=[st["max_allocated_bytes"] for st in stats])
+    for k in GEN_CONFIG:
+        config.unset(k)
+    torch.cuda.empty_cache()
+
+    # -- the recommender served on the mesh, and Fleet.reshard of it --
+    kw = dict(dense_dim=MESH_DLRM_DENSE, tables=MESH_DLRM_TABLES,
+              embed_dim=MESH_DLRM_EMBED, slots=MESH_DLRM_SLOTS,
+              bottom=(64,), top=(64,))
+    rows = loadgen.recommender_rows(
+        MESH_SERVE_DLRM_ROWS, dense=MESH_DLRM_DENSE,
+        tables=tuple((r, MESH_DLRM_SLOTS) for _, r in MESH_DLRM_TABLES),
+        seed=32)
+    base = TorchModel(inputCol="x", outputCol="y").set_model(
+        "recommender_dlrm", seed=0, **kw)
+
+    def rec(mesh):
+        m = base.copy()
+        m.set_params(meshSpec=mesh)
+        return m
+
+    def serve_rec(m):
+        with Server({"rec": m}, max_batch=MESH_SERVE_DLRM_BUCKET,
+                    max_wait_ms=1.0) as srv:
+            entry = srv.registry.get("rec")
+            entry.program_for(MESH_SERVE_DLRM_BUCKET,
+                              rows[:MESH_SERVE_DLRM_BUCKET])
+            ch.rank_stats(reset=True)
+            t0 = time.perf_counter()
+            got = srv.submit_many("rec", rows, timeout=300)
+            wall = time.perf_counter() - t0
+            stats = ch.rank_stats()
+            tables = [(devmem.shard_bytes_of(p), devmem.param_bytes({n: p}))
+                      for n, p in entry.module.named_parameters()
+                      if n.endswith("_embedding")]
+        m.release_placement()
+        return np.asarray(got), wall, stats, tables
+    want, wall1, _, tabs1 = serve_rec(rec(None))
+    got, wall, stats, tabs = serve_rec(rec(cfg["dlrm"]))
+    check(bool(np.array_equal(got, want)),
+          "mesh_serve dlrm: scores not bit-equal to one rank's "
+          f"(max {float(np.abs(got - want).max())})")
+    check(all(local * 2 == whole for local, whole in tabs),
+          f"mesh_serve dlrm: table bytes a rank {tabs}")
+    out["dlrm"] = dict(
+        mesh=cfg["dlrm"], rows=MESH_SERVE_DLRM_ROWS,
+        bucket=MESH_SERVE_DLRM_BUCKET, bit_equal=True,
+        rows_per_s=MESH_SERVE_DLRM_ROWS / wall,
+        rows_per_s_per_rank=MESH_SERVE_DLRM_ROWS / wall
+        / math.prod(cfg["dlrm"].values()),
+        one_rank_rows_per_s=MESH_SERVE_DLRM_ROWS / wall1,
+        table_bytes_per_rank=[t[0] for t in tabs],
+        logical_table_bytes=[t[1] for t in tabs1],
+        host_copies=[st["host_copies"] for st in stats],
+        max_allocated_bytes=[st["max_allocated_bytes"] for st in stats])
+    x = rows[:1]
+    answers, errors = [], []
+    with Fleet({"rec": base}, replicas=MESH_SERVE_FLEET_REPLICAS,
+               server_kwargs={"max_batch": 4}) as fleet:
+        first = fleet.submit("rec", x)
+        stop = threading.Event()
+
+        def fire():
+            while not stop.is_set():
+                try:
+                    answers.append(fleet.submit("rec", x))
+                except Exception as e:      # reported by the gate below
+                    errors.append(f"{type(e).__name__}: {e}")
+                    return
+        fired = threading.Thread(target=fire, daemon=True)
+        fired.start()
+        try:
+            wide = fleet.reshard(cfg["reshard"], warm_x=x)
+            after = fleet.submit("rec", x)
+            narrow = fleet.reshard(None, warm_x=x)
+        finally:
+            stop.set()
+            fired.join(timeout=60)
+    statuses = [[r["status"] for r in rep["replicas"]]
+                for rep in (wide, narrow)]
+    check(not errors and answers, f"mesh_serve reshard: errors {errors}")
+    check(all(np.array_equal(a, first) for a in answers + [after]),
+          "mesh_serve reshard: an answer differs from the first")
+    check(statuses == [["resharded"] * MESH_SERVE_FLEET_REPLICAS] * 2,
+          f"mesh_serve reshard: statuses {statuses}")
+    out["reshard"] = dict(
+        shape=cfg["reshard"], replicas=MESH_SERVE_FLEET_REPLICAS,
+        answers=len(answers), failed_requests=len(errors), bit_equal=True,
+        statuses=statuses, seconds_to_mesh=wide["seconds"],
+        seconds_back=narrow["seconds"])
+    del base
+    torch.cuda.empty_cache()
+
+    # -- ResNet-50 featurize over the data ranks, K2 on each --
+    from mmlspark_tpu_torch.core.schema import ColumnSchema, DType, ImageValue
+    from mmlspark_tpu_torch.image.featurizer import ImageFeaturizer
+    raw = np.random.default_rng(2).integers(
+        0, 256, size=(MESH_SERVE_IMAGES, SRC, SRC, 3), dtype=np.uint8)
+    imgs = np.empty(MESH_SERVE_IMAGES, dtype=object)
+    for i in range(MESH_SERVE_IMAGES):
+        imgs[i] = ImageValue(path=f"mem://mesh/{i}", data=raw[i])
+    frame = Frame.from_dict({"row": np.arange(MESH_SERVE_IMAGES)},
+                            num_partitions=2).with_column_values(
+        ColumnSchema("image", DType.IMAGE), imgs)
+
+    def featurize(mesh):
+        fz = ImageFeaturizer(inputCol="image", outputCol="features",
+                             cutOutputLayers=1, miniBatchSize=BATCH,
+                             computeDtype="bfloat16", meshSpec=mesh)
+        fz.set_model("resnet50", num_classes=1000, seed=0)
+        fz.transform(frame)                       # placed, built
+        t0 = time.perf_counter()
+        feats = np.asarray(fz.transform(frame).column("features"))
+        return fz, feats, time.perf_counter() - t0
+    fz1, want, s1 = featurize(None)
+    del fz1
+    ch.rank_stats(reset=True)
+    fz, got, s2 = featurize(cfg["featurize"])
+    stats = ch.rank_stats()
+    fz._tm_cache.release_placement()
+    err = float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-12))
+    check(got.shape == (MESH_SERVE_IMAGES, 2048) and err <= 0.02,
+          f"mesh_serve featurize: {got.shape}, {err} from one rank")
+    k2n = _rank_launches(stats, k2)
+    # two passes (the warm one included) of one batch, split over the
+    # data ranks: K2 twice on every rank
+    check(k2n == [2] * len(stats),
+          f"mesh_serve featurize: {k2} launches {k2n} a rank")
+    out["featurize"] = dict(
+        mesh=cfg["featurize"], images=MESH_SERVE_IMAGES, rel_err=err,
+        images_per_s=MESH_SERVE_IMAGES / s2,
+        images_per_s_per_rank=MESH_SERVE_IMAGES / s2 / len(stats),
+        one_rank_images_per_s=MESH_SERVE_IMAGES / s1,
+        launches={f"rank{r}": n for r, n in enumerate(k2n)},
+        host_copies=[st["host_copies"] for st in stats],
+        max_allocated_bytes=[st["max_allocated_bytes"] for st in stats])
+    out["placements_left"] = len(ch.placements)
+    check(not ch.refs, f"mesh_serve: placements still held {ch.refs}")
+    out["seconds"] = time.perf_counter() - t_phase
+    out["failed"] = failed
+    return out
 
 
 def _mesh_reference(torch, kernels) -> dict:
@@ -5437,6 +5841,9 @@ def _mesh_reference(torch, kernels) -> dict:
     torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    ref["moe_nt"] = _mesh_moe(torch, kernels, None, False, MESH_MOE_WARMUP,
+                              MESH_MOE_STEPS, record="all")
+    torch.cuda.empty_cache()
     ref["moe32"] = _mesh_moe(torch, kernels, None, True, 0,
                              MESH_MOE_F32_STEPS, record=True)
     ref["pipe"] = {n: _mesh_pipe(torch, None, n) for n in (2, 4)}
@@ -5659,6 +6066,13 @@ def _mesh_report(kernels, cards, ref, ranks, work, **extra) -> dict:
         for c in ranks[0]["checkpoint"]]
     report.update(_mesh_report_6b(kernels, cards, ref, ranks, work,
                                   _check))
+    # serving on the mesh: its gates ran on rank 0, the leader
+    serve = ranks[0]["serve"]
+    for what in serve["failed"]:
+        _check(False, what)
+    _check(all(r["serve"].get("follower_commands", 1) > 0
+               for r in ranks[1:]), "mesh_serve: a follower ran nothing")
+    report["serve"] = serve
     _line(phase="mesh", card=_smi(), cards=cards, ranks=ranks_n,
           sharing=("two ranks share one card over gloo: the step times "
                    "are not a scaling figure" if cards == 1 else
@@ -5671,10 +6085,15 @@ def _mesh_report(kernels, cards, ref, ranks, work, **extra) -> dict:
         raise RuntimeError(f"chip_smoke check failed: mesh: {failed}")
     name = _mesh_configs(cards)["moe"][0]
     return {"tc": {**{n: v["launches"] for n, v in report["lm"].items()},
-                   f"moe_{name}": report["moe"]["launches"]},
+                   f"moe_{name}": report["moe"]["launches"],
+                   "serve_lm": serve["lm"]["launches"],
+                   "serve_generate": serve["generate"]["launches"]},
             "f32": {**{n: v["launches"] for n, v in report["f32"].items()},
-                    f"moe_{name}": report["moe"]["fp32_launches"]},
-            "k1": report["resnet"]["launches"]}
+                    f"moe_{name}": report["moe"]["fp32_launches"],
+                    "serve_score": serve["fp32"]["launches_score"],
+                    "serve_generate": serve["fp32"]["launches_generate"]},
+            "k1": report["resnet"]["launches"],
+            "k2": {"serve_featurize": serve["featurize"]["launches"]}}
 
 
 def _mesh_report_6b(kernels, cards, ref, ranks, work, _check) -> dict:
@@ -5720,11 +6139,44 @@ def _mesh_report_6b(kernels, cards, ref, ranks, work, _check) -> dict:
             routing_equal &= bool(np.array_equal(got[key], want))
     _check(routing_equal, f"mesh moe {name} fp32: the first step's gate "
                           "indices or slot positions differ from one rank's")
+    # the bf16 MoE with TF32 off: losses at the dense LM's bf16 bound and
+    # every step's routing equal to one rank's
+    runs_nt = [r["moe"]["bf16_tf32_off"] for r in ranks]
+    rel_nt = max(_max_step_rel(run["losses"], ref["moe_nt"]["losses"])
+                 for run in runs_nt)
+    step_rel_nt = [_max_step_rel([a], [b]) for a, b in
+                   zip(runs_nt[0]["losses"], ref["moe_nt"]["losses"])]
+    # entries of each step's gate indices / slot positions (per MoE block
+    # j, as "<step>_<name>_<j>") that differ from one rank's, and of how
+    # many
+    routing_nt, sizes_nt = {}, {}
+    for r, run in enumerate(runs_nt):
+        got = np.load(os.path.join(work, f"moe_notf32_routing_rank{r}.npz"))
+        for key in got.files:
+            n = got[key].shape[0]
+            want = ref["moe_nt"]["routing"][key][run["block"] * n:
+                                                 (run["block"] + 1) * n]
+            routing_nt[key] = routing_nt.get(key, 0) + int(
+                (got[key] != want).sum())
+            sizes_nt[key] = sizes_nt.get(key, 0) + int(want.size)
+    _check(rel_nt <= LM_BF16_TRAIN_TOL,
+           f"mesh moe {name} bf16, TF32 off: losses {rel_nt} from one rank")
+    # the first step's first MoE block routes the same input on both runs
+    # (everything before it is replicated): its routing must be equal
+    _check(routing_nt["s0_gate_idx_0"] == 0
+           and routing_nt["s0_position_0"] == 0,
+           f"mesh moe {name} bf16, TF32 off: the first step's first MoE "
+           f"block routes differently from one rank: {routing_nt}")
     step_ms = max(run["step_ms"] for run in runs)
     moe = dict(
         mesh=axes, max_step_rel=rel, step_rel=step_rel, bound=
         MESH_MOE_BF16_TOL, losses=runs[0]["losses"],
         fp32_max_step_rel=rel32, fp32_routing_equal=routing_equal,
+        tf32_off_max_step_rel=rel_nt, tf32_off_step_rel=step_rel_nt,
+        tf32_off_routing_entries_differing=routing_nt,
+        tf32_off_routing_entries=sizes_nt,
+        tf32_off_losses=runs_nt[0]["losses"],
+        tf32_off_one_rank_losses=ref["moe_nt"]["losses"],
         step_ms=[run["step_ms"] for run in runs],
         tokens_per_s_per_rank=runs[0]["tokens_per_step"]
         / (step_ms / 1e3) / ranks_n,
@@ -5949,7 +6401,12 @@ def main() -> int:
         "replaces": "mmlspark_tpu/ops/pallas_preprocess.py:147",
         "launches": featurize[k2k.name],
         "launches_by_path": {"featurize": featurize[k2k.name],
-                             "serve": serve[k2k.name]},
+                             "serve": serve[k2k.name],
+                             "mesh_serve_featurize":
+                                 mesh["k2"]["serve_featurize"]},
+        "launches_note": "mesh_serve_featurize: each rank's count over "
+                         "two passes of ResNet-50 featurize split over the "
+                         "data ranks (one launch a pass on its rows)",
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
@@ -5983,7 +6440,9 @@ def main() -> int:
         "launches_note": "mesh_*: each rank's count over the 11 steps of "
                          "a meshed transformer_lm run (6 a step); "
                          "mesh_moe_*: over the 6 steps of the MoE LM split "
-                         "over expert (6 a step)",
+                         "over expert (6 a step); mesh_serve_lm: each "
+                         "rank's over the served batches (6 a program "
+                         "call), mesh_serve_generate: over the prefills",
         "max_abs_err": k3["tc"]["max_abs_err"],
         "ms": k3["tc"]["ms"], "plain_ms": k3["tc"]["plain_ms"],
         "bound_ms": k3["tc"]["bound_ms"], "bound_by": k3["tc"]["bound_by"],

@@ -590,12 +590,14 @@ def cmd_run(args, passthrough) -> int:
             raise SystemExit(str(e))
         joined = meshlib.is_initialized() and not was
         summary = meshlib.device_count_summary()
-        print(json.dumps({"rank": summary["process_index"],
-                          "world": summary["process_count"],
-                          "device": str(device),
-                          "backend": str(config.get("runtime.dist_backend"))
-                          if meshlib.is_initialized() else None}),
-              file=sys.stderr, flush=True)
+        # one write of the whole line: ranks share the launcher's stderr,
+        # and a statement and its newline written apart interleave
+        sys.stderr.write(json.dumps(
+            {"rank": summary["process_index"],
+             "world": summary["process_count"], "device": str(device),
+             "backend": str(config.get("runtime.dist_backend"))
+             if meshlib.is_initialized() else None}) + "\n")
+        sys.stderr.flush()
         saved_argv, saved_path = sys.argv, list(sys.path)
         sys.argv = [script] + passthrough
         sys.path.insert(0, os.path.dirname(os.path.abspath(script)))

@@ -33,10 +33,13 @@ Every decision — actuated OR considered-but-suppressed (cooldown,
 actuation-budget window, bounds veto) — is emitted as an ``autopilot``
 event with enough payload to replay it, counted in the metrics registry,
 and surfaced by ``mmlspark-tpu-torch report`` / ``top``. See
-the reference's docs/AUTOPILOT.md for the signal -> lever matrix. The
-port's fleets have no mesh yet: ``Fleet.reshard`` and
-``ProcessFleet.reshard`` raise, so a reshard decision is recorded with
-its ``error`` and the lever cools down; :func:`decide` itself is whole.
+the reference's docs/AUTOPILOT.md for the signal -> lever matrix. Lever
+5 actuates ``Fleet.reshard`` (the in-process fleet moves its placements
+over the leader's ranks, ``parallel/leader.py``) and the fleet's new
+``mesh_shape`` feeds the next tick; a reshard that cannot run
+(``ProcessFleet.reshard`` raises, as the reference's does; a mesh
+without its ranks; a placement over budget) is recorded with its
+``error`` and the lever cools down.
 """
 from __future__ import annotations
 

@@ -100,7 +100,10 @@ class DLRM(nn.Module):
         stack = torch.stack(feats, dim=1)                       # (B, F, D)
         # dot interaction: pairwise feature affinities, upper triangle
         dots = torch.einsum("bfd,bgd->bfg", stack, stack)
-        iu, ju = np.triu_indices(stack.shape[1], k=1)
+        # the upper triangle's indices made on the device (numpy's, the
+        # same row-major order, would be a host copy a CUDA graph refuses)
+        iu, ju = torch.triu_indices(stack.shape[1], stack.shape[1], 1,
+                                    device=stack.device)
         z = torch.cat([feats[0], dots[:, iu, ju]], dim=1)
         out = z
         for i in range(len(self.top)):

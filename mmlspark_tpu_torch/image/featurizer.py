@@ -10,7 +10,9 @@ The PyTorch port of ``mmlspark_tpu/image/featurizer.py``: the same uint8
 fast path (uniform uint8 images cross to the device raw and are center-
 cropped, resized and normalized there by one kernel launch per batch), the
 same host-resize fallback, and the same memo of the prepared frame.
-Scoring over a device mesh is not ported yet (``meshSpec`` must be None).
+``meshSpec`` goes to the inner ``TorchModel`` (scoring over a mesh of
+ranks, ``parallel/leader.py``): each data rank runs the fused uint8 ->
+crop/resize/normalize kernel on its rows.
 """
 from __future__ import annotations
 
@@ -50,8 +52,8 @@ class ImageFeaturizer(HasInputCol, HasOutputCol, Transformer):
         validator=lambda v: v >= 0)
     miniBatchSize = IntParam("miniBatchSize", "scoring batch size", 512)
     meshSpec = AnyParam(
-        "meshSpec", "scoring over a device mesh; not ported yet, must be "
-        "None (forwarded to the internal TorchModel)", None)
+        "meshSpec", "scoring over a mesh of ranks (forwarded to the "
+        "internal TorchModel; None = one device)", None)
     computeDtype = StringParam(
         "computeDtype", "backbone compute + feature wire precision "
         "(forwarded to the internal TorchModel): 'bfloat16' runs the "

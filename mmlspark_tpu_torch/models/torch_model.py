@@ -23,18 +23,31 @@ Params and the same behaviour:
   column, coerced to int32 on the host even from float64; a (B, L, dim)
   output keeps the JAX package's column quirk: its ``dim`` is L.
 
+- ``meshSpec`` scores over a mesh of ranks (``parallel/leader.py``): rank
+  0 leads, ranks 1..n-1 follow; parameters are cut on the host and each
+  rank receives only its shards; modules with ``bind_mesh`` compute on
+  them (the transformer's tensor split, the MoE's expert banks, the
+  DLRM's row-split tables through the fused lookup), other split leaves
+  are gathered for their use; the batch goes over the data axes (and,
+  for architectures that opt into sequence-parallel attention, the
+  sequence over ``seq``), the output is gathered back to rank 0. A mesh
+  across hosts, larger than the world, or without a process group
+  raises.
+
 Everything runs on ``runtime.device`` (``utils/config.py``), which raises
-when it names CUDA and there is none. Left for later slices: scoring over
-a device mesh (``meshSpec`` must be None) and capturing an unnamed
-submodule's output.
+when it names CUDA and there is none. Left for later slices: capturing an
+unnamed submodule's output.
 """
 from __future__ import annotations
 
+import itertools
+import math
 from collections.abc import Mapping
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from mmlspark_tpu_torch.core.frame import Frame
 from mmlspark_tpu_torch.core.params import (
@@ -46,7 +59,12 @@ from mmlspark_tpu_torch.core.serialization import register_stage
 from mmlspark_tpu_torch.models.convert import from_jax_params
 from mmlspark_tpu_torch.models.zoo import build_model, init_state
 from mmlspark_tpu_torch.observability import syncs as obssyncs
+from mmlspark_tpu_torch.parallel import mesh as meshlib
+from mmlspark_tpu_torch.parallel.mesh import mesh_shape
 from mmlspark_tpu_torch.utils.config import resolve_device
+
+
+_STATE_TOKENS = itertools.count()
 
 
 @register_stage
@@ -68,8 +86,12 @@ class TorchModel(HasInputCol, HasOutputCol, Model):
         "({} = off; crop/resize each optional). uint8 input runs crop + "
         "resize + requantize + normalize as ONE kernel launch.", {})
     meshSpec = AnyParam(
-        "meshSpec", "scoring over a device mesh (slice 6b); not ported yet, must be "
-        "None (single-device scoring)", None)
+        "meshSpec", "shard SCORING over a mesh of ranks (MeshSpec / "
+        "axis-size dict / 'data=2,tensor=2' / DeviceMesh; None = one "
+        "device). Params shard by the standard rules and the batch over "
+        "the data axes; rank 0 leads ranks 0..n-1 of the joined world, "
+        "all on its host (parallel/leader.py). Persists as an axis-size "
+        "dict.", None)
     deviceCache = StringParam(
         "deviceCache", "keep the coerced input resident on the device "
         "across transform calls and slice batches on device: 'auto' "
@@ -115,10 +137,134 @@ class TorchModel(HasInputCol, HasOutputCol, Model):
         return self
 
     # -- internals ---------------------------------------------------------
-    def _spec(self) -> Dict[str, Any]:
+    def _spec(self, mesh=None) -> Dict[str, Any]:
+        """Build the zoo spec; on a scoring mesh with a ``seq`` axis, the
+        ring/Ulysses ``attention_fn`` goes into architectures that OPT IN
+        by their spec's ``seq_attention`` flag (the decoder LMs' (q, k, v,
+        causal) contract), never into others (a ViT's bidirectional
+        attention over an odd token count). An attention_fn is bound to
+        the rank's process group and never persists."""
         if not self.architecture:
             raise SchemaError("TorchModel: no architecture set; call set_model()")
-        return build_model(self.architecture, **self.get("architectureArgs"))
+        args = dict(self.get("architectureArgs"))
+        spec = build_model(self.architecture, **args)
+        if mesh is not None and mesh_shape(mesh).get("seq", 1) > 1 \
+                and "attention_fn" not in args and spec.get("seq_attention"):
+            from mmlspark_tpu_torch.parallel.sequence import make_attention_fn
+            args["attention_fn"] = make_attention_fn(mesh, "auto")
+            spec = build_model(self.architecture, **args)
+        return spec
+
+    # -- scoring over a mesh -----------------------------------------------
+    def _mesh_sizes(self) -> Optional[Dict[str, int]]:
+        """The scoring mesh's ``{axis: size}`` from ``meshSpec`` (a -1
+        absorbs the world's ranks), or None when it is unset or one
+        device."""
+        spec = self.get("meshSpec")
+        if spec is None or spec == "":
+            return None
+        world = meshlib.world_size()
+        if isinstance(spec, DeviceMesh):
+            sizes = mesh_shape(spec)
+        else:
+            if isinstance(spec, str):
+                spec = meshlib.parse_mesh_axes(spec)
+            if isinstance(spec, dict):
+                unknown = sorted(set(spec) - set(meshlib.AXES))
+                if unknown:
+                    raise ValueError(f"unknown mesh axes {unknown}; valid "
+                                     f"axes are {meshlib.AXES}")
+                spec = meshlib.MeshSpec(**spec)
+            fields = [getattr(spec, a) for a in meshlib.AXES]
+            n = world if -1 in fields else math.prod(fields)
+            sizes = spec.resolve(n)
+        return sizes if math.prod(sizes.values()) > 1 else None
+
+    def _resolve_score_mesh(self):
+        """The scoring mesh, or None for the one-device path.
+
+        A mesh of n ranks lies over ranks 0..n-1 of the world, this
+        process (rank 0) leading them (``parallel/leader.py``). It needs
+        a joined process group of at least n ranks, all on this host:
+        scoring is per host, as the reference's is per process."""
+        sizes = self._mesh_sizes()
+        if sizes is None:
+            return None
+        from mmlspark_tpu_torch.parallel import leader
+        from mmlspark_tpu_torch.parallel.sharding import mesh_spans_hosts
+        n = math.prod(sizes.values())
+        if not meshlib.is_initialized():
+            leader.channel()        # raises, saying how to start ranks
+        if n > meshlib.world_size():
+            raise ValueError(
+                f"TorchModel: a scoring mesh of {n} ranks ({sizes}) in a "
+                f"world of {meshlib.world_size()}")
+        ch = leader.channel()
+        if ch.rank != 0:
+            raise RuntimeError(
+                "TorchModel: meshed scoring runs on rank 0, the leader; "
+                "ranks 1..W-1 run parallel.leader.follow()")
+        if mesh_spans_hosts(ch.hosts, range(n)):
+            raise SchemaError(
+                "TorchModel scoring is per-host; use a mesh of this host's "
+                f"ranks (ranks 0..{n - 1} run on {sorted(set(ch.hosts[:n]))})")
+        return ch.mesh(sizes)
+
+    def _placement_key(self, mesh) -> str:
+        """One placement per (model copy, mesh, what the closure bakes):
+        a copy is its state object, named by a token of its own (an id
+        could come back for a later state while a placement lives)."""
+        held = getattr(self, "_state_token", None)
+        if held is None or held[0] is not self._state:
+            held = self._state_token = (self._state, next(_STATE_TOKENS))
+        return repr((held[1], mesh_shape(mesh), self.outputNodeName,
+                     repr(self.get("devicePreprocess")),
+                     self.get("computeDtype")))
+
+    def _host_params(self) -> Dict[str, torch.Tensor]:
+        """The state dict on the host as tensors, cast to bf16 here when
+        that is the compute dtype (the reference's host-side cast), so no
+        rank ever receives a float32 leaf it would cast itself."""
+        cdt = self.get("computeDtype") == "bfloat16"
+        out = {}
+        for k, v in self._state["params"].items():
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            out[k] = t.to(torch.bfloat16) if cdt and t.is_floating_point() \
+                else t
+        return out
+
+    def _build_meshed(self, device: torch.device, mesh):
+        """``(module, apply)`` over ``mesh``: the leader's module holds
+        rank 0's shards, and ``apply(x)`` scores a padded HOST batch on
+        every rank of the mesh and returns the whole output on this
+        device."""
+        from mmlspark_tpu_torch.parallel import leader
+        ch = leader.channel()
+        recipe = {"params": {k: v for k, v in
+                             self.explicit_param_values().items()
+                             if k != "meshSpec"},
+                  "state": {k: v for k, v in self._state.items()
+                            if k != "params"}}
+        key = self._placement_key(mesh)
+        seq = bool(mesh_shape(mesh).get("seq", 1) > 1
+                   and self._spec().get("seq_attention"))
+        placement = ch.acquire(
+            key, mesh_shape(mesh), "mmlspark_tpu_torch.models.torch_model:"
+            "_mesh_part", recipe, self._host_params(),
+            seq_axis="seq" if seq else None)
+        return placement.module, MeshedApply(ch, placement, seq)
+
+    def release_placement(self) -> None:
+        """Drop the memoized meshed apply and its reference to the
+        placement (the last reference frees it on every rank)."""
+        cached = getattr(self, "_build_cache", None)
+        self._build_cache = None
+        if cached is not None and isinstance(cached[1][1], MeshedApply):
+            cached[1][1].release()
+
+    def _set_state(self, state: Dict[str, Any]) -> None:
+        self.release_placement()
+        super()._set_state(state)
 
     @property
     def layer_names(self):
@@ -128,15 +274,17 @@ class TorchModel(HasInputCol, HasOutputCol, Model):
         """The module on ``device`` with this stage's params, and
         ``apply(x)`` running preprocess + forward (+ layer selection) on
         one device batch."""
-        if self.get("meshSpec") is not None:
-            raise NotImplementedError(
-                "TorchModel: scoring over a device mesh is slice 6b of the "
-                "port, not ported yet; leave meshSpec None")
         spec = self._spec()
         module = spec["module"]
         module.load_state_dict(
             {k: torch.from_numpy(np.asarray(v))
              for k, v in self._state["params"].items()}, strict=True)
+        return self._make_apply(module.to(device), spec, device)
+
+    def _make_apply(self, module, spec, device: torch.device):
+        """``(module, apply)``: ``module`` (its params already on
+        ``device``) in eval mode and the compute dtype, and ``apply(x)``
+        running preprocess + forward (+ layer selection) on one batch."""
         cdt = (torch.bfloat16 if self.get("computeDtype") == "bfloat16"
                else None)
         module = module.to(device).eval()
@@ -271,9 +419,12 @@ class TorchModel(HasInputCol, HasOutputCol, Model):
     def _device_apply(self, device: torch.device):
         """``(module, apply)`` on ``device``, built once and memoized under
         everything the closure bakes in; the serving registry shares it
-        with ``transform``."""
+        with ``transform``. On a scoring mesh ``apply`` is a
+        :class:`MeshedApply` taking padded host batches."""
+        mesh = self._resolve_score_mesh()
         return self._cached_build(
-            lambda: self._build_apply(device),
+            (lambda: self._build_apply(device)) if mesh is None
+            else (lambda: self._build_meshed(device, mesh)),
             key=(str(device), self.architecture,
                  repr(self.get("architectureArgs")), self.outputNodeName,
                  repr(self.get("devicePreprocess")),
@@ -284,6 +435,8 @@ class TorchModel(HasInputCol, HasOutputCol, Model):
         spec = self._spec()
         _, apply = self._device_apply(device)
         bs = self.miniBatchSize
+        if isinstance(apply, MeshedApply):
+            return self._transform_sharded(frame, spec, apply, bs)
         if self.get("deviceCache") == "on" \
                 and getattr(frame, "_out_of_core", False):
             raise ValueError(
@@ -392,6 +545,19 @@ class TorchModel(HasInputCol, HasOutputCol, Model):
                                         "transform.retire"))
         return self._emit(frame, outs)
 
+    def _transform_sharded(self, frame: Frame, spec, apply: "MeshedApply",
+                           bs: int) -> Frame:
+        """The meshed scoring loop: each padded host batch (its rows a
+        multiple of the data ranks, the ragged tail padded and cut) is
+        scored by every rank of the mesh on its block, and the gathered
+        output fetched once a batch."""
+        from mmlspark_tpu_torch.parallel.sharding import batch_share
+        _, total = batch_share(apply.placement.mesh)
+        bs = int(np.ceil(bs / total) * total)
+        outs = [obssyncs.device_get(apply(x), "transform.sharded")[:n]
+                for x, n in self._padded_batches(frame, spec, bs)]
+        return self._emit(frame, outs)
+
     def _emit(self, frame: Frame, outs: list) -> Frame:
         """Fetched output batches -> the scored frame column.
 
@@ -414,6 +580,98 @@ class TorchModel(HasInputCol, HasOutputCol, Model):
 
     def transform_schema(self, schema):
         return schema.add(ColumnSchema(self.outputCol, DType.VECTOR, None))
+
+
+class MeshedApply:
+    """The leader's apply over a scoring mesh: ``apply(x)`` sends the
+    padded host batch ``x`` to every rank of the placement, each scores
+    its block of rows (and, under ``seq``, its slice of the sequence) on
+    its shards, and the output is gathered over the data (and sequence)
+    ranks onto the leader's device. ``prog`` names the serving program
+    calling it, under which each rank counts its kernel launches."""
+
+    meshed = True
+
+    def __init__(self, ch, placement, seq: bool):
+        self.channel = ch
+        self.placement = placement
+        self.seq = seq
+        self.released = False
+
+    def __call__(self, x: np.ndarray, prog: Optional[str] = None
+                 ) -> torch.Tensor:
+        from mmlspark_tpu_torch.parallel.sharding import batch_share
+        x = np.asarray(x)
+        n = x.shape[0]
+        # a batch the data ranks cannot split evenly (a serving bucket of
+        # one row) is padded to a multiple of them, and the pad cut
+        total = batch_share(self.placement.mesh)[1]
+        if n % total:
+            x = np.concatenate([x, np.zeros((total - n % total,)
+                                            + x.shape[1:], x.dtype)])
+        out = self.channel.call(
+            "mmlspark_tpu_torch.models.torch_model:_mesh_score",
+            {"key": self.placement.key, "seq": self.seq, "prog": prog},
+            [x], n=self.placement.mesh.size())
+        return out[:n]
+
+    def rank_launches(self, prog: str) -> list:
+        """Each rank's kernel launches under program ``prog``."""
+        return self.channel.rank_launches(self.placement.key, prog)
+
+    @property
+    def mesh_key(self) -> str:
+        """The placement's identity in program and cache keys."""
+        return ",".join(f"{a}={n}" for a, n in
+                        mesh_shape(self.placement.mesh).items() if n > 1)
+
+    def acquire(self) -> "MeshedApply":
+        """One more reference to the placement (a serving entry's)."""
+        with self.channel.lock:
+            self.channel.refs[self.placement.key] += 1
+        return self
+
+    def release(self) -> None:
+        self.channel.release(self.placement.key)
+
+
+def _mesh_part(recipe: Dict[str, Any], mesh):
+    """The placement builder of a meshed ``TorchModel`` (run on every
+    rank): the module from the recipe's params on the host, and the
+    finish that makes ``(stage, apply)`` once its shards are placed."""
+    tm = TorchModel()
+    tm.set_params(**recipe["params"])
+    tm._state = dict(recipe["state"])
+    spec = tm._spec(mesh)
+    return spec["module"], lambda module, device: (
+        tm, tm._make_apply(module, spec, device)[1])
+
+
+def _mesh_score(ch, header, tensors, local):
+    """One meshed scoring command on this rank: its rows (and sequence
+    slice) of the global batch through its shards, the output gathered
+    over the sequence, vocabulary and data ranks (the leader's return
+    value is the whole output)."""
+    from mmlspark_tpu_torch.parallel import collectives, sharding
+    pl = ch.placements[header["key"]]
+    layout = pl.layout
+    tm, apply = pl.parts
+    x = sharding.local_rows(pl.mesh, tensors[0].numpy())
+    if header["seq"]:
+        x = sharding.local_seq(pl.mesh, x, "seq")
+    x = torch.from_numpy(np.ascontiguousarray(x)).to(pl.device)
+
+    def run():
+        with pl.using() as module:
+            out = apply(x)
+            vocab = getattr(module, "_vocab", None)
+            if vocab is not None and tm.outputNodeName in ("", "logits"):
+                out = collectives.all_gather(out, out.dim() - 1, vocab)
+            if header["seq"]:
+                out = collectives.all_gather(out, 1, layout.group("seq"))
+            return collectives.all_gather(out, 0,
+                                          layout.group(*layout.batch_axes))
+    return pl.counted(header.get("prog"), run)
 
 
 def _to_float(x: torch.Tensor) -> torch.Tensor:

@@ -146,10 +146,15 @@ class DecoderBlock(nn.Module):
 
     def _columns(self, dense: Dense, y: torch.Tensor) -> torch.Tensor:
         """A column-split Dense: the rank's output features (the bias,
-        replicated, sliced to them)."""
+        replicated, sliced to them). The Dense's forward hooks still see
+        its output (the generate lane taps the K/V projections)."""
         bias = collectives.slice_of(dense.bias, 0, self._tp)
-        return F.linear(y.to(dense.dtype), dense.weight.to(dense.dtype),
-                        bias.to(dense.dtype))
+        out = F.linear(y.to(dense.dtype), dense.weight.to(dense.dtype),
+                       bias.to(dense.dtype))
+        for hook in dense._forward_hooks.values():
+            got = hook(dense, (y,), out)
+            out = out if got is None else got
+        return out
 
     def _rows(self, dense: Dense, h: torch.Tensor) -> torch.Tensor:
         """A row-split Dense: partial products summed over ``tensor``,

@@ -74,6 +74,11 @@ def is_initialized() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
+def world_size() -> int:
+    """The ranks of the joined process group (1 outside one)."""
+    return _dist().get_world_size() if is_initialized() else 1
+
+
 def make_mesh(spec: Optional[MeshSpec] = None,
               ranks: Optional[Sequence[int]] = None):
     """A ``DeviceMesh`` over the world's ranks (or ``ranks``), its

@@ -298,8 +298,64 @@ def epoch_cache_sharding(mesh, ndim: int,
 
 def mesh_spans_processes(mesh) -> bool:
     """True when the mesh holds ranks other than this one (with one rank
-    a process, any mesh of more than one rank)."""
+    a process, any mesh of more than one rank). The trainer's question;
+    scoring asks :func:`mesh_spans_hosts`."""
     return mesh is not None and mesh.size() > 1
+
+
+def mesh_spans_hosts(hosts: Sequence[str], ranks: Sequence[int]) -> bool:
+    """True when the ranks ``ranks`` do not all run on the host of the
+    first of them (``hosts[r]`` is rank r's hostname, as the ranks stated
+    it when they joined). Scoring is per host: the leader's rows are
+    scored by ranks of its own host, which takes the place of the
+    reference's refusal of a mesh spanning processes (there one process
+    drove all of its host's devices)."""
+    ranks = list(ranks)
+    return bool(ranks) and any(hosts[r] != hosts[ranks[0]] for r in ranks)
+
+
+def kv_arena_sharding(mesh, heads: int) -> Spec:
+    """Spec of a paged KV arena (layers, blocks, block_tokens, heads,
+    head_dim): the head dim over ``tensor`` when that axis is more than
+    one rank and divides the head count -- the split the attention
+    projections use, so each rank attends over the heads it computed and
+    no K/V crosses ranks. Otherwise replicated."""
+    t = tensor_axis_size(mesh)
+    if t > 1 and heads % t == 0:
+        return (None, None, None, "tensor", None)
+    return ()
+
+
+def kv_scale_sharding(mesh) -> Spec:
+    """Spec of the int8 arena's scale planes (layers, blocks,
+    block_tokens): no head dim, so replicated (they are ~head_dim times
+    smaller than the arena)."""
+    return ()
+
+
+def host_blocks(params: Mapping, shardings: Dict[str, "ParamSharding"],
+                coord: Dict[str, int]) -> Dict[str, Any]:
+    """The blocks of a host state dict held at mesh coordinate ``coord``:
+    each split leaf sliced on the host by its sharding, the others whole
+    (views, no copy). What the leader of a meshed placement sends each
+    rank, so that no rank receives a whole leaf its rule splits."""
+    out = {}
+    for name, leaf in params.items():
+        sh = shardings.get(name)
+        out[name] = leaf[sh.slices(coord)] if sh is not None \
+            and sh.sharded else leaf
+    return out
+
+
+def coordinate_of(mesh, rank: int) -> Dict[str, int]:
+    """The mesh coordinate of global rank ``rank`` (any rank of the
+    mesh, not only this one)."""
+    grid = mesh.mesh.numpy() if hasattr(mesh.mesh, "numpy") \
+        else np.asarray(mesh.mesh)
+    where = np.argwhere(grid == rank)
+    if not len(where):
+        raise ValueError(f"rank {rank} is not in the mesh")
+    return dict(zip(mesh.mesh_dim_names, (int(c) for c in where[0])))
 
 
 def is_cpu_mesh(mesh) -> bool:
@@ -486,6 +542,51 @@ def global_mean(total, count, floor: float = 1.0):
     n = collectives.all_reduce(count.detach().float(),
                                layout.group(*layout.grad_axes))
     return total * layout.n_grad / torch.clamp(n, min=floor)
+
+
+# -- modules on their shards -------------------------------------------------
+
+def bind_shards(module, shardings: Dict[str, ParamSharding], layout
+                ) -> Tuple[Dict[str, Tuple[str, ...]], set]:
+    """Bind every submodule that computes on its shards: its
+    ``bind_mesh(layout, its leaves' shardings)`` returns ``{leaf: the
+    axes it keeps split}`` (a set of names keeps ``tensor``), and it may
+    list ``summed_grads``, leaves whose gradient it sums over the data
+    ranks itself. Returns ``(claimed, summed)`` by full leaf name."""
+    claimed: Dict[str, Tuple[str, ...]] = {}
+    summed = set()
+    for prefix, sub in module.named_modules():
+        bind = getattr(sub, "bind_mesh", None)
+        if callable(bind):
+            head = f"{prefix}." if prefix else ""
+            mine = {n[len(head):]: sh for n, sh in shardings.items()
+                    if n.startswith(head)}
+            got = bind(layout, mine)
+            if not isinstance(got, dict):
+                got = {n: ("tensor",) for n in got}
+            claimed.update({head + n: tuple(a) for n, a in got.items()})
+            summed |= {head + n for n in getattr(sub, "summed_grads", ())}
+    return claimed, summed
+
+
+def gather_plan(module, shardings: Dict[str, ParamSharding],
+                claimed: Dict[str, Tuple[str, ...]]) -> List[tuple]:
+    """The gathers a split parameter needs before a module that does not
+    compute on that split uses it: ``(owner, attr, param, [(dim, axes)],
+    kept)`` for each such leaf, ``kept`` its placement over the axes its
+    module keeps split (None: gathered whole)."""
+    plan = []
+    for name, p in module.named_parameters():
+        sh = shardings[name]
+        keep = claimed.get(name, ())
+        ops = [(d, tuple(a for a in _axes(e) if a not in keep))
+               for d, e in enumerate(sh.spec)]
+        ops = [(d, axes) for d, axes in ops if axes]
+        if ops:
+            owner_name, _, attr = name.rpartition(".")
+            plan.append((module.get_submodule(owner_name), attr, p, ops,
+                         sh.keeping(keep) if keep else None))
+    return plan
 
 
 # -- whole tensors and shards ------------------------------------------------

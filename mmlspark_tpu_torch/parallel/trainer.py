@@ -317,34 +317,8 @@ class DistributedTrainer:
             p._mesh_sharding = sh
             p._mesh_layout = layout
             p._mesh_group = layout.group(*sh.axes) if sh.sharded else None
-        # a module that computes on its shards claims them: {leaf: the
-        # axes it keeps split} (a set of names keeps ``tensor``), and may
-        # name leaves whose gradient it sums over the data ranks itself
-        claimed: Dict[str, Tuple[str, ...]] = {}
-        summed = set()
-        for prefix, sub in module.named_modules():
-            bind = getattr(sub, "bind_mesh", None)
-            if callable(bind):
-                head = f"{prefix}." if prefix else ""
-                mine = {n[len(head):]: sh for n, sh in shardings.items()
-                        if n.startswith(head)}
-                got = bind(layout, mine)
-                if not isinstance(got, dict):
-                    got = {n: ("tensor",) for n in got}
-                claimed.update({head + n: tuple(a) for n, a in got.items()})
-                summed |= {head + n for n in getattr(sub, "summed_grads", ())}
-        self._gathers = []
-        for name, p in params.items():
-            sh = shardings[name]
-            keep = claimed.get(name, ())
-            ops = [(d, tuple(a for a in sharding._axes(e) if a not in keep))
-                   for d, e in enumerate(sh.spec)]
-            ops = [(d, axes) for d, axes in ops if axes]
-            if ops:
-                owner_name, _, attr = name.rpartition(".")
-                self._gathers.append(
-                    (module.get_submodule(owner_name), attr, p, ops,
-                     sh.keeping(keep) if keep else None))
+        claimed, summed = sharding.bind_shards(module, shardings, layout)
+        self._gathers = sharding.gather_plan(module, shardings, claimed)
         # the gradient sums: over the data ranks that saw other rows and
         # hold the same part of the leaf (none for a leaf whose module
         # summed it itself); every gradient is then divided by their count

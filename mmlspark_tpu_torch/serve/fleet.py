@@ -32,8 +32,10 @@ its warm-up (:meth:`Fleet.scale_up` warms the new replica with the
 programs a live replica has built before it enters the router), and no
 replica captures after warm-up. A CUDA graph does not serialize, so the
 capture time is paid by every replica and reported, not skipped.
-Resharding over a device mesh (``Fleet.reshard``) is a later slice of the
-port.
+- :meth:`Fleet.reshard` — the same sequence moving every replica onto
+  another mesh placement (``parallel/leader.py``): one resharded copy
+  per model, shared by the replicas, its lanes rebuilt on the new
+  placement; over budget or without the ranks it is a no-op.
 
 - :class:`ProcessFleet` — the same scale surface over a
   :class:`~mmlspark_tpu_torch.serve.supervisor.Supervisor`: each replica is
@@ -43,7 +45,7 @@ port.
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -191,6 +193,7 @@ class Fleet:
                          for i, srv in enumerate(self.servers)]
         self.router = Router(self.replicas, clock=clock, sleep=sleep,
                              **router_kwargs)
+        self.mesh_shape: str = ""        # 'DxT[xP]' after a reshard
         self._closed = False
 
     # -- serving surface (delegates; the HTTP front-end binds the router) --
@@ -315,18 +318,8 @@ class Fleet:
             self.router.set_weight(rep.name, 0.0)
             try:
                 self._wait_idle(rep.server, timeout)
-                lane = rep.server._lanes.get(name)
-                keys = None
-                if lane is not None:
-                    self._wait_lane_idle(lane, timeout)
-                    keys = _lane_keys(lane)
-                buckets = self._scoring_shapes(rep, name)
-                entry = rep.server.registry.replace(name, model, version)
-                if lane is not None:
-                    # the old lane's arena and graphs are bound to the old
-                    # entry: close it; its replacement is built in _warm
-                    rep.server.reset_lane(name, timeout_s=timeout)
-                self._warm(rep, entry, name, warm_x, buckets, keys)
+                entry = self._swap(rep, name, model, version, warm_x,
+                                   timeout)
                 step["captures"] = entry.compile_count
             except Exception:
                 # canary semantics: put the replica back in rotation on
@@ -366,15 +359,155 @@ class Fleet:
                               for r in self.replicas if not r._dead}
         return report
 
-    def reshard(self, mesh_shape, **kw) -> Dict:
-        """Resharding the serving fleet over a device mesh is the serving
-        half of the port's multi-device layers, slice 6b."""
-        raise NotImplementedError(
-            "Fleet.reshard needs the port's multi-device layers for serving "
-            "(slice 6b: meshed scoring, shard_kv); the in-process fleet "
-            "runs every replica on one device")
+    # -- elastic mesh (the autopilot's fifth lever) -------------------------
+    def reshard(self, mesh_shape, *, models: Optional[Sequence[str]] = None,
+                warm_x=None,
+                drain_timeout_s: Optional[float] = None) -> Dict:
+        """Move the SERVING fleet onto another mesh placement with zero
+        downtime: each served model's SAME state is placed on the new
+        mesh (``meshSpec``), one replica at a time, through
+        :meth:`rollout`'s drain -> swap -> warm -> shift.
+
+        ``mesh_shape`` is the ``parallel.mesh_shape`` shorthand (``'2x2'``
+        = data 2 x tensor 2, ``'DxTxP'`` with pipe), a
+        :class:`~mmlspark_tpu_torch.parallel.mesh.MeshSpec`, or None to
+        return to one device. One resharded copy per model is shared by
+        every replica: their entries share its placement
+        (``parallel/leader.py``: counted on the leader, freed on every
+        rank with its last entry). Scores stay bit-identical when the
+        split does not reorder a sum (the data axis; a tensor split of a
+        layer the module gathers).
+
+        A generate lane drains on the old placement, closes, and is
+        rebuilt on the new one (its arena head-sharded there) before the
+        replica takes traffic again. The target placement is resolved
+        before any replica is touched (a mesh needs the leader's ranks),
+        and a copy whose per-device bytes exceed the registry budget
+        raises :class:`~mmlspark_tpu_torch.serve.registry.PlacementOverBudget`
+        from the first swap, before any entry is dropped: either way the
+        reshard is a no-op with every replica serving. A replica killed
+        mid-reshard is recorded (``status="died"``) and skipped; one dead
+        before is ``skipped_dead``. ``warm_x`` (a sample, or ``{name:
+        sample}``) scores once on each swapped replica before it
+        re-enters rotation."""
+        from mmlspark_tpu_torch.parallel.mesh import (MeshSpec,
+                                                      parse_mesh_shape)
+        if isinstance(mesh_shape, str) and mesh_shape:
+            spec = parse_mesh_shape(mesh_shape)
+        elif isinstance(mesh_shape, MeshSpec) or mesh_shape is None \
+                or mesh_shape == "":
+            spec = mesh_shape or None
+        else:
+            raise TypeError(
+                f"mesh_shape must be a 'DxT[xP]' string, MeshSpec, or "
+                f"None; got {type(mesh_shape).__name__}")
+        shape_text = self._shape_text(spec)
+        timeout = float(drain_timeout_s if drain_timeout_s is not None
+                        else mmlconfig.get("serving.drain_timeout_s"))
+        names = list(models) if models is not None else sorted(self._models)
+        for n in names:
+            if n not in self._models:
+                raise KeyError(f"unknown model {n!r}; fleet serves "
+                               f"{sorted(self._models)}")
+        copies = {}
+        for n in names:
+            m = self._models[n].copy()
+            if not hasattr(m, "_resolve_score_mesh"):
+                raise TypeError(
+                    f"model {n!r} ({type(m).__name__}) does not carry a "
+                    "meshSpec param; reshard needs TorchModel-style models")
+            m.set_params(meshSpec=spec)
+            m._resolve_score_mesh()          # the target exists, or raise
+            copies[n] = m
+        warm = dict(warm_x) if isinstance(warm_x, dict) else \
+            {n: warm_x for n in names}
+        report: Dict = {"mesh_shape": shape_text, "models": names,
+                        "replicas": []}
+        if events.recording_enabled():
+            events.emit("reshard", "start", mesh_shape=shape_text,
+                        models=names, replicas=len(self.replicas))
+        t0 = time.perf_counter()
+        for rep in list(self.replicas):  # scale events must not shift it
+            if rep._dead:
+                report["replicas"].append(
+                    {"replica": rep.name, "status": "skipped_dead"})
+                continue
+            step = {"replica": rep.name, "status": "resharded"}
+            weight = self.router._handles[rep.name].weight
+            self.router.set_weight(rep.name, 0.0)
+            try:
+                self._wait_idle(rep.server, timeout)
+                for n in names:
+                    version = rep.server.registry.versions().get(n, "v1")
+                    entry = self._swap(rep, n, copies[n], version,
+                                       warm.get(n), timeout)
+                    step[f"captures:{n}"] = entry.compile_count
+            except Exception as e:
+                if rep._dead or not rep.health()["live"]:
+                    step["status"] = "died"
+                    step["error"] = f"{type(e).__name__}: {e}"
+                    report["replicas"].append(step)
+                    if events.recording_enabled():
+                        events.emit("reshard", "replica_died",
+                                    replica=rep.name, mesh_shape=shape_text)
+                    continue
+                # no-op semantics: back in rotation on its current
+                # placement, then surface the failure
+                self.router.set_weight(rep.name, weight)
+                if events.recording_enabled():
+                    events.emit("reshard", "abort", replica=rep.name,
+                                mesh_shape=shape_text,
+                                reason=f"{type(e).__name__}: {e}")
+                raise
+            self.router.set_weight(rep.name, weight)
+            report["replicas"].append(step)
+            if events.recording_enabled():
+                events.emit("reshard", "shift", replica=rep.name,
+                            mesh_shape=shape_text, weight=weight)
+        # scale_up() builds on the new placement, and a repeat reshard
+        # copies from the resharded models
+        self._models = dict(self._models)
+        self._models.update(copies)
+        self.mesh_shape = shape_text
+        report["resharded"] = sum(1 for r in report["replicas"]
+                                  if r["status"] == "resharded")
+        report["seconds"] = time.perf_counter() - t0
+        if events.recording_enabled():
+            events.emit("reshard", "done", mesh_shape=shape_text,
+                        resharded=report["resharded"],
+                        replicas=len(self.replicas))
+        return report
+
+    @staticmethod
+    def _shape_text(spec) -> str:
+        """Canonical 'DxT[xP]' text of a MeshSpec ('' for None): the
+        comparison key of the autopilot's reshard lever."""
+        if spec is None:
+            return ""
+        parts = [spec.data, spec.tensor]
+        if spec.pipe != 1:
+            parts.append(spec.pipe)
+        return "x".join(str(p) for p in parts)
 
     # -- warm-up ------------------------------------------------------------
+    def _swap(self, rep: InProcessReplica, name: str, model, version: str,
+              warm_x, timeout_s: float):
+        """Swap ``rep``'s entry for ``name`` (drained) to ``model`` and
+        warm it: its lane drains and closes (its arena and programs are
+        bound to the old entry), the new entry builds the buckets and
+        the lane programs the old ones had built. Returns the new entry."""
+        lane = rep.server._lanes.get(name)
+        keys = None
+        if lane is not None:
+            self._wait_lane_idle(lane, timeout_s)
+            keys = _lane_keys(lane)
+        shapes = self._scoring_shapes(rep, name)
+        entry = rep.server.registry.replace(name, model, version)
+        if lane is not None:
+            rep.server.reset_lane(name, timeout_s=timeout_s)
+        self._warm(rep, entry, name, warm_x, shapes, keys)
+        return entry
+
     def _wait_lane_idle(self, lane, timeout_s: float) -> None:
         """Bounded wait for a generate lane's in-flight sequences to
         finish. Best-effort: on timeout the lane's close fails the
@@ -579,7 +712,7 @@ class ProcessFleet:
         raise NotImplementedError(
             "ProcessFleet.reshard: restart workers with a new "
             "parallel.mesh_shape instead (rolling, via scale_up/"
-            "scale_down); the port has no device mesh yet")
+            "scale_down); an in-process Fleet reshards its placements")
 
     # -- lifecycle ----------------------------------------------------------
     def close(self) -> None:

@@ -61,6 +61,7 @@ graph.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import math
 import queue
 import threading
@@ -74,6 +75,8 @@ import numpy as np
 import torch
 
 from mmlspark_tpu_torch.observability import events, metrics, spans
+from mmlspark_tpu_torch.parallel import collectives
+from mmlspark_tpu_torch.parallel.mesh import mesh_shape
 from mmlspark_tpu_torch.reliability import watchdog as _watchdog
 from mmlspark_tpu_torch.reliability.faults import fault_site
 from mmlspark_tpu_torch.serve import programs
@@ -376,32 +379,27 @@ class GenerativeEntry:
                 f"model {entry.name!r} routes its FFN (a MoE LM); the "
                 "decode program unrolls the dense MLP blocks only, as the "
                 "reference's does")
-        self.module = module
+        # a meshed model decodes on its mesh: every rank runs each program
+        # on its shards and its heads of the arena (parallel/leader.py)
+        apply = entry.ensure_apply()
+        self.placement = getattr(apply, "placement", None)
+        self.mesh = None if self.placement is None else self.placement.mesh
         self.device = entry.device
-        self.vocab = int(module.vocab)
-        self.dim = int(module.dim)
-        self.depth = int(module.depth)
-        self.heads = int(module.heads)
-        self.head_dim = self.dim // self.heads
-        self.dtype = module.dtype
         cap = int(max_seq_len if max_seq_len is not None
                   else mmlconfig.get("generate.max_seq_len"))
         self.max_seq_len = min(cap, int(module.max_len))
         self.max_sequences = int(
             max_sequences if max_sequences is not None
             else mmlconfig.get("generate.max_sequences"))
-        self.kv = KVCacheManager.from_config(
-            layers=self.depth, heads=self.heads, head_dim=self.head_dim,
-            dtype=self.dtype, device=self.device)
-        self.block_tokens = self.kv.block_tokens
-        # block-table width: every sequence's table is padded to the
-        # blocks a max-length sequence needs, so ONE decode program shape
-        # serves every occupancy
-        self.table_width = blocks_needed(self.max_seq_len,
-                                         self.block_tokens)
+        split = getattr(module.block0, "_tp", None) is not None
+        kv = KVCacheManager.from_config(
+            layers=int(module.depth), heads=int(module.heads),
+            head_dim=int(module.dim) // int(module.heads),
+            dtype=module.dtype, device=self.device, mesh=self.mesh,
+            shard_heads=split and bool(mmlconfig.get("generate.shard_kv")))
         self.prefill_buckets = parse_prefill_buckets(
             str(mmlconfig.get("generate.prefill_buckets")),
-            self.max_seq_len, self.block_tokens)
+            self.max_seq_len, kv.block_tokens)
         self.decode_buckets = default_buckets(self.max_sequences)
         self.prefix_cache = bool(mmlconfig.get("generate.prefix_cache"))
         self.prefill_chunk = max(0, int(mmlconfig.get(
@@ -411,9 +409,48 @@ class GenerativeEntry:
         # prefix hit, so it exists even with chunking nominally off)
         self.chunk_width = min(self.max_seq_len,
                                self.prefill_chunk if self.prefill_chunk > 0
-                               else self.block_tokens)
+                               else kv.block_tokens)
         self.spec_tokens = max(0, int(mmlconfig.get("generate.spec_tokens")))
         self.spec_width = self.spec_tokens + 1
+        self._init_rank(module, kv)
+        self._programs: Dict[Tuple[str, int], Callable] = {}
+        if self.mesh is not None:
+            # this rank's part is this entry; the followers make theirs
+            self._gen_key = f"gen{next(_GEN_IDS)}"
+            self.placement.extras[self._gen_key] = self
+            apply.channel.call(
+                "mmlspark_tpu_torch.serve.generate:_gen_open",
+                {"key": self.placement.key, "gen": self._gen_key,
+                 "cfg": self._rank_cfg()}, n=self.mesh.size())
+        # the arena is device memory this model now pins: charge it to the
+        # registry entry so the LRU sees params + arena as one tenant (on
+        # a mesh this rank's share: 1/|tensor| of a head-sharded arena)
+        entry.kv_arena_bytes = self.kv.arena_shard_bytes()
+
+    def _init_rank(self, module, kv) -> None:
+        """What every rank of the entry holds: the module, its arena, the
+        K/V tap and the paged forward's index constants."""
+        self.module = module
+        self.kv = kv
+        self.vocab = int(module.vocab)
+        self.dim = int(module.dim)
+        self.depth = int(module.depth)
+        self.heads = int(module.heads)
+        self.head_dim = self.dim // self.heads
+        self.dtype = module.dtype
+        self.block_tokens = kv.block_tokens
+        # block-table width: every sequence's table is padded to the
+        # blocks a max-length sequence needs, so ONE decode program shape
+        # serves every occupancy
+        self.table_width = blocks_needed(self.max_seq_len,
+                                         self.block_tokens)
+        # a tensor-split module computes its heads; the arena holds them
+        # (head-sharded) or all of them (then each row is gathered over
+        # `tensor` before it is stored, and the rank's heads read back)
+        self._tp = getattr(module.block0, "_tp", None)
+        self._heads_here = self.heads // collectives.size(self._tp)
+        self._gather_kv = self._tp is not None \
+            and kv.local_heads != self._heads_here
         # index constants of the paged forward, made once outside any
         # capture: key slots of a block table, query columns of a chunk
         self._keys = torch.arange(self.table_width * self.block_tokens,
@@ -421,10 +458,60 @@ class GenerativeEntry:
         self._cols = torch.arange(max(self.chunk_width, self.spec_width),
                                   device=self.device)
         self._tap = _KVTap(module, self.depth)
-        self._programs: Dict[Tuple[str, int], Callable] = {}
-        # the arena is device memory this model now pins: charge it to the
-        # registry entry so the LRU sees params + arena as one tenant
-        entry.kv_arena_bytes = self.kv.arena_bytes()
+        self._fns: Dict[Tuple[str, int], Tuple[Callable, list]] = {}
+
+    def _rank_cfg(self) -> Dict[str, Any]:
+        """What a follower needs to make its part of this entry."""
+        kv = self.kv
+        return {"max_seq_len": self.max_seq_len,
+                "chunk_width": self.chunk_width,
+                "spec_width": self.spec_width,
+                "num_blocks": kv.num_blocks,
+                "block_tokens": kv.block_tokens,
+                "kv_dtype": kv.dtype_name,
+                "shard_heads": bool(kv.arena_sharding)}
+
+    @classmethod
+    def _follower(cls, placement, cfg: Dict[str, Any]) -> "GenerativeEntry":
+        """A follower's part of a meshed entry: its module's shards, its
+        heads of the arena, the same program functions (no ledger use)."""
+        self = cls.__new__(cls)
+        self.entry = None
+        self.placement = placement
+        self.mesh = placement.mesh
+        self.device = placement.device
+        module = placement.module
+        self.max_seq_len = cfg["max_seq_len"]
+        self.chunk_width = cfg["chunk_width"]
+        self.spec_width = cfg["spec_width"]
+        kv = KVCacheManager(
+            layers=int(module.depth), heads=int(module.heads),
+            head_dim=int(module.dim) // int(module.heads),
+            num_blocks=cfg["num_blocks"], block_tokens=cfg["block_tokens"],
+            dtype=module.dtype, kv_dtype=getattr(torch, cfg["kv_dtype"]),
+            device=placement.device, mesh=placement.mesh,
+            shard_heads=cfg["shard_heads"])
+        self._init_rank(module, kv)
+        return self
+
+    def _rank_fn(self, kind: str, bucket: int) -> Tuple[Callable, list]:
+        """This rank's function of one (kind, bucket) and its operand
+        specs (made once)."""
+        key = (kind, int(bucket))
+        if key not in self._fns:
+            if kind == "prefill":
+                self._fns[key] = self._prefill_spec(bucket)
+            elif kind == "decode":
+                self._fns[key] = self._decode_spec(bucket)
+            elif kind == "chunk":
+                self._fns[key] = self._chunk_spec(bucket)
+            elif kind == "cow":
+                self._fns[key] = self._cow_spec()
+            elif kind == "verify":
+                self._fns[key] = self._verify_spec(bucket)
+            else:
+                raise ValueError(f"unknown program kind {kind!r}")
+        return self._fns[key]
 
     # -- compile seam ------------------------------------------------------
     def program_for(self, kind: str, bucket: int) -> Callable:
@@ -444,26 +531,26 @@ class GenerativeEntry:
         funnels through here exactly once per key — the compile-discipline
         tests wrap this method."""
         from mmlspark_tpu_torch import compile_cache
-        if kind == "prefill":
-            fn, specs = self._prefill_spec(bucket)
-        elif kind == "decode":
-            fn, specs = self._decode_spec(bucket)
-        elif kind == "chunk":
-            fn, specs = self._chunk_spec(bucket)
-        elif kind == "cow":
-            fn, specs = self._cow_spec()
-        elif kind == "verify":
-            fn, specs = self._verify_spec(bucket)
-        else:
-            raise ValueError(f"unknown program kind {kind!r}")
+        fn, specs = self._rank_fn(kind, bucket)
         shape_key = (f"{kind}:{bucket}|arena={self.kv.num_blocks}x"
                      f"{self.block_tokens}x{self.heads}x{self.head_dim}"
                      f"|layers={self.depth}|W={self.table_width}"
                      f"|dtype={self.kv.dtype_name}")
         if kind == "verify":
             shape_key += f"|C={self.spec_width}"
+        if self.mesh is not None:
+            # the placement's identity: the same bucket on another mesh,
+            # or on a head-sharded against a whole arena, is another
+            # program
+            axes = ",".join(f"{a}{n}" for a, n in mesh_shape(
+                self.mesh).items() if n > 1) or "1"
+            shape_key += (f"|mesh={axes}|kvspec="
+                          f"{tuple(self.kv.arena_sharding or ())!r}")
 
         def fresh():
+            if self.mesh is not None:
+                return programs.MeshProgram(_GenRun(self, kind, bucket),
+                                            specs, self.device, shape_key)
             pool = (self.entry.graph_pool()
                     if self.device.type == "cuda" else None)
             return programs.build(fn, specs, self.device, pool)
@@ -481,7 +568,7 @@ class GenerativeEntry:
         and return the last live position's logits row (fp32, (vocab,))."""
         module, kv, tap = self.module, self.kv, self._tap
         nb = bucket // self.block_tokens
-        shape = (nb, self.block_tokens, self.heads, self.head_dim)
+        shape = (nb, self.block_tokens, kv.local_heads, self.head_dim)
 
         def prefill(tokens, last_pos, block_ids):
             with torch.no_grad():
@@ -491,14 +578,14 @@ class GenerativeEntry:
                     for name, arena, scales in (
                             ("k", kv.arena_k, kv.scale_k),
                             ("v", kv.arena_v, kv.scale_v)):
-                        rows = sink[name][i].reshape(shape)
+                        rows = self._stored(sink[name][i]).reshape(shape)
                         if kv.quantized:
                             rows, sc = quantize_rows(rows)
                             scales[i].index_copy_(0, block_ids, sc)
                         arena[i].index_copy_(0, block_ids,
                                              rows.to(kv.dtype))
                 row = hidden.index_select(1, last_pos.view(1))
-                return module.head(row)[0, 0]
+                return self._logits(row)[0, 0]
 
         return prefill, [((1, bucket), _I64), ((), _I64), ((nb,), _I64)]
 
@@ -517,7 +604,7 @@ class GenerativeEntry:
         module, kv = self.module, self.kv
         B, C = tokens.shape
         bt, W = self.block_tokens, self.table_width
-        heads, hd, dim = self.heads, self.head_dim, self.dim
+        heads, hd, dim = self._heads_here, self.head_dim, self.dim
         scale = 1.0 / math.sqrt(hd)
         valid = self._cols[:C][None, :] < n_valid[:, None]           # (B, C)
         # positions past the table or the position table only ever sit in
@@ -528,28 +615,66 @@ class GenerativeEntry:
         offs = positions % bt
         masked = self._keys[None, None, :] > positions[:, :, None]   # (B,C,K)
         pos = torch.clamp(positions, max=module.max_len - 1)
-        x = module.token_embedding(tokens)
+        x = module._embed(tokens)
         x = x + module.pos_embedding[0][pos].to(x.dtype)
         for i in range(self.depth):
             blk = getattr(module, f"block{i}")
             y = blk.norm1(x)
-            q = blk.attn_query(y).reshape(B, C, heads, hd)
-            k = blk.attn_key(y).reshape(B, C, heads, hd)
-            v = blk.attn_value(y).reshape(B, C, heads, hd)
-            k_all = self._write_gather(i, kv.arena_k, kv.scale_k, k,
-                                       blk_idx, offs, tables)
-            v_all = self._write_gather(i, kv.arena_v, kv.scale_v, v,
-                                       blk_idx, offs, tables)
+            dense = blk._columns if self._tp is not None \
+                else (lambda d, h: d(h))
+            q = dense(blk.attn_query, y).reshape(B, C, heads, hd)
+            k = dense(blk.attn_key, y)
+            v = dense(blk.attn_value, y)
+            k_all = self._mine(self._write_gather(
+                i, kv.arena_k, kv.scale_k, self._stored(k).reshape(
+                    B, C, kv.local_heads, hd), blk_idx, offs, tables))
+            v_all = self._mine(self._write_gather(
+                i, kv.arena_v, kv.scale_v, self._stored(v).reshape(
+                    B, C, kv.local_heads, hd), blk_idx, offs, tables))
             s = torch.einsum("bchd,bkhd->bchk", q.float(),
                              k_all.float()) * scale
             s = s.masked_fill(masked[:, :, None, :], float("-inf"))
             p = torch.softmax(s, dim=-1)
             o = torch.einsum("bchk,bkhd->bchd", p.to(v_all.dtype).float(),
                              v_all.float()).to(q.dtype)
-            x = x + blk.attn_out(o.reshape(B, C, dim))
-            y = blk.norm2(x)
-            x = x + blk.mlp_down(_gelu(blk.mlp_up(y)))
+            if self._tp is not None:
+                x = x + blk._rows(blk.attn_out, o.reshape(B, C, -1))
+                y = blk.norm2(x)
+                x = x + blk._rows(blk.mlp_down,
+                                  _gelu(blk._columns(blk.mlp_up, y)))
+            else:
+                x = x + blk.attn_out(o.reshape(B, C, dim))
+                y = blk.norm2(x)
+                x = x + blk.mlp_down(_gelu(blk.mlp_up(y)))
         return module.final_norm(x)
+
+    def _stored(self, rows: torch.Tensor) -> torch.Tensor:
+        """A K/V projection ``(..., heads computed here x head_dim)`` as
+        the arena stores it: gathered over ``tensor`` when the module
+        computes its heads but the arena holds all of them."""
+        if not self._gather_kv:
+            return rows
+        return collectives.all_gather(rows.contiguous(), rows.dim() - 1,
+                                      self._tp)
+
+    def _mine(self, rows: torch.Tensor) -> torch.Tensor:
+        """The heads this rank computes of a gathered ``(B, K, heads,
+        head_dim)`` history (all of them unless the arena is whole under
+        a split module)."""
+        if not self._gather_kv:
+            return rows
+        h = self._heads_here
+        r = collectives.rank(self._tp)
+        return rows[:, :, r * h:(r + 1) * h]
+
+    def _logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """The tied head's fp32 logits, gathered over a vocabulary split
+        over ``tensor``."""
+        logits = self.module.head(hidden)
+        vocab = getattr(self.module, "_vocab", None)
+        if vocab is None:
+            return logits
+        return collectives.all_gather(logits, logits.dim() - 1, vocab)
 
     def _write_gather(self, layer, arena, scales, rows, blk_idx, offs,
                       tables):
@@ -562,13 +687,14 @@ class GenerativeEntry:
         K = self.table_width * self.block_tokens
         if not kv.quantized:
             arena[layer].index_put_((blk_idx, offs), rows.to(kv.dtype))
-            return arena[layer][tables].reshape(B, K, self.heads,
+            return arena[layer][tables].reshape(B, K, kv.local_heads,
                                                 self.head_dim)
         q, sc = quantize_rows(rows)
         arena[layer].index_put_((blk_idx, offs), q)
         scales[layer].index_put_((blk_idx, offs), sc)
         return dequantize_rows(
-            arena[layer][tables].reshape(B, K, self.heads, self.head_dim),
+            arena[layer][tables].reshape(B, K, kv.local_heads,
+                                         self.head_dim),
             scales[layer][tables].reshape(B, K)).to(self.dtype)
 
     def _decode_spec(self, batch: int):
@@ -581,7 +707,7 @@ class GenerativeEntry:
         def decode(tokens, positions, tables, n_valid):
             with torch.no_grad():
                 xf = self._paged_forward(tokens, positions, tables, n_valid)
-                return module.head(xf)[:, 0]
+                return self._logits(xf)[:, 0]
 
         W = self.table_width
         return decode, [((batch, 1), _I64), ((batch, 1), _I64),
@@ -601,7 +727,7 @@ class GenerativeEntry:
                 xf = self._paged_forward(tokens, positions, table_row,
                                          n_valid)
                 last = torch.clamp(n_valid - 1, min=0)
-                return module.head(xf.index_select(1, last))[0, 0]
+                return self._logits(xf.index_select(1, last))[0, 0]
 
         W = self.table_width
         return chunk, [((1, C), _I64), ((1, C), _I64), ((1, W), _I64),
@@ -622,7 +748,7 @@ class GenerativeEntry:
         def verify(tokens, positions, tables, n_valid):
             with torch.no_grad():
                 xf = self._paged_forward(tokens, positions, tables, n_valid)
-                return module.head(xf)
+                return self._logits(xf)
 
         W, C = self.table_width, self.spec_width
         return verify, [((batch, C), _I64), ((batch, C), _I64),
@@ -647,10 +773,75 @@ class GenerativeEntry:
 
     def release(self) -> None:
         """Drop programs, the K/V tap and the arena accounting (lane
-        shutdown)."""
+        shutdown); on a mesh every rank's part."""
         self._programs.clear()
         self._tap.remove()
         self.entry.kv_arena_bytes = 0
+        if self.mesh is not None:
+            self.placement.extras.pop(self._gen_key, None)
+            ch = self.entry.ensure_apply().channel \
+                if self.entry.warm else None
+            if ch is not None and ch.broken is None \
+                    and self.placement.key in ch.placements:
+                ch.call("mmlspark_tpu_torch.serve.generate:_gen_close",
+                        {"key": self.placement.key, "gen": self._gen_key},
+                        n=self.mesh.size())
+
+    def close(self) -> None:
+        """A follower's part going with its placement."""
+        self._tap.remove()
+
+
+_GEN_IDS = itertools.count()
+
+
+class _GenRun:
+    """A meshed entry's program call: the padded host operands to every
+    rank, each running the entry's function of (kind, bucket) on its
+    shards and its heads of the arena; the leader's output returned."""
+
+    meshed = True
+
+    def __init__(self, gen: "GenerativeEntry", kind: str, bucket: int):
+        self.gen, self.kind, self.bucket = gen, kind, int(bucket)
+
+    def __call__(self, *operands, prog: Optional[str] = None):
+        gen = self.gen
+        return gen.entry.ensure_apply().channel.call(
+            "mmlspark_tpu_torch.serve.generate:_gen_run",
+            {"key": gen.placement.key, "gen": gen._gen_key,
+             "kind": self.kind, "bucket": self.bucket, "prog": prog},
+            operands, n=gen.mesh.size())
+
+    def rank_launches(self, prog: str) -> list:
+        ch = self.gen.entry.ensure_apply().channel
+        return ch.rank_launches(self.gen.placement.key, prog)
+
+
+def _gen_open(ch, header, tensors, local) -> None:
+    pl = ch.placements[header["key"]]
+    if header["gen"] not in pl.extras:
+        pl.extras[header["gen"]] = GenerativeEntry._follower(pl,
+                                                             header["cfg"])
+
+
+def _gen_run(ch, header, tensors, local):
+    pl = ch.placements[header["key"]]
+    gen = pl.extras[header["gen"]]
+    fn, specs = gen._rank_fn(header["kind"], header["bucket"])
+    args = [t.to(pl.device, d) for t, (_, d) in zip(tensors, specs)]
+
+    def run():
+        with pl.using():
+            return fn(*args)
+    return pl.counted(header.get("prog"), run)
+
+
+def _gen_close(ch, header, tensors, local) -> None:
+    pl = ch.placements.get(header["key"])
+    gen = pl.extras.pop(header["gen"], None) if pl is not None else None
+    if gen is not None and gen.entry is None:
+        gen.close()
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:

@@ -152,7 +152,7 @@ class KVCacheManager:
     def __init__(self, *, layers: int, heads: int, head_dim: int,
                  num_blocks: int, block_tokens: int,
                  dtype: torch.dtype = torch.float32, kv_dtype=None,
-                 device=None):
+                 device=None, mesh=None, shard_heads: bool = True):
         if num_blocks < 2:
             raise ValueError(
                 f"num_blocks must be >= 2 (block {RESERVED_BLOCK} is "
@@ -172,8 +172,25 @@ class KVCacheManager:
         self.quantized = self.dtype == torch.int8
         self.device = (torch.device(device) if device is not None
                        else mmlconfig.resolve_device())
+        # on a mesh the head dim splits over `tensor` (the attention
+        # projections' split, so each rank attends over the heads it
+        # computed) unless shard_heads is off; the scales carry no head
+        # dim and stay whole. This rank's arena holds ``local_heads``; the
+        # host ledger below is the same on every rank
+        self.mesh = mesh
+        self.arena_sharding = self.scale_sharding = None
+        self.local_heads = self.heads
+        if mesh is not None:
+            from mmlspark_tpu_torch.parallel.sharding import (
+                kv_arena_sharding, kv_scale_sharding, tensor_axis_size,
+            )
+            self.arena_sharding = kv_arena_sharding(mesh, self.heads) \
+                if shard_heads else ()
+            self.scale_sharding = kv_scale_sharding(mesh)
+            if self.arena_sharding:
+                self.local_heads = self.heads // tensor_axis_size(mesh)
         shape = (self.layers, self.num_blocks, self.block_tokens,
-                 self.heads, self.head_dim)
+                 self.local_heads, self.head_dim)
         self.arena_k = torch.zeros(shape, dtype=self.dtype,
                                    device=self.device)
         self.arena_v = torch.zeros(shape, dtype=self.dtype,
@@ -214,7 +231,8 @@ class KVCacheManager:
     @classmethod
     def from_config(cls, *, layers: int, heads: int, head_dim: int,
                     dtype: torch.dtype = torch.float32,
-                    device=None) -> "KVCacheManager":
+                    device=None, mesh=None,
+                    shard_heads: bool = True) -> "KVCacheManager":
         """Size the arena from the ``generate.*`` config namespace:
         ``generate.arena_mb`` when set, else enough blocks for
         ``generate.max_sequences`` sequences of ``generate.max_seq_len``
@@ -240,7 +258,8 @@ class KVCacheManager:
             num_blocks = 1 + seqs * blocks_needed(max_len, bt)
         return cls(layers=layers, heads=heads, head_dim=head_dim,
                    num_blocks=num_blocks, block_tokens=bt, dtype=dtype,
-                   kv_dtype=kv_dtype, device=device)
+                   kv_dtype=kv_dtype, device=device, mesh=mesh,
+                   shard_heads=shard_heads)
 
     def arena_bytes(self) -> int:
         """Device bytes of both arenas at their real storage width, plus
@@ -249,6 +268,21 @@ class KVCacheManager:
         n = 2 * devmem.nbytes_of(
             (self.layers, self.num_blocks, self.block_tokens,
              self.heads, self.head_dim), self.dtype)
+        if self.quantized:
+            n += 2 * devmem.nbytes_of(
+                (self.layers, self.num_blocks, self.block_tokens),
+                torch.float32)
+        return n
+
+    def arena_shard_bytes(self) -> int:
+        """Device bytes of this rank's share of the arena: the arena over
+        the heads it holds (all of them unless head-sharded), plus the
+        whole scales when int8. What the registry charges a rank: a
+        head-sharded arena costs each rank 1/|tensor| of
+        :meth:`arena_bytes`' arena."""
+        n = 2 * devmem.nbytes_of(
+            (self.layers, self.num_blocks, self.block_tokens,
+             self.local_heads, self.head_dim), self.dtype)
         if self.quantized:
             n += 2 * devmem.nbytes_of(
                 (self.layers, self.num_blocks, self.block_tokens),

@@ -15,7 +15,13 @@ function over fixed-shape operands:
   attributes and warms the cuBLAS and cuDNN handles. A capture that fails
   raises: there is no eager fallback on the card;
 - on the CPU, :class:`EagerProgram` calls the function on tensors made
-  from the operands, with the same call signature.
+  from the operands, with the same call signature;
+- over a mesh of ranks, :class:`MeshProgram` hands the host operands to
+  the function (a meshed apply, ``parallel/leader.py``), which runs it
+  eagerly on every rank of the placement; each rank counts the kernel
+  launches it made under the program's key. It is not captured: gloo,
+  which serves two ranks sharing one card, moves its data through the
+  host, and a host path cannot live in a CUDA graph.
 
 Kernel launches under replay: a kernel wrapper called during capture
 records its launch instead of making it, so each :class:`GraphProgram`
@@ -117,6 +123,39 @@ class GraphProgram:
             return syncs.device_get(self.output, fetch) if fetch else None
 
 
+class MeshProgram:
+    """``run(*operands, prog=key)`` over a mesh of ranks: ``run`` takes
+    the padded host operands and returns the output on this (the
+    leader's) device, every rank of its placement having run the same
+    function on its shards. Same call signature and counted fetch as the
+    other programs; ``replays`` counts the calls; :meth:`rank_launches`
+    asks each rank for the kernel launches it made under ``key``."""
+
+    capture_s = 0.0
+
+    def __init__(self, run: Callable, specs: Sequence[Spec],
+                 device: torch.device, key: str):
+        self.launches: dict = {}     # nothing recorded: every call launches
+        self.run = run
+        self.specs = list(specs)
+        self.device = device
+        self.key = key
+        self.replays = 0
+
+    def __call__(self, *operands, fetch: Optional[str] = None):
+        args = [_host(x, shape).to(d).numpy()
+                for x, (shape, d) in zip(operands, self.specs)]
+        with DEVICE_LOCK:
+            out = self.run(*args, prog=self.key)
+            self.replays += 1
+            return syncs.device_get(out, fetch) if fetch else None
+
+    def rank_launches(self) -> list:
+        """Each rank's kernel launches under this program, in rank order
+        (``{kernel: (launches, by variant)}``)."""
+        return self.run.rank_launches(self.key)
+
+
 def _host(x, shape) -> torch.Tensor:
     """One operand as a CPU tensor, checked against its spec's shape (a
     copy into a static buffer would broadcast a wrong one silently)."""
@@ -128,10 +167,13 @@ def _host(x, shape) -> torch.Tensor:
 
 
 def build(fn: Callable, specs: Sequence[Spec], device: torch.device,
-          pool=None):
+          pool=None, key: str = ""):
     """The program of ``fn`` over operands of ``specs``: a
+    :class:`MeshProgram` when ``fn`` is meshed (its ``meshed`` flag), a
     :class:`GraphProgram` on a CUDA device, an :class:`EagerProgram`
-    elsewhere."""
+    elsewhere. ``key`` names a meshed program's launch counts."""
+    if getattr(fn, "meshed", False):
+        return MeshProgram(fn, specs, device, key)
     if device.type == "cuda":
         return GraphProgram(fn, specs, device, pool)
     return EagerProgram(fn, specs, device)

@@ -77,9 +77,18 @@ class ModelEntry:
         model that was already used offline reuses its placed module (and
         vice versa)."""
         if self._apply is None:
-            self._module, self._apply = \
-                self.model._device_apply(self.device)
+            module, apply = self.model._device_apply(self.device)
+            if getattr(apply, "meshed", False):
+                apply.acquire()      # this entry's hold on the placement
+            self._module, self._apply = module, apply
         return self._apply
+
+    @property
+    def mesh_key(self) -> str:
+        """The placement's identity ("" off a mesh): program keys and the
+        compile cache's keys carry it, so one name and version served on
+        two placements never share a program."""
+        return getattr(self.ensure_apply(), "mesh_key", "")
 
     @property
     def module(self) -> torch.nn.Module:
@@ -112,12 +121,18 @@ class ModelEntry:
         spec = ((int(bucket),) + tuple(int(d) for d in row_shape),
                 torch.from_numpy(np.zeros((), np.dtype(dtype))).dtype)
 
+        mesh_key = self.mesh_key
+
         def fresh():
-            pool = self.graph_pool() if self.device.type == "cuda" else None
-            return programs.build(apply, [spec], self.device, pool)
+            pool = self.graph_pool() if self.device.type == "cuda" \
+                and not mesh_key else None
+            return programs.build(
+                apply, [spec], self.device, pool,
+                key=f"{self.name}@{self.version}:{spec[0]}|mesh={mesh_key}")
 
         result = compile_cache.load_or_compile(
-            self.name, self.version, bucket, tuple(row_shape), dtype, fresh)
+            self.name, self.version, bucket, tuple(row_shape), dtype, fresh,
+            mesh_key=mesh_key)
         self.compile_count += 1
         return result.program
 
@@ -154,11 +169,12 @@ class ModelEntry:
 
     # -- residency ---------------------------------------------------------
     def resident_bytes(self) -> int:
-        """Device bytes this entry pins (0 when cold): the placed module's
-        parameters and buffers, plus any generate-lane KV arena."""
+        """Device bytes this entry pins on this device (0 when cold): the
+        placed module's parameters and buffers (on a mesh, this rank's
+        shards), plus any generate-lane KV arena (its shard)."""
         if self._module is None:
             return self.kv_arena_bytes
-        return devmem.param_bytes(self._module.state_dict()) \
+        return devmem.param_shard_bytes(self._module.state_dict()) \
             + self.kv_arena_bytes
 
     def built_programs(self) -> Dict[Tuple, Callable]:
@@ -171,12 +187,17 @@ class ModelEntry:
 
     def evict(self) -> None:
         """Drop the programs, their memory pool AND the model's memoized
-        module, so the device tensors they hold become collectable."""
+        module, so the device tensors they hold become collectable; on a
+        mesh, release this entry's and the memo's holds on the placement
+        (the last frees it on every rank)."""
+        apply = self._apply
         self._apply = None
         self._module = None
         self._compiled.clear()
         self._pool = None
-        self.model._build_cache = None
+        if getattr(apply, "meshed", False):
+            apply.release()
+        self.model.release_placement()
 
 
 class ModelRegistry:
@@ -235,12 +256,15 @@ class ModelRegistry:
 
     @staticmethod
     def projected_bytes(model) -> int:
-        """Bytes ``model`` would pin once warmed, from its host state alone
-        (nothing on the device). 0 for models without params."""
+        """Bytes ``model`` would pin on one device once warmed, from its
+        host state alone (nothing placed): on its ``meshSpec``, each
+        leaf's shard under the sharding rules. 0 for models without
+        params."""
         params = (getattr(model, "_state", None) or {}).get("params")
         if params is None:
             return 0
-        return devmem.projected_shard_bytes(params)
+        sizes = getattr(model, "_mesh_sizes", lambda: None)()
+        return devmem.projected_shard_bytes(params, sizes)
 
     def get(self, name: str) -> ModelEntry:
         with self._lock:

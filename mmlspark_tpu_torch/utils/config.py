@@ -33,6 +33,10 @@ _DEFAULTS: Dict[str, Any] = {
     "runtime.dist_backend": "nccl",   # torch.distributed backend: "nccl"
                                       # (one card a rank) or "gloo" (the
                                       # CPU, or ranks sharing a card)
+    "runtime.mesh_timeout_s": 120.0,  # serving on a mesh (parallel/
+                                      # leader.py): the bound on each
+                                      # command's transfers between the
+                                      # leader and its followers
     # parallel (mesh topology; parallel/mesh.py)
     "parallel.mesh_shape": "",        # "DxT" shorthand, e.g. "4x2" =
                                       # data 4 x tensor 2; overrides
@@ -95,6 +99,10 @@ _DEFAULTS: Dict[str, Any] = {
                                       # "" disables speculation
     "generate.spec_tokens": 3,        # draft tokens proposed+verified per
                                       # target step when draft_model is set
+    "generate.shard_kv": True,        # on a mesh, the KV arena's heads
+                                      # split over `tensor` (as the
+                                      # attention projections); False
+                                      # keeps a whole arena on every rank
     # reliability: HttpReplica's per-urlopen timeout
     "reliability.http_timeout": 30.0,
     # fleet (the in-process multi-replica router; serve/{router,affinity,

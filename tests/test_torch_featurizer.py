@@ -268,9 +268,10 @@ def test_image_featurizer_save_load_round_trip(jparams, tmp_path):
 
 def test_unported_options_raise():
     frame = Frame.from_dict({"x": np.zeros((2, 32 * 32 * 3), np.float32)})
-    model = TorchModel(inputCol="x", outputCol="f", meshSpec={"data": 1})
+    # a mesh of two ranks needs them: without a process group it raises
+    model = TorchModel(inputCol="x", outputCol="f", meshSpec={"data": 2})
     model.set_model("resnet20_cifar", **ARCH)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(RuntimeError, match="process group"):
         model.transform(frame)
     model = TorchModel(inputCol="x", outputCol="f",
                        outputNodeName="stage0_block0")

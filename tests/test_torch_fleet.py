@@ -436,7 +436,8 @@ def test_rollout_canary_aborts_and_restores_rotation():
         assert fleet.router._handles["r0"].weight == 1.0
         assert fleet.servers[1].registry.versions() == {"mlp": "v1"}
         fleet.submit("mlp", x)
-        with pytest.raises(NotImplementedError, match="multi-device"):
+        # a 2x1 placement needs two ranks led from this process
+        with pytest.raises(RuntimeError, match="process group"):
             fleet.reshard("2x1")
 
 

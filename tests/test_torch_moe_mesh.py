@@ -158,7 +158,9 @@ def _coords(axes, world):
 SPLITS = [({"data": 2}, "full"), ({"data": 1, "seq": 2}, "ring"),
           ({"data": 1, "expert": 2}, "full"),
           ({"data": 2, "expert": 2}, "full"),
-          ({"data": 1, "expert": 2, "seq": 2}, "ring")]
+          ({"data": 1, "expert": 2, "seq": 2}, "ring"),
+          ({"data": 1, "tensor": 2}, "full"),
+          ({"data": 1, "expert": 2, "tensor": 2}, "full")]
 
 
 @pytest.mark.parametrize("axes,impl", SPLITS,
@@ -196,9 +198,9 @@ def test_moe_routes_over_the_global_batch_like_the_reference(
                               gate[rows])
         assert np.array_equal(r["position"].reshape(pos[rows].shape),
                               pos[rows])
-        e = axes.get("expert", 1)
-        assert r["up_shape"] == (ARCH["num_experts"] // e, 64, 256)
-        assert r["down_shape"] == (ARCH["num_experts"] // e, 256, 64)
+        e, t = axes.get("expert", 1), axes.get("tensor", 1)
+        assert r["up_shape"] == (ARCH["num_experts"] // e, 64, 256 // t)
+        assert r["down_shape"] == (ARCH["num_experts"] // e, 256 // t, 64)
 
 
 def test_expert_banks_are_placed_as_the_reference_places_them():
@@ -245,11 +247,13 @@ def _jax_train(jparams, axes, impl, batches, arch=None):
 
 
 TRAIN = [({"data": 2, "expert": 2}, "full"),
-         ({"data": 1, "expert": 2, "seq": 2}, "ring")]
+         ({"data": 1, "expert": 2, "seq": 2}, "ring"),
+         ({"data": 1, "expert": 2, "tensor": 2}, "full")]
 
 
 @pytest.mark.parametrize("axes,impl", TRAIN,
-                         ids=["data2xexpert2", "expert2xseq2-ring"])
+                         ids=["data2xexpert2", "expert2xseq2-ring",
+                              "expert2xtensor2"])
 def test_moe_lm_trains_on_an_expert_mesh_like_the_reference(
         pools, moe_init, axes, impl):
     """The JAX tests' MoE training (test_moe.py: data 2 x expert; the

@@ -229,7 +229,8 @@ def test_torch_model_mesh_scoring_still_raises():
     tm = TorchModel(inputCol="ids", outputCol="o", miniBatchSize=4,
                     meshSpec={"data": 2})
     tm.set_model("transformer_lm_tiny", seed=0)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # outside a process group a mesh of two ranks has no ranks to score on
+    with pytest.raises(RuntimeError, match="process group"):
         tm.transform(Frame.from_dict({"ids": _tokens(8, (4, 128))}))
 
 

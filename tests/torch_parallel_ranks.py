@@ -66,7 +66,8 @@ def _moe_trainer(axes, arch, impl, opt="sgd", lr=0.0):
 def moe_step(rank, world, axes, params, tokens, arch, impl="full"):
     """One forward and backward of the MoE LM (``next_token_loss`` + 0.01
     x ``moe_aux``) on the mesh of ``axes``: the whole logits (gathered
-    over the batch and sequence ranks), the global loss, the ``moe_aux``
+    over the batch and sequence ranks, and over the vocabulary's ranks
+    when ``tensor`` splits it), the global loss, the ``moe_aux``
     this rank computed, the whole gradients of the global mean loss, the
     first MoE block's gate indices and slot positions of this rank's
     tokens, and this rank's shapes of the expert banks."""
@@ -86,6 +87,8 @@ def moe_step(rank, world, axes, params, tokens, arch, impl="full"):
         if layout.seq_axis else logits
     logits = collectives.all_gather(logits, 0,
                                     layout.group(*layout.batch_axes))
+    if module._vocab is not None:
+        logits = collectives.all_gather(logits, 2, module._vocab)
     moe = module.block1.ffn
     return {"logits": logits.numpy(), "loss": float(loss),
             "moe_aux": float(inters["moe_aux"]), "grads": grads,
