@@ -408,8 +408,40 @@ The script:
     uint8 images 256^2 -> 224^2, K2 once on every rank, features within
     the featurize phase's 2% of one rank's. Printed per configuration:
     rows/s or tokens/s beside one rank's, p50/p99, allocator bytes and
-    host copies a rank, each rank's launches;
-21. prints the kernel table line (each kernel's launches on each of its
+    host copies a rank, each rank's launches.
+    ``mesh_inputs`` (multi-process training inputs): (a) in the same
+    ranks, at ``data=2`` (four cards: ``data=2 x tensor=2``, the tensor
+    peers holding the same rows), the deep cell's ``DeepClassifier``
+    (65,536 x 128, batch 256, 2 epochs, fp32 with TF32 off, deviceCache
+    'on') on each rank's ``process_shard(block_rows=128)``, against the
+    one-rank fit over the whole frame (run here first): the sha256 of
+    every cached batch of both epochs equal to its block of the one-rank
+    cache's, the first ``MI_GATED_STEPS`` steps' losses within
+    ``MESH_F32_TOL``, and the whole fit within the reference's own
+    cross-topology bounds (final loss ``MI_XTOPO_RTOL``, predictions equal
+    on ``MI_XTOPO_AGREE`` of the rows), every step's difference printed; (c) the resident-epoch
+    verdict cached on every rank, and on none with rank 1's
+    ``runtime.device_cache_mb`` under its epoch; (b) three launches of
+    ``cli run --nprocs 2 chip_smoke.py -- --inputs-child SPEC``
+    (deterministic mode): stream_resume's corpus and lane through a
+    meshed ``ResilientTrainLoop.run_dataset``, each rank streaming its
+    half of the files (``FileSource(process_shard=True)``) at 128 rows a
+    step: A whole, B (beside A) with both ranks SIGKILLed once rank 0
+    reports step ``MI_KILL_AT``, C resumed from B's directory and each
+    rank's ``data_state-<step>.p<rank>.json``; gates: C's final state on
+    each rank BIT-equal to A's, A's ranks bit-equal, K1 once a step on
+    every rank and no other kernel. Printed: rows/s a rank beside one
+    rank's, spawn-to-first-step ms, K1 launches a rank;
+21. ``record``: a ``utils/profiling.trace`` (``torch.profiler``) around
+    5 train steps of ResNet-20 with K1, whose Chrome trace must exist and
+    name K1's kernel; ``python -m mmlspark_tpu_torch.cli report --json
+    --trace`` over the events logs of stream_resume's child C and of
+    mesh_inputs' run C (rank 0), each trace passing ``validate_trace``;
+    a watchdog stall on a fake heartbeat, which must write a
+    flight-recorder dump. serve, lm_serve and train also print rounds
+    with the flight recorder's ring off and on (``ring_rounds``,
+    ``ring_images_per_s``), after their counted paths;
+22. prints the kernel table line (each kernel's launches on each of its
     paths), the card's name and power limit, and last ``{"ok": true,
     "device": {...}}``.
 
@@ -643,6 +675,31 @@ MESH_SERVE_DLRM_BUCKET, MESH_SERVE_FLEET_REPLICAS = 256, 2
 MESH_SERVE_F32_LEN, MESH_SERVE_F32_ROWS, MESH_SERVE_F32_NEW = 512, 2, 8
 MESH_SERVE_F32_TOL = 1e-5
 MESH_SERVE_IMAGES = 128
+# mesh_inputs (PR 17), multi-process training inputs at data 2: (a) the
+# deep cell's DeepClassifier (65,536 x 128, batch 256, MI_DEEP_EPOCHS
+# epochs, deviceCache 'on', fp32 with TF32 off for its MESH_F32_TOL gate),
+# each rank fitting its process_shard(block_rows=128), against one rank
+# over the whole frame; (b) stream_resume's corpus and lane (ResNet-20
+# bf16, K1 in the loss) through a meshed run_dataset, each rank streaming
+# its half of the files at 128 rows a step (global batch 256), SR_STEPS
+# steps, a checkpoint every SR_SAVE_EVERY: run A whole, run B's two ranks
+# SIGKILLed once rank 0 reports step MI_KILL_AT, run C resumed from B's
+# directory; a run of the ranks is killed after MI_CHILD_TIMEOUT_S; (c)
+# the epoch cache's verdict with one rank's device_cache_mb under its
+# epoch
+MI_DEEP_BATCH, MI_DEEP_EPOCHS, MI_KILL_AT, MI_CHILD_TIMEOUT_S = 256, 2, 23, 300
+# (a)'s gates: the same global batches (their hashes equal), so the first
+# MI_GATED_STEPS steps' losses are held at MESH_F32_TOL of one rank's; past
+# them adamw turns last-bit gradient differences into steps of the
+# learning rate's size (the card's first run read 3.8e-4 on the final
+# loss after 512 steps, params 3.2e-3 apart), so the whole fit is held to
+# the reference's own cross-topology bounds (tests/test_multiprocess.py:
+# 211-218: final loss rtol 2e-2, predictions equal on >= 62/64 of rows)
+# and every step's difference is printed
+MI_GATED_STEPS, MI_XTOPO_RTOL, MI_XTOPO_AGREE = 16, 2e-2, 62 / 64
+# record (PR 17): train steps under profiling.trace; the rounds of the
+# flight recorder's ring off and on that serve, lm_serve and train add
+RECORD_TRACE_STEPS, RING_ROUNDS = 5, 2
 # fp32 operations per output element of the crop-resize-normalize kernel:
 # two row lerps (3 each), one column lerp (3), rint, clamp (2), subtract,
 # multiply
@@ -1332,6 +1389,12 @@ def phase_train(torch, kernels, card, profile_dir=None):
     _check(math.isfinite(final_loss) and math.isfinite(eval_loss)
            and int(syncs.device_get(state["step"], "smoke.step")) == steps,
            "train loss not finite or step counter off")
+    # the flight recorder's ring off and on, after the counted path
+    def window_rate():
+        t0 = time.perf_counter()
+        window()
+        return TRAIN_BATCH * TRAIN_STEPS / (time.perf_counter() - t0)
+    ring = _ring_ab(window_rate)
     rates = [w["images_per_s"] for w in windows]
     images_per_s = statistics.median(rates)
     step_s = TRAIN_BATCH / images_per_s
@@ -1392,6 +1455,7 @@ def phase_train(torch, kernels, card, profile_dir=None):
           flops_per_step=flops, achieved_tflops=tflops,
           mfu_vs_bf16_dense_peak=tflops * 1e12 / H100_SXM_BF16_DENSE_FLOPS,
           launches_main_path=launches, syncs_per_window=timed_syncs,
+          ring_images_per_s=ring,
           expected_syncs=expected_syncs,
           sync_warnings_in_counted_syncs=n_sync_warnings,
           final_loss=final_loss, eval_loss=eval_loss,
@@ -2875,6 +2939,14 @@ def phase_serve(torch, kernels, card):
                f"served features {feats.shape} not finite or misshaped")
         replays = {b: p.replays for b, p in sorted(progs.items())}
 
+        def serve_round():
+            _, lat_r, wall_r = _closed_loop(
+                SERVE_CLIENTS, list(range(SERVE_REQUESTS)),
+                lambda i: srv.submit("resnet50", rows[i], timeout=300))
+            return dict(images_per_s=SERVE_REQUESTS / wall_r,
+                        p50_ms=_pct_ms(lat_r, 50), p99_ms=_pct_ms(lat_r, 99))
+        ring = _ring_ab(serve_round)
+
         # full batches at the transform's shape: bit-equal, or within the
         # featurize phase's bf16 gate
         full = np.concatenate([srv.submit("resnet50", rows[i:i + 64],
@@ -2903,6 +2975,7 @@ def phase_serve(torch, kernels, card):
           replays_by_bucket=replays, wall_s=wall,
           images_per_s=SERVE_REQUESTS / wall,
           p50_ms=_pct_ms(lat, 50), p99_ms=_pct_ms(lat, 99),
+          ring_rounds=ring,
           full_batch_bit_equal=True, full_batch_max_abs=full_diff,
           served_vs_transform_rel=cross_rel, rel_limit=SERVE_REL_TOL,
           device_launches_one_replay=device_launches,
@@ -2954,6 +3027,14 @@ def phase_lm_serve(torch, kernels, card):
                f"served hidden {hidden.shape} not finite or misshaped")
         replays = {b: p.replays for b, p in sorted(progs.items())}
 
+        def lm_round():
+            _, lat_r, wall_r = _closed_loop(
+                LM_SERVE_CLIENTS, list(range(LM_SERVE_REQUESTS)),
+                lambda i: srv.submit("lm", ids[i], timeout=300))
+            return dict(tokens_per_s=LM_SERVE_REQUESTS * LM_LEN / wall_r,
+                        p50_ms=_pct_ms(lat_r, 50), p99_ms=_pct_ms(lat_r, 99))
+        ring = _ring_ab(lm_round)
+
         full = srv.submit("lm", ids[:8], timeout=300)
         direct = np.asarray(tm.transform(Frame.from_dict(
             {"ids": ids})).column("h"))
@@ -2978,6 +3059,7 @@ def phase_lm_serve(torch, kernels, card):
           launches_main_path=launches, replays_by_bucket=replays,
           wall_s=wall, tokens_per_s=LM_SERVE_REQUESTS * LM_LEN / wall,
           p50_ms=_pct_ms(lat, 50), p99_ms=_pct_ms(lat, 99),
+          ring_rounds=ring,
           full_batch_bit_equal=True, full_batch_vs_transform=full_stats,
           served_vs_transform=cross,
           limits=dict(max_abs=LM_BF16_MAX, mean_abs=LM_BF16_MEAN),
@@ -4253,15 +4335,16 @@ def _write_corpus(spec) -> None:
             f.write(encode_png(img.reshape(TRAIN_SHAPE)))
 
 
-def _stream_dataset(spec):
+def _stream_dataset(spec, process_shard=False):
     """FileSource -> shuffle -> decode -> map(uint8 flat + label) ->
-    batch(drop) -> repeat: the stream_resume main path's input."""
+    batch(drop) -> repeat: the stream_resume main path's input (with
+    ``process_shard``, of this rank's share of the files)."""
     from mmlspark_tpu_torch.data import FileSource
 
     def to_row(rec):
         label = int(os.path.basename(rec["path"]).split("_")[1][:-4])
         return {"image": rec["image"].reshape(-1), "label": np.int64(label)}
-    return (FileSource(spec["corpus"])
+    return (FileSource(spec["corpus"], process_shard=process_shard)
             .shuffle(window=spec["window"], seed=0)
             .decode(workers=spec["workers"])
             .map(to_row)
@@ -4802,9 +4885,10 @@ def _lm_adamw_state(torch):
     return trainer, state, init_fn
 
 
-def phase_stream_resume(torch, kernels, card) -> dict:
+def phase_stream_resume(torch, kernels, card, keep_events=None) -> dict:
     """Streamed input, checkpoints and crash-safe resume (see the module
-    docstring, phase 19). Returns K1's launches in each child."""
+    docstring, phase 19). Returns K1's launches in each child; child C's
+    events log is copied into ``keep_events`` when given."""
     import shutil
     import tempfile
 
@@ -4869,6 +4953,9 @@ def phase_stream_resume(torch, kernels, card) -> dict:
           save_restore=dict(resnet20_sgd_momentum=resnet,
                             transformer_lm_adamw=lm),
           phase_s=time.perf_counter() - t_phase)
+    if keep_events is not None and os.path.exists(spec["events"]):
+        shutil.copy(spec["events"],
+                    os.path.join(keep_events, "stream_resume_C.jsonl"))
     shutil.rmtree(work, ignore_errors=True)
     return {"A": children["A"]["launches"]["fused_normalize"],
             "B": children["B"]["k1"],
@@ -4883,6 +4970,7 @@ def _mesh_configs(cards: int) -> dict:
               ("seq2_ulysses", {"data": 1, "seq": 2}, "ulysses")]
         ring = ("seq2_ring", {"data": 1, "seq": 2}, "ring")
         return {"lm": lm, "f32": lm + [ring], "resnet": {"data": 2},
+                "inputs": {"data": 2},
                 "ckpt": ["1x2", "2x1", "1x2"],
                 "moe": ("expert2", {"data": 1, "expert": 2}),
                 "pipe": [("pipe2", "1x1x2", 2),
@@ -4892,6 +4980,7 @@ def _mesh_configs(cards: int) -> dict:
           ("data2_seq2_ulysses", {"data": 2, "seq": 2}, "ulysses")]
     ring = ("data2_seq2_ring", {"data": 2, "seq": 2}, "ring")
     return {"lm": lm, "f32": lm + [ring], "resnet": {"data": cards},
+            "inputs": {"data": 2, "tensor": 2},
             "ckpt": ["2x2", "4x1", "2x2"],
             "moe": ("data2_expert2", {"data": 2, "expert": 2}),
             "pipe": [("tensor2_pipe2", "1x2x2", 2),
@@ -5458,6 +5547,16 @@ def mesh_child(spec: dict) -> int:
     out["dlrm"] = dlrm
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
+    # multi-process inputs: each rank fits its own shard of the deep cell
+    from mmlspark_tpu_torch.parallel import sharding
+    torch.cuda.empty_cache()
+    inputs_mesh = make_mesh(MeshSpec(**configs["inputs"]))
+    deep = _mesh_inputs_deep(torch, inputs_mesh)
+    deep["params"] = {k: v.tolist() for k, v in deep["params"].items()}
+    out["inputs"] = {"deep": deep,
+                     "block": sharding.batch_block(inputs_mesh),
+                     "verdict": _mesh_inputs_verdict(torch, inputs_mesh,
+                                                     rank)}
     # serving on the mesh: rank 0 leads, the others follow
     from mmlspark_tpu_torch.parallel import leader
     torch.cuda.empty_cache()
@@ -5851,10 +5950,12 @@ def _mesh_reference(torch, kernels) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
     torch.cuda.empty_cache()
+    ref["inputs_deep"] = _mesh_inputs_deep(torch, None)
     return ref
 
 
-def phase_mesh(torch, kernels, card, cards: int = 1) -> dict:
+def phase_mesh(torch, kernels, card, cards: int = 1, keep_events=None
+               ) -> dict:
     """Meshed training (see the module docstring, phase 20): the
     one-rank reference here, then ``cards`` ranks (two sharing this
     card when ``cards`` is 1) through ``python -m mmlspark_tpu_torch.cli
@@ -5903,6 +6004,18 @@ def phase_mesh(torch, kernels, card, cards: int = 1) -> dict:
                        stated=_stated(log),
                        ranks_s=ranks_s, backend=backend,
                        phase_s=time.perf_counter() - t_phase)
+    # mesh_inputs: the meshed run_dataset's launches, then its gates
+    inputs_work = os.path.join(work, "inputs")
+    os.makedirs(inputs_work)
+    t0 = time.perf_counter()
+    stream = _mesh_inputs_stream(torch, cards, inputs_work)
+    stream["s"] = time.perf_counter() - t0
+    out["k1_inputs"] = _mesh_inputs_report(ref, ranks, stream)
+    if keep_events is not None:
+        for role, path in stream["events"].items():
+            if os.path.exists(path):
+                shutil.copy(path, os.path.join(
+                    keep_events, f"mesh_inputs_{role}-0.jsonl"))
     shutil.rmtree(work, ignore_errors=True)
     return out
 
@@ -6264,6 +6377,540 @@ def _mesh_report_6b(kernels, cards, ref, ranks, work, _check) -> dict:
     return {"moe": moe, "pipe": pipe, "dlrm": dlrm}
 
 
+# -- PR 17: multi-process training inputs and the run's record ---------------
+
+def _ring_ab(run, rounds=RING_ROUNDS) -> dict:
+    """``run()`` with the flight recorder's ring off, then on (its
+    default), ``rounds`` times in turn; each round's result by setting."""
+    from mmlspark_tpu_torch.utils import config
+    out = {"off": [], "on": []}
+    for _ in range(rounds):
+        for mode in ("off", "on"):
+            if mode == "off":
+                config.set("observability.flight_recorder_size", 0)
+            try:
+                out[mode].append(run())
+            finally:
+                config.unset("observability.flight_recorder_size")
+    return out
+
+
+def _mesh_inputs_deep(torch, mesh, blocks=2) -> dict:
+    """(a) of mesh_inputs: the deep cell's DeepClassifier, fp32 with TF32
+    off, on this rank's ``process_shard(block_rows=local rows)`` under
+    ``mesh``, or on the whole frame with ``mesh`` None (the one-rank
+    reference). Returns every step's loss (read once, after the fit), the
+    final loss, params, predictions of the whole frame, rows/s and the
+    sha256 of every cached batch of both epochs: this rank's block of
+    each, or with ``mesh`` None each of the ``blocks`` blocks of each
+    global batch."""
+    import hashlib
+    from mmlspark_tpu_torch.core.frame import Frame
+    from mmlspark_tpu_torch.parallel import sharding
+    from mmlspark_tpu_torch.parallel import trainer as ptrainer
+    from mmlspark_tpu_torch.train.deep import DeepClassifier
+    from mmlspark_tpu_torch.train.learners import _epoch_device_cache
+    rng = np.random.default_rng(5)
+    X = rng.normal(size=(DEEP_ROWS, DEEP_FEATURES)).astype(np.float32)
+    y = (X @ rng.normal(size=DEEP_FEATURES) > 0).astype(np.int64)
+    frame = whole = Frame.from_dict({"features": X, "label": y})
+    local = MI_DEEP_BATCH if mesh is None \
+        else sharding.local_batch_rows(mesh, MI_DEEP_BATCH)
+    if mesh is not None:
+        frame = frame.process_shard(sharding.batch_block(mesh),
+                                    sharding.batch_share(mesh)[1],
+                                    block_rows=local)
+    learner = DeepClassifier(architecture="mlp_tabular",
+                             batchSize=MI_DEEP_BATCH, epochs=MI_DEEP_EPOCHS,
+                             deviceCache="on", trainDtype="float32",
+                             meshSpec=mesh)
+    learner.set_params(featuresCol="features", labelCol="label")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # each step's loss kept on the device (no sync in the fit)
+    real_step, losses = ptrainer.DistributedTrainer.train_step, []
+
+    def train_step(self, state, batch, rng=None):
+        state, m = real_step(self, state, batch, rng)
+        losses.append(m["loss"].detach().clone())
+        return state, m
+    ptrainer.DistributedTrainer.train_step = train_step
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = learner.fit(frame)
+        fit_s = time.perf_counter() - t0
+    finally:
+        ptrainer.DistributedTrainer.train_step = real_step
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+    pred = np.asarray(model.transform(whole).column("prediction"))
+    steps = DEEP_ROWS // MI_DEEP_BATCH
+    cache = _epoch_device_cache(
+        frame, "features", "label", MI_DEEP_BATCH, learner._y_dtype,
+        seed=learner.seed, force=True, mesh=mesh,
+        local_batch=None if mesh is None else local,
+        steps=None if mesh is None else steps)
+    hashes = []
+    for e in range(MI_DEEP_EPOCHS):
+        for b in cache.batches(e):
+            host = {k: v.cpu().numpy() for k, v in sorted(b.items())}
+            cut = [slice(None)] if mesh is not None else [
+                slice(i * local // blocks, (i + 1) * local // blocks)
+                for i in range(blocks)]
+            hashes.append([hashlib.sha256(b"".join(
+                np.ascontiguousarray(v[c]).tobytes()
+                for v in host.values())).hexdigest() for c in cut])
+    return {"final_loss": float(model._state["final_loss"]),
+            "losses": torch.stack(losses).float().cpu().tolist(),
+            "prediction": pred.astype(np.int64).tolist(),
+            "params": {k: np.asarray(v) for k, v in
+                       model._state["params"].items()},
+            "rows": frame.count(), "fit_s": fit_s,
+            "rows_per_s": frame.count() * MI_DEEP_EPOCHS / fit_s,
+            "batch_sha256": hashes}
+
+
+def _mesh_inputs_verdict(torch, mesh, rank) -> dict:
+    """(c) of mesh_inputs: the resident-epoch verdict of the deep cell's
+    shard on every rank, with room on every rank, then with rank 1's
+    ``runtime.device_cache_mb`` under its epoch."""
+    from mmlspark_tpu_torch.core.frame import Frame
+    from mmlspark_tpu_torch.parallel import sharding
+    from mmlspark_tpu_torch.train.learners import _epoch_device_cache
+    from mmlspark_tpu_torch.utils import config
+    rng = np.random.default_rng(5)
+    X = rng.normal(size=(DEEP_ROWS, DEEP_FEATURES)).astype(np.float32)
+    local = sharding.local_batch_rows(mesh, MI_DEEP_BATCH)
+    frame = Frame.from_dict(
+        {"features": X, "label": np.zeros(DEEP_ROWS, np.int64)}
+    ).process_shard(sharding.batch_block(mesh),
+                    sharding.batch_share(mesh)[1], block_rows=local)
+    out = {}
+    for name, mb in (("room_on_every_rank", None),
+                     ("rank1_under_its_epoch", 1 if rank == 1 else None)):
+        if mb is not None:
+            config.set("runtime.device_cache_mb", mb)
+        try:
+            out[name] = _epoch_device_cache(
+                frame, "features", "label", MI_DEEP_BATCH, np.int64,
+                mesh=mesh, local_batch=local,
+                steps=DEEP_ROWS // MI_DEEP_BATCH) is not None
+        finally:
+            config.unset("runtime.device_cache_mb")
+    return out
+
+
+def inputs_child(spec: dict) -> int:
+    """One rank of mesh_inputs' meshed ``run_dataset`` (``--inputs-child
+    SPEC``, under ``cli run --nprocs 2``): deterministic mode,
+    stream_resume's lane on the launcher's data-parallel mesh, each rank
+    streaming its own shard of the corpus (``FileSource(process_shard=
+    True)``) at ``spec["batch"]`` rows a step and writing its own events
+    log. Role A runs uninterrupted, B until its parent SIGKILLs both
+    ranks, C resumes from B's directory. Rank 0 prints a ``mi_step`` line
+    a step; each rank a summary line, and dumps its final state."""
+    t_spawn = float(os.environ.get("SMOKE_SPAWN_T", time.time()))
+    import torch
+    import torch.distributed as dist
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    from mmlspark_tpu_torch import kernels
+    from mmlspark_tpu_torch.observability import syncs
+    from mmlspark_tpu_torch.utils import config
+    rank, role = dist.get_rank(), spec["role"]
+    device = config.resolve_device()
+    if device.type == "cuda":      # a CPU rehearsal builds nothing
+        torch.cuda.set_device(device)
+        kernels.build_all([kernels.FUSED_NORMALIZE])
+    config.set("observability.events_path",
+               os.path.join(spec["work"], f"events_{role}-{rank}.jsonl"))
+    ckpt_dir = spec["ckpt_a"] if role == "A" else spec["ckpt_b"]
+    loop = _stream_lane(torch, ckpt_dir, spec["save_every"])
+    k1 = kernels.FUSED_NORMALIZE
+    marks = {"start": 0}
+    real_restore = loop.restore_or_init
+
+    def restore_or_init():
+        out = real_restore()
+        marks["start"] = out[1]
+        return out
+    loop.restore_or_init = restore_or_init
+    real_step = loop.trainer.train_step
+    done = [0]
+
+    def train_step(state, batch, rng=None):
+        out = real_step(state, batch, rng)
+        done[0] += 1
+        if done[0] == 1:
+            syncs.synchronize("smoke.inputs_first_step", device)
+            marks["first_step_t"] = time.time()
+        if rank == 0:
+            _line(mi_step=marks["start"] + done[0], k1=k1.launches)
+        return out
+    loop.trainer.train_step = train_step
+    it = _stream_dataset(spec, process_shard=True).iter()
+    # the main path: counts zeroed just before, read just after
+    kernels.reset_launches()
+    t_run = time.perf_counter()
+    state = loop.run_dataset(it, spec["steps"])
+    launches = _launches(kernels)
+    run_s = time.perf_counter() - t_run
+    loop.ckpt.close()
+    _dump_train_state(torch, state, os.path.join(
+        spec["work"], f"final_{role}_rank{rank}.pt"))
+    _line(mi_child=role, rank=rank, start=marks["start"],
+          steps_run=done[0], launches=launches, device=str(device),
+          deterministic=torch.are_deterministic_algorithms_enabled(),
+          run_dataset_s=run_s,
+          rows_per_s=done[0] * spec["batch"] / run_s,
+          spawn_to_first_step_ms=(marks["first_step_t"] - t_spawn) * 1e3)
+    return 0
+
+
+def _group_lines(proc, until=None) -> list:
+    """JSON lines of a ``cli run`` launch's stdout until it exits, or until
+    ``until(line)`` holds; a launch past ``MI_CHILD_TIMEOUT_S`` has its
+    whole process group (the launcher and its ranks) killed."""
+    import signal
+    import threading
+    timer = threading.Timer(MI_CHILD_TIMEOUT_S,
+                            lambda: os.killpg(proc.pid, signal.SIGKILL))
+    timer.start()
+    lines = []
+    try:
+        for raw in proc.stdout:
+            raw = raw.strip()
+            if raw.startswith("{"):
+                lines.append(json.loads(raw))
+                if until is not None and until(lines[-1]):
+                    break
+    finally:
+        timer.cancel()
+    return lines
+
+
+def _mesh_inputs_stream(torch, cards, work) -> dict:
+    """(b) of mesh_inputs: runs A and B of the meshed run_dataset
+    together, both ranks of B SIGKILLed once rank 0 reports step
+    MI_KILL_AT, then C from B's directory; the gates' facts."""
+    import signal
+    backend = "gloo" if cards == 1 else "nccl"
+    spec = dict(_stream_spec(work, deep=False, batch=SR_BATCH // 2,
+                             kill_at=MI_KILL_AT), work=work)
+    t0 = time.perf_counter()
+    _write_corpus(spec)
+    corpus_s = time.perf_counter() - t0
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, MMLSPARK_TPU_TORCH_RUNTIME_DIST_BACKEND=backend,
+               CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    procs = {}
+
+    def launch(role):
+        err = open(os.path.join(work, f"launch_{role}.err"), "w")
+        procs[role] = subprocess.Popen(
+            [sys.executable, "-m", "mmlspark_tpu_torch.cli", "run",
+             os.path.abspath(__file__), "--nprocs", "2", "--platform",
+             "cuda", "--", "--inputs-child", json.dumps(dict(spec,
+                                                             role=role))],
+            cwd=root, env=dict(env, SMOKE_SPAWN_T=repr(time.time())),
+            start_new_session=True, stdout=subprocess.PIPE, stderr=err,
+            text=True)
+        return procs[role]
+
+    lines = {}
+    try:
+        launch("A")
+        b = launch("B")
+        lines["B"] = _group_lines(
+            b, until=lambda l: l.get("mi_step", 0) >= spec["kill_at"])
+        os.killpg(b.pid, signal.SIGKILL)
+        b.wait()
+        b_steps = _listed_steps(spec["ckpt_b"])
+        b_states = sorted(n for n in os.listdir(spec["ckpt_b"])
+                          if n.startswith("data_state-"))
+        c = launch("C")
+        lines["A"] = _group_lines(procs["A"])
+        lines["C"] = _group_lines(c)
+        rcs = {r: p.wait() for r, p in procs.items() if r != "B"}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    if any(rcs.values()):
+        for role in rcs:
+            with open(os.path.join(work, f"launch_{role}.err")) as f:
+                print(f.read()[-4000:], file=sys.stderr, flush=True)
+    summaries = {role: sorted((l for l in lines.get(role, ())
+                               if "mi_child" in l), key=lambda l: l["rank"])
+                 for role in ("A", "C")}
+    finals = {(role, r): torch.load(
+        os.path.join(work, f"final_{role}_rank{r}.pt"), weights_only=False)
+        for role in ("A", "C") for r in (0, 1)
+        if os.path.exists(os.path.join(work, f"final_{role}_rank{r}.pt"))}
+    diffs = {f"C_vs_A_rank{r}": _unequal(torch, finals.get(("C", r)),
+                                         finals.get(("A", r)))
+             for r in (0, 1)}
+    diffs["A_rank0_vs_rank1"] = _unequal(torch, finals.get(("A", 0)),
+                                         finals.get(("A", 1)))
+    killed_at = max((l["mi_step"] for l in lines["B"] if "mi_step" in l),
+                    default=None)
+    return dict(backend=backend, rcs=rcs, corpus_write_s=corpus_s,
+                spec={k: spec[k] for k in ("files", "batch", "steps",
+                                           "save_every", "kill_at")},
+                b_killed_at_step=killed_at, b_steps_after_kill=b_steps,
+                b_data_states_after_kill=b_states,
+                summaries=summaries, unequal=diffs,
+                events={role: os.path.join(work, f"events_{role}-0.jsonl")
+                        for role in ("A", "C")})
+
+
+def _mesh_inputs_report(ref, ranks, stream) -> dict:
+    """The gates of mesh_inputs over (a) and (c) from the mesh ranks and
+    (b) from its launches, and its line (printed with the failed gates,
+    which then fail the phase). Returns K1's launches a rank."""
+    failed = []
+
+    def check(ok, what):
+        if not ok:
+            failed.append(what)
+    one = ref["inputs_deep"]
+    deep = [r["inputs"]["deep"] for r in ranks]
+    blocks = {r["inputs"]["block"] for r in ranks}
+    rel = max(abs(d["final_loss"] - one["final_loss"])
+              / abs(one["final_loss"]) for d in deep)
+    want = np.asarray(one["losses"])
+    step_rel = [np.abs(np.asarray(d["losses"]) - want) / np.abs(want)
+                if len(d["losses"]) == len(want) else np.full(1, np.inf)
+                for d in deep]
+    gated = max(float(r[:MI_GATED_STEPS].max()) for r in step_rel)
+    past = [int(np.argmax(r > MESH_F32_TOL)) if (r > MESH_F32_TOL).any()
+            else None for r in step_rel]
+    agree = min(float(np.mean(np.asarray(d["prediction"])
+                              == np.asarray(one["prediction"])))
+                for d in deep)
+    check(gated <= MESH_F32_TOL,
+          f"mesh_inputs deep: the first {MI_GATED_STEPS} steps' losses "
+          f"rel {gated} from one rank's (limit {MESH_F32_TOL})")
+    check(rel <= MI_XTOPO_RTOL and agree >= MI_XTOPO_AGREE,
+          f"mesh_inputs deep: final loss rel {rel} (limit "
+          f"{MI_XTOPO_RTOL}), predictions equal on {agree} of the rows "
+          f"(limit {MI_XTOPO_AGREE})")
+    param_diff = max(float(np.abs(np.asarray(d["params"][k]) - v).max())
+                     for d in deep for k, v in one["params"].items())
+    # the ranks of a data block hold the same rows
+    check(sum(d["rows"] for d in deep) * len(blocks)
+          == DEEP_ROWS * len(ranks), f"mesh_inputs deep: the shards hold "
+                                     f"{[d['rows'] for d in deep]} rows")
+    hashes_equal = all(
+        [h[0] for h in d["batch_sha256"]]
+        == [h[r["inputs"]["block"]] for h in one["batch_sha256"]]
+        for d, r in zip(deep, ranks))
+    check(hashes_equal, "mesh_inputs deep: a rank's cached batches differ "
+                        "from its block of the one-rank cache's")
+    verdicts = [r["inputs"]["verdict"] for r in ranks]
+    check(all(v["room_on_every_rank"] for v in verdicts)
+          and not any(v["rank1_under_its_epoch"] for v in verdicts),
+          f"mesh_inputs verdict not AND-reduced: {verdicts}")
+    summ = stream["summaries"]
+    check(not any(stream["rcs"].values()),
+          f"mesh_inputs run_dataset launches exited {stream['rcs']}")
+    check(len(summ["A"]) == 2 and len(summ["C"]) == 2,
+          f"mesh_inputs run_dataset: rank summaries {summ}")
+    check(not any(stream["unequal"].values()),
+          f"mesh_inputs run_dataset: resumed state not bit-equal "
+          f"{stream['unequal']}")
+    start = summ["C"][0]["start"] if summ["C"] else None
+    check(bool(start) and all(c["start"] == start for c in summ["C"])
+          and {f"data_state-{start}.p0.json", f"data_state-{start}.p1.json"}
+          <= set(stream["b_data_states_after_kill"]),
+          f"mesh_inputs run_dataset: C resumed from {start}, B left "
+          f"{stream['b_data_states_after_kill']}")
+    k1 = "fused_normalize"
+    launches = {f"{role}_rank{s['rank']}": s["launches"][k1]
+                for role in ("A", "C") for s in summ[role]}
+    steps = stream["spec"]["steps"]
+    check(all(s["launches"][k1] == s["steps_run"] > 0 and all(
+        n == 0 for name, n in s["launches"].items() if name != k1)
+        for role in ("A", "C") for s in summ[role])
+        and all(s["steps_run"] == steps for s in summ["A"])
+        and all(s["steps_run"] == steps - start for s in summ["C"]),
+        f"mesh_inputs run_dataset: K1 launches {launches}, want one a "
+        "step on every rank and no other kernel")
+    check(all(s["deterministic"] for role in ("A", "C")
+              for s in summ[role]), "mesh_inputs: a rank not deterministic")
+    _line(phase="mesh_inputs", card=_smi(),
+          deep=dict(rows=DEEP_ROWS, features=DEEP_FEATURES,
+                    batch=MI_DEEP_BATCH, epochs=MI_DEEP_EPOCHS,
+                    compute="float32, TF32 off",
+                    shard_rows=[d["rows"] for d in deep],
+                    steps=len(want), gated_steps=MI_GATED_STEPS,
+                    gated_step_rel_max=gated, gated_limit=MESH_F32_TOL,
+                    first_step_past_limit=past,
+                    step_rel_max=[float(r.max()) for r in step_rel],
+                    step_rel_every_16=[[float(x) for x in r[::16]]
+                                       for r in step_rel],
+                    final_loss_rel_vs_one_rank=rel,
+                    final_limit=MI_XTOPO_RTOL,
+                    predictions_equal_share=agree,
+                    predictions_limit=MI_XTOPO_AGREE,
+                    max_param_abs_diff_vs_one_rank=param_diff,
+                    cached_batches_hashed=len(one["batch_sha256"]),
+                    batch_hashes_equal=hashes_equal,
+                    rows_per_s_per_rank=[d["rows_per_s"] for d in deep],
+                    one_rank_rows_per_s=one["rows_per_s"],
+                    fit_s=[d["fit_s"] for d in deep],
+                    one_rank_fit_s=one["fit_s"]),
+          verdict=verdicts,
+          run_dataset=dict(
+              backend=stream["backend"], **stream["spec"],
+              launches_s=stream["s"],
+              corpus_write_s=stream["corpus_write_s"],
+              b_killed_at_step=stream["b_killed_at_step"],
+              b_steps_after_kill=stream["b_steps_after_kill"],
+              b_data_states_after_kill=stream["b_data_states_after_kill"],
+              c_resumed_from=start, state_bit_equal=not any(
+                  stream["unequal"].values()),
+              rows_per_s_per_rank={f"{role}_rank{s['rank']}":
+                                   s["rows_per_s"] for role in ("A", "C")
+                                   for s in summ[role]},
+              spawn_to_first_step_ms={
+                  f"{role}_rank{s['rank']}": s["spawn_to_first_step_ms"]
+                  for role in ("A", "C") for s in summ[role]},
+              k1_launches=launches),
+          failed=failed)
+    if failed:
+        raise RuntimeError(f"chip_smoke check failed: mesh_inputs: {failed}")
+    return launches
+
+
+def phase_record(torch, kernels, card, logs) -> dict:
+    """The run's record on the card: a ``profiling.trace`` around train
+    steps, which must write a trace naming K1's kernel; ``cli report
+    --json --trace`` over the events logs of earlier phases (``logs``,
+    name -> path), each trace validating; a watchdog stall on a fake
+    heartbeat, which must write a flight-recorder dump."""
+    import shutil
+    import tempfile
+    import torch.nn.functional as F
+    from mmlspark_tpu_torch.models.zoo import build_model, init_state
+    from mmlspark_tpu_torch.observability.trace import validate_trace
+    from mmlspark_tpu_torch.ops.preprocess import make_preprocess_fn
+    from mmlspark_tpu_torch.parallel.optim import sgd
+    from mmlspark_tpu_torch.parallel.trainer import DistributedTrainer
+    from mmlspark_tpu_torch.reliability import watchdog
+    from mmlspark_tpu_torch.utils import config, profiling
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_record-")
+    k1 = kernels.FUSED_NORMALIZE
+    rng = np.random.default_rng(0)
+    batch = {"image": torch.from_numpy(rng.integers(
+                 0, 256, (TRAIN_BATCH, math.prod(TRAIN_SHAPE)),
+                 dtype=np.uint8)).to(card),
+             "label": torch.from_numpy(rng.integers(
+                 0, 10, TRAIN_BATCH)).to(card)}
+    pre = make_preprocess_fn(TRAIN_SHAPE, CIFAR_MEAN, CIFAR_STD)
+
+    def init_fn():
+        module = build_model("resnet20_cifar", num_classes=10,
+                             dtype="bfloat16")["module"]
+        module.load_state_dict({k: torch.from_numpy(v) for k, v in
+                                init_state(module, seed=0).items()})
+        return module
+    trainer = DistributedTrainer(
+        lambda m, b, g: F.cross_entropy(m(pre(b["image"])).float(),
+                                        b["label"].long()),
+        sgd(0.1, momentum=0.9))
+    state = trainer.init(init_fn)
+    state, _ = trainer.train_step(state, batch, 0)     # warm, untraced
+    torch.cuda.synchronize()
+    trace_dir = os.path.join(work, "trace")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with profiling.trace(trace_dir):
+        for _ in range(RECORD_TRACE_STEPS):
+            state, _ = trainer.train_step(state, batch, 0)
+        torch.cuda.synchronize()
+    traced_s = time.perf_counter() - t0
+    launches = _launches(kernels)
+    written = sorted(os.listdir(trace_dir)) if os.path.isdir(trace_dir) \
+        else []
+    _check(len(written) == 1, f"profiling.trace wrote {written}, want one "
+                              "trace")
+    with open(os.path.join(trace_dir, written[0])) as f:
+        text = f.read()
+    named = [sym for sym in KERNEL_SYMBOLS[k1.name] if sym in text]
+    _check(bool(named) and launches[k1.name] == RECORD_TRACE_STEPS,
+           f"the trace names {named} of K1's {KERNEL_SYMBOLS[k1.name]}; "
+           f"K1 launched {launches[k1.name]} times in "
+           f"{RECORD_TRACE_STEPS} traced steps")
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    reports = {}
+    for name, path in logs.items():
+        out = os.path.join(work, f"{name}.trace.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "mmlspark_tpu_torch.cli", "report", path,
+             "--json", "--trace", out], cwd=root, env=env,
+            capture_output=True, text=True, timeout=120)
+        report_s = time.perf_counter() - t0
+        _check(proc.returncode == 0, f"cli report {name} exited "
+                                     f"{proc.returncode}: "
+                                     f"{proc.stderr[-2000:]}")
+        rep = json.loads(proc.stdout.strip().splitlines()[-1])
+        with open(out) as f:
+            problems = validate_trace(json.load(f))
+        _check(not problems and rep["spans"] > 0,
+               f"cli report {name}: {rep['spans']} spans, trace problems "
+               f"{problems[:5]}")
+        reports[name] = dict(events=rep["events"], spans=rep["spans"],
+                             sections=sorted(k for k in rep if k not in (
+                                 "path", "paths", "events", "spans",
+                                 "metrics")),
+                             syncs=rep.get("syncs", {}).get("total"),
+                             trace_problems=len(problems),
+                             trace_bytes=os.path.getsize(out),
+                             report_s=report_s)
+
+    config.set("observability.events_path",
+               os.path.join(work, "events.jsonl"))
+    hb = watchdog.register("smoke.fake_heartbeat", timeout_s=1.0)
+    try:
+        fired = watchdog.Watchdog(stall_timeout_s=1.0, start=False).check(
+            now=hb.last + 5.0)
+    finally:
+        hb.close()
+        config.unset("observability.events_path")
+    dumps = sorted(n for n in os.listdir(work) if n.startswith("flightrec-"))
+    header = {}
+    if dumps:
+        with open(os.path.join(work, dumps[0])) as f:
+            header = json.loads(f.readline())
+    _check([s.name for s in fired] == ["smoke.fake_heartbeat"]
+           and len(dumps) == 1
+           and header.get("reason") == "watchdog.stall.smoke.fake_heartbeat",
+           f"watchdog stall: fired {[s.name for s in fired]}, dumps "
+           f"{dumps}, header {header}")
+    _line(phase="record", card=_smi(),
+          trace=dict(steps=RECORD_TRACE_STEPS, file=written[0],
+                     bytes=os.path.getsize(os.path.join(trace_dir,
+                                                        written[0])),
+                     k1_symbols_named=named, k1_launches=launches[k1.name],
+                     traced_s=traced_s),
+          reports=reports,
+          stall_dump=dict(file=dumps[0], events=header.get("events"),
+                          capacity=header.get("capacity")),
+          phase_s=time.perf_counter() - t_phase)
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def _profile_pass(torch, run, out_dir, name) -> None:
     """One warm ``run()`` under torch.profiler: the device time by kernel
     (top 25) and the device's busy share of the run, as a JSON line; the
@@ -6298,6 +6945,9 @@ def main() -> int:
     if "--mesh-child" in sys.argv[1:]:
         return mesh_child(json.loads(
             sys.argv[sys.argv.index("--mesh-child") + 1]))
+    if "--inputs-child" in sys.argv[1:]:
+        return inputs_child(json.loads(
+            sys.argv[sys.argv.index("--inputs-child") + 1]))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -6363,8 +7013,15 @@ def main() -> int:
     generate, generate32, single = phase_generate(torch, kernels, card)
     fleet = phase_fleet(torch, kernels, card, single)
     process_fleet = phase_process_fleet(torch, kernels, card, fleet)
-    stream_resume = phase_stream_resume(torch, kernels, card)
-    mesh = phase_mesh(torch, kernels, card)
+    import tempfile
+    kept = tempfile.mkdtemp(prefix="chip_smoke_events-")
+    stream_resume = phase_stream_resume(torch, kernels, card, kept)
+    mesh = phase_mesh(torch, kernels, card, keep_events=kept)
+    record = phase_record(torch, kernels, card, {
+        "stream_resume": os.path.join(kept, "stream_resume_C.jsonl"),
+        "mesh_inputs": os.path.join(kept, "mesh_inputs_C-0.jsonl")})
+    import shutil
+    shutil.rmtree(kept, ignore_errors=True)
 
     k1k, k2k = kernels.FUSED_NORMALIZE, kernels.CROP_RESIZE_NORMALIZE
     tc, f32 = kernels.FLASH_ATTENTION_TC, kernels.FLASH_ATTENTION
@@ -6376,13 +7033,18 @@ def main() -> int:
         "launches_by_path": {"train": train[k1k.name],
                              "train_large": train_large[k1k.name],
                              "stream_resume": stream_resume,
-                             "mesh": mesh["k1"]},
+                             "mesh": mesh["k1"],
+                             "mesh_inputs": mesh["k1_inputs"],
+                             "record": record[k1k.name]},
         "launches_note": "stream_resume: each child's own run (A "
                          "uninterrupted, B up to its SIGKILL, C from its "
                          "restored step); one launch a step. mesh: each "
                          "rank's ResNet-20 data-parallel steps (two ranks "
                          "sharing the card), one launch a step on its "
-                         "half of the batch",
+                         "half of the batch. mesh_inputs: each rank's "
+                         "meshed run_dataset steps on its own stream (A "
+                         "whole, C from its restored step), one a step. "
+                         "record: the traced train steps",
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],

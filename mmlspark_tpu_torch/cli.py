@@ -27,9 +27,18 @@ reference's flags and stdout contract:
   ``--nprocs N`` starts N local ranks of the same command and waits for
   them. Each rank states its rank, device and backend on stderr.
 
+- ``launch-pod``: the same ``run`` command on every host of a GPU pod
+  over ssh (``ssh HOST 'cd APP && python -m mmlspark_tpu_torch.cli run
+  SCRIPT --hosts H1,H2,... --process-id I'``), ``--dry-run`` printing
+  the per-host argv list as JSON.
+- ``report``: the run report of one or more event logs (or flight-
+  recorder dumps), ``--json`` for its structured form, ``--trace`` to
+  also export a Chrome trace of the same log.
+
 Workers run on ``runtime.device`` (``MMLSPARK_TPU_TORCH_RUNTIME_DEVICE``)
-and raise without CUDA unless it is ``cpu``. The reference's
-``launch-pod``, ``info``, ``check``, ``bench``, ``chaos``, ``report`` and
+and raise without CUDA unless it is ``cpu``. An unhandled exception in
+any command dumps the flight recorder's ring (reason ``crash``) before it
+propagates. The reference's ``info``, ``check``, ``bench``, ``chaos`` and
 ``top`` are not ported yet (ROADMAP queue A).
 """
 from __future__ import annotations
@@ -617,6 +626,91 @@ def cmd_run(args, passthrough) -> int:
     return 0
 
 
+def build_pod_argv(args, passthrough: List[str]) -> List[List[str]]:
+    """One ``ssh HOST 'cd APP && python -m mmlspark_tpu_torch.cli run
+    SCRIPT --hosts ... --process-id I'`` argv a host: host ``I`` of
+    ``--hosts`` is rank ``I``, host 0 the rendezvous (``cli run``'s
+    ``--hosts`` rules). Split out so the constructed argv is tested
+    without a cluster."""
+    import re
+    import shlex
+
+    def quote_dir(p: str) -> str:
+        # a leading ~ (bare, ~/path or ~user/path) stays outside the
+        # quotes, or the remote shell never expands it; the unquoted
+        # prefix must have a user name's shape, else all is quoted
+        if p.startswith("~"):
+            prefix, sep, rest = p.partition("/")
+            if re.fullmatch(r"~[A-Za-z0-9._-]*", prefix):
+                if not sep:
+                    return prefix
+                return prefix + "/" + (shlex.quote(rest) if rest else "")
+        return shlex.quote(p)
+
+    hosts = [h.strip() for h in args.hosts.split(",") if h.strip()]
+    if not hosts:
+        raise SystemExit("launch-pod: empty host list")
+    out = []
+    for i, host in enumerate(hosts):
+        inner = ["python", "-m", "mmlspark_tpu_torch.cli", "run",
+                 args.script, "--hosts", ",".join(hosts),
+                 "--process-id", str(i)]
+        if args.mesh:
+            inner += ["--mesh", args.mesh]
+        if passthrough:
+            inner += ["--"] + list(passthrough)
+        out.append(["ssh", host, "cd " + quote_dir(args.app_dir) + " && "
+                    + " ".join(shlex.quote(a) for a in inner)])
+    return out
+
+
+def cmd_launch_pod(args, passthrough: List[str]) -> int:
+    """Start ``run SCRIPT`` on every host over ssh and wait for them all;
+    the first non-zero exit code, else 0. ``--dry-run`` prints the argv
+    list as JSON and runs nothing."""
+    if args.mesh:
+        from mmlspark_tpu_torch.parallel.mesh import parse_mesh_axes
+        try:
+            parse_mesh_axes(args.mesh)   # fail before contacting a host
+        except ValueError as e:
+            raise SystemExit(f"--mesh: {e}")
+    argvs = build_pod_argv(args, passthrough)
+    if args.dry_run:
+        print(json.dumps(argvs))
+        return 0
+    import subprocess
+    procs = [subprocess.Popen(a) for a in argvs]
+    codes = [p.wait() for p in procs]
+    return next((c for c in codes if c), 0)
+
+
+def cmd_report(args, passthrough) -> int:
+    """The run report of one or more event logs (per-process sidecars
+    merge; ``--glob`` adds a pattern); ``--json`` prints the structured
+    form, ``--trace`` also exports a Chrome trace of one log."""
+    from mmlspark_tpu_torch.observability.aggregate import expand_event_paths
+    paths = expand_event_paths(args.events, args.glob or None)
+    if not paths:
+        raise SystemExit("report: no event logs matched")
+    target = paths[0] if len(paths) == 1 else paths
+    if args.trace:
+        if len(paths) > 1:
+            raise SystemExit("--trace exports one log at a time; pass a "
+                             "single events path")
+        from mmlspark_tpu_torch.observability.trace import export_trace
+        stats = export_trace(paths[0], args.trace)
+        print(f"trace: {stats['out']} ({stats['spans']} spans, "
+              f"{stats['events']} events, {stats['tracks']} tracks) — "
+              "open in https://ui.perfetto.dev")
+    if args.json:
+        from mmlspark_tpu_torch.observability.report import build_report
+        print(json.dumps(build_report(target, top=args.top), sort_keys=True))
+    else:
+        from mmlspark_tpu_torch.observability.report import render_report
+        print(render_report(target, top=args.top))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="mmlspark-tpu-torch",
@@ -788,6 +882,37 @@ def build_parser() -> argparse.ArgumentParser:
                        help="start this many ranks on this host and wait "
                        "for them")
     run_p.set_defaults(fn=cmd_run)
+
+    pod_p = sub.add_parser(
+        "launch-pod", help="run a script on every host of a pod over ssh")
+    pod_p.add_argument("hosts", help="comma list of hosts; host 0 is the "
+                       "rendezvous and rank 0")
+    pod_p.add_argument("script", help="script path on the hosts")
+    pod_p.add_argument("--mesh", default="",
+                       help="forwarded to `run` on each host")
+    pod_p.add_argument("--app-dir", default="~/app",
+                       help="directory cd'd into on each host")
+    pod_p.add_argument("--dry-run", action="store_true",
+                       help="print the per-host argv as JSON, run nothing")
+    pod_p.set_defaults(fn=cmd_launch_pod)
+
+    report_p = sub.add_parser(
+        "report", help="render a run report from event log(s)")
+    report_p.add_argument("events", nargs="*",
+                          help="events.jsonl path(s) or flight-recorder "
+                          "dumps; per-process sidecars merge (may be "
+                          "omitted when --glob is given)")
+    report_p.add_argument("--glob", default="",
+                          help="also merge every log matching this glob")
+    report_p.add_argument("--top", type=int, default=10,
+                          help="rows in the slowest-span table (default 10)")
+    report_p.add_argument("--trace", default="",
+                          help="also export a Chrome-trace JSON timeline "
+                          "to this path")
+    report_p.add_argument("--json", action="store_true",
+                          help="print the structured report as one JSON "
+                          "object")
+    report_p.set_defaults(fn=cmd_report)
     return parser
 
 
@@ -799,7 +924,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         cut = argv.index("--")
         argv, passthrough = argv[:cut], argv[cut + 1:]
     args = build_parser().parse_args(argv)
-    return args.fn(args, passthrough)
+    try:
+        return args.fn(args, passthrough)
+    except Exception:
+        # the ring goes to disk before the crash propagates, so it ships
+        # its own context even where no events path was set
+        from mmlspark_tpu_torch.observability import flightrec
+        dumped = flightrec.dump(reason="crash")
+        if dumped:
+            print(f"flight recorder dumped to {dumped}", file=sys.stderr)
+        raise
 
 
 if __name__ == "__main__":

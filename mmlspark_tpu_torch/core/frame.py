@@ -455,17 +455,19 @@ class Frame:
         ``block_rows=b``: block-cyclic — process ``i`` keeps row blocks
         ``i, i+P, i+2P, ...`` of size ``b``.
 
-        Defaults to this process's rank/world size from an initialized
-        ``torch.distributed`` process group (0 of 1 without one); pass
-        ``index``/``count`` to shard for another topology.
+        Defaults to this rank's share in an initialized
+        ``torch.distributed`` process group (0 of 1 without one): its
+        block on the data axes of the configured mesh and their count
+        (``parallel/mesh.py::data_shard``), so ranks that differ only on
+        ``tensor`` or ``seq`` hold the same rows; ``(rank, world)`` when
+        no mesh is configured. Pass ``index``/``count`` to shard for
+        another topology.
         """
         if index is None or count is None:
-            import torch.distributed as dist
-            live = dist.is_available() and dist.is_initialized()
-            if index is None:
-                index = dist.get_rank() if live else 0
-            if count is None:
-                count = dist.get_world_size() if live else 1
+            from mmlspark_tpu_torch.parallel.mesh import data_shard
+            mine, blocks = data_shard()
+            index = mine if index is None else index
+            count = blocks if count is None else count
         i, p = int(index), int(count)
         if not 0 <= i < p:
             raise SchemaError(f"process_shard index {i} outside count {p}")

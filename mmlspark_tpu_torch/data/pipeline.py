@@ -163,7 +163,8 @@ class FileSource(Dataset):
     """Deterministic file/zip-entry source over the ``io.readers`` walk.
 
     The listing (recursive walk, seeded fractional sampling, zip-entry
-    expansion, per-process contiguous slice) is exactly
+    expansion, and with ``process_shard`` the contiguous slice of this
+    rank's block on the mesh's data axes) is exactly
     ``io.readers.list_binary_entries`` — the same files in the same order
     as ``read_binary_files``/``read_images``, so a streamed epoch is
     bit-comparable to the materialized-Frame path. Records are

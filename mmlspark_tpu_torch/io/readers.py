@@ -16,9 +16,10 @@ re-expression of the reference's readers
   counter;
 - ``read_csv`` with its column type inference (the tabular paths).
 
-``process_shard=True`` keeps this process's contiguous slice, taking the
-rank and world size from an initialized ``torch.distributed`` process
-group (0 of 1 without one), as ``Frame.process_shard`` does. The
+``process_shard=True`` keeps this rank's contiguous slice: the slice of
+its block on the data axes of the configured mesh, ``(rank, world)``
+without one, the whole list outside a process group
+(``parallel/mesh.py::data_shard``, as ``Frame.process_shard`` does). The
 reference's ``read_parquet`` / ``write_parquet`` are not ported: they need
 pyarrow, which the port's card machine does not have.
 """
@@ -42,15 +43,14 @@ from mmlspark_tpu_torch.reliability.faults import fault_site
 
 
 def _process_slice(items: List, process_shard: bool) -> List:
-    """This process's contiguous slice of a sorted work list (multi-process
-    ingestion: every process lists the same items and keeps only its
-    share)."""
+    """This rank's contiguous slice of a sorted work list (multi-process
+    ingestion: every rank lists the same items and keeps its share, the
+    share of its block on the data axes of the configured mesh:
+    ``parallel/mesh.py::data_shard``)."""
     if not process_shard:
         return items
-    import torch.distributed as dist
-    live = dist.is_available() and dist.is_initialized()
-    i = dist.get_rank() if live else 0
-    p = dist.get_world_size() if live else 1
+    from mmlspark_tpu_torch.parallel.mesh import data_shard
+    i, p = data_shard()
     bounds = np.linspace(0, len(items), p + 1).astype(int)
     return items[bounds[i]:bounds[i + 1]]
 

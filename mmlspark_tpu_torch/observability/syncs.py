@@ -11,7 +11,10 @@ each one is counted:
   innermost open span (:mod:`spans`), so a report can attribute the sync
   to the phase that paid for it;
 - the registry counters ``observability.sync_points`` and
-  ``observability.sync_points.<site>`` (:mod:`metrics`).
+  ``observability.sync_points.<site>`` (:mod:`metrics`);
+- a ``sync.point`` event (site, kind, the innermost span's name and id)
+  when an event sink is live: the log, or the flight recorder's ring,
+  which is on by default.
 
 Counting is a plain int add under a lock: cheap enough to be
 unconditional.
@@ -22,7 +25,7 @@ import threading
 from collections.abc import Mapping
 from typing import Any, Dict
 
-from mmlspark_tpu_torch.observability import metrics, spans
+from mmlspark_tpu_torch.observability import events, metrics, spans
 
 _lock = threading.Lock()
 _total = 0
@@ -40,16 +43,21 @@ def counts() -> Dict[str, int]:
         return dict(_by_site)
 
 
-def sync_point(site: str) -> None:
-    """Record one host sync at ``site`` (e.g. ``"transform.retire"``)."""
+def sync_point(site: str, kind: str = "sync") -> None:
+    """Record one host sync at ``site`` (e.g. ``"transform.retire"``);
+    ``kind`` names the blocking primitive for the event log."""
     global _total
     cur = spans.current_span()
-    key = f"{site}@{cur}" if cur else site
+    key = f"{site}@{cur[0]}" if cur else site
     with _lock:
         _total += 1
         _by_site[key] = _by_site.get(key, 0) + 1
     metrics.counter("observability.sync_points").inc()
     metrics.counter(f"observability.sync_points.{site}").inc()
+    if events.recording_enabled():
+        events.emit("event", "sync.point", site=site, kind=kind,
+                    span=cur[0] if cur else None,
+                    span_id=cur[1] if cur else None)
 
 
 def _to_host(x) -> Any:
@@ -71,7 +79,7 @@ def device_get(x, site: str) -> Any:
     of tensors (one sync point for all of them), as numpy arrays.
     bfloat16 (which numpy lacks) is widened to float32 on the host, so the
     wire still carries half the bytes."""
-    sync_point(site)
+    sync_point(site, "device_get")
     return _to_host(x)
 
 
@@ -81,7 +89,7 @@ def block_until_ready(x, site: str):
     CUDA device holding one is synchronized. Tensors on the CPU are ready
     already. Returns ``x``."""
     import torch
-    sync_point(site)
+    sync_point(site, "block_until_ready")
     leaves = (x.values() if isinstance(x, Mapping)
               else x if isinstance(x, (list, tuple)) else [x])
     for d in {t.device for t in leaves if isinstance(t, torch.Tensor)
@@ -95,7 +103,7 @@ def synchronize(site: str, device=None) -> None:
     None): ``torch.cuda.synchronize`` on a CUDA device, nothing on the
     CPU, where every op has finished when it returns."""
     import torch
-    sync_point(site)
+    sync_point(site, "synchronize")
     if device is None:
         from mmlspark_tpu_torch.utils import config
         device = config.get("runtime.device")

@@ -288,6 +288,23 @@ class TrainCheckpointer:
         if err is not None:
             raise err
 
+    def latest_committed(self, state: Optional[Dict[str, Any]] = None
+                         ) -> Optional[int]:
+        """The newest committed step once every in-flight save has
+        committed: :meth:`wait`, then the listing. On a mesh (this
+        checkpointer has handled a meshed state, or ``state`` is one) the
+        ranks meet again after listing, so every rank reads the same step:
+        a rank that listed late could otherwise see a step that rank 0
+        saved after the others listed, and skip the save (a collective)
+        they then make."""
+        meshed = self._meshed or (state is not None
+                                  and state.get("layout") is not None)
+        self.wait()
+        step = self.latest_step()
+        if meshed:
+            _barrier()
+        return step
+
     def maybe_save(self, state: Dict[str, Any], every: int, step: int,
                    wait: bool = False) -> Optional[int]:
         """Save when ``step`` (the HOST loop counter — passing it avoids a

@@ -132,6 +132,20 @@ def _back(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 # -- plain collectives (no autograd) -----------------------------------------
 
+def host_all_gather(x, group) -> list:
+    """Every rank's host value ``x`` (a numpy array, or anything that
+    pickles) in ``group``, in group-rank order: the host-side exchange of
+    a meshed fit's inputs (moments, verdicts, step counts, the local-rows
+    epoch cache's rows). ``dist.all_gather_object``, so it runs on gloo
+    and on NCCL alike (there the pickled bytes travel as a tensor on this
+    rank's card). ``group`` None (one rank) returns ``[x]``."""
+    if group is None:
+        return [x]
+    out = [None] * size(group)
+    _dist().all_gather_object(out, x, group=group)
+    return out
+
+
 def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """The reduction of ``x`` over ``group`` ("sum" or "max"), as a new
     tensor (``x`` is left as it is)."""

@@ -186,6 +186,39 @@ def mesh_from_config(ranks: Optional[Sequence[int]] = None):
     return make_mesh(MeshSpec(**parse_mesh_axes(text)), ranks)
 
 
+def data_shard(rank: Optional[int] = None):
+    """(index, count) of ``rank``'s (default: this rank's) share of the
+    input rows: its block on the data axes of the configured mesh
+    (``parallel.mesh_shape``, else ``runtime.mesh``) and the number of
+    blocks, so ranks that differ only on other axes (``tensor``,
+    ``seq``, ...) hold the same rows. Without a configured mesh every
+    rank is its own block, ``(rank, world)``; outside a process group
+    ``(0, 1)``. Computed from the sizes alone: no group is made, so a
+    rank may ask at any time."""
+    from mmlspark_tpu_torch.utils import config
+    if not is_initialized():
+        return 0, 1
+    dist = _dist()
+    world = dist.get_world_size()
+    rank = dist.get_rank() if rank is None else int(rank)
+    shape = config.get("parallel.mesh_shape", "")
+    text = config.get("runtime.mesh")
+    if not (shape or text):
+        return rank, world
+    spec = parse_mesh_shape(shape) if shape \
+        else MeshSpec(**parse_mesh_axes(text))
+    sizes = spec.resolve(world)
+    # row-major coordinate of `rank` over AXES, as make_mesh lays it out
+    coord, rest = {}, rank
+    for a in reversed(AXES):
+        coord[a], rest = rest % sizes[a], rest // sizes[a]
+    index, count = 0, 1
+    for a in ("data", "fsdp"):         # sharding.BATCH_AXES
+        index = index * sizes[a] + coord[a]
+        count *= sizes[a]
+    return index, count
+
+
 def resolve_mesh(mesh_spec):
     """MeshSpec | axis-size dict | "data=2,tensor=4" string | DeviceMesh |
     None -> DeviceMesh (None: :func:`mesh_from_config`, which is None

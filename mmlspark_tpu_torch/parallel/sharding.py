@@ -25,7 +25,10 @@ its rank holds; a module that can compute on its shards
 (``bind_mesh``, the transformer's tensor-parallel blocks) does so, every
 other use gathers the shard first. The batch helpers below give each
 rank its block of a global batch: the rows of its coordinate on the data
-axes and, under a ``seq`` axis, its slice of the sequence.
+axes and, under a ``seq`` axis, its slice of the sequence; or, in the
+local-rows form the caller asks for, take the rank's own rows of each
+global batch (the reference's multi-process contract,
+:func:`gather_local_rows` assembling a whole epoch from them).
 """
 from __future__ import annotations
 
@@ -428,22 +431,65 @@ def local_seq(mesh, x: np.ndarray, seq_axis: Optional[str],
 
 
 def shard_batch(mesh, batch: Any, seq_axis: Optional[str] = None,
-                device=None) -> Any:
-    """This rank's block of a GLOBAL host batch, on ``device``: its rows
-    over the data axes and, for arrays of rank > 1 under ``seq_axis``,
-    its slice of the sequence. Every rank passes the same global batch
-    (the one-host contract of the port; feeding each host its own rows is
-    slice 6b's meshed ``run_dataset``)."""
+                device=None, local: bool = False) -> Any:
+    """A host batch on ``device`` as this rank's block: its rows over the
+    data axes and, for arrays of rank > 1 under ``seq_axis``, its slice
+    of the sequence. The caller says which form ``batch`` has:
+
+    - ``local=False`` (global form): every rank passes the same GLOBAL
+      batch and uploads its block of it;
+    - ``local=True`` (local-rows form, the reference's multi-process
+      contract): ``batch`` holds THIS rank's ``local_batch_rows(mesh, b)``
+      rows of a global batch of ``b``, and global row order is block
+      order on the data axes (block 0's rows first), so nothing is cut
+      but the sequence. Ranks of one data block pass the same rows.
+    """
     from mmlspark_tpu_torch.parallel.trainer import to_device
     from mmlspark_tpu_torch.utils import config
     device = config.resolve_device() if device is None else device
 
     def put(x):
-        x = local_seq(mesh, local_rows(mesh, np.asarray(x)), seq_axis)
+        x = np.asarray(x)
+        if not local:
+            x = local_rows(mesh, x)
+        x = local_seq(mesh, x, seq_axis)
         return to_device(np.ascontiguousarray(x), device)
     if isinstance(batch, Mapping):
         return {k: put(v) for k, v in batch.items()}
     return put(batch)
+
+
+def gather_local_rows(mesh, data: Mapping, local_batch: int
+                      ) -> Dict[str, np.ndarray]:
+    """The global host epoch of a local-rows epoch: each data block's
+    ``(steps * local_batch)`` rows of ``data`` gathered from the ranks of
+    this rank's data group (one host all-gather) and laid out as the
+    reference's multi-process epoch, block-cyclic: global batch ``i`` is
+    block 0's ``i``-th ``local_batch`` rows, then block 1's, and so on.
+    Every rank of the group must hold the same number of rows."""
+    from mmlspark_tpu_torch.parallel import collectives
+    axes = active_batch_axes(mesh) or ()
+    mine = {k: np.asarray(v) for k, v in data.items()}
+    gathered = collectives.host_all_gather(
+        (batch_block(mesh), mine), axis_group(mesh, axes))
+    gathered.sort(key=lambda item: item[0])
+    rows = {len(next(iter(b.values()))) for _, b in gathered}
+    if len(rows) != 1:
+        raise ValueError(f"local epochs differ in rows across the data "
+                         f"blocks: {sorted(rows)}; every block pads its "
+                         "rows to the same steps x local batch")
+    n = rows.pop()
+    if n % local_batch:
+        raise ValueError(f"local epoch of {n} rows is not a whole number "
+                         f"of local batches of {local_batch}")
+    steps = n // local_batch
+    out = {}
+    for k in mine:
+        parts = [b[k].reshape((steps, local_batch) + b[k].shape[1:])
+                 for _, b in gathered]
+        glob = np.concatenate(parts, axis=1)
+        out[k] = glob.reshape((steps * glob.shape[1],) + glob.shape[2:])
+    return out
 
 
 # -- process groups over axes ------------------------------------------------

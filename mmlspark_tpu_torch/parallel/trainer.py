@@ -125,24 +125,42 @@ class DeviceEpochCache:
     (the reference's ``fold_in(seed, epoch)`` contract; the orders
     themselves differ from ``jax.random``'s).
 
-    On a ``mesh``, ``data`` is the GLOBAL epoch (every rank passes the
-    same arrays) and ``batch_size`` the global batch: each rank uploads
-    only its block of every batch (``local_batch`` rows, and under
-    ``seq_axis`` its slice of the third dim of arrays of rank > 2), once;
-    a shuffled epoch keeps the global rows on the host and uploads the
-    rank's block of each epoch's order, the one-device cache's order.
+    On a ``mesh``, ``batch_size`` is the global batch and each rank
+    uploads only its block of every batch (``local_batch`` rows, and
+    under ``seq_axis`` its slice of the third dim of arrays of rank > 2),
+    once; a shuffled epoch keeps the global rows on the host and uploads
+    the rank's block of each epoch's order, the one-device cache's
+    order. The caller says which rows ``data`` holds:
+
+    - ``local=False``: the GLOBAL epoch (every rank passes the same
+      arrays);
+    - ``local=True``: this rank's rows, its share of every batch in
+      order (``steps * local_batch`` rows; the reference's multi-process
+      contract). The data blocks' rows are gathered once, at
+      construction (``sharding.gather_local_rows``, one host all-gather
+      over the data axes), into the global epoch in the reference's
+      block-cyclic order, and the cache goes on as in the global form:
+      its batches are bit-equal to a one-rank cache over that epoch.
+      Host memory: the global epoch, ``data``'s bytes times the data
+      blocks, on every rank for the cache's life when shuffled (an
+      unshuffled cache drops it after its one upload).
     """
 
     def __init__(self, data: Dict[str, np.ndarray], batch_size: int,
                  mesh=None, seq_axis: Optional[str] = None,
-                 shuffle: bool = False, seed: int = 0, device=None):
+                 shuffle: bool = False, seed: int = 0, device=None,
+                 local: bool = False):
         if seq_axis is not None and mesh is None:
             raise ValueError("a sequence-split epoch needs a mesh")
+        if local and mesh is None:
+            raise ValueError("a local-rows epoch needs a mesh")
         self.mesh, self.seq_axis = mesh, seq_axis
         self.device = _device(device)
         self.batch_size = int(batch_size)
         self.local_batch = (self.batch_size if mesh is None else
                             sharding.local_batch_rows(mesh, self.batch_size))
+        if local:
+            data = sharding.gather_local_rows(mesh, data, self.local_batch)
         n = next(iter(data.values())).shape[0]
         self.steps_per_epoch = n // self.batch_size
         if self.steps_per_epoch < 1:
@@ -523,13 +541,15 @@ class DistributedTrainer:
             return self._global_mean(loss)
 
     # -- data --------------------------------------------------------------
-    def put_batch(self, batch: Dict[str, np.ndarray]
+    def put_batch(self, batch: Dict[str, np.ndarray], local: bool = False
                   ) -> Dict[str, torch.Tensor]:
-        """A host batch on the device; on a mesh the GLOBAL batch, of
-        which this rank uploads its block (``sharding.shard_batch``)."""
+        """A host batch on the device. On a mesh, ``batch`` is the GLOBAL
+        batch, of which this rank uploads its block, or with ``local``
+        this rank's own rows of the global batch
+        (``sharding.shard_batch``'s two forms)."""
         if self.mesh is not None:
             return sharding.shard_batch(self.mesh, batch, self.seq_axis,
-                                        self.device)
+                                        self.device, local=local)
         return {k: to_device(v, self.device) for k, v in batch.items()}
 
     # -- telemetry ---------------------------------------------------------

@@ -24,8 +24,18 @@ The elastic-mesh lever, :meth:`ResilientTrainLoop.reshard_to`, moves a
 run onto a new mesh of the same ranks at a step boundary: drain to a
 checkpoint, build the trainer on the new ``DeviceMesh``, restore across
 mesh shapes, go on (the stage, expert and table leaves of slice 6b-i
-too). ``run_dataset`` on a mesh (per-rank data-state files of a streamed
-input) is slice 6b-iii of the port and raises.
+too).
+
+``run_dataset`` on a mesh feeds each rank its own stream: every rank
+iterates its own pipeline (typically a ``FileSource(process_shard=True)``
+shard) and uploads its local rows of each global batch
+(``put_batch(local=True)``); each rank saves and restores its own
+``data_state-<step>.p<rank>.json``, so a restart restores every rank's
+cursor. The ranks agree, at the start, on the step they resumed from and
+the steps to run, and before each step on whether every rank has a
+batch: a rank whose shard runs dry first raises on every rank, with a
+message that names it and the step, instead of leaving the others
+waiting in a collective.
 """
 from __future__ import annotations
 
@@ -97,8 +107,7 @@ class ResilientTrainLoop:
         from mmlspark_tpu_torch.parallel.mesh import (make_mesh,
                                                       parse_mesh_shape)
         _LOG.warning("resharding at step %d to mesh %s", step, shape)
-        self.ckpt.wait()
-        if self.ckpt.latest_step() != step:
+        if self.ckpt.latest_committed(state) != step:
             self.ckpt.save(state, step=step, wait=True)
         self.trainer = self.trainer_factory(make_mesh(parse_mesh_shape(shape)))
         state = self.ckpt.restore(self.trainer, self.init_params_fn,
@@ -165,8 +174,7 @@ class ResilientTrainLoop:
             self.ckpt.maybe_save(state, every=self.save_every, step=step)
         # final commit: wait for any in-flight async save first so a
         # cadence-aligned last step doesn't double-save
-        self.ckpt.wait()
-        if self.ckpt.latest_step() != total_steps:
+        if self.ckpt.latest_committed(state) != total_steps:
             self.ckpt.save(state, step=total_steps, wait=True)
         return state
 
@@ -178,8 +186,7 @@ class ResilientTrainLoop:
         reason = preemption.preemption_reason() or "preempted"
         _LOG.warning("preempted (%s) at step %d: committing a final "
                      "checkpoint before exit", reason, step)
-        self.ckpt.wait()
-        if step > 0 and self.ckpt.latest_step() != step:
+        if step > 0 and self.ckpt.latest_committed(state) != step:
             if data_state is not None:
                 self.ckpt.put_data_state(step, data_state)
             self.ckpt.save(state, step=step, wait=True)
@@ -204,15 +211,14 @@ class ResilientTrainLoop:
         harmless, a committed step without one would restart the stream.
         """
         from mmlspark_tpu_torch.data.pipeline import Dataset
-        if getattr(self.trainer, "mesh", None) is not None:
-            raise NotImplementedError(
-                "run_dataset on a mesh (each rank's streamed input and its "
-                "own data-state files) is slice 6b of the port; drive a "
-                "meshed run with run(batch_fn, ...)")
+        mesh = getattr(self.trainer, "mesh", None)
+        lockstep = _Lockstep(mesh) if mesh is not None else None
         rng = 0 if rng is None else rng
         state, start = self.restore_or_init()
         if start > 0:
             _LOG.info("resuming from checkpoint step %d", start)
+        if lockstep is not None:
+            lockstep.agree_on_run(start, total_steps)
         it = data.iter() if isinstance(data, Dataset) else data
         try:
             if start > 0:
@@ -232,16 +238,21 @@ class ResilientTrainLoop:
                 try:
                     host = next(it)
                 except StopIteration:
+                    host = None
+                if lockstep is not None:
+                    lockstep.agree_on_batch(host is not None, step,
+                                            total_steps)
+                if host is None:
                     raise ValueError(
                         f"dataset exhausted at step {step} of {total_steps};"
-                        " add .repeat() for multi-epoch runs") from None
-                batch = self.trainer.put_batch(host)
+                        " add .repeat() for multi-epoch runs")
+                batch = (self.trainer.put_batch(host) if lockstep is None
+                         else self.trainer.put_batch(host, local=True))
                 state, _metrics = self.trainer.train_step(state, batch, rng)
                 if self.save_every > 0 and step % self.save_every == 0:
                     self.ckpt.put_data_state(step, it.state_dict())
                     self.ckpt.save(state, step=step)
-            self.ckpt.wait()
-            if self.ckpt.latest_step() != total_steps:
+            if self.ckpt.latest_committed(state) != total_steps:
                 self.ckpt.put_data_state(total_steps, it.state_dict())
                 self.ckpt.save(state, step=total_steps, wait=True)
             return state
@@ -249,3 +260,47 @@ class ResilientTrainLoop:
             closer = getattr(it, "close", None)
             if callable(closer):
                 closer()
+
+
+class _Lockstep:
+    """The agreements of a meshed ``run_dataset``, over a gloo group of the
+    mesh's ranks (host flags, whatever the trainer's backend): made once,
+    at the start of the run, by every rank."""
+
+    def __init__(self, mesh):
+        import torch.distributed as dist
+        self._dist = dist
+        ranks = sorted(int(r) for r in mesh.mesh.flatten().tolist())
+        self.group = dist.new_group(ranks, backend="gloo")
+        self.rank = dist.get_rank()
+
+    def _gather(self, value) -> list:
+        from mmlspark_tpu_torch.parallel.collectives import host_all_gather
+        return host_all_gather(value, self.group)
+
+    def agree_on_run(self, start: int, total_steps: int) -> None:
+        """Every rank resumed from the same step and runs to the same
+        one."""
+        seen = self._gather((self.rank, int(start), int(total_steps)))
+        if len({(s, t) for _, s, t in seen}) > 1:
+            raise RuntimeError(
+                "the ranks of a meshed run_dataset disagree on (resumed "
+                f"step, total steps): {sorted(seen)} as (rank, start, "
+                "total)")
+
+    def agree_on_batch(self, has_batch: bool, step: int,
+                       total_steps: int) -> None:
+        """Raise on every rank when any rank's stream ran dry before
+        ``step``."""
+        import torch
+        flag = torch.tensor([1 if has_batch else 0], dtype=torch.int32)
+        self._dist.all_reduce(flag, op=self._dist.ReduceOp.MIN,
+                              group=self.group)
+        if int(flag.item()) == 1:
+            return
+        dry = [r for r, ok in self._gather((self.rank, has_batch)) if not ok]
+        raise ValueError(
+            f"rank(s) {dry} ran out of data at step {step} of "
+            f"{total_steps} in a meshed run_dataset; every rank's stream "
+            "must give the same number of batches (add .repeat(), or "
+            "balance the shards)")

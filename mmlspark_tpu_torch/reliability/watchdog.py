@@ -27,9 +27,10 @@ the deadline silently. Two pieces close that gap:
 A stall fires ONCE per heartbeat until that heartbeat beats again. The
 module clock is injectable (:func:`set_clock`) and the check loop is
 callable directly (:meth:`Watchdog.check`), so tests drive detection with
-zero sleeps and zero real threads. The reference also dumps its flight
-recorder on a stall; the port has no flight recorder yet (ROADMAP queue
-A, observability), so the event log carries the stacks.
+zero sleeps and zero real threads. A stall also dumps the flight
+recorder's ring (``observability/flightrec.py``) at once: a stall often
+comes before a kill from outside, after which nothing is left to dump,
+and the ring is on even where no events path was set.
 """
 from __future__ import annotations
 
@@ -222,13 +223,17 @@ class Watchdog:
             stall.timeout_s, stall.beats, stall.stacks)
         # a stall is rare and already catastrophic-adjacent: count and
         # emit unconditionally-cheap telemetry, never swallow its cost
-        from mmlspark_tpu_torch.observability import events, metrics
+        from mmlspark_tpu_torch.observability import (events, flightrec,
+                                                      metrics)
         metrics.counter("reliability.watchdog_stalls").inc()
         if events.recording_enabled():
             events.emit("event", "watchdog.stall", heartbeat=stall.name,
                         stalled_s=round(stall.stalled_s, 3),
                         timeout_s=stall.timeout_s, beats=stall.beats,
                         stacks=stall.stacks)
+        dumped = flightrec.dump(reason=f"watchdog.stall.{stall.name}")
+        if dumped:
+            _LOG.error("watchdog: flight recorder dumped to %s", dumped)
         try:
             if callable(self.action):
                 self.action(stall)

@@ -36,10 +36,28 @@ Every optimizer of the reference trains (``adamw``, ``adam``, ``sgd``,
 ``meshSpec`` (a ``MeshSpec``, an axis-size dict, ``"data=2"`` or a
 ``DeviceMesh``; None consults the launcher's ``runtime.mesh`` once a
 process group is joined, else one device) fits data parallel through the
-trainer: every rank runs the fit on the same frame, the batch rounds up
-to a multiple of the data ranks (times ``accumSteps``), each rank
-uploads its block of every batch, and the weighted loss is the global
-batch's (``sharding.global_mean``), as the reference's GSPMD step.
+trainer: the batch rounds up to a multiple of the data ranks (times
+``accumSteps``) and the weighted loss is the global batch's
+(``sharding.global_mean``), as the reference's GSPMD step. When the mesh
+splits the batch over more than one data block, the fit is the
+reference's multi-process fit (``mmlspark_tpu/train/deep.py:316-372``):
+
+- the frame is THIS rank's shard (``Frame.process_shard``; ranks of one
+  data block pass the same rows), and each rank feeds its
+  ``local_batch_rows`` of every global batch (``put_batch(local=True)``);
+- the moments are summed over the data blocks
+  (:meth:`_DeepEstimatorBase._allreduce_moments`), so the fit-time
+  statistics describe the global frame; an empty shard is allowed;
+- a shard above its quota (``steps_per_epoch * local_bs`` rows) raises;
+- streamed epochs are shuffled per shard, seeded by ``(seed, epoch,
+  block)``, and shorter shards fill to the steps of the epoch with
+  zero-weight batches, so every rank runs the same steps; validation
+  runs the most steps any rank needs, with zero-weight filler too;
+- the resident epoch is the local-rows ``DeviceEpochCache``, whose
+  verdict every rank shares.
+
+With ``profiling.trace_dir`` set, the fit's epochs run inside
+``utils/profiling.trace`` (a ``torch.profiler`` trace).
 """
 from __future__ import annotations
 
@@ -231,6 +249,40 @@ class _DeepEstimatorBase(TorchEstimator):
                       ymu, ysigma):
         raise NotImplementedError
 
+    # -- multi-process -----------------------------------------------------
+    @staticmethod
+    def _allreduce_moments(moments, group):
+        """The streaming moments summed (``ymax``: maxed) over the ranks of
+        ``group`` (the data blocks), so fit-time statistics describe the
+        GLOBAL frame while each rank scanned only its shard. A header
+        exchange agrees on the feature width first, so an empty shard
+        (n 0, d unknown) adds zeros; the global-empty case surfaces at the
+        caller's ``moments[0] == 0`` check. Differing widths raise on
+        every rank (the reference raised on the narrower ones only, and
+        left the others waiting in the next gather)."""
+        from mmlspark_tpu_torch.parallel.collectives import host_all_gather
+        n, d, s, ss, ymax, ysum, ysumsq = moments
+        header = np.asarray([n, -1 if d is None else d], np.float64)
+        h = np.stack(host_all_gather(header, group))
+        d_all = int(h[:, 1].max())
+        if d_all < 0:
+            return 0, None, None, None, -1, 0.0, 0.0
+        widths = sorted({int(w) for w in h[:, 1] if w >= 0})
+        if len(widths) > 1:
+            raise ValueError(
+                f"feature width differs across ranks: {d} vs {d_all} "
+                f"(widths {widths})")
+        if d is None:
+            s, ss = np.zeros(d_all), np.zeros(d_all)
+        packed = np.concatenate(
+            [np.asarray([n], np.float64), s, ss,
+             np.asarray([ymax, ysum, ysumsq], np.float64)])
+        g = np.stack(host_all_gather(packed, group))
+        return (int(g[:, 0].sum()), d_all, g[:, 1:1 + d_all].sum(axis=0),
+                g[:, 1 + d_all:1 + 2 * d_all].sum(axis=0),
+                int(g[:, -3].max()), float(g[:, -2].sum()),
+                float(g[:, -1].sum()))
+
     # -- fit ---------------------------------------------------------------
     def fit(self, frame: Frame):
         from mmlspark_tpu_torch.data.prefetch import DevicePrefetcher
@@ -238,19 +290,27 @@ class _DeepEstimatorBase(TorchEstimator):
         from mmlspark_tpu_torch.utils.logging import MetricLogger
         from mmlspark_tpu_torch.parallel.trainer import DistributedTrainer
 
+        from mmlspark_tpu_torch.parallel.collectives import host_all_gather
         from mmlspark_tpu_torch.parallel.mesh import mesh_shape, resolve_mesh
         from mmlspark_tpu_torch.parallel.sharding import (
-            active_batch_axes, whole_state_dict,
+            active_batch_axes, axis_group, batch_block, local_batch_rows,
+            whole_state_dict,
         )
+        from mmlspark_tpu_torch.train.learners import _mesh_group
+        from mmlspark_tpu_torch.utils.profiling import trace
         device = resolve_device()
         mesh = resolve_mesh(self.get("meshSpec"))
         fcol, lcol = self.featuresCol, self.labelCol
         self.validation_history = []
         accum = int(self.accumSteps)
         # the batch splits evenly over the data ranks and the microbatches
-        dp = math.prod(mesh_shape(mesh)[a] for a in
-                       active_batch_axes(mesh) or ()) if mesh else 1
+        axes = (active_batch_axes(mesh) or ()) if mesh else ()
+        dp = math.prod(mesh_shape(mesh)[a] for a in axes) if mesh else 1
         bs = int(math.ceil(self.batchSize / (dp * accum)) * dp * accum)
+        # more than one data block: each rank holds and feeds its own rows
+        # (its local_bs of every global batch)
+        spans = dp > 1
+        local_bs = local_batch_rows(mesh, bs) if spans else bs
         seed = self.seed
         patience = int(self.get("earlyStoppingPatience"))
         val_frac = float(self.get("validationSplit"))
@@ -262,6 +322,9 @@ class _DeepEstimatorBase(TorchEstimator):
             frame, val_frame = _train_val_split(frame, val_frac, seed)
 
         moments = self._streaming_moments(frame)
+        if spans:
+            moments = self._allreduce_moments(moments,
+                                              axis_group(mesh, axes))
         if moments[0] == 0:
             raise ValueError(f"{type(self).__name__}: empty frame")
         n, d, mu, sigma, ymax, ymu, ysigma = self._finalize_stats(*moments)
@@ -282,11 +345,22 @@ class _DeepEstimatorBase(TorchEstimator):
             return x
 
         steps_per_epoch = math.ceil(n / bs)
+        if spans and math.ceil(frame.count() / local_bs) > steps_per_epoch:
+            raise ValueError(
+                f"rank {torch.distributed.get_rank()} holds {frame.count()} "
+                f"rows but its per-epoch quota is "
+                f"{steps_per_epoch * local_bs} ({steps_per_epoch} steps x "
+                f"{local_bs} local rows); rebalance the per-rank shards "
+                "(Frame.process_shard splits evenly)")
         total_steps = steps_per_epoch * self.epochs
         trainer = DistributedTrainer(
             self._make_loss(prep, ymu, ysigma),
             self._build_optimizer(total_steps), mesh=mesh, accum_steps=accum,
             remat=self.remat, device=device)
+
+        def put(batch):
+            return trainer.put_batch(batch, local=spans)
+
         def init_fn():
             return _module_with(spec, self._init_params(spec["module"], seed))
 
@@ -326,20 +400,36 @@ class _DeepEstimatorBase(TorchEstimator):
                                                                    mode)
                 cache = None if mode == "off" else _epoch_device_cache(
                     frame, fcol, lcol, bs, self._y_dtype, device=device,
-                    seed=seed, force=mode == "on", mesh=mesh)
+                    seed=seed, force=mode == "on", mesh=mesh,
+                    local_batch=local_bs if spans else None,
+                    steps=steps_per_epoch if spans else None)
                 if ckpt is not None:
                     ckpt.put_meta(batch_order="cached" if cache is not None
                                   else "streamed")
 
+            def filler():
+                return {"x": np.zeros((local_bs, d), np.float32),
+                        "y": np.zeros((local_bs,), self._y_dtype),
+                        "w": np.zeros((local_bs,), np.float32)}
+
             def host_batches(epoch):
-                """Padded fixed-shape batches of one epoch in the JAX
-                package's numpy order (seeded by (seed, epoch)), the
-                resumed epoch's finished batches skipped."""
-                epoch_rng = np.random.default_rng([seed, epoch])
-                for j, hb in enumerate(frame.shuffled_batches(
-                        bs, cols=[fcol, lcol], rng=epoch_rng)):
+                """Padded fixed-shape LOCAL batches of one epoch in the JAX
+                package's numpy order, seeded by (seed, epoch) and, across
+                data blocks, the block; the resumed epoch's finished
+                batches skipped. A shard shorter than the epoch fills to
+                its steps with zero-weight batches (lockstep)."""
+                epoch_rng = np.random.default_rng(
+                    [seed, epoch] + ([batch_block(mesh)] if spans else []))
+                j = 0
+                for hb in frame.shuffled_batches(
+                        local_bs, cols=[fcol, lcol], rng=epoch_rng):
                     if not (epoch == start_epoch and j < skip_in_epoch):
-                        yield self._pad_batch(hb, fcol, lcol, bs)
+                        yield self._pad_batch(hb, fcol, lcol, local_bs)
+                    j += 1
+                while j < steps_per_epoch:
+                    if not (epoch == start_epoch and j < skip_in_epoch):
+                        yield filler()
+                    j += 1
 
             def cached_batches(epoch):
                 for j, b in enumerate(cache.batches(epoch)):
@@ -354,8 +444,17 @@ class _DeepEstimatorBase(TorchEstimator):
                 # the held-out split pads once and stays on the device
                 val_fn, finalize = self._make_val_step(prep, ymu, ysigma)
                 val_dev = [
-                    trainer.put_batch(self._pad_batch(hb, fcol, lcol, bs))
-                    for hb in val_frame.batches(bs, cols=[fcol, lcol])]
+                    put(self._pad_batch(hb, fcol, lcol, local_bs))
+                    for hb in val_frame.batches(local_bs,
+                                                cols=[fcol, lcol])]
+                if spans:
+                    # every rank runs the same eval steps: the most any
+                    # rank needs, shorter val shards padded with zero
+                    # weight
+                    val_steps = max(host_all_gather(len(val_dev),
+                                                    _mesh_group(mesh)))
+                    val_dev += [put(filler())
+                                for _ in range(val_steps - len(val_dev))]
                 val_log = MetricLogger(every=1,
                                        name=type(self).__name__ + ".val")
 
@@ -370,60 +469,64 @@ class _DeepEstimatorBase(TorchEstimator):
                 stopped = bool(es.get("stopped", False))
                 self.validation_history = list(es.get("history", []))
             step, last_loss = done, None
-            for epoch in range(start_epoch, start_epoch if stopped
-                               else self.epochs):
-                if cache is not None:
-                    it, closer = cached_batches(epoch), None
-                else:
-                    it = closer = DevicePrefetcher(host_batches(epoch),
-                                                   trainer.put_batch)
-                try:
-                    for batch in it:
-                        state, metrics = trainer.train_step(state, batch,
-                                                            seed)
-                        last_loss = metrics["loss"]
-                        step += 1
-                        metric_log(step, {"loss": last_loss}, batch_rows=bs)
-                        if ckpt is not None:
-                            ckpt.maybe_save(
-                                state, every=self.checkpointEvery, step=step)
-                finally:
-                    if closer is not None:
-                        closer.close()
-                if val_fn is not None:
-                    module = state["module"]
-                    with torch.no_grad(), trainer.mesh_context():
-                        # the metric sums accumulate on the device: one
-                        # host round trip per epoch
-                        sums = trainer.batch_sum(
-                            sum(val_fn(module, b) for b in val_dev))
-                    vm = finalize(obssyncs.device_get(sums,
-                                                      "deep.validation"))
-                    val_log(epoch + 1, vm)
-                    self.validation_history.append({"epoch": epoch + 1,
-                                                    **vm})
-                    if vm["val_loss"] < best_val - 1e-12:
-                        best_val, stale = vm["val_loss"], 0
+            with trace():   # a torch.profiler trace iff profiling.trace_dir
+                for epoch in range(start_epoch, start_epoch if stopped
+                                   else self.epochs):
+                    if cache is not None:
+                        it, closer = cached_batches(epoch), None
                     else:
-                        stale += 1
-                        stopped = bool(patience and stale >= patience)
-                    if ckpt is not None:
-                        ckpt.put_meta(early_stop={
-                            "best_val": best_val, "stale": stale,
-                            "stopped": stopped,
-                            "history": self.validation_history})
-                    if stopped:
-                        break
+                        it = closer = DevicePrefetcher(host_batches(epoch),
+                                                       put)
+                    try:
+                        for batch in it:
+                            state, metrics = trainer.train_step(state, batch,
+                                                                seed)
+                            last_loss = metrics["loss"]
+                            step += 1
+                            metric_log(step, {"loss": last_loss},
+                                       batch_rows=bs)
+                            if ckpt is not None:
+                                ckpt.maybe_save(state,
+                                                every=self.checkpointEvery,
+                                                step=step)
+                    finally:
+                        if closer is not None:
+                            closer.close()
+                    if val_fn is not None:
+                        module = state["module"]
+                        with torch.no_grad(), trainer.mesh_context():
+                            # the metric sums accumulate on the device: one
+                            # host round trip per epoch
+                            sums = trainer.batch_sum(
+                                sum(val_fn(module, b) for b in val_dev))
+                        vm = finalize(obssyncs.device_get(sums,
+                                                          "deep.validation"))
+                        val_log(epoch + 1, vm)
+                        self.validation_history.append(
+                            {"epoch": epoch + 1, **vm})
+                        if vm["val_loss"] < best_val - 1e-12:
+                            best_val, stale = vm["val_loss"], 0
+                        else:
+                            stale += 1
+                            stopped = bool(patience and stale >= patience)
+                        if ckpt is not None:
+                            ckpt.put_meta(early_stop={
+                                "best_val": best_val, "stale": stale,
+                                "stopped": stopped,
+                                "history": self.validation_history})
+                        if stopped:
+                            break
             if ckpt is not None:
-                ckpt.wait()
-                if ckpt.latest_step() != step:
+                if ckpt.latest_committed(state) != step:
                     ckpt.save(state, step=step, wait=True)
             if last_loss is None:
                 # fully resumed fit (no step ran): the restored params' loss
-                hb = next(iter(frame.batches(bs, cols=[fcol, lcol])))
+                # (an empty shard evaluates a zero-weight batch)
+                hb = next(iter(frame.batches(local_bs, cols=[fcol, lcol])),
+                          None)
                 last_loss = trainer.eval_step(
-                    state,
-                    trainer.put_batch(self._pad_batch(hb, fcol, lcol, bs)),
+                    state, put(filler() if hb is None else
+                               self._pad_batch(hb, fcol, lcol, local_bs)),
                     seed)
 
             module = state["module"]

@@ -16,8 +16,9 @@ workaround (``CNTKModel.scala:71-76``). A fit's optimizer loop is eager
 torch: forward, ``backward()``, the optimizer step, then the proximal
 step; it reads nothing back from the device until the fitted parameters
 come home in one counted fetch. The learners fit on one device: inside a
-``torch.distributed`` group of more than one process they raise
-(multi-process fits are ROADMAP slice 6b).
+``torch.distributed`` group each rank fits the frame it was given on its
+own ``runtime.device``, as the reference's learners fit each process's
+frame on its first local device.
 """
 from __future__ import annotations
 
@@ -158,7 +159,9 @@ def _pad_xyw(hb: Dict[str, np.ndarray], fcol: str, lcol: str, bs: int,
 
 def _epoch_device_cache(frame: Frame, fcol: str, lcol: str, batch_size: int,
                         y_dtype, device=None, seed: int = 0,
-                        force: bool = False, mesh=None):
+                        force: bool = False, mesh=None,
+                        local_batch: Optional[int] = None,
+                        steps: Optional[int] = None):
     """Pad-and-masked epoch -> shuffled ``DeviceEpochCache``, or None when
     it exceeds ``runtime.device_cache_mb`` (unless ``force``).
 
@@ -166,21 +169,53 @@ def _epoch_device_cache(frame: Frame, fcol: str, lcol: str, batch_size: int,
     frame costs no host materialization; the tail rows are padded once
     with zero weight and ride through every shuffled epoch masked out of
     the loss. A single-batch epoch skips the shuffle: batch composition
-    does not change under a permutation. On a ``mesh`` the epoch is the
-    global one and each rank uploads its block of every batch."""
+    does not change under a permutation. On a ``mesh`` without
+    ``local_batch`` the frame is the global epoch and each rank uploads
+    its block of every batch.
+
+    Multi-process (``local_batch`` / ``steps`` given, on a mesh): the
+    frame is this rank's shard, ``batch_size`` stays the GLOBAL batch and
+    the shard pads to its quota of ``steps * local_batch`` rows; the
+    cache is the local-rows form (``DeviceEpochCache(local=True)``). The
+    verdict is the group's: each rank budgets its own padded shard, and
+    the verdicts are AND-reduced over the mesh's ranks, so no rank takes
+    the cached path while another streams (mismatched collectives, or
+    different epoch orders). A rank with an empty shard makes every rank
+    stream (``'on'`` raises on every rank).
+    """
     from mmlspark_tpu_torch.parallel.trainer import DeviceEpochCache
+    local = mesh is not None and local_batch is not None
+    local_batch = batch_size if local_batch is None else local_batch
     n = frame.count()
-    if n == 0:
+    if n == 0 and not local:
         raise ValueError("empty frame")
-    d = np.asarray(frame.head(1)[0][fcol]).size
-    steps = int(np.ceil(n / batch_size))
-    padded = steps * batch_size
+    steps = int(np.ceil(n / local_batch)) if steps is None else steps
+    padded = steps * local_batch
+    if n > padded:
+        raise ValueError(
+            f"shard of {n} rows exceeds its epoch quota {padded} "
+            f"({steps} steps x {local_batch} local rows)")
     shuffle = steps > 1
-    stand_in = {
-        "x": np.broadcast_to(np.float32(0), (padded, d)),
-        "y": np.broadcast_to(np.zeros((), y_dtype), (padded,)),
-        "w": np.broadcast_to(np.float32(0), (padded,))}
-    if not force and not DeviceEpochCache.fits(stand_in, shuffle=shuffle):
+    fits = force
+    if n and not force:
+        d = np.asarray(frame.head(1)[0][fcol]).size
+        fits = DeviceEpochCache.fits({
+            "x": np.broadcast_to(np.float32(0), (padded, d)),
+            "y": np.broadcast_to(np.zeros((), y_dtype), (padded,)),
+            "w": np.broadcast_to(np.float32(0), (padded,))},
+            shuffle=shuffle)
+    if local:
+        from mmlspark_tpu_torch.parallel.collectives import host_all_gather
+        verdicts = host_all_gather((n > 0, fits), _mesh_group(mesh))
+        if not all(has_rows for has_rows, _ in verdicts):
+            # a rank with an empty shard streams zero-weight filler; the
+            # cache needs rows on every rank
+            if force:
+                raise ValueError("a resident epoch needs rows on every "
+                                 "rank; some rank's shard is empty")
+            return None
+        fits = all(ok for _, ok in verdicts)
+    if not fits:
         return None
     x = np.asarray(frame.column(fcol), np.float32)
     y = np.asarray(frame.column(lcol))
@@ -188,19 +223,14 @@ def _epoch_device_cache(frame: Frame, fcol: str, lcol: str, batch_size: int,
                      _pad_xyw({fcol: x, lcol: y}, fcol, lcol, padded,
                               y_dtype)))
     return DeviceEpochCache(epoch, batch_size, mesh=mesh, shuffle=shuffle,
-                            seed=seed, device=device)
+                            seed=seed, device=device, local=local)
 
 
-def _single_process(what: str) -> None:
-    """The learners fit on one device: inside a ``torch.distributed`` group
-    of more than one process they raise rather than fit each process's
-    shard on its own."""
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            f"{what}: multi-process fits are not ported yet (ROADMAP slice "
-            "6b); the port's learners fit on one device")
+def _mesh_group(mesh):
+    """The process group of every rank of ``mesh`` (None for one rank)."""
+    from mmlspark_tpu_torch.parallel.mesh import AXES
+    from mmlspark_tpu_torch.parallel.sharding import axis_group
+    return axis_group(mesh, AXES)
 
 
 def _leaves(tree) -> list:
@@ -245,7 +275,6 @@ def _stream_adam(loss_fn: Callable, params: Any, frame: Frame,
     a device-side permutation of it; a larger frame streams shuffled host
     batches instead. Returns the fitted tree as host arrays, fetched in one
     counted sync, and the device the batches lay on."""
-    _single_process("_stream_adam")
     device = resolve_device() if device is None else device
     params = _tree_map(lambda a: _on_device(a, device).requires_grad_(),
                        params)
@@ -460,7 +489,6 @@ class NaiveBayes(HasBatchSize, TorchEstimator):
         # d from the first row; class count from the observed label max AND
         # the label metadata (metadata alone can under-count when it was
         # fit elsewhere)
-        _single_process("NaiveBayes")
         from mmlspark_tpu_torch.parallel.trainer import to_device
         d = self._peek_dim(frame)
         ymax = self._label_max(frame)
@@ -514,7 +542,6 @@ class LinearRegression(HasBatchSize, TorchEstimator):
     regParam = FloatParam("regParam", "L2 regularization strength", 1e-6)
 
     def fit(self, frame: Frame) -> "LinearRegressionModel":
-        _single_process("LinearRegression")
         from mmlspark_tpu_torch.parallel.trainer import to_device
         d = self._peek_dim(frame)
         bs = self.batchSize

@@ -52,7 +52,7 @@ from mmlspark_tpu_torch.core.serialization import register_stage
 from mmlspark_tpu_torch.observability import syncs as obssyncs
 from mmlspark_tpu_torch.train.learners import (
     FeaturizeHints, TorchEstimator, _on_device, _score_classifier,
-    _score_regressor, _single_process,
+    _score_regressor,
 )
 from mmlspark_tpu_torch.utils.config import resolve_device
 
@@ -347,7 +347,6 @@ class _TreeParams(TorchEstimator):
         """Grow ``len(masks)`` trees on the device: V (T, n, C) or (n, C)
         shared, w (T, n). Returns host (feats, bins, leaf_V, leaf_w) in one
         counted fetch, and the device the bins lay on."""
-        _single_process(type(self).__name__)
         device = resolve_device()
         Xb_d = _device_bins(Xb, device)
         w_d = _on_device(w, device)
@@ -567,7 +566,6 @@ class _GBTBase(_TreeParams):
         tree fits -g/h via the gradient gain and its training-set leaf
         assignment (from grow_trees) updates F without a re-walk. The
         rounds' trees stay on the device and come home in one fetch."""
-        _single_process(type(self).__name__)
         n, F_feats = Xb.shape
         depth, B = self.maxDepth, self.maxBins
         lam = max(self.lam, 1e-6)

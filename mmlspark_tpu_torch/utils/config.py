@@ -64,6 +64,14 @@ _DEFAULTS: Dict[str, Any] = {
     "observability.trace_slow_ms": 0.0,  # >0 = served requests at least
                                          # this slow emit their span
                                          # timeline (tail sampling)
+    "observability.annotate": False,  # span() also opens a
+                                      # torch.profiler.record_function
+    "observability.flight_recorder_size": 256,  # last-N in-memory event
+                                                # ring, dumped on a watchdog
+                                                # stall or a CLI crash
+                                                # (0 = off)
+    "profiling.trace_dir": "",        # non-empty = utils/profiling.trace()
+                                      # writes torch.profiler traces here
     "runtime.compile_cache_dir": "",  # the compile seam's cache root; a
                                       # CUDA graph cannot be stored, so
                                       # set or not every program is built

@@ -38,8 +38,9 @@ def test_importing_every_port_module_loads_no_jax_and_no_jax_package():
     # cli, control/, testing/, supervisor, launcher, slo, goodput and
     # preemption, the streamed input and resume slice's codecs, native
     # loader, data pipeline, checkpointer, resilient loop and disk, and
-    # the meshed layers' mesh, sharding, collectives and rank pool
-    assert int(count) >= 102
+    # the meshed layers' mesh, sharding, collectives and rank pool, and
+    # the run's record: the flight recorder, trace export and profiling
+    assert int(count) >= 105
     assert bad == "[]", bad
 
 

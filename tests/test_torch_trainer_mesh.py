@@ -330,25 +330,43 @@ def test_resnet_data_parallel_ranks_stay_bit_equal(pools):
                                    p.detach().numpy(), atol=1e-5, rtol=0)
 
 
-def test_deep_classifier_mesh_spec_fits_data_parallel(pools):
-    """DeepClassifier(meshSpec={"data": 2}) on two ranks: each rank
-    uploads its half of every batch, the weighted loss is the global
-    batch's (the padded tail's zero weights are split unevenly between
-    the ranks), and the fit and its validation history equal the
-    one-device fit of the same frame within 1e-5."""
+def test_deep_classifier_mesh_spec_fits_data_parallel(pools, monkeypatch):
+    """DeepClassifier(meshSpec={"data": 2}) on two ranks, each given its
+    block-cyclic shard of the frame (``process_shard(block_rows=8)``, 8
+    the rank's share of the global batch of 16): each rank splits off its
+    own held-out rows, feeds its rows of every batch, and the weighted
+    loss is the global batch's (rank 1's shard is 2 rows short of its
+    quota and pads them with zero weight). The fit and its validation
+    history equal, within 1e-5, the one-device fit over the same rows:
+    the ranks' training rows interleaved in blocks of 8 (the global
+    epoch's block-cyclic layout), their held-out rows together."""
     from mmlspark_tpu_torch.core.frame import Frame
+    from mmlspark_tpu_torch.train import deep as tdeep
     from mmlspark_tpu_torch.train.deep import DeepClassifier
     rng = np.random.default_rng(4)
-    x = rng.normal(0, 1, (90, 6)).astype(np.float32)
+    # 98 rows: rank 0 holds blocks 0, 2, .., 12 (50 rows: 40 to train,
+    # its quota), rank 1 blocks 1, .., 11 (48 rows: 38 to train)
+    x = rng.normal(0, 1, (98, 6)).astype(np.float32)
     y = (x[:, 0] * x[:, 1] > 0).astype(np.int64)
     kwargs = dict(architecture="mlp_tabular", architectureArgs={
         "hidden": [16]}, trainDtype="float32", epochs=3, batchSize=16,
         learningRate=1e-2, seed=0, validationSplit=0.2)
     ranks = pools(2).run("torch_mesh_ranks:deep_fit", {"data": 2}, x, y,
-                         kwargs)
+                         kwargs, 8)
+    whole = Frame.from_dict({"features": x, "label": y})
+    splits = [tdeep._train_val_split(
+        whole.process_shard(r, 2, block_rows=8), 0.2, 0) for r in (0, 1)]
+    train = [s[0].collect() for s in splits]
+    assert [len(t["label"]) for t in train] == [40, 38]
+    order = [(r, i) for i in range(0, 40, 8) for r in (0, 1)]
+    train = Frame.from_dict({k: np.concatenate(
+        [train[r][k][i:i + 8] for r, i in order]) for k in train[0]})
+    val = Frame.from_dict({k: np.concatenate(
+        [s[1].collect()[k] for s in splits]) for k in ("features", "label")})
+    monkeypatch.setattr(tdeep, "_train_val_split",
+                        lambda frame, frac, seed: (train, val))
     one = DeepClassifier(featuresCol="features", labelCol="label",
-                         **kwargs).fit(Frame.from_dict({"features": x,
-                                                        "label": y}))
+                         **kwargs).fit(whole)
     for r in ranks:
         np.testing.assert_allclose(r["final_loss"],
                                    float(one._state["final_loss"]),

@@ -220,12 +220,15 @@ def resnet_train(rank, world, axes, params, images, labels, steps, arch):
                        for n, p in state["module"].named_parameters()}}
 
 
-def deep_fit(rank, world, mesh_spec, x, y, kwargs):
-    """DeepClassifier fit over ``meshSpec``; the fitted params and final
-    loss."""
+def deep_fit(rank, world, mesh_spec, x, y, kwargs, block_rows=None):
+    """DeepClassifier fit over ``meshSpec`` on this rank's block-cyclic
+    shard of the frame (``process_shard(block_rows=...)``; the whole frame
+    when ``block_rows`` is None); the fitted params and final loss."""
     from mmlspark_tpu_torch.core.frame import Frame
     from mmlspark_tpu_torch.train.deep import DeepClassifier
     frame = Frame.from_dict({"features": x, "label": y})
+    if block_rows is not None:
+        frame = frame.process_shard(block_rows=block_rows)
     model = DeepClassifier(featuresCol="features", labelCol="label",
                            meshSpec=mesh_spec, **kwargs).fit(frame)
     return {"params": model._state["params"],
