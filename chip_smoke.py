@@ -5,7 +5,7 @@
     python3 chip_smoke.py --profile <dir>      # plus profiled warm passes
     python3 chip_smoke.py --mesh-only [--mesh-cards 4]   # the mesh phase
 
-Eight paths, each through the entry points a user calls:
+Nine paths, each through the entry points a user calls:
 
 - serving, the README's transfer-learning quickstart: an
   ``ImageFeaturizer`` with a ResNet-50 (random weights from a seed) scores
@@ -68,7 +68,10 @@ Eight paths, each through the entry points a user calls:
   MoE LM split over ``expert`` (K3 on every rank), a pipelined MLP over
   ``pipe`` (with a ``reshard_to`` onto the pipe and back) and the DLRM
   with its tables split by rows over ``tensor`` (the fused lookup, the
-  sparse gradient).
+  sparse gradient);
+- tools: ``TorchModel`` capturing an inner node of the featurize path's
+  ResNet-50 (K2), the model downloader over a localhost repository, four
+  chaos scenarios and the CLI's ``info``, ``check`` and ``top``.
 
 The script:
 
@@ -441,9 +444,27 @@ The script:
     flight-recorder dump. serve, lm_serve and train also print rounds
     with the flight recorder's ring off and on (``ring_rounds``,
     ``ring_images_per_s``), after their counted paths;
-22. prints the kernel table line (each kernel's launches on each of its
-    paths), the card's name and power limit, and last ``{"ok": true,
-    "device": {...}}``.
+22. ``capture``: the featurize configuration (ResNet-50, 512 uint8
+    images 256^2 -> K2 -> 224^2, batch 128, bf16) through ``TorchModel``
+    with ``outputNodeName="stage3_block2/out"`` (a forward hook on that
+    one block; NHWC, the reference's name) and ``"pool"``: K2's staged
+    variant once a batch on each, no other kernel; the node's mean over H
+    and W (fp32, on the card) equal to ``pool`` within a 49-term fp32
+    mean's rounding; images/s of both nodes (the hook's cost);
+23. ``downloader``: ResNet-50's weights written by ``LocalRepo.save_model``
+    (the flax npz, ``to_jax_params``), served by a localhost
+    ``http.server``, fetched by ``HttpRepo`` (sha256 checked) and loaded
+    by ``ImageFeaturizer.set_model_from_downloader``: 128 images score
+    BIT-equal to ``set_model`` with the same state dict; MB and seconds;
+24. ``chaos``: ``reliability/chaos.py``'s ``train``, ``fleet``,
+    ``decode`` and ``host`` scenarios on the card (seed 0, the reference
+    tests' sizes), every verdict all-green, seconds and launches each;
+25. ``cli``: ``python -m mmlspark_tpu_torch.cli info`` (platform gpu,
+    count 1), ``check mmlspark_tpu_torch`` (exit 0) and ``top --once``
+    over two in-process replicas served over HTTP;
+26. prints the kernel table line (each kernel's launches on each of its
+    paths), the whole script's seconds, the card's name and power limit,
+    and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the exit code is nonzero and no result line is
 printed. Without CUDA, or outside a checkout of the repository, it fails
@@ -2789,6 +2810,8 @@ def _replayed(programs, kernel) -> tuple:
 
 # profiling sessions a graph replay gets to record its captured kernels
 PROFILE_TRIES = 3
+# the seed of the patterns the cow graph's effect check writes
+COW_SEED = 7
 # the device symbols of each kernel's functions, as the profiler names the
 # kernel nodes of a replayed graph
 KERNEL_SYMBOLS = {
@@ -2799,7 +2822,58 @@ KERNEL_SYMBOLS = {
     "flash_attention_tc": ("flash_tc_kernel",)}
 
 
-def _profiled_replays(torch, kernels, programs, what) -> dict:
+def _cow_effect(torch, gen, prog) -> dict:
+    """The ``cow`` graph checked by what it does: block ``src`` of every
+    arena plane (K, V and, in int8, both scale planes) filled with one
+    seeded pattern and block ``dst`` with another, the graph replayed
+    once, then ``dst`` must equal ``src`` bit for bit and every other
+    block keep its bytes. The planes are restored afterwards (the prefix
+    cache still indexes them). Measurement only: it adds no launch
+    counts."""
+    from mmlspark_tpu_torch.serve.programs import DEVICE_LOCK
+    kv = gen.kv
+    planes = [kv.arena_k, kv.arena_v]
+    if kv.quantized:
+        planes += [kv.scale_k, kv.scale_v]
+    # block 0 is the reserved scratch block; two others of the arena
+    src, dst = 1, planes[0].shape[1] - 1
+    g = torch.Generator(device=planes[0].device).manual_seed(COW_SEED)
+    with DEVICE_LOCK:
+        saved = [p.clone() for p in planes]
+        for p in planes:
+            for block in (src, dst):
+                shape = p[:, block].shape
+                if p.dtype.is_floating_point:
+                    fill = torch.randn(shape, generator=g, device=p.device,
+                                       dtype=torch.float32)
+                else:
+                    fill = torch.randint(-127, 128, shape, generator=g,
+                                         device=p.device, dtype=torch.int32)
+                p[:, block] = fill.to(p.dtype)
+        before = [p.clone() for p in planes]
+        prog.inputs[0].fill_(src)
+        prog.inputs[1].fill_(dst)
+        torch.cuda.synchronize()
+        prog.graph.replay()
+        torch.cuda.synchronize()
+        copied, others = True, True
+        for p, b in zip(planes, before):
+            want = b.clone()
+            want[:, dst] = b[:, src]
+            copied &= torch.equal(p[:, dst], b[:, src])
+            others &= torch.equal(p, want)
+        for p, keep in zip(planes, saved):
+            p.copy_(keep)
+        torch.cuda.synchronize()
+    _check(copied and others,
+           f"the cow graph's replay: dst equal to src {copied}, every "
+           f"other block unchanged {others}")
+    return {"check": "effect", "src": src, "dst": dst,
+            "planes": len(planes), "dst_equals_src": copied,
+            "others_unchanged": others}
+
+
+def _profiled_replays(torch, kernels, programs, what, effects=None) -> dict:
     """Each program's graph replayed under torch.profiler, its operands
     zeroed first (padding rows: a generate program then writes only the
     reserved scratch block). The kernel nodes the profiler records on the
@@ -2813,13 +2887,22 @@ def _profiled_replays(torch, kernels, programs, what) -> dict:
     ``PROFILE_TRIES`` sessions, and the check fails unless one session
     records device work with exactly the recorded kernels. Measurement
     only: it adds no launch counts. Returns the device counts by program
-    and the sessions each took."""
+    and the sessions each took, with the check each program got.
+
+    A program whose capture recorded none of our kernels and that has an
+    entry in ``effects`` (key -> ``check(prog)``: the ``cow`` graph, a few
+    copy nodes, of which the profiler once recorded no device event in
+    three sessions) is checked by its effect instead, not by profiler
+    device events."""
     from torch.profiler import ProfilerActivity, profile
     from mmlspark_tpu_torch.serve.programs import DEVICE_LOCK
     seen = {}
     for key, prog in programs.items():
         want = {k.name: prog.launches.get(k.name, (0, {}))[0]
                 for k in kernels.KERNELS}
+        if not any(want.values()) and key in (effects or {}):
+            seen[str(key)] = effects[key](prog)
+            continue
         sessions = []
         for _ in range(PROFILE_TRIES):
             with DEVICE_LOCK:
@@ -2845,10 +2928,16 @@ def _profiled_replays(torch, kernels, programs, what) -> dict:
                f"{what} {key}: {len(sessions)} profiled replays ran "
                f"{sessions} (device events, kernels) on the device, its "
                f"capture recorded {want}")
-        seen[str(key)] = {"device_events": events,
+        seen[str(key)] = {"check": "profiler", "device_events": events,
                           "sessions": len(sessions),
                           **{k: n for k, n in got.items() if n}}
     return seen
+
+
+def _cow_effects(torch, gen, progs) -> dict:
+    """``_profiled_replays``' effect checks of a lane's ``cow`` graphs."""
+    return {key: (lambda prog: _cow_effect(torch, gen, prog))
+            for key in progs if key[0] == "cow"}
 
 
 def _batch_breakdown(torch, prog, x, reps: int = 5) -> dict:
@@ -3333,8 +3422,9 @@ def phase_generate(torch, kernels, card):
         decode_s = sum(s for _, _, s in main_steps)
         ttft = [o["ttft_ms"] for o in outs]
         itl = [o["itl_mean_ms"] for o in outs]
-        device_launches = _profiled_replays(torch, kernels, progs,
-                                            "generate")
+        device_launches = _profiled_replays(
+            torch, kernels, progs, "generate",
+            effects=_cow_effects(torch, gen, progs))
         breakdown = _batch_breakdown_decode(torch, progs, gen)
         module = srv.registry.get("lm").module
         bf16_agreement = _agreement(tokens[:GEN_RECOMPUTED], [
@@ -3497,8 +3587,9 @@ def _generate_fp32_gate(torch, kernels, card, rng, head, suffixes) -> dict:
         _check(launches == _want(kernels, FLASH_ATTENTION=want_n)
                and want_n > 0, f"fp32 lane launched {launches}, want K3's "
                                f"CUDA-core kernel {want_n} times")
-        device_launches = _profiled_replays(torch, kernels, progs,
-                                            "fp32 generate")
+        device_launches = _profiled_replays(
+            torch, kernels, progs, "fp32 generate",
+            effects=_cow_effects(torch, lane.gen, progs))
         tokens = [f.result(1)["tokens"] for f in futs]
         module = srv.registry.get("lm32").module
         want = [_full_recompute(torch, module, card, p, GEN_NEW_TOKENS)
@@ -6911,6 +7002,255 @@ def phase_record(torch, kernels, card, logs) -> dict:
     return launches
 
 
+# -- capture, downloader, chaos, cli (slice 7a) -------------------------------
+
+# the node captured at full width: the last bottleneck's output, whose mean
+# over H and W is the ``pool`` layer
+CAPTURE_NODE = "stage3_block2/out"
+# passes timed per node in the capture phase
+CAPTURE_PASSES = 3
+# the single-process chaos scenarios run on the card, with their sizes
+CHAOS_ON_CARD = (("train", {"requests": 12}),
+                 ("fleet", {"replicas": 3, "requests": 12}),
+                 ("decode", {"replicas": 2, "requests": 5}),
+                 ("host", {"replicas": 2, "requests": 12}))
+
+
+def _featurize_frame(n: int):
+    """The featurize phase's images (seed 2) as a flat uint8 column, and
+    the raw array."""
+    from mmlspark_tpu_torch.core.frame import Frame
+    raw = np.random.default_rng(2).integers(
+        0, 256, size=(n, SRC, SRC, 3), dtype=np.uint8)
+    return Frame.from_dict({"x": raw.reshape(n, -1)}, num_partitions=4), raw
+
+
+def phase_capture(torch, kernels, card) -> dict:
+    """Capture-all output nodes at full width: the featurize configuration
+    (ResNet-50, 512 uint8 images 256^2 -> K2 -> 224^2, batch 128, bf16)
+    scored through ``TorchModel`` with ``outputNodeName`` the last block's
+    output (a forward hook) and ``pool``. Gates: K2's staged variant once
+    a batch on each main path, no other kernel; the node (B, 7, 7, 2048)
+    NHWC float32; its mean over H and W, taken in fp32 on the card in the
+    module's own layout (channels-last NCHW), equal to ``pool`` within the
+    rounding of a 49-term fp32 mean (48 * 2^-24 * the row's mean |x|), and
+    whether it is bit-equal printed."""
+    from mmlspark_tpu_torch.models.torch_model import TorchModel
+    frame, _ = _featurize_frame(N_IMAGES)
+    batches = math.ceil(N_IMAGES / BATCH)
+
+    def model(node):
+        tm = TorchModel(inputCol="x", outputCol="f", miniBatchSize=BATCH,
+                        computeDtype="bfloat16", outputNodeName=node,
+                        devicePreprocess={"srcShape": [SRC, SRC, 3],
+                                          "resize": [DST, DST]})
+        return tm.set_model("resnet50", num_classes=1000, seed=0)
+
+    out, rates, launches = {}, {}, {}
+    for node in (CAPTURE_NODE, "pool"):
+        tm = model(node)
+        kernels.reset_launches()
+        got = np.asarray(tm.transform(frame).column("f"))
+        launches[node] = _launches(kernels)
+        variants = dict(kernels.CROP_RESIZE_NORMALIZE.variant_launches)
+        want = _want(kernels, CROP_RESIZE_NORMALIZE=batches)
+        _check(launches[node] == want and variants == {"staged": batches},
+               f"capture {node}: kernels launched {launches[node]} "
+               f"({variants}), want {want}")
+        times = []
+        for _ in range(CAPTURE_PASSES):
+            t0 = time.perf_counter()
+            tm.transform(frame)
+            times.append(time.perf_counter() - t0)
+        out[node] = got
+        rates[node] = N_IMAGES / statistics.median(times)
+    node = out[CAPTURE_NODE]
+    _check(node.shape == (N_IMAGES, DST // 32, DST // 32, 2048)
+           and node.dtype == np.float32
+           and bool(np.isfinite(node).all()),
+           f"captured node: shape {node.shape} dtype {node.dtype}")
+    with torch.inference_mode():
+        mean = torch.from_numpy(node).to(card).permute(0, 3, 1, 2).mean(
+            dim=(2, 3)).cpu().numpy()
+    pool = out["pool"]
+    diff = float(np.abs(mean - pool).max())
+    bound = float(48 * 2.0 ** -24 * np.abs(node).mean(axis=(1, 2)).max())
+    _check(diff <= bound, f"the node's mean over H, W is {diff} from pool, "
+                          f"bound {bound}")
+    _line(phase="capture", card=_smi(), model="resnet50", images=N_IMAGES,
+          batch=BATCH, node=CAPTURE_NODE, node_shape=list(node.shape[1:]),
+          launches_main_path=launches,
+          images_per_s={k: v for k, v in rates.items()},
+          hook_cost=rates["pool"] / rates[CAPTURE_NODE],
+          mean_vs_pool_max_abs=diff, mean_vs_pool_bound=bound,
+          mean_bit_equal_pool=bool(np.array_equal(mean, pool)))
+    return launches[CAPTURE_NODE]
+
+
+def phase_downloader(torch, kernels, card) -> dict:
+    """The model downloader at full width: ResNet-50's seed-0 state dict
+    written by ``LocalRepo.save_model`` (the flax npz, through
+    ``to_jax_params``) with its MANIFEST, served by a localhost
+    ``http.server`` thread, fetched by ``HttpRepo`` into a cache (sha256
+    checked), and loaded by ``ImageFeaturizer.set_model_from_downloader``;
+    128 of the featurize images must score BIT-equal to
+    ``ImageFeaturizer.set_model`` with the same state dict."""
+    import functools
+    import http.server
+    import tempfile
+
+    from mmlspark_tpu_torch.core.frame import Frame
+    from mmlspark_tpu_torch.core.schema import ColumnSchema, DType, ImageValue
+    from mmlspark_tpu_torch.image.featurizer import ImageFeaturizer
+    from mmlspark_tpu_torch.models import downloader as dl
+    from mmlspark_tpu_torch.models.zoo import build_model, init_state
+
+    n = BATCH
+    _, raw = _featurize_frame(n)
+    imgs = np.empty(n, dtype=object)
+    for i in range(n):
+        imgs[i] = ImageValue(path=f"mem://smoke/{i}", data=raw[i])
+    frame = Frame.from_dict({"row": np.arange(n)}).with_column_values(
+        ColumnSchema("image", DType.IMAGE), imgs)
+    module = build_model("resnet50", num_classes=1000)["module"]
+    state = init_state(module, seed=0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_repo-") as work:
+        served = os.path.join(work, "served")
+        t0 = time.perf_counter()
+        schema = dl.LocalRepo(served).save_model(dl.ModelSchema(
+            name="resnet50", architecture="resnet50",
+            architectureArgs={"num_classes": 1000},
+            layerNames=["pool", "head"]), state)
+        dl.LocalRepo(served).write_manifest()
+        save_s = time.perf_counter() - t0
+        class Quiet(http.server.SimpleHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+        httpd = http.server.ThreadingHTTPServer(
+            ("127.0.0.1", 0), functools.partial(Quiet, directory=served))
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        try:
+            repo = dl.HttpRepo(f"http://127.0.0.1:{httpd.server_address[1]}",
+                               os.path.join(work, "cache"), timeout=60.0)
+            downloader = dl.ModelDownloader(repo)
+            t0 = time.perf_counter()
+            path = downloader.download_by_name("resnet50")
+            fetch_s = time.perf_counter() - t0
+            _check(dl.sha256_file(path) == schema.hash,
+                   "the cached payload's sha256 differs from the schema's")
+            got_fz = ImageFeaturizer(inputCol="image", outputCol="f",
+                                     cutOutputLayers=1, miniBatchSize=BATCH,
+                                     computeDtype="bfloat16")
+            t0 = time.perf_counter()
+            got_fz.set_model_from_downloader(downloader, "resnet50")
+            load_s = time.perf_counter() - t0
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+    want_fz = ImageFeaturizer(inputCol="image", outputCol="f",
+                              cutOutputLayers=1, miniBatchSize=BATCH,
+                              computeDtype="bfloat16")
+    want_fz.set_model("resnet50", params=state, num_classes=1000)
+    kernels.reset_launches()
+    got = np.asarray(got_fz.transform(frame).column("f"))
+    launches = _launches(kernels)
+    want = np.asarray(want_fz.transform(frame).column("f"))
+    _check(got.shape == (n, 2048) and np.array_equal(got, want),
+           "features of the downloaded model differ from set_model's: "
+           f"max {float(np.abs(got - want).max())}")
+    _line(phase="downloader", card=_smi(), model="resnet50",
+          payload_mb=schema.size / 1e6, images=n, save_s=save_s,
+          fetch_s=fetch_s, load_s=load_s, launches_main_path=launches,
+          bit_equal=True)
+    return launches
+
+
+def phase_chaos(torch, kernels, card) -> dict:
+    """The single-process chaos scenarios on the card (``reliability/
+    chaos.py``), seed 0, the reference tests' sizes: ``train`` (kill +
+    resume to bit-equal params, then serve under faults), ``fleet`` (a
+    replica of three killed under fire), ``decode`` (a replica killed mid
+    generation, ``transformer_lm_tiny``) and ``host`` (a real ``cli
+    serve`` worker SIGKILLed and restarted: it captures exactly its
+    buckets, builds no kernel). Every verdict all-green; K3's launches in
+    decode counted."""
+    import tempfile
+
+    from mmlspark_tpu_torch.reliability import chaos
+    seconds, launches, restated = {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_chaos-") as work:
+        for name, kw in CHAOS_ON_CARD:
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            v = chaos.run_named(name, 0, os.path.join(work, name), **kw)
+            seconds[name] = time.perf_counter() - t0
+            launches[name] = _launches(kernels)
+            _check(v["passed"] and all(v["invariants"].values()),
+                   f"chaos {name}: {v['invariants']} {v['errors'][:3]}")
+            restated.update({f"{name}.{k}": r for k, r in
+                             v.get("restated", {}).items()})
+    _line(phase="chaos", card=_smi(), seconds=seconds,
+          launches=launches, restated=restated)
+    return launches
+
+
+def phase_cli(torch, kernels, card) -> dict:
+    """The CLI's tools on the card: ``info`` (platform gpu, count 1),
+    ``check mmlspark_tpu_torch`` (exit 0: the port's tree is lint-clean)
+    and ``top --once`` over two in-process replicas served over HTTP."""
+    import contextlib
+    import io
+
+    from mmlspark_tpu_torch.cli import main as cli_main
+    from mmlspark_tpu_torch.models.torch_model import TorchModel
+    from mmlspark_tpu_torch.serve.fleet import Fleet
+    from mmlspark_tpu_torch.serve.http import serve_http
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mmlspark_tpu_torch.cli",
+                           "info"], capture_output=True, text=True,
+                          timeout=300, cwd=root)
+    info = json.loads(proc.stdout)
+    _check(proc.returncode == 0 and info["platform"] == "gpu"
+           and info["count"] == 1, f"cli info: {proc.returncode} "
+                                   f"{proc.stdout[-500:]}")
+    info_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mmlspark_tpu_torch.cli",
+                           "check", "mmlspark_tpu_torch"],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=root)
+    _check(proc.returncode == 0, f"cli check: {proc.stdout[-2000:]}")
+    check_s = time.perf_counter() - t0
+    model = TorchModel(inputCol="x", outputCol="y", miniBatchSize=8)
+    model.set_model("mlp_tabular", input_dim=8, hidden=[16], num_classes=3)
+    fleet = Fleet({"m": model}, replicas=2)
+    fronts = [serve_http(r.server, port=0) for r in fleet.replicas]
+    for httpd, _ in fronts:
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        fleet.submit("m", np.zeros((2, 8), np.float32))
+        out = io.StringIO()
+        argv = ["top", "--once"]
+        for _, addr in fronts:
+            argv += ["--replica", addr]
+        with contextlib.redirect_stdout(out):
+            rc = cli_main(argv)
+        frame = out.getvalue()
+    finally:
+        for httpd, _ in fronts:
+            httpd.shutdown()
+            httpd.server_close()
+        fleet.close()
+    _check(rc == 0 and "replicas 2/2 ready" in frame,
+           f"cli top --once: {rc} {frame[:400]}")
+    _line(phase="cli", card=_smi(), info_platform=info["platform"],
+          info_count=info["count"], info_kind=info["kind"], info_s=info_s,
+          check_rc=0, check_s=check_s, top_frame_lines=frame.count("\n"),
+          top_first_line=frame.splitlines()[0])
+
+
 def _profile_pass(torch, run, out_dir, name) -> None:
     """One warm ``run()`` under torch.profiler: the device time by kernel
     (top 25) and the device's busy share of the run, as a JSON line; the
@@ -7022,6 +7362,10 @@ def main() -> int:
         "mesh_inputs": os.path.join(kept, "mesh_inputs_C-0.jsonl")})
     import shutil
     shutil.rmtree(kept, ignore_errors=True)
+    capture = phase_capture(torch, kernels, card)
+    downloader = phase_downloader(torch, kernels, card)
+    chaos = phase_chaos(torch, kernels, card)
+    phase_cli(torch, kernels, card)
 
     k1k, k2k = kernels.FUSED_NORMALIZE, kernels.CROP_RESIZE_NORMALIZE
     tc, f32 = kernels.FLASH_ATTENTION_TC, kernels.FLASH_ATTENTION
@@ -7063,6 +7407,8 @@ def main() -> int:
         "replaces": "mmlspark_tpu/ops/pallas_preprocess.py:147",
         "launches": featurize[k2k.name],
         "launches_by_path": {"featurize": featurize[k2k.name],
+                             "capture": capture[k2k.name],
+                             "downloader": downloader[k2k.name],
                              "serve": serve[k2k.name],
                              "mesh_serve_featurize":
                                  mesh["k2"]["serve_featurize"]},
@@ -7097,6 +7443,7 @@ def main() -> int:
                                 for k, v in generate.items()},
                              "fleet": fleet["bf16"][tc.name],
                              "process_fleet": process_fleet[tc.name],
+                             "chaos_decode": chaos["decode"][tc.name],
                              **{f"mesh_{k}": v
                                 for k, v in mesh["tc"].items()}},
         "launches_note": "mesh_*: each rank's count over the 11 steps of "
@@ -7121,6 +7468,7 @@ def main() -> int:
                                 for k, v in generate32.items()},
                              "fleet_fp32": fleet["fp32"][f32.name],
                              "process_fleet_fp32": process_fleet[f32.name],
+                             "chaos_decode": chaos["decode"][f32.name],
                              **{f"mesh_fp32_{k}": v
                                 for k, v in mesh["f32"].items()}},
         "launches_note": "lm_score's fp32 pass (16 rows): f32 is this "
@@ -7132,6 +7480,7 @@ def main() -> int:
         "library_ms": k3["f32"]["library_ms"],
         "library_note": "F.scaled_dot_product_attention(is_causal=True), "
                         "f32, TF32 off (B=8, L=2048, H=8, D=64)"}])
+    _line(phase="total", seconds=time.time() - _T_MODULE)
     print(_smi(), flush=True)
     _line(ok=True, device={"platform": "gpu",
                            "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""``mmlspark-tpu-torch`` CLI: serve, the process fleet, its offline tools, run.
+"""``mmlspark-tpu-torch`` CLI: serve, the process fleet, its tools, run.
 
 The port's copy of the serving half of ``mmlspark_tpu/cli.py``, with the
 reference's flags and stdout contract:
@@ -34,6 +34,20 @@ reference's flags and stdout contract:
 - ``report``: the run report of one or more event logs (or flight-
   recorder dumps), ``--json`` for its structured form, ``--trace`` to
   also export a Chrome trace of the same log.
+- ``info``: the devices this process sees (``device_count_summary``), the
+  platform (``gpu`` with a card, else ``cpu``), the card's name, the torch
+  and CUDA versions and ``config.snapshot()``, as JSON.
+- ``check``: the static reliability lint (``reliability/lint.py``) over
+  the installed package or the given roots; exit 1 on any problem.
+- ``top``: the live fleet dashboard over ``--replica`` HTTP addresses
+  (``--once`` prints one frame).
+- ``chaos``: a seeded chaos scenario (``reliability/chaos.py``); the
+  verdict JSON on stdout and in ``chaos_verdict.json``, exit 0 iff every
+  invariant held; an unknown ``--scenario`` lists the registered ones and
+  exits 2.
+- ``bench``: ``./bench.py`` of the working directory with ``--baseline``
+  passed on, its bench line gated through ``observability/benchgate.py``:
+  the verdict is the last stdout line, exit 1 when it is red.
 
 Workers run on ``runtime.device`` (``MMLSPARK_TPU_TORCH_RUNTIME_DEVICE``)
 and raise without CUDA unless it is ``cpu``. An unhandled exception in
@@ -69,19 +83,19 @@ def cmd_loadgen(args, passthrough) -> int:
     offered_qps = (len(schedule) / trace.duration_s
                    if trace.duration_s > 0 else 0.0)
     if getattr(args, "json", False):
-        print(json.dumps({
+        print(json.dumps({  # lint: allow-print
             "trace": trace.describe(), "seed": args.seed,
             "arrivals": len(schedule), "fingerprint": fingerprint,
             "offered_qps": round(offered_qps, 4),
             "bucket_s": args.bucket, "buckets": buckets},
             sort_keys=True))
         return 0
-    print(f"trace: {trace.describe()}")
-    print(f"seed {args.seed}: {len(schedule)} arrivals "
+    print(f"trace: {trace.describe()}")  # lint: allow-print
+    print(f"seed {args.seed}: {len(schedule)} arrivals "  # lint: allow-print
           f"({offered_qps:.2f} offered qps)")
     if buckets:
-        print(f"per-{args.bucket:g}s buckets: {buckets}")
-    print(f"fingerprint: {fingerprint}")
+        print(f"per-{args.bucket:g}s buckets: {buckets}")  # lint: allow-print
+    print(f"fingerprint: {fingerprint}")  # lint: allow-print
     return 0
 
 
@@ -176,7 +190,7 @@ def cmd_serve(args, passthrough) -> int:
     # wrappers can discover an ephemeral --port 0; liveness and readiness
     # are reported SEPARATELY (the /livez vs /readyz split)
     h = front.health()
-    print(json.dumps({"serving": addr,
+    print(json.dumps({"serving": addr,  # lint: allow-print
                       "models": front.registry.names(),
                       "replicas": args.replicas, "pid": os.getpid(),
                       "live": h["live"], "ready": h["ready"]}),
@@ -314,7 +328,7 @@ def cmd_fleet(args, passthrough) -> int:
             autopilot.start()
         httpd, addr = serve_http(router, host=args.host, port=args.port)
         h = router.health()
-        print(json.dumps({"serving": addr,
+        print(json.dumps({"serving": addr,  # lint: allow-print
                           "replicas": replicas, "pid": os.getpid(),
                           "workers": sup.stats(),
                           "events_dir": events_dir,
@@ -384,7 +398,7 @@ def _fleet_multi_host(args, passthrough, hosts, replicas) -> int:
         scraper.start()
         httpd, addr = serve_http(router, host=args.host, port=args.port)
         h = router.health()
-        print(json.dumps({"serving": addr,
+        print(json.dumps({"serving": addr,  # lint: allow-print
                           "hosts": launcher.stats(),
                           "replicas_per_host": replicas,
                           "pid": os.getpid(),
@@ -447,10 +461,10 @@ def cmd_autopilot(args, passthrough) -> int:
             raise SystemExit(f"--candidate {label}: {e}")
     ranked = rp.rank_policies(log["ticks"], candidates)
     if args.json:
-        print(json.dumps({"fidelity": fidelity, "ranking": ranked},
+        print(json.dumps({"fidelity": fidelity, "ranking": ranked},  # lint: allow-print
                          sort_keys=True))
     else:
-        print(rp.format_ranking(ranked, fidelity))
+        print(rp.format_ranking(ranked, fidelity))  # lint: allow-print
     if log["policy"] is not None and not fidelity["identical"]:
         return 1  # the replay-sufficiency contract broke: make it loud
     return 0
@@ -529,7 +543,7 @@ def _run_local_ranks(args, passthrough) -> int:
                 argv += ["--platform", args.platform]
             env = dict(os.environ, LOCAL_RANK=str(rank),
                        LOCAL_WORLD_SIZE=str(n))
-            procs.append(subprocess.Popen(argv + ["--"] + passthrough,
+            procs.append(subprocess.Popen(argv + ["--"] + passthrough,  # lint: allow-process (cli run owns its ranks until they exit)
                                           env=env))
         rc = 0
         while any(p.poll() is None for p in procs):
@@ -676,10 +690,10 @@ def cmd_launch_pod(args, passthrough: List[str]) -> int:
             raise SystemExit(f"--mesh: {e}")
     argvs = build_pod_argv(args, passthrough)
     if args.dry_run:
-        print(json.dumps(argvs))
+        print(json.dumps(argvs))  # lint: allow-print
         return 0
     import subprocess
-    procs = [subprocess.Popen(a) for a in argvs]
+    procs = [subprocess.Popen(a) for a in argvs]  # lint: allow-process (launch-pod owns its ssh children)
     codes = [p.wait() for p in procs]
     return next((c for c in codes if c), 0)
 
@@ -699,16 +713,116 @@ def cmd_report(args, passthrough) -> int:
                              "single events path")
         from mmlspark_tpu_torch.observability.trace import export_trace
         stats = export_trace(paths[0], args.trace)
-        print(f"trace: {stats['out']} ({stats['spans']} spans, "
+        print(f"trace: {stats['out']} ({stats['spans']} spans, "  # lint: allow-print
               f"{stats['events']} events, {stats['tracks']} tracks) — "
               "open in https://ui.perfetto.dev")
     if args.json:
         from mmlspark_tpu_torch.observability.report import build_report
-        print(json.dumps(build_report(target, top=args.top), sort_keys=True))
+        print(json.dumps(build_report(target, top=args.top), sort_keys=True))  # lint: allow-print
     else:
         from mmlspark_tpu_torch.observability.report import render_report
-        print(render_report(target, top=args.top))
+        print(render_report(target, top=args.top))  # lint: allow-print
     return 0
+
+
+def cmd_info(args, passthrough) -> int:
+    import torch
+
+    from mmlspark_tpu_torch.parallel.mesh import device_count_summary
+    from mmlspark_tpu_torch.utils import config
+    cuda = torch.cuda.is_available()
+    info = {"devices": device_count_summary(),
+            "platform": "gpu" if cuda else "cpu",
+            "count": torch.cuda.device_count() if cuda else 0,
+            "kind": torch.cuda.get_device_name(0) if cuda else "cpu",
+            "torch": torch.__version__, "cuda": torch.version.cuda,
+            "config": config.snapshot()}
+    print(json.dumps(info, indent=2, default=str))  # lint: allow-print
+    return 0
+
+
+def cmd_check(args, passthrough) -> int:
+    """Static reliability lint over the installed package, or explicit
+    roots."""
+    from mmlspark_tpu_torch.reliability import lint
+    roots = args.roots or [os.path.dirname(
+        os.path.abspath(__import__("mmlspark_tpu_torch").__file__))]
+    return lint.main(roots)
+
+
+def cmd_top(args, passthrough) -> int:
+    """Live fleet dashboard over HTTP replicas: scrapes ``/metrics`` +
+    ``/readyz`` from every --replica through per-host circuit breakers
+    and redraws a plain-ANSI frame. ``--once`` prints a single frame."""
+    from mmlspark_tpu_torch.observability.aggregate import FleetScraper
+    from mmlspark_tpu_torch.observability.dashboard import TopDashboard
+    from mmlspark_tpu_torch.observability.slo import SloEngine
+    from mmlspark_tpu_torch.serve.router import HttpReplica
+    if not args.replica:
+        raise SystemExit("top: at least one --replica HOST:PORT required")
+    replicas = [HttpReplica(addr) for addr in args.replica]
+    scraper = FleetScraper(replicas, timeout_s=args.timeout)
+    dash = TopDashboard(scraper, SloEngine(), interval_s=args.interval)
+    dash.run(once=args.once)
+    return 0
+
+
+def cmd_chaos(args, passthrough) -> int:
+    """Seeded chaos scenario (``reliability/chaos.py``): ``train``
+    (default), ``fleet``, ``decode``, ``fleetprefix``, ``host``,
+    ``autopilot``, ``elastic``. Writes ``chaos_verdict.json`` under
+    --out; exit 0 iff every invariant held."""
+    from mmlspark_tpu_torch.reliability import chaos
+    if args.scenario not in chaos.SCENARIOS:
+        known = "\n".join(f"  {name:12s} {desc}" for name, desc
+                          in sorted(chaos.SCENARIOS.items()))
+        print(f"chaos: unknown scenario {args.scenario!r}; "  # lint: allow-print
+              f"registered scenarios:\n{known}", file=sys.stderr)
+        return 2
+    outdir = args.out or os.path.join(
+        os.getcwd(), f"chaos-{args.scenario}-seed{args.seed}")
+    verdict = chaos.run_named(args.scenario, args.seed, outdir,
+                              replicas=args.replicas, requests=args.requests,
+                              total_steps=args.steps,
+                              save_every=args.save_every)
+    # stdout contract: the verdict JSON, so wrappers don't re-read the file
+    print(json.dumps(verdict, indent=2,       # lint: allow-print
+                     sort_keys=True))
+    return 0 if verdict["passed"] else 1
+
+
+def cmd_bench(args, passthrough) -> int:
+    """``./bench.py`` of the working directory (``--baseline`` passed on,
+    as the reference's command does), its stdout echoed; with a baseline
+    the first bench line (a JSON object with ``configs``) is gated through
+    the port's benchgate and the verdict printed last."""
+    import subprocess
+
+    from mmlspark_tpu_torch.observability import benchgate
+    path = os.path.join(os.getcwd(), "bench.py")
+    if not os.path.exists(path):
+        raise SystemExit("no bench.py in the current directory")
+    extra = ["--baseline", args.baseline] if args.baseline else []
+    proc = subprocess.run([sys.executable, path] + extra + passthrough,
+                          capture_output=True, text=True)
+    sys.stderr.write(proc.stderr)
+    print(proc.stdout, end="")  # lint: allow-print
+    if proc.returncode != 0 or not args.baseline:
+        return proc.returncode
+    line = None
+    for text in proc.stdout.splitlines():
+        try:
+            obj = json.loads(text)
+        except ValueError:
+            continue
+        if isinstance(obj, dict) and isinstance(obj.get("configs"), dict):
+            line = obj
+            break
+    if line is None:
+        raise SystemExit("bench: bench.py printed no bench line to gate")
+    verdict = benchgate.gate(line, args.baseline)
+    print(json.dumps(verdict, sort_keys=True))  # lint: allow-print
+    return 0 if verdict["green"] else 1
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -913,6 +1027,62 @@ def build_parser() -> argparse.ArgumentParser:
                           help="print the structured report as one JSON "
                           "object")
     report_p.set_defaults(fn=cmd_report)
+
+    info_p = sub.add_parser("info", help="device + config inventory")
+    info_p.set_defaults(fn=cmd_info)
+
+    bench_p = sub.add_parser("bench", help="run ./bench.py")
+    bench_p.add_argument("--baseline", default="",
+                         help="committed bench JSON to gate against: "
+                         "per-lane regression thresholds, verdict on "
+                         "stdout, exit nonzero on red")
+    bench_p.set_defaults(fn=cmd_bench)
+
+    check_p = sub.add_parser(
+        "check", help="static reliability lint (timeouts, swallowed "
+                      "excepts, unbounded queues, raw syncs)")
+    check_p.add_argument("roots", nargs="*",
+                         help="files/dirs to lint (default: the installed "
+                         "mmlspark_tpu_torch package)")
+    check_p.set_defaults(fn=cmd_check)
+
+    chaos_p = sub.add_parser(
+        "chaos", help="seeded chaos scenario; exits 0 iff all invariants "
+                      "hold")
+    chaos_p.add_argument("--scenario", default="train",
+                         help="train, fleet, decode, fleetprefix, host, "
+                         "autopilot or elastic (default: train; unknown "
+                         "scenarios list the registry and exit 2)")
+    chaos_p.add_argument("--seed", type=int, default=0,
+                         help="fault-schedule seed (same seed => same "
+                         "kills, same verdict)")
+    chaos_p.add_argument("--out", default="",
+                         help="verdict/checkpoint directory (default "
+                         "./chaos-<SCENARIO>-seed<SEED>)")
+    chaos_p.add_argument("--steps", type=int, default=8,
+                         help="train steps in each run (default 8)")
+    chaos_p.add_argument("--save-every", type=int, default=2,
+                         help="checkpoint cadence in steps (default 2)")
+    chaos_p.add_argument("--requests", type=int, default=12,
+                         help="serve-phase request count (default 12)")
+    chaos_p.add_argument("--replicas", type=int, default=3,
+                         help="fleet width for fleet/decode/fleetprefix/"
+                         "autopilot; worker-process count for host/"
+                         "elastic (default 3)")
+    chaos_p.set_defaults(fn=cmd_chaos)
+
+    top_p = sub.add_parser(
+        "top", help="live fleet dashboard (scrapes /metrics + /readyz)")
+    top_p.add_argument("--replica", action="append", default=[],
+                       metavar="HOST:PORT",
+                       help="replica address to scrape (repeatable)")
+    top_p.add_argument("--interval", type=float, default=2.0,
+                       help="redraw interval in seconds (default 2)")
+    top_p.add_argument("--once", action="store_true",
+                       help="print one frame and exit (tests/CI)")
+    top_p.add_argument("--timeout", type=float, default=2.0,
+                       help="per-replica scrape timeout in seconds")
+    top_p.set_defaults(fn=cmd_top)
     return parser
 
 
@@ -932,7 +1102,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         from mmlspark_tpu_torch.observability import flightrec
         dumped = flightrec.dump(reason="crash")
         if dumped:
-            print(f"flight recorder dumped to {dumped}", file=sys.stderr)
+            print(f"flight recorder dumped to {dumped}", file=sys.stderr)  # lint: allow-print
         raise
 
 

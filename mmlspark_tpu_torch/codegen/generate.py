@@ -1,0 +1,170 @@
+"""Codegen: generated API surface + generated per-stage tests.
+
+The port's copy of ``mmlspark_tpu/codegen/generate.py``, over the port's
+registered stages (``mmlspark_tpu_torch.`` qualnames); its API reference
+is ``docs/API_TORCH.md``. A re-expression of the reference's codegen module
+(``codegen/src/main/scala/{CodeGen,PySparkWrapperGenerator}.scala``): the
+reference reflects over built jars to EMIT a Python API plus one generated
+pytest per stage. This framework is Python-native, so the role inverts —
+the stage registry IS the API; codegen emits:
+
+1. the API reference (``generate_api_reference`` -> markdown, checked in as
+   ``docs/API_TORCH.md``; a test regenerates and diffs it so docs can't go
+   stale);
+2. one smoke test per registered stage (``generate_stage_test_source`` ->
+   the pytest module text exec'd by ``tests/test_torch_codegen.py`` — the
+   counterpart of ``PySparkWrapperTest.scala``'s generated tests):
+   construct bare, round-trip every defaulted param through set/get
+   (asserting the class default only for params the constructor left
+   untouched), and reject out-of-domain values for every domain param.
+
+Run ``python -m mmlspark_tpu_torch.codegen.generate docs/API_TORCH.md`` to
+refresh.
+"""
+from __future__ import annotations
+
+import importlib
+import pkgutil
+from typing import Dict, List, Tuple, Type
+
+import mmlspark_tpu_torch
+from mmlspark_tpu_torch.core.pipeline import Estimator, Model, Transformer
+
+
+def all_stages() -> Dict[str, Type]:
+    """Complete qualified-name -> class registry (imports every module)."""
+    from mmlspark_tpu_torch.core.serialization import registered_stages
+    for m in pkgutil.walk_packages(mmlspark_tpu_torch.__path__,
+                                   "mmlspark_tpu_torch."):
+        importlib.import_module(m.name)
+    return {q: c for q, c in registered_stages().items()
+            if q.startswith("mmlspark_tpu_torch.")}
+
+
+def _kind(cls: Type) -> str:
+    if issubclass(cls, Model):
+        return "Model"
+    if issubclass(cls, Estimator):
+        return "Estimator"
+    if issubclass(cls, Transformer):
+        return "Transformer"
+    return "Stage"
+
+
+def _param_rows(cls: Type) -> List[Tuple[str, str, str, str]]:
+    rows = []
+    for p in sorted(cls.params(), key=lambda p: p.name):
+        dtype = p.dtype.__name__ if p.dtype else "any"
+        if p.domain:
+            dtype += " in {" + ", ".join(map(repr, p.domain)) + "}"
+        default = repr(p.default) if p.has_default else "(required)"
+        rows.append((p.name, dtype, default, p.doc))
+    return rows
+
+
+def generate_api_reference() -> str:
+    """Markdown API reference for every registered stage + zoo model."""
+    stages = all_stages()
+    by_module: Dict[str, List[Tuple[str, Type]]] = {}
+    for q, cls in sorted(stages.items()):
+        module, name = q.rsplit(".", 1)
+        by_module.setdefault(module, []).append((name, cls))
+
+    lines = [
+        "# mmlspark_tpu_torch API reference",
+        "",
+        "<!-- GENERATED by mmlspark_tpu_torch.codegen.generate — do not edit",
+        "     by hand; run `python -m mmlspark_tpu_torch.codegen.generate",
+        "     docs/API_TORCH.md`. -->",
+        "",
+        f"{len(stages)} pipeline stages across {len(by_module)} modules.",
+        "",
+    ]
+    for module, entries in sorted(by_module.items()):
+        lines += [f"## `{module}`", ""]
+        for name, cls in entries:
+            doc = (cls.__doc__ or "").strip().splitlines()
+            head = doc[0] if doc else ""
+            lines += [f"### {name} ({_kind(cls)})", ""]
+            if head:
+                lines += [head, ""]
+            rows = _param_rows(cls)
+            if rows:
+                lines += ["| param | type | default | doc |",
+                          "|---|---|---|---|"]
+                lines += [f"| {n} | {t} | `{d}` | {doc} |"
+                          for n, t, d, doc in rows]
+                lines += [""]
+
+    from mmlspark_tpu_torch.models.zoo import available_models
+    lines += ["## Model zoo", ""]
+    for name in available_models():
+        lines.append(f"- `{name}`")
+    lines.append("")
+    return "\n".join(lines)
+
+
+def generate_stage_test_source() -> str:
+    """Source text of one generated pytest per registered stage
+    (constructor / param default round-trip / domain validation)."""
+    stages = all_stages()
+    src = [
+        '"""GENERATED stage smoke tests — built by mmlspark_tpu_torch.codegen.',
+        'One test per registered stage, like the reference\'s generated',
+        'PySparkWrapperTest pytests."""',
+        "import pytest",
+        "from mmlspark_tpu_torch.codegen.generate import all_stages",
+        "from mmlspark_tpu_torch.core.params import ParamException",
+        "",
+        "STAGES = all_stages()",
+        "",
+    ]
+    for q in sorted(stages):
+        cls = stages[q]
+        name = q.rsplit(".", 1)[1]
+        body = [
+            f"def test_generated_{name}():",
+            f"    cls = STAGES[{q!r}]",
+            "    stage = cls()",
+            f"    assert stage.uid.startswith({name!r})",
+            # Params the constructor set explicitly (e.g. ImageTransformer's
+            # inputCol='image') legitimately differ from the class default;
+            # only untouched params must read back the declared default.
+            "    touched = set(stage.explicit_param_values())",
+        ]
+        for p in cls.params():
+            if not p.has_default or p.default is None:
+                continue
+            body += [
+                f"    v = stage.get({p.name!r})",
+                f"    stage.set({p.name!r}, v)",
+                f"    assert stage.get({p.name!r}) == v",
+                f"    if {p.name!r} not in touched:",
+                f"        assert v == cls.get_param({p.name!r}).default",
+            ]
+        for p in cls.params():
+            if p.domain:
+                body += [
+                    "    with pytest.raises(ParamException):",
+                    f"        stage.set({p.name!r}, '__not_in_domain__')",
+                ]
+        body += [
+            "    copied = stage.copy()",
+            "    assert copied.explicit_param_values() == stage.explicit_param_values()",
+            "", "",
+        ]
+        src += body
+    return "\n".join(src)
+
+
+def main(argv: List[str]) -> None:
+    from mmlspark_tpu_torch.utils.logging import get_logger
+    out = argv[0] if argv else "docs/API_TORCH.md"
+    with open(out, "w") as f:
+        f.write(generate_api_reference())
+    get_logger("codegen").info("wrote %s", out)
+
+
+if __name__ == "__main__":
+    import sys
+    main(sys.argv[1:])

@@ -243,7 +243,7 @@ def stage_fingerprint(stage) -> str:
             h.update(str(o.dtype).encode())
             h.update(str(o.shape).encode())
             h.update(o.tobytes() if o.dtype != np.object_
-                     else repr(o.tolist()).encode())
+                     else repr(o.tolist()).encode())  # lint: allow-sync (numpy object array)
         else:
             h.update(b"\x06")
             h.update(repr(o).encode())

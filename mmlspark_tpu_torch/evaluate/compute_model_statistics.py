@@ -139,7 +139,7 @@ def _device_eval(y, pred, k: int, scores=None
     # k*k, which is dropped, so padding never counts.
     flat = torch.where(ww > 0, yy * k + pp, k * k).long()
     cm = torch.zeros(k * k + 1, dtype=torch.int32, device=device)
-    cm.index_add_(0, flat, torch.ones_like(yy))
+    cm.index_add_(0, flat, torch.ones_like(yy))  # lint: allow-embed (confusion-matrix counts)
     out = [cm[:k * k].double()]
 
     if scores is not None:

@@ -85,6 +85,16 @@ class ImageFeaturizer(HasInputCol, HasOutputCol, Transformer):
         self._tm_cache = None  # new params -> stale scoring model
         return self
 
+    def set_model_from_downloader(self, downloader, name: str):
+        """The architecture, params and input normalization of model
+        ``name`` in ``downloader``'s repository (``models/downloader.py``)."""
+        schema = downloader.repo.find_by_name(name)
+        return self.set_model(schema.architecture,
+                              params=downloader.load_params(name),
+                              input_mean=schema.inputMean or None,
+                              input_std=schema.inputStd or None,
+                              **schema.architectureArgs)
+
     def transform(self, frame: Frame) -> Frame:
         if not self.architecture or "params" not in self._get_state():
             raise SchemaError("ImageFeaturizer: call set_model() first")

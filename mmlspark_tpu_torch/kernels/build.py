@@ -130,8 +130,11 @@ def build_all(kernels: Sequence[Kernel] = None) -> Dict[str, str]:
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
+        # counted: a fresh worker that reaches here built a kernel
+        from mmlspark_tpu_torch.observability import metrics
+        metrics.counter("kernels.nvcc_runs").inc()
         cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(k.source)]
-        procs.append((k, lib, tmp, subprocess.Popen(
+        procs.append((k, lib, tmp, subprocess.Popen(  # lint: allow-process (nvcc, waited below)
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     failures = []
     for k, lib, tmp, proc in procs:

@@ -1,4 +1,4 @@
-"""JAX-package parameter trees -> the port's state dicts.
+"""JAX-package parameter trees <-> the port's state dicts.
 
 The inverse of the reference's torch import
 (``mmlspark_tpu/models/convert.py::_convert_torch_leaf``): a flax tree
@@ -20,6 +20,12 @@ keys are the module path joined by dots. Only the leaf is translated:
 The port's zoo modules carry the flax submodule names, so the result loads
 with ``load_state_dict(strict=True)``. Leaves may be numpy arrays or
 anything ``np.asarray`` accepts; nothing here imports JAX.
+
+:func:`to_jax_params` is the inverse: a port state dict (or tensors) ->
+the flax tree ``{"params": {...}}``, so a model repository written by
+either package loads in the other. The attention heads of a ViT's
+``DenseGeneral`` kernels are not in the state dict: they come from the
+module the state belongs to.
 """
 from __future__ import annotations
 
@@ -75,3 +81,58 @@ def from_jax_params(tree: Mapping) -> Dict[str, np.ndarray]:
                 out[prefix + name] = np.array(arr, order="C")
     walk("", tree)
     return out
+
+
+def _unconvert_leaf(module: str, leaf: str, arr: np.ndarray,
+                    heads) -> Tuple[str, np.ndarray]:
+    if leaf == "weight":
+        if arr.ndim == 1:
+            return "scale", arr
+        if arr.ndim == 4:
+            return "kernel", arr.transpose(2, 3, 1, 0)
+        if arr.ndim == 3:
+            return "kernel", arr.transpose(2, 1, 0)
+        if module in _HEAD_SPLIT_IN + ("out",) and heads is not None:
+            if module == "out":
+                return "kernel", arr.T.reshape(heads, -1, arr.shape[0])
+            return "kernel", arr.T.reshape(arr.shape[1], heads, -1)
+        return "kernel", arr.T
+    if leaf == "bias" and module in _HEAD_SPLIT_IN and heads is not None:
+        return "bias", arr.reshape(heads, -1)
+    return leaf, arr
+
+
+def to_jax_params(state: Mapping, module=None) -> Dict[str, Any]:
+    """The port's state dict (numpy arrays or tensors) -> the JAX
+    package's flax tree ``{"params": {module: {leaf: array}}}``:
+    :func:`from_jax_params` inverted, so ``to_jax_params(
+    from_jax_params(t), module) == t``. ``module`` (the ``nn.Module`` the
+    state belongs to) gives the head count of a multi-head attention's
+    ``query``/``key``/``value``/``out`` kernels; a state holding them
+    without it raises."""
+    tensors = {k: v for k, v in state.items() if hasattr(v, "detach")}
+    if tensors:
+        from mmlspark_tpu_torch.observability import syncs
+        state = {**state, **syncs.device_get(
+            {k: v.detach() for k, v in tensors.items()},
+            "convert.to_jax_params")}
+    tree: Dict[str, Any] = {}
+    for key, value in state.items():
+        arr = np.asarray(value)
+        path = key.split(".")
+        name, leaf = path[-2] if len(path) > 1 else "", path[-1]
+        heads = None
+        if name in _HEAD_SPLIT_IN + ("out",) and len(path) > 2:
+            parent = (module.get_submodule(".".join(path[:-2]))
+                      if module is not None else None)
+            heads = getattr(parent, "heads", None)
+            if parent is None and arr.ndim <= 2:
+                raise ValueError(
+                    f"{key}: a multi-head attention leaf needs the module "
+                    "for its head count (to_jax_params(state, module))")
+        new_leaf, out = _unconvert_leaf(name, leaf, arr, heads)
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[new_leaf] = np.array(out, order="C")
+    return {"params": tree}

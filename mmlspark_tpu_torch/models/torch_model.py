@@ -18,7 +18,12 @@ Params and the same behaviour:
 - ``computeDtype='bfloat16'`` casts float params and activations to
   bfloat16 AFTER the float32 preprocess;
 - ``outputNodeName`` selects a named layer (``pool``, ``head``; the LMs'
-  ``hidden``, ``logits``);
+  ``hidden``, ``logits``) or any other node under the reference's
+  capture-all names (``stage3_block2/out``, ``block0/mlp/out``; the
+  reference's ``select``: the key or a key ending in ``/node``, first in
+  sorted order), captured by a forward hook on that one submodule, in the
+  reference's layout (NHWC) and dtype; an unknown node raises
+  ``SchemaError``;
 - token models (``input_dtype="int32"``, the transformer LMs) take an ids
   column, coerced to int32 on the host even from float64; a (B, L, dim)
   output keeps the JAX package's column quirk: its ``dim`` is L.
@@ -35,8 +40,7 @@ Params and the same behaviour:
   raises.
 
 Everything runs on ``runtime.device`` (``utils/config.py``), which raises
-when it names CUDA and there is none. Left for later slices: capturing an
-unnamed submodule's output.
+when it names CUDA and there is none.
 """
 from __future__ import annotations
 
@@ -57,7 +61,7 @@ from mmlspark_tpu_torch.core.pipeline import Model
 from mmlspark_tpu_torch.core.schema import ColumnSchema, DType, SchemaError
 from mmlspark_tpu_torch.core.serialization import register_stage
 from mmlspark_tpu_torch.models.convert import from_jax_params
-from mmlspark_tpu_torch.models.zoo import build_model, init_state
+from mmlspark_tpu_torch.models.zoo import build_model, init_state, node_forward
 from mmlspark_tpu_torch.observability import syncs as obssyncs
 from mmlspark_tpu_torch.parallel import mesh as meshlib
 from mmlspark_tpu_torch.parallel.mesh import mesh_shape
@@ -295,11 +299,17 @@ class TorchModel(HasInputCol, HasOutputCol, Model):
             # the same memory format so cuDNN does not transpose them per call
             module = module.to(memory_format=torch.channels_last)
         node = self.outputNodeName
-        if node and node not in spec["layer_names"]:
-            raise NotImplementedError(
-                f"output node {node!r} is not a named layer of "
-                f"{self.architecture!r} ({spec['layer_names']}); capturing "
-                "other submodule outputs is not ported yet")
+        if not node:
+            forward = module
+        elif node in spec["layer_names"]:
+            # naming the one layer read lets a model skip what follows it
+            # (the LMs' vocab-wide head when only ``hidden`` is asked for)
+            forward = lambda x: module.forward_with_intermediates(  # noqa: E731
+                x, layers=(node,))[1][node]
+        else:
+            # any other node: the reference's select over its capture-all
+            # names, one forward hook on the submodule it picks
+            forward = node_forward(module, node)
 
         # Optional input standardization: models trained on z-scored inputs
         # carry fit-time statistics so scoring sees the same distribution
@@ -366,14 +376,6 @@ class TorchModel(HasInputCol, HasOutputCol, Model):
             if cdt is not None and y.is_floating_point():
                 y = y.to(cdt)
             return y
-
-        if not node:
-            forward = module
-        else:
-            # naming the one layer read lets a model skip what follows it
-            # (the LMs' vocab-wide head when only ``hidden`` is asked for)
-            forward = lambda x: module.forward_with_intermediates(  # noqa: E731
-                x, layers=(node,))[1][node]
 
         @torch.inference_mode()
         def apply(x: torch.Tensor) -> torch.Tensor:
@@ -656,7 +658,7 @@ def _mesh_score(ch, header, tensors, local):
     pl = ch.placements[header["key"]]
     layout = pl.layout
     tm, apply = pl.parts
-    x = sharding.local_rows(pl.mesh, tensors[0].numpy())
+    x = sharding.local_rows(pl.mesh, tensors[0].numpy())  # lint: allow-sync (host operand)
     if header["seq"]:
         x = sharding.local_seq(pl.mesh, x, "seq")
     x = torch.from_numpy(np.ascontiguousarray(x)).to(pl.device)
@@ -665,7 +667,7 @@ def _mesh_score(ch, header, tensors, local):
         with pl.using() as module:
             out = apply(x)
             vocab = getattr(module, "_vocab", None)
-            if vocab is not None and tm.outputNodeName in ("", "logits"):
+            if vocab is not None and tm.outputNodeName in ("", "logits", "head"):
                 out = collectives.all_gather(out, out.dim() - 1, vocab)
             if header["seq"]:
                 out = collectives.all_gather(out, 1, layout.group("seq"))

@@ -98,7 +98,7 @@ def init_state(module: torch.nn.Module, seed: int = 0) -> Dict[str, np.ndarray]:
             value = torch.ones(p.shape)
         else:
             value = torch.zeros(p.shape)
-        state[name] = value.numpy()
+        state[name] = value.numpy()  # lint: allow-sync (host init draw)
     return state
 
 
@@ -106,6 +106,9 @@ class PooledHead(torch.nn.Module):
     """Base of the zoo modules: ``forward_features`` yields the ``pool``
     layer and ``head`` maps it to the output, the two names every spec's
     ``layer_names`` lists."""
+
+    # the JAX package's sown names -> this module's intermediates keys
+    SOWN = {"pool": "pool", "head": "head"}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.head(self.forward_features(x))
@@ -117,6 +120,124 @@ class PooledHead(torch.nn.Module):
         pool = self.forward_features(x)
         out = self.head(pool)
         return out, {"pool": pool, "head": out}
+
+
+
+# ---------------------------------------------------------------------------
+# Capturing any node's output (the JAX package's ``capture_all``)
+#
+# The JAX package names a submodule's output ``<flax path>/out`` (flax's
+# ``__call__`` rewritten to ``out``), the root's ``out``, and adds the sown
+# layers (``pool``, ``hidden``) and ``head`` (the output). The port's
+# modules carry the flax module names, so ``named_modules()`` with ``.`` ->
+# ``/`` rebuilds the same keys; containers and modules that a class marks
+# ``flax_module = False`` have no flax counterpart and are left out.
+# A module whose output layout differs from flax's (NCHW convs, a
+# flattened patch grid, fused heads) restates it in its
+# ``to_reference_layout(args, y)``.
+
+
+def reference_layout(module: torch.nn.Module, args, y):
+    """``y``, the output of ``module`` on ``args``, in the JAX package's
+    layout (NHWC where the port computes NCHW), whole: a column-split
+    Dense of a tensor-split block (``split_columns``, its group) computed
+    the rank's features, gathered here over the group."""
+    group = getattr(module, "split_columns", None)
+    if group is not None:
+        from mmlspark_tpu_torch.parallel import collectives
+        y = collectives.all_gather(y, y.dim() - 1, group)
+    fn = getattr(module, "to_reference_layout", None)
+    return fn(args, y) if fn is not None else y
+
+
+def capture_names(module: torch.nn.Module) -> Dict[str, object]:
+    """The JAX package's capture-all keys of ``module`` -> the submodule
+    whose first output each names, or the key of a sown layer in
+    ``forward_with_intermediates``' dict (a ``str``)."""
+    names: Dict[str, object] = dict(getattr(module, "SOWN", {}))
+    for name, sub in module.named_modules():
+        if isinstance(sub, (torch.nn.ModuleList, torch.nn.ModuleDict,
+                            torch.nn.Sequential)) \
+                or not getattr(sub, "flax_module", True):
+            continue
+        names[name.replace(".", "/") + "/out" if name else "out"] = sub
+    return names
+
+
+def select(names, node: str) -> List[str]:
+    """The reference's node match: the key itself, or a key ending in
+    ``/node``, in sorted order (the first is the one read)."""
+    return [k for k in sorted(names) if k == node or k.endswith("/" + node)]
+
+
+def _not_found(node: str, names) -> Exception:
+    from mmlspark_tpu_torch.core.schema import SchemaError
+    return SchemaError(f"output node {node!r} not found; have {sorted(names)}")
+
+
+def node_forward(module: torch.nn.Module, node: str) -> Callable:
+    """``forward(x)`` -> the output the JAX package scores for ``node``:
+    a sown layer from ``forward_with_intermediates``, any other node by a
+    forward hook on the one submodule :func:`select` picks (its first call,
+    as flax keeps the first of a module's outputs), in the reference's
+    layout and dtype. An unknown node raises ``SchemaError``."""
+    names = capture_names(module)
+    matches = select(names, node)
+    if not matches:
+        raise _not_found(node, names)
+    target = names[matches[0]]
+    if isinstance(target, str):
+        return lambda x: module.forward_with_intermediates(
+            x, layers=(target,))[1][target]
+
+    def forward(x):
+        seen = []
+
+        def hook(mod, args, out):
+            if not seen:
+                seen.append(reference_layout(mod, args, out))
+
+        handle = target.register_forward_hook(hook)
+        try:
+            module(x)
+        finally:
+            handle.remove()
+        if not seen:
+            from mmlspark_tpu_torch.core.schema import SchemaError
+            raise SchemaError(f"output node {node!r} ({matches[0]}) was "
+                              "not computed by this forward")
+        return seen[0]
+    return forward
+
+
+def apply_with_intermediates(module: torch.nn.Module, x,
+                             capture_all: bool = False):
+    """``(output, {name: activation})`` under the JAX package's names: the
+    sown layers and ``head``; with ``capture_all`` also every submodule's
+    first output (``<path>/out``) and the root's ``out``."""
+    names = capture_names(module)
+    seen: Dict[str, object] = {}
+    handles = []
+    if capture_all:
+        for key, sub in names.items():
+            if isinstance(sub, str) or key == "out":
+                continue
+
+            def hook(mod, args, out, key=key):
+                if key not in seen:
+                    seen[key] = reference_layout(mod, args, out)
+            handles.append(sub.register_forward_hook(hook))
+    try:
+        out, sown = module.forward_with_intermediates(x)
+    finally:
+        for h in handles:
+            h.remove()
+    inters = {ref: sown[own] for ref, own in
+              getattr(module, "SOWN", {}).items()}
+    if capture_all:
+        inters.update(seen)
+        inters["out"] = out
+    return out, inters
 
 
 # populate the registry

@@ -51,6 +51,10 @@ class Conv1d(nn.Module):
                      self.weight.to(self.dtype))
         return y + self.bias.to(self.dtype)[:, None]
 
+    @staticmethod
+    def to_reference_layout(args, y: torch.Tensor) -> torch.Tensor:
+        return y.transpose(1, 2)      # flax's (B, L, C)
+
 
 class TextCNN(PooledHead):
     """ids (B, L) int -> logits (B, num_classes) fp32; ``pool`` is the

@@ -18,7 +18,9 @@ from_jax_params` maps a flax parameter tree onto these modules one to one:
   block's float32 output.
 - the layer-name contract: ``pool`` (the pooled features) and ``head``
   (the logits), returned by ``forward_with_intermediates``
-  (:class:`mmlspark_tpu_torch.models.zoo.PooledHead`).
+  (:class:`mmlspark_tpu_torch.models.zoo.PooledHead`); any other node is
+  captured under the reference's name (``stage3_block2/out``) in NHWC
+  (:func:`mmlspark_tpu_torch.models.zoo.node_forward`).
 """
 from __future__ import annotations
 
@@ -31,8 +33,20 @@ from torch import nn
 from mmlspark_tpu_torch.models.zoo import (
     PooledHead, register_model, resolve_dtype,
 )
+from mmlspark_tpu_torch.models.zoo import (
+    apply_with_intermediates as zoo_apply_with_intermediates,
+)
 
 Padding = Union[str, Tuple[Tuple[int, int], Tuple[int, int]]]
+
+
+class ChannelsFirst:
+    """A module computing on NCHW-indexed tensors: its captured output is
+    moved to the reference's channels-last layout."""
+
+    @staticmethod
+    def to_reference_layout(args, y: torch.Tensor) -> torch.Tensor:
+        return y.movedim(1, -1)
 
 
 def _same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
@@ -42,7 +56,7 @@ def _same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
-class Conv(nn.Module):
+class Conv(ChannelsFirst, nn.Module):
     """flax ``nn.Conv(use_bias=False)`` on NCHW-indexed tensors."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
@@ -65,7 +79,7 @@ class Conv(nn.Module):
         return F.conv2d(F.pad(x, (l, r, t, b)), w, stride=self.stride)
 
 
-class GroupNorm(nn.Module):
+class GroupNorm(ChannelsFirst, nn.Module):
     """flax ``nn.GroupNorm(num_groups=min(32, features), dtype=float32)``."""
 
     def __init__(self, features: int):
@@ -83,6 +97,8 @@ class Dense(nn.Module):
     """flax ``nn.Dense(dtype=...)``: weight (out, in), the input, weight
     and bias cast to ``dtype`` at the op (float32 by default)."""
 
+    split_heads = None   # the head count of a flax DenseGeneral (h, d) output
+
     def __init__(self, cin: int, cout: int, dtype=torch.float32):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(cout, cin))
@@ -93,6 +109,11 @@ class Dense(nn.Module):
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
                         self.bias.to(self.dtype))
 
+    def to_reference_layout(self, args, y: torch.Tensor) -> torch.Tensor:
+        if self.split_heads is None:
+            return y
+        return y.unflatten(-1, (self.split_heads, -1))
+
 
 def _max_pool_same(x: torch.Tensor) -> torch.Tensor:
     """flax ``nn.max_pool(x, (3, 3), strides=(2, 2), padding="SAME")``."""
@@ -101,7 +122,7 @@ def _max_pool_same(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(F.pad(x, (l, r, t, b), value=float("-inf")), 3, 2)
 
 
-class ResidualBlock(nn.Module):
+class ResidualBlock(ChannelsFirst, nn.Module):
     def __init__(self, cin: int, features: int, stride: int = 1,
                  dtype=torch.bfloat16):
         super().__init__()
@@ -122,7 +143,7 @@ class ResidualBlock(nn.Module):
         return F.relu(y + residual.to(y.dtype))
 
 
-class BottleneckBlock(nn.Module):
+class BottleneckBlock(ChannelsFirst, nn.Module):
     def __init__(self, cin: int, features: int, stride: int = 1,
                  dtype=torch.bfloat16):
         super().__init__()
@@ -213,12 +234,8 @@ def resnet50(num_classes: int = 1000, dtype=torch.bfloat16):
 
 def apply_with_intermediates(module: ResNet, x: torch.Tensor,
                              capture_all: bool = False):
-    """Forward returning ``(logits, {"pool": features, "head": logits})``
-    for layer selection. Only the explicitly named layers are recorded;
-    capturing every submodule output (the reference's ``capture_all``) is
-    not ported yet."""
-    if capture_all:
-        raise NotImplementedError(
-            "capturing every submodule output is not ported; select 'pool' "
-            "or 'head'")
-    return module.forward_with_intermediates(x)
+    """Forward returning ``(logits, {layer_name: activation})`` under the
+    JAX package's names: ``pool`` and ``head``, and with ``capture_all``
+    every submodule's output (``stage3_block2/out``,
+    ``stage1_block0/conv2/out``, ...) in NHWC and the root's ``out``."""
+    return zoo_apply_with_intermediates(module, x, capture_all=capture_all)

@@ -129,6 +129,9 @@ class DecoderBlock(nn.Module):
         leaves by name); returns the weights it so consumes whole-shard.
         Otherwise it stays unbound and its split weights are gathered."""
         self._tp = None
+        for name in self._COLUMNS:
+            if hasattr(self, name):
+                getattr(self, name).split_columns = None
         t = layout.size("tensor")
         if t == 1 or self.heads % t:
             return set()
@@ -142,6 +145,10 @@ class DecoderBlock(nn.Module):
                for n, d in want.items() if d == 0):
             return set()
         self._tp = layout.group("tensor")
+        for name in self._COLUMNS:
+            if hasattr(self, name):
+                # a hook on a column-split Dense sees the rank's features
+                getattr(self, name).split_columns = self._tp
         return set(want)
 
     def _columns(self, dense: Dense, y: torch.Tensor) -> torch.Tensor:
@@ -158,10 +165,14 @@ class DecoderBlock(nn.Module):
 
     def _rows(self, dense: Dense, h: torch.Tensor) -> torch.Tensor:
         """A row-split Dense: partial products summed over ``tensor``,
-        then the bias."""
+        then the bias. The Dense's forward hooks see the summed output."""
         part = F.linear(h.to(dense.dtype), dense.weight.to(dense.dtype))
-        return collectives.reduce_from(part, self._tp) \
+        out = collectives.reduce_from(part, self._tp) \
             + dense.bias.to(dense.dtype)
+        for hook in dense._forward_hooks.values():
+            got = hook(dense, (h,), out)
+            out = out if got is None else got
+        return out
 
     def _forward_split(self, x: torch.Tensor) -> torch.Tensor:
         B, L, _ = x.shape
@@ -204,6 +215,9 @@ class TransformerLM(nn.Module):
     ``block_factory(layer_idx, name) -> nn.Module`` customizes single
     layers (the MoE LM's routed FFNs) while the embedding, positions and
     tied head stay here."""
+
+    # the JAX package's sown names -> this module's intermediates keys
+    SOWN = {"hidden": "hidden", "head": "logits"}
 
     def __init__(self, vocab: int = 32000, dim: int = 512, depth: int = 6,
                  heads: int = 8, max_len: int = 2048, dtype=torch.bfloat16,
@@ -262,7 +276,12 @@ class TransformerLM(nn.Module):
         rows = F.embedding(torch.where(inside, local, 0),
                            table.to(self.token_embedding.dtype))
         rows = rows.masked_fill(~inside[..., None], 0)
-        return collectives.reduce_from(rows, self._vocab)
+        out = collectives.reduce_from(rows, self._vocab)
+        # the Embed's forward hooks see the summed (whole) rows
+        for hook in self.token_embedding._forward_hooks.values():
+            got = hook(self.token_embedding, (tokens,), out)
+            out = out if got is None else got
+        return out
 
     def forward_hidden(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens (B, L) -> the final-normed fp32 activations (B, L, dim):
@@ -329,7 +348,7 @@ class _SplitVocabCrossEntropy(torch.autograd.Function):
     def backward(ctx, g):
         e, total, idx, inside = ctx.saved_tensors
         grad = e / total[:, None]
-        grad.scatter_add_(1, idx[:, None], -inside.to(grad.dtype)[:, None])
+        grad.scatter_add_(1, idx[:, None], -inside.to(grad.dtype)[:, None])  # lint: allow-embed (softmax grad)
         return grad * g[:, None], None, None
 
 

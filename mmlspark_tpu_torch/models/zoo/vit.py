@@ -65,6 +65,8 @@ class MultiHeadAttention(nn.Module):
         self.key = Dense(dim, dim, self.dtype)
         self.value = Dense(dim, dim, self.dtype)
         self.out = Dense(dim, dim, self.dtype)
+        for proj in (self.query, self.key, self.value):
+            proj.split_heads = heads   # flax's (h, d) DenseGeneral output
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, N, dim = x.shape
@@ -107,6 +109,11 @@ class PatchEmbedding(nn.Module):
         y = F.conv2d(x, self.weight.to(self.dtype), self.bias.to(self.dtype),
                      stride=self.patch)
         return y.flatten(2).transpose(1, 2)
+
+    def to_reference_layout(self, args, y: torch.Tensor) -> torch.Tensor:
+        """(B, N, dim) -> flax's (B, H/p, W/p, dim) patch grid."""
+        _, h, w, _ = args[0].shape
+        return y.unflatten(1, (h // self.patch, w // self.patch))
 
 
 class ViT(PooledHead):

@@ -195,7 +195,7 @@ def _hashes(terms: Sequence[str]) -> np.ndarray:
         hs = murmur3_batch(miss_t)
         out[miss_i] = hs
         if len(cache) < _HASH_CACHE_MAX:
-            for t, h in zip(miss_t, hs.tolist()):
+            for t, h in zip(miss_t, hs.tolist()):  # lint: allow-sync (numpy array)
                 cache[t] = h
     return out
 

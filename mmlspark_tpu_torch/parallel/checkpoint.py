@@ -63,6 +63,7 @@ import shutil
 import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
+from concurrent.futures import wait as futures_wait
 from collections.abc import Mapping
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -121,7 +122,7 @@ def _fsync_dir(path: str) -> None:
 
 def _pid_alive(pid: int) -> bool:
     try:
-        os.kill(pid, 0)
+        os.kill(pid, 0)  # lint: allow-process (signal 0: a liveness probe)
     except ProcessLookupError:
         return False
     except PermissionError:
@@ -215,10 +216,8 @@ class TrainCheckpointer:
         devices = {t.device for t in _tensors(device_state)
                    if t.device.type == "cuda"}
         payload = _snapshot(device_state, pinned=bool(devices))
-        if devices:
-            syncs.sync_point("checkpoint.snapshot")
-            for d in devices:
-                torch.cuda.current_stream(d).synchronize()
+        for d in devices:
+            syncs.synchronize("checkpoint.snapshot", d)
         payload["optimizer_count"] = int(opt.count)
         own = getattr(opt.torch, "count", None)
         payload["optimizer_own_count"] = None if own is None else int(own)
@@ -276,11 +275,8 @@ class TrainCheckpointer:
         barrier after rank 0's commits, so all list the same steps."""
         with self._lock:
             pending, self._pending = self._pending, []
-        for fut in pending:
-            try:
-                fut.result()
-            except BaseException:   # recorded in self._error by _write
-                pass
+        # a failed write is recorded in self._error by _write
+        futures_wait(pending)
         with self._lock:
             err, self._error = self._error, None
         if self._meshed:
@@ -473,7 +469,7 @@ class TrainCheckpointer:
                 opt.torch.count = int(payload["optimizer_own_count"])
             state["step"].fill_(int(payload["step"]))
             for seed, gen_state in payload["generators"].items():
-                trainer._generator(int(seed)).set_state(gen_state.cpu())
+                trainer._generator(int(seed)).set_state(gen_state.cpu())  # lint: allow-sync (the loaded state is a host tensor)
         obsmetrics.counter("checkpoint.restores").inc()
         return state
 

@@ -286,12 +286,10 @@ def state_sharding(p, key: str, shape, whole: bool = False):
     sh = _sharding(p)
     if sh is None:
         return None
-    from mmlspark_tpu_torch.parallel.sharding import ParamSharding
+    from mmlspark_tpu_torch.parallel.sharding import without_dim
     if key in ("v_row", "v_col"):
         d1, d0 = _factored_dims(sh.shape)
-        drop = d0 if key == "v_row" else d1
-        return ParamSharding(sh.spec[:drop] + sh.spec[drop + 1:],
-                             sh.shape[:drop] + sh.shape[drop + 1:], sh.sizes)
+        return without_dim(sh, d0 if key == "v_row" else d1)
     like = sh.shape if whole else tuple(p.shape)
     return sh if tuple(shape) == like else None
 

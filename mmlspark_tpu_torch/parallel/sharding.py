@@ -188,6 +188,12 @@ class ParamSharding:
         return out
 
 
+def without_dim(sh: ParamSharding, dim: int) -> ParamSharding:
+    """``sh`` for a tensor that lost dim ``dim`` (a reduction over it)."""
+    return ParamSharding(sh.spec[:dim] + sh.spec[dim + 1:],
+                         sh.shape[:dim] + sh.shape[dim + 1:], sh.sizes)
+
+
 def _leaves(params: Any):
     """(name, leaf) pairs of a module's parameters or a flat state dict."""
     if hasattr(params, "named_parameters"):
@@ -350,11 +356,17 @@ def host_blocks(params: Mapping, shardings: Dict[str, "ParamSharding"],
     return out
 
 
+def _rank_grid(mesh) -> np.ndarray:
+    """The mesh's grid of global ranks, as numpy."""
+    if hasattr(mesh.mesh, "numpy"):
+        return mesh.mesh.numpy()  # lint: allow-sync (a host rank tensor)
+    return np.asarray(mesh.mesh)
+
+
 def coordinate_of(mesh, rank: int) -> Dict[str, int]:
     """The mesh coordinate of global rank ``rank`` (any rank of the
     mesh, not only this one)."""
-    grid = mesh.mesh.numpy() if hasattr(mesh.mesh, "numpy") \
-        else np.asarray(mesh.mesh)
+    grid = _rank_grid(mesh)
     where = np.argwhere(grid == rank)
     if not len(where):
         raise ValueError(f"rank {rank} is not in the mesh")
@@ -510,9 +522,8 @@ def axis_group(mesh, axes: Sequence[str]):
         return None
     if len(axes) == 1:
         return mesh.get_group(axes[0])
-    grid = mesh.mesh.numpy() if hasattr(mesh.mesh, "numpy") \
-        else np.asarray(mesh.mesh)
-    key = (tuple(grid.shape), tuple(grid.flatten().tolist()), axes)
+    grid = _rank_grid(mesh)
+    key = (tuple(grid.shape), tuple(grid.flatten().tolist()), axes)  # lint: allow-sync (numpy)
     with _groups_lock:
         if key in _groups:
             return _groups[key]
@@ -522,7 +533,7 @@ def axis_group(mesh, axes: Sequence[str]):
     blocks = np.transpose(grid, rest + keep).reshape(
         -1, math.prod(grid.shape[i] for i in keep))
     mine = None
-    for ranks in blocks.tolist():
+    for ranks in blocks.tolist():  # lint: allow-sync (numpy)
         group = dist.new_group(sorted(ranks))
         if dist.get_rank() in ranks:
             mine = group

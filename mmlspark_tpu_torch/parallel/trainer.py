@@ -238,7 +238,7 @@ class DeviceEpochCache:
     def batches(self, epoch: int = 0):
         """Device batch dicts for one epoch (shuffled iff ``shuffle``)."""
         if self.shuffle and self._epoch != epoch and self.mesh is not None:
-            perm = self._permutation(epoch).numpy()
+            perm = self._permutation(epoch).numpy()  # lint: allow-sync (a host permutation)
             m = perm.size
             self._batches = self._split(self._upload({
                 k: v.reshape((m,) + v.shape[2:])[perm].reshape(v.shape)

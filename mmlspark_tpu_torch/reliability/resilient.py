@@ -270,7 +270,7 @@ class _Lockstep:
     def __init__(self, mesh):
         import torch.distributed as dist
         self._dist = dist
-        ranks = sorted(int(r) for r in mesh.mesh.flatten().tolist())
+        ranks = sorted(int(r) for r in mesh.mesh.flatten().tolist())  # lint: allow-sync (host ranks)
         self.group = dist.new_group(ranks, backend="gloo")
         self.rank = dist.get_rank()
 
@@ -296,7 +296,7 @@ class _Lockstep:
         flag = torch.tensor([1 if has_batch else 0], dtype=torch.int32)
         self._dist.all_reduce(flag, op=self._dist.ReduceOp.MIN,
                               group=self.group)
-        if int(flag.item()) == 1:
+        if int(flag.item()) == 1:  # lint: allow-sync (a gloo flag on the host)
             return
         dry = [r for r, ok in self._gather((self.rank, has_batch)) if not ok]
         raise ValueError(

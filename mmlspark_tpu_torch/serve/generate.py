@@ -611,7 +611,7 @@ class GenerativeEntry:
         # invalid rows; clamp them so no gather leaves its tensor
         cols = torch.clamp(positions // bt, max=W - 1)
         blk_idx = torch.where(valid, torch.gather(tables, 1, cols),
-                              torch.full_like(cols, RESERVED_BLOCK))
+                              RESERVED_BLOCK)
         offs = positions % bt
         masked = self._keys[None, None, :] > positions[:, :, None]   # (B,C,K)
         pos = torch.clamp(positions, max=module.max_len - 1)

@@ -88,7 +88,7 @@ class GraphProgram:
     def __init__(self, fn: Callable, specs: Sequence[Spec],
                  device: torch.device, pool=None):
         t0 = time.perf_counter()
-        self.inputs = [torch.zeros(shape, dtype=dtype, device=device)
+        self.inputs = [torch.zeros(shape, dtype=dtype, device=device)  # lint: allow-alloc (the graph's static inputs)
                        for shape, dtype in specs]
         self.replays = 0
         with DEVICE_LOCK, torch.cuda.device(device):
@@ -143,7 +143,7 @@ class MeshProgram:
         self.replays = 0
 
     def __call__(self, *operands, fetch: Optional[str] = None):
-        args = [_host(x, shape).to(d).numpy()
+        args = [_host(x, shape).to(d).numpy()  # lint: allow-sync (host operands)
                 for x, (shape, d) in zip(operands, self.specs)]
         with DEVICE_LOCK:
             out = self.run(*args, prog=self.key)

@@ -90,8 +90,8 @@ class RankPool:
     def _start(self) -> None:
         ctx = multiprocessing.get_context("spawn")
         port = free_port()
-        self._out = ctx.Queue()
-        self._ins = [ctx.Queue() for _ in range(self.world)]
+        self._out = ctx.Queue(maxsize=0)
+        self._ins = [ctx.Queue(maxsize=0) for _ in range(self.world)]
         self._procs = [
             ctx.Process(target=_worker, daemon=True,
                         args=(r, self.world, port, self.env, self.paths,

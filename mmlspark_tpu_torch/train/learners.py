@@ -331,7 +331,7 @@ def _mlp_init(sizes, seed: int):
     """He-normal weights and zero biases from a seeded ``torch.Generator``
     (the JAX package draws from ``jax.random``: same law, other numbers)."""
     gen = torch.Generator().manual_seed(int(seed))
-    return [{"w": (torch.randn(sizes[i], sizes[i + 1], generator=gen)
+    return [{"w": (torch.randn(sizes[i], sizes[i + 1], generator=gen)  # lint: allow-sync (host init draw)
                    * float(np.sqrt(2.0 / sizes[i]))).numpy(),
              "b": np.zeros((sizes[i + 1],), np.float32)}
             for i in range(len(sizes) - 1)]

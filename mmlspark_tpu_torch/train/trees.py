@@ -113,7 +113,7 @@ def _scatter_add(out: torch.Tensor, idx: torch.Tensor,
         return out.index_put_((idx,), src, accumulate=True)
     k = out.shape[1]
     flat = (idx[:, None] * k + torch.arange(k, device=idx.device)).reshape(-1)
-    out.view(-1).index_add_(0, flat, src.reshape(-1))
+    out.view(-1).index_add_(0, flat, src.reshape(-1))  # lint: allow-embed (histograms)
     return out
 
 

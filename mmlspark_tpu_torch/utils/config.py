@@ -111,8 +111,11 @@ _DEFAULTS: Dict[str, Any] = {
                                       # split over `tensor` (as the
                                       # attention projections); False
                                       # keeps a whole arena on every rank
-    # reliability: HttpReplica's per-urlopen timeout
+    # reliability: per-urlopen timeout (HttpReplica, the downloader) and
+    # the default RetryPolicy of the downloader
     "reliability.http_timeout": 30.0,
+    "reliability.max_attempts": 3,     # default RetryPolicy attempt cap
+    "reliability.base_delay": 0.2,     # first backoff delay (seconds)
     # fleet (the in-process multi-replica router; serve/{router,affinity,
     # fleet}.py)
     "fleet.replicas": 2,              # in-process replicas per Fleet

@@ -266,18 +266,27 @@ def test_image_featurizer_save_load_round_trip(jparams, tmp_path):
     assert load_stage(str(tmp_path / "it")).stages == it.stages
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(jparams):
     frame = Frame.from_dict({"x": np.zeros((2, 32 * 32 * 3), np.float32)})
     # a mesh of two ranks needs them: without a process group it raises
     model = TorchModel(inputCol="x", outputCol="f", meshSpec={"data": 2})
     model.set_model("resnet20_cifar", **ARCH)
     with pytest.raises(RuntimeError, match="process group"):
         model.transform(frame)
+    # an unnamed submodule's output is captured now, as the reference
+    # captures it (NHWC, the reference's name)
+    x = np.random.default_rng(12).normal(size=(2, 32 * 32 * 3)).astype(
+        np.float32)
     model = TorchModel(inputCol="x", outputCol="f",
-                       outputNodeName="stage0_block0")
-    model.set_model("resnet20_cifar", **ARCH)
-    with pytest.raises(NotImplementedError, match="named layer"):
-        model.transform(frame)
+                       outputNodeName="stage0_block0/out")
+    model.set_model("resnet20_cifar", params=jparams, **ARCH)
+    jm = JaxModel(inputCol="x", outputCol="f",
+                  outputNodeName="stage0_block0/out")
+    jm.set_model("resnet20_cifar", params=jparams, **ARCH)
+    got = np.asarray(model.transform(Frame.from_dict({"x": x})).column("f"))
+    want = np.asarray(jm.transform(JFrame.from_dict({"x": x})).column("f"))
+    assert got.shape == want.shape == (2, 32, 32, 16)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
     # binary input decodes now (io/codecs.py); bytes no codec reads are
     # refused as the reference refuses them
     tframe, _ = _frames(_u8_images(10, 1, 4, 4))

@@ -91,24 +91,57 @@ def _no_placements(res):
 
 SHARDED = [({"data": 2, "tensor": 2}, ""), ({"data": 2, "fsdp": 2}, ""),
            ({"data": -1}, ""), ({"data": 2, "tensor": 2}, "pool"),
-           ({"data": 1, "tensor": 2}, "")]
+           ({"data": 1, "tensor": 2}, ""),
+           ({"data": 2, "tensor": 2}, "mlp_fc0/out"),
+           ({"data": -1}, "out")]
 
 
 @pytest.mark.parametrize("spec,node", SHARDED,
                          ids=["data2xtensor2", "data2xfsdp2", "data-1",
-                              "pool-data2xtensor2", "submesh-tensor2"])
+                              "pool-data2xtensor2", "submesh-tensor2",
+                              "captured-data2xtensor2",
+                              "captured-suffix-data-1"])
 def test_sharded_scoring_matches_the_reference(pools, spec, node):
     """test_models.py:369 -- params by the standard rules, the batch over
     the data axes, a ragged tail of 70 rows, the ``pool`` node through
     the meshed path, and a mesh of 2 over ranks 0-1 of the 4 (the others
-    skip its commands); then every rank's placement is freed."""
+    skip its commands); then every rank's placement is freed. A captured
+    node (the reference's capture-all names, a suffix too) scores through
+    the meshed path as well."""
     params = _params("mlp_tabular", **MLP)
     x = np.random.default_rng(0).normal(size=(70, 16)).astype(np.float32)
     stage = dict(miniBatchSize=32, outputNodeName=node)
     want = _jax_scores("mlp_tabular", params, MLP, x, **stage)
     res = _run(pools, 4, "score", "mlp_tabular", params, MLP, x, spec,
                stage)
-    assert res["o"].shape == want.shape == ((70, 24) if node else (70, 5))
+    width = {"": 5, "pool": 24, "out": 5, "mlp_fc0/out": 32}[node]
+    assert res["o"].shape == want.shape == (70, width)
+    np.testing.assert_allclose(res["o"], want, rtol=1e-5, atol=1e-5)
+    _no_placements(res)
+
+
+LM_NODES = ["block0/attn_query/out", "block1/mlp_down/out",
+            "token_embedding/out", "block0/out", "head"]
+
+
+@pytest.mark.parametrize("spec", [{"data": 1, "tensor": 2},
+                                  {"data": 2, "tensor": 2}],
+                         ids=["tensor2", "data2xtensor2"])
+@pytest.mark.parametrize("node", LM_NODES)
+def test_captured_lm_node_on_a_tensor_split_mesh(pools, spec, node):
+    """A node of a tensor-split block (a column-split projection gathered
+    over ``tensor``, a row-split one summed, the vocabulary-split
+    embedding, a block's output, the logits) is captured whole on the
+    mesh and equals the JAX package's capture on one device."""
+    params = _params("transformer_lm_tiny", **LM)
+    ids = np.random.default_rng(6).integers(0, 256, (8, 32)).astype(
+        np.int32)
+    stage = dict(miniBatchSize=4, outputNodeName=node)
+    want = _jax_scores("transformer_lm_tiny", params, LM, ids, col="ids",
+                       **stage)
+    res = _run(pools, 4, "score", "transformer_lm_tiny", params, LM, ids,
+               spec, stage, "ids")
+    assert res["o"].shape == want.shape
     np.testing.assert_allclose(res["o"], want, rtol=1e-5, atol=1e-5)
     _no_placements(res)
 
