@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                      # as the chip check runs it
     python3 chip_smoke.py --profile <dir>      # plus profiled warm passes
-    python3 chip_smoke.py --mesh-only [--mesh-cards 4]   # the mesh phase
+    python3 chip_smoke.py --mesh-only [--mesh-cards 4]   # mesh, chaos_mesh
 
 Nine paths, each through the entry points a user calls:
 
@@ -71,7 +71,9 @@ Nine paths, each through the entry points a user calls:
   sparse gradient);
 - tools: ``TorchModel`` capturing an inner node of the featurize path's
   ResNet-50 (K2), the model downloader over a localhost repository, four
-  chaos scenarios and the CLI's ``info``, ``check`` and ``top``.
+  chaos scenarios, the four mesh-bound chaos scenarios on two ranks
+  through ``python -m mmlspark_tpu_torch.cli chaos --nprocs 2``, and the
+  CLI's ``info``, ``check`` and ``top``.
 
 The script:
 
@@ -459,10 +461,21 @@ The script:
 24. ``chaos``: ``reliability/chaos.py``'s ``train``, ``fleet``,
     ``decode`` and ``host`` scenarios on the card (seed 0, the reference
     tests' sizes), every verdict all-green, seconds and launches each;
-25. ``cli``: ``python -m mmlspark_tpu_torch.cli info`` (platform gpu,
+25. ``chaos_mesh``: the mesh-bound scenarios ``fleet_sharded``,
+    ``decode_sharded``, ``recommender`` and ``reshard``, each through
+    ``python -m mmlspark_tpu_torch.cli chaos --scenario NAME --seed 0
+    --nprocs 2 --platform cuda`` (two ranks sharing the card over gloo,
+    rank 0 leading, the reference tests' sizes): exit 0, every verdict
+    all-green, no placement left on either rank; seconds, the verdicts'
+    ``restated`` lists and every rank's kernel launches each (none of the
+    four reaches a kernel: mlp_tabular and the DLRM have none, and
+    decode_sharded's prompts of 3-8 ids never reach K3's prefill buckets
+    of 512 and more). ``--mesh-only --mesh-cards 4`` runs them after the
+    mesh phase on four ranks, one a card, over NCCL;
+26. ``cli``: ``python -m mmlspark_tpu_torch.cli info`` (platform gpu,
     count 1), ``check mmlspark_tpu_torch`` (exit 0) and ``top --once``
     over two in-process replicas served over HTTP;
-26. prints the kernel table line (each kernel's launches on each of its
+27. prints the kernel table line (each kernel's launches on each of its
     paths), the whole script's seconds, the card's name and power limit,
     and last ``{"ok": true, "device": {...}}``.
 
@@ -7014,6 +7027,13 @@ CHAOS_ON_CARD = (("train", {"requests": 12}),
                  ("fleet", {"replicas": 3, "requests": 12}),
                  ("decode", {"replicas": 2, "requests": 5}),
                  ("host", {"replicas": 2, "requests": 12}))
+# the mesh-bound ones (cli chaos --nprocs), with their sizes; a launch of
+# a scenario's ranks is killed after CHAOS_MESH_TIMEOUT_S
+CHAOS_MESH = (("fleet_sharded", {"replicas": 3, "requests": 12}),
+              ("decode_sharded", {"replicas": 2, "requests": 5}),
+              ("recommender", {"requests": 12}),
+              ("reshard", {"requests": 12}))
+CHAOS_MESH_TIMEOUT_S = 300
 
 
 def _featurize_frame(n: int):
@@ -7195,6 +7215,73 @@ def phase_chaos(torch, kernels, card) -> dict:
     return launches
 
 
+def phase_chaos_mesh(torch, kernels, card, cards: int = 1) -> dict:
+    """The mesh-bound chaos scenarios (module docstring, phase 25), each
+    through ``cli chaos --nprocs``: two ranks sharing this card over gloo
+    (``cards`` 1) or one rank a card over NCCL. Returns each scenario's
+    kernel launches, summed over its ranks."""
+    import signal
+    import tempfile
+    if cards > 1 and torch.cuda.device_count() < cards:
+        raise RuntimeError(f"--mesh-cards {cards} needs {cards} cards; "
+                           f"{torch.cuda.device_count()} are visible")
+    torch.cuda.empty_cache()
+    ranks_n = 2 if cards == 1 else cards
+    backend = "gloo" if cards == 1 else "nccl"
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, MMLSPARK_TPU_TORCH_RUNTIME_DIST_BACKEND=backend)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    seconds, launches, by_rank, restated = {}, {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_chaos_mesh-") as work:
+        for name, kw in CHAOS_MESH:
+            argv = [sys.executable, "-m", "mmlspark_tpu_torch.cli", "chaos",
+                    "--scenario", name, "--seed", "0", "--nprocs",
+                    str(ranks_n), "--platform", "cuda",
+                    "--out", os.path.join(work, name)]
+            for key, value in kw.items():
+                argv += [f"--{key}", str(value)]
+            log_path = os.path.join(work, f"{name}.log")
+            t0 = time.perf_counter()
+            with open(log_path, "w") as log:
+                proc = subprocess.Popen(argv, cwd=root, env=env,
+                                        start_new_session=True,
+                                        stdout=subprocess.PIPE, stderr=log,
+                                        text=True)
+                try:
+                    out, _ = proc.communicate(timeout=CHAOS_MESH_TIMEOUT_S)
+                except subprocess.TimeoutExpired:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    out, _ = proc.communicate()
+                finally:
+                    if proc.poll() is None:
+                        os.killpg(proc.pid, signal.SIGKILL)
+                        proc.wait()
+            seconds[name] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                with open(log_path) as log:
+                    print(log.read()[-6000:], file=sys.stderr, flush=True)
+            _check(proc.returncode == 0,
+                   f"chaos_mesh {name}: cli chaos exited {proc.returncode}")
+            v = json.loads(out)
+            _check(v["passed"] and all(v["invariants"].values()),
+                   f"chaos_mesh {name}: {v['invariants']} {v['errors'][:3]}")
+            ranks = v["ranks"]
+            _check(ranks["world"] == ranks_n
+                   and ranks["placements_left"] == [[]] * ranks_n,
+                   f"chaos_mesh {name}: world {ranks['world']}, "
+                   f"placements left {ranks['placements_left']}")
+            by_rank[name] = ranks["launches"]
+            launches[name] = {k.name: sum(r.get(k.name, 0)
+                                          for r in ranks["launches"])
+                              for k in kernels.KERNELS}
+            restated.update({f"{name}.{k}": r for k, r in
+                             v.get("restated", {}).items()})
+    _line(phase="chaos_mesh", card=_smi(), ranks=ranks_n, backend=backend,
+          seconds=seconds, launches=launches, rank_launches=by_rank,
+          restated=restated)
+    return launches
+
+
 def phase_cli(torch, kernels, card) -> dict:
     """The CLI's tools on the card: ``info`` (platform gpu, count 1),
     ``check mmlspark_tpu_torch`` (exit 0: the port's tree is lint-clean)
@@ -7326,6 +7413,7 @@ def main() -> int:
             cards = int(sys.argv[sys.argv.index("--mesh-cards") + 1])
         mesh = phase_mesh(torch, kernels, card, cards)
         _line(mesh_launches=mesh)
+        phase_chaos_mesh(torch, kernels, card, cards)
         print(_smi(), flush=True)
         _line(ok=True, device={"platform": "gpu",
                                "kind": torch.cuda.get_device_name(0),
@@ -7365,6 +7453,7 @@ def main() -> int:
     capture = phase_capture(torch, kernels, card)
     downloader = phase_downloader(torch, kernels, card)
     chaos = phase_chaos(torch, kernels, card)
+    chaos_mesh = phase_chaos_mesh(torch, kernels, card)
     phase_cli(torch, kernels, card)
 
     k1k, k2k = kernels.FUSED_NORMALIZE, kernels.CROP_RESIZE_NORMALIZE
@@ -7379,7 +7468,9 @@ def main() -> int:
                              "stream_resume": stream_resume,
                              "mesh": mesh["k1"],
                              "mesh_inputs": mesh["k1_inputs"],
-                             "record": record[k1k.name]},
+                             "record": record[k1k.name],
+                             **{f"chaos_mesh_{k}": v[k1k.name]
+                                for k, v in chaos_mesh.items()}},
         "launches_note": "stream_resume: each child's own run (A "
                          "uninterrupted, B up to its SIGKILL, C from its "
                          "restored step); one launch a step. mesh: each "
@@ -7411,7 +7502,9 @@ def main() -> int:
                              "downloader": downloader[k2k.name],
                              "serve": serve[k2k.name],
                              "mesh_serve_featurize":
-                                 mesh["k2"]["serve_featurize"]},
+                                 mesh["k2"]["serve_featurize"],
+                             **{f"chaos_mesh_{k}": v[k2k.name]
+                                for k, v in chaos_mesh.items()}},
         "launches_note": "mesh_serve_featurize: each rank's count over "
                          "two passes of ResNet-50 featurize split over the "
                          "data ranks (one launch a pass on its rows)",
@@ -7444,6 +7537,8 @@ def main() -> int:
                              "fleet": fleet["bf16"][tc.name],
                              "process_fleet": process_fleet[tc.name],
                              "chaos_decode": chaos["decode"][tc.name],
+                             **{f"chaos_mesh_{k}": v[tc.name]
+                                for k, v in chaos_mesh.items()},
                              **{f"mesh_{k}": v
                                 for k, v in mesh["tc"].items()}},
         "launches_note": "mesh_*: each rank's count over the 11 steps of "
@@ -7469,6 +7564,8 @@ def main() -> int:
                              "fleet_fp32": fleet["fp32"][f32.name],
                              "process_fleet_fp32": process_fleet[f32.name],
                              "chaos_decode": chaos["decode"][f32.name],
+                             **{f"chaos_mesh_{k}": v[f32.name]
+                                for k, v in chaos_mesh.items()},
                              **{f"mesh_fp32_{k}": v
                                 for k, v in mesh["f32"].items()}},
         "launches_note": "lm_score's fp32 pass (16 rows): f32 is this "

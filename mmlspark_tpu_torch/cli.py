@@ -58,6 +58,7 @@ propagates. The reference's ``info``, ``check``, ``bench``, ``chaos`` and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -521,30 +522,25 @@ def _resolve_hosts(args) -> None:
                          f"{args.num_processes} processes")
 
 
-def _run_local_ranks(args, passthrough) -> int:
-    """``--nprocs N``: N ranks of this command on this host (rendezvous on
-    a free localhost port, ``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE`` set),
-    waited for; the first rank to fail stops the others. Returns the
-    first non-zero exit code, else 0."""
+def _run_local_ranks(n: int, rank_argv, env=None) -> int:
+    """``--nprocs N``: N ranks of a command on this host (rendezvous on a
+    free localhost port, ``LOCAL_RANK`` / ``LOCAL_WORLD_SIZE`` set; rank
+    ``r`` runs ``python -m mmlspark_tpu_torch.cli`` with
+    ``rank_argv(r, coordinator)``), waited for; the first rank to fail
+    stops the others. ``env`` is added to the ranks' environment. Returns
+    the first non-zero exit code, else 0."""
     import subprocess
     import time
     from mmlspark_tpu_torch.testing.ranks import free_port
-    n = args.nprocs
     coordinator = f"127.0.0.1:{free_port()}"
     procs = []
     try:
         for rank in range(n):
-            argv = [sys.executable, "-m", "mmlspark_tpu_torch.cli", "run",
-                    args.script, "--coordinator", coordinator,
-                    "--num-processes", str(n), "--process-id", str(rank)]
-            if args.mesh:
-                argv += ["--mesh", args.mesh]
-            if args.platform:
-                argv += ["--platform", args.platform]
-            env = dict(os.environ, LOCAL_RANK=str(rank),
-                       LOCAL_WORLD_SIZE=str(n))
-            procs.append(subprocess.Popen(argv + ["--"] + passthrough,  # lint: allow-process (cli run owns its ranks until they exit)
-                                          env=env))
+            argv = [sys.executable, "-m", "mmlspark_tpu_torch.cli"] \
+                + rank_argv(rank, coordinator)
+            rank_env = dict(os.environ, **(env or {}), LOCAL_RANK=str(rank),
+                            LOCAL_WORLD_SIZE=str(n))
+            procs.append(subprocess.Popen(argv, env=rank_env))  # lint: allow-process (the launcher owns its ranks until they exit)
         rc = 0
         while any(p.poll() is None for p in procs):
             failed = [p.returncode for p in procs
@@ -572,7 +568,6 @@ def cmd_run(args, passthrough) -> int:
     ``runtime.mesh`` and the device set for it; both are restored when
     the script ends."""
     import runpy
-    from mmlspark_tpu_torch.utils import config
     script = args.script
     if not os.path.exists(script):
         raise SystemExit(f"script not found: {script}")
@@ -587,13 +582,43 @@ def cmd_run(args, passthrough) -> int:
             raise SystemExit("--nprocs starts every rank on this host; it "
                              "takes no --coordinator, --hosts or "
                              "--process-id")
-        return _run_local_ranks(args, passthrough)
+
+        def rank_argv(rank, coordinator):
+            argv = ["run", args.script, "--coordinator", coordinator,
+                    "--num-processes", str(args.nprocs),
+                    "--process-id", str(rank)]
+            if args.mesh:
+                argv += ["--mesh", args.mesh]
+            if args.platform:
+                argv += ["--platform", args.platform]
+            return argv + ["--"] + passthrough
+        return _run_local_ranks(args.nprocs, rank_argv)
     _resolve_hosts(args)
+    with _in_group(args):
+        saved_argv, saved_path = sys.argv, list(sys.path)
+        sys.argv = [script] + passthrough
+        sys.path.insert(0, os.path.dirname(os.path.abspath(script)))
+        try:
+            runpy.run_path(script, run_name="__main__")
+        finally:
+            sys.argv, sys.path[:] = saved_argv, saved_path
+    return 0
+
+
+@contextlib.contextmanager
+def _in_group(args):
+    """Join the process group of ``--coordinator`` / ``--num-processes`` /
+    ``--process-id`` with ``runtime.mesh`` (``--mesh``) and the device
+    (``--platform``; cuda takes card ``LOCAL_RANK % device_count``) set,
+    state the rank on stderr, and yield its rank; leave the group and
+    restore both keys at the end."""
+    from mmlspark_tpu_torch.parallel import mesh as meshlib
+    from mmlspark_tpu_torch.utils import config
     saved = {k: config._overrides.get(k) for k in ("runtime.mesh",
                                                    "runtime.device")}
     joined = False
     try:
-        if args.mesh:
+        if getattr(args, "mesh", ""):
             config.set("runtime.mesh", args.mesh)
         if args.platform:
             config.set("runtime.device", args.platform)
@@ -604,7 +629,6 @@ def cmd_run(args, passthrough) -> int:
             device = torch.device("cuda", local % torch.cuda.device_count())
             config.set("runtime.device", str(device))
             torch.cuda.set_device(device)
-        from mmlspark_tpu_torch.parallel import mesh as meshlib
         was = meshlib.is_initialized()
         try:
             meshlib.initialize_multihost(args.coordinator,
@@ -621,13 +645,7 @@ def cmd_run(args, passthrough) -> int:
              "backend": str(config.get("runtime.dist_backend"))
              if meshlib.is_initialized() else None}) + "\n")
         sys.stderr.flush()
-        saved_argv, saved_path = sys.argv, list(sys.path)
-        sys.argv = [script] + passthrough
-        sys.path.insert(0, os.path.dirname(os.path.abspath(script)))
-        try:
-            runpy.run_path(script, run_name="__main__")
-        finally:
-            sys.argv, sys.path[:] = saved_argv, saved_path
+        yield summary["process_index"]
     finally:
         if joined:
             import torch.distributed as dist
@@ -637,7 +655,6 @@ def cmd_run(args, passthrough) -> int:
                 config.unset(key)
             else:
                 config.set(key, value)
-    return 0
 
 
 def build_pod_argv(args, passthrough: List[str]) -> List[List[str]]:
@@ -770,25 +787,77 @@ def cmd_top(args, passthrough) -> int:
 def cmd_chaos(args, passthrough) -> int:
     """Seeded chaos scenario (``reliability/chaos.py``): ``train``
     (default), ``fleet``, ``decode``, ``fleetprefix``, ``host``,
-    ``autopilot``, ``elastic``. Writes ``chaos_verdict.json`` under
-    --out; exit 0 iff every invariant held."""
+    ``autopilot``, ``elastic``, and the mesh-bound ``fleet_sharded``,
+    ``decode_sharded``, ``recommender`` and ``reshard``, which run on
+    ``--nprocs`` local ranks (default 2): rank 0 leads and runs the
+    scenario, the others follow (``parallel/leader.py``), over gloo
+    where NCCL cannot give each rank a card of its own (the CPU, or
+    ranks sharing a card) unless ``runtime.dist_backend`` is set. Rank 0
+    writes ``chaos_verdict.json`` under --out and prints it; exit 0 iff
+    every invariant held."""
     from mmlspark_tpu_torch.reliability import chaos
     if args.scenario not in chaos.SCENARIOS:
-        known = "\n".join(f"  {name:12s} {desc}" for name, desc
+        known = "\n".join(f"  {name:14s} {desc}" for name, desc
                           in sorted(chaos.SCENARIOS.items()))
         print(f"chaos: unknown scenario {args.scenario!r}; "  # lint: allow-print
               f"registered scenarios:\n{known}", file=sys.stderr)
         return 2
-    outdir = args.out or os.path.join(
-        os.getcwd(), f"chaos-{args.scenario}-seed{args.seed}")
-    verdict = chaos.run_named(args.scenario, args.seed, outdir,
-                              replicas=args.replicas, requests=args.requests,
-                              total_steps=args.steps,
-                              save_every=args.save_every)
+    meshed = args.scenario in chaos.MESH_SCENARIOS
+    if (args.nprocs or args.platform) and not meshed:
+        raise SystemExit(f"--nprocs and --platform are for the mesh-bound "
+                         f"scenarios {list(chaos.MESH_SCENARIOS)}, not "
+                         f"{args.scenario!r} (it runs on runtime.device)")
+    outdir = os.path.abspath(args.out or os.path.join(
+        os.getcwd(), f"chaos-{args.scenario}-seed{args.seed}"))
+    if meshed and args.process_id is None:
+        n = args.nprocs or 2
+        return _run_local_ranks(
+            n, lambda rank, coordinator: _chaos_rank_argv(
+                args, outdir, rank, coordinator, n),
+            env=_chaos_backend(args.platform, n))
+    from mmlspark_tpu_torch.parallel import leader
+    with _in_group(args) if meshed else contextlib.nullcontext(0) as rank:
+        if rank:
+            leader.follow()
+            return 0
+        with leader.lead() if meshed else contextlib.nullcontext():
+            verdict = chaos.run_named(
+                args.scenario, args.seed, outdir, replicas=args.replicas,
+                requests=args.requests, total_steps=args.steps,
+                save_every=args.save_every)
     # stdout contract: the verdict JSON, so wrappers don't re-read the file
     print(json.dumps(verdict, indent=2,       # lint: allow-print
                      sort_keys=True))
     return 0 if verdict["passed"] else 1
+
+
+def _chaos_rank_argv(args, outdir: str, rank: int, coordinator: str,
+                     n: int) -> List[str]:
+    """One rank's ``chaos`` command line under ``--nprocs``."""
+    argv = ["chaos", "--scenario", args.scenario, "--seed", str(args.seed),
+            "--out", outdir, "--requests", str(args.requests),
+            "--replicas", str(args.replicas), "--coordinator", coordinator,
+            "--num-processes", str(n), "--process-id", str(rank)]
+    if args.platform:
+        argv += ["--platform", args.platform]
+    return argv
+
+
+def _chaos_backend(platform: Optional[str], n: int) -> dict:
+    """The ranks' ``runtime.dist_backend`` when none is set: gloo where
+    NCCL cannot give each of the ``n`` ranks a card of its own (the CPU,
+    or ranks sharing a card), else the configured default."""
+    from mmlspark_tpu_torch.utils import config
+    key = config._env_key("runtime.dist_backend")
+    if key in os.environ or "runtime.dist_backend" in config._overrides:
+        return {}
+    device = platform or str(config.get("runtime.device"))
+    if not device.startswith("cuda"):
+        return {key: "gloo"}
+    import torch
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    return {key: "gloo"} if cards < n else {}
+
 
 
 def cmd_bench(args, passthrough) -> int:
@@ -1051,8 +1120,10 @@ def build_parser() -> argparse.ArgumentParser:
                       "hold")
     chaos_p.add_argument("--scenario", default="train",
                          help="train, fleet, decode, fleetprefix, host, "
-                         "autopilot or elastic (default: train; unknown "
-                         "scenarios list the registry and exit 2)")
+                         "autopilot or elastic; on --nprocs ranks "
+                         "fleet_sharded, decode_sharded, recommender or "
+                         "reshard (default: train; unknown scenarios list "
+                         "the registry and exit 2)")
     chaos_p.add_argument("--seed", type=int, default=0,
                          help="fault-schedule seed (same seed => same "
                          "kills, same verdict)")
@@ -1067,8 +1138,23 @@ def build_parser() -> argparse.ArgumentParser:
                          help="serve-phase request count (default 12)")
     chaos_p.add_argument("--replicas", type=int, default=3,
                          help="fleet width for fleet/decode/fleetprefix/"
-                         "autopilot; worker-process count for host/"
-                         "elastic (default 3)")
+                         "autopilot and the mesh-bound scenarios; "
+                         "worker-process count for host/elastic "
+                         "(default 3)")
+    chaos_p.add_argument("--nprocs", type=int, default=0,
+                         help="local ranks of a mesh-bound scenario "
+                         "(default 2; rank 0 leads)")
+    chaos_p.add_argument("--platform", default=None, choices=["cpu", "cuda"],
+                         help="the device each rank of a mesh-bound "
+                         "scenario computes on (runtime.device); cuda "
+                         "takes card local_rank %% device_count")
+    # a rank's place in the group, given by the --nprocs launcher
+    chaos_p.add_argument("--coordinator", default=None,
+                         help=argparse.SUPPRESS)
+    chaos_p.add_argument("--num-processes", type=int, default=None,
+                         help=argparse.SUPPRESS)
+    chaos_p.add_argument("--process-id", type=int, default=None,
+                         help=argparse.SUPPRESS)
     chaos_p.set_defaults(fn=cmd_chaos)
 
     top_p = sub.add_parser(

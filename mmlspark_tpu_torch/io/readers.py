@@ -19,9 +19,10 @@ re-expression of the reference's readers
 ``process_shard=True`` keeps this rank's contiguous slice: the slice of
 its block on the data axes of the configured mesh, ``(rank, world)``
 without one, the whole list outside a process group
-(``parallel/mesh.py::data_shard``, as ``Frame.process_shard`` does). The
-reference's ``read_parquet`` / ``write_parquet`` are not ported: they need
-pyarrow, which the port's card machine does not have.
+(``parallel/mesh.py::data_shard``, as ``Frame.process_shard`` does).
+``read_parquet`` / ``write_parquet`` import pyarrow inside each call, as
+the reference's do: where pyarrow is missing, only those calls raise
+``ImportError``.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ import csv as _csv
 import os
 import random
 import zipfile
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -306,6 +307,111 @@ def read_csv(path: str, header: bool = True, num_partitions: int = 1,
     if process_shard:
         cols = {n: _process_slice(vals, True) for n, vals in cols.items()}
     return Frame.from_dict(cols, num_partitions=num_partitions)
+
+
+def read_parquet(path: str, columns: Optional[Sequence[str]] = None,
+                 num_partitions: int = 1,
+                 process_shard: bool = False) -> Frame:
+    """Parquet ingestion — Spark's native storage format, so this is the
+    highest-parity on-ramp for data produced by the reference's world
+    (``spark.read.parquet``). ``path`` is a file or a directory of part
+    files; ``process_shard=True`` keeps this rank's slice of the sorted
+    part-file list (multi-file datasets) for multi-process training, or of
+    the rows of a single file.
+
+    Column mapping: numeric/bool -> numeric columns; string -> STRING;
+    binary -> BINARY; list<number> with uniform lengths -> VECTOR;
+    list<string> -> TOKENS.
+    """
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    cols = list(columns) if columns else None
+    if os.path.isdir(path) and process_shard:
+        # per-rank file sharding needs the explicit part list (recursive:
+        # hive-style key=value subdirectories keep their files)
+        files = sorted(
+            os.path.join(r, f) for r, _d, fs in os.walk(path)
+            for f in fs if f.endswith((".parquet", ".pq")))
+        if not files:
+            raise ValueError(f"no parquet part files under {path}")
+        sliced = _process_slice(files, True)
+        if not sliced:
+            # legitimately empty shard (more ranks than files): an empty
+            # frame with the REAL schema, from a zero-row slice of part 0
+            table = pq.read_table(files[0], columns=cols).slice(0, 0)
+        else:
+            table = pa.concat_tables(
+                [pq.read_table(f, columns=cols) for f in sliced])
+    else:
+        # pyarrow natively reads files AND directories (incl. hive layout)
+        table = pq.read_table(path, columns=cols)
+    data: dict = {}
+    for name in table.column_names:
+        data[name] = _from_arrow(name, table.column(name))
+    frame = Frame.from_dict(data)
+    if not os.path.isdir(path) and process_shard:
+        frame = frame.process_shard()  # single file: shard rows instead
+    return (frame.repartition(num_partitions)
+            if num_partitions > 1 and frame.count() else frame)
+
+
+def _from_arrow(name: str, col) -> Any:
+    """Arrow column -> Frame column storage, dispatched on the Arrow TYPE
+    (never sniffed from values — null/empty rows must not change a
+    column's meaning)."""
+    import pyarrow as pa
+    typ = col.type
+    if pa.types.is_floating(typ) or pa.types.is_integer(typ) \
+            or pa.types.is_boolean(typ):
+        return col.to_numpy(zero_copy_only=False)
+    if pa.types.is_list(typ) or pa.types.is_fixed_size_list(typ) \
+            or pa.types.is_large_list(typ):
+        vt = typ.value_type
+        if pa.types.is_string(vt) or pa.types.is_large_string(vt):
+            return [list(r) if r is not None else None
+                    for r in col.to_pylist()]          # TOKENS
+        rows = col.to_pylist()
+        if not rows:
+            width = typ.list_size if pa.types.is_fixed_size_list(typ) else 0
+            return np.zeros((0, width), np.float32)     # empty VECTOR
+        lens = {len(r) for r in rows if r is not None}
+        if len(lens) == 1 and all(r is not None for r in rows):
+            return np.asarray(rows, np.float32)         # uniform -> VECTOR
+        # Frame has no ragged-numeric column type; refusing beats the
+        # silent corruption of routing numbers through TOKENS
+        raise ValueError(
+            f"column {name!r} is a ragged or null-bearing numeric list "
+            "(lengths {}); pad/clean it to uniform vectors first".format(
+                sorted(lens)))
+    return col.to_pylist()  # strings, binary, nulls -> object column
+
+
+def write_parquet(frame: Frame, path: str) -> str:
+    """Persist a Frame as one parquet file (VECTOR -> list<float>,
+    TOKENS -> list<string>; IMAGE columns are not representable — drop or
+    encode them first)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    arrays, names = [], []
+    for c in frame.schema:
+        vals = frame.column(c.name)
+        if c.dtype == DType.IMAGE:
+            raise ValueError(
+                f"column {c.name!r} is an IMAGE column; encode or drop it "
+                "before write_parquet")
+        if c.dtype == DType.VECTOR:
+            arr = pa.array([None if v is None else [float(x) for x in v]
+                            for v in vals])
+        elif c.dtype == DType.TOKENS:
+            arr = pa.array([None if v is None else [str(t) for t in v]
+                            for v in vals])
+        else:
+            arr = pa.array(vals.tolist()  # lint: allow-sync (numpy column)
+                           if isinstance(vals, np.ndarray) else list(vals))
+        arrays.append(arr)
+        names.append(c.name)
+    pq.write_table(pa.table(arrays, names=names), path)
+    return path
 
 
 def _infer_csv_column(vals: List[str]):

@@ -1,18 +1,30 @@
 """Seeded chaos harness: deterministic fault schedules + a verdict.
 
-The port's copy of ``mmlspark_tpu/reliability/chaos.py``: the seven
-single-process scenarios (``train``, ``fleet``, ``decode``,
-``fleetprefix``, ``host``, ``autopilot``, ``elastic``), with the reference's
-plans, schedules and invariant names. An invariant a CUDA graph cannot keep
-is restated, never dropped, and the verdict names it under ``restated``:
-a CUDA graph does not serialize, so a fresh worker process cannot load its
-programs from a cache (``host``'s ``warm_restart``, ``elastic``'s
-``warm_scale_up`` and ``steady_compiles_zero``). Those become three
-conditions: the fresh worker captures exactly its bucket count, the kernel
-build directory (``kernels/_build/``) is unchanged across the run, and the
-worker ran no ``nvcc``. In-process fleets keep ``steady_compiles_zero``
-literally: the registry's ``compiles`` count CUDA-graph captures, and
-survivors must capture nothing new.
+The port's copy of ``mmlspark_tpu/reliability/chaos.py``: all eleven
+scenarios, with the reference's plans, schedules and invariant names. An
+invariant the port cannot keep as it is worded is restated, never dropped,
+and the verdict names it under ``restated``:
+
+- a CUDA graph does not serialize, so a fresh worker process cannot load
+  its programs from a cache (``host``'s ``warm_restart``, ``elastic``'s
+  ``warm_scale_up`` and ``steady_compiles_zero``). Those become three
+  conditions: the fresh worker captures exactly its bucket count, the
+  kernel build directory (``kernels/_build/``) is unchanged across the
+  run, and the worker ran no ``nvcc``. In-process fleets keep
+  ``steady_compiles_zero`` literally: the registry's ``compiles`` count
+  CUDA-graph captures, and survivors must capture nothing new;
+- the four mesh-bound scenarios (``fleet_sharded``, ``decode_sharded``,
+  ``recommender``, ``reshard``) run where the port's mesh lives: one rank a
+  device over ``torch.distributed``, rank 0 leading inside
+  ``parallel.leader.lead()`` and the other ranks in ``leader.follow()``
+  (``cli chaos --scenario NAME --nprocs N`` starts them). The fleet, its
+  router, registries and ledger are the leader's; the shards of a
+  placement live in the followers' processes, which the leader's ledger
+  cannot see, so ``ledger_reconciles_on_close`` also requires that no
+  placement is left on any rank, read through one channel command. Called
+  outside a joined channel they raise rather than run on one device. A
+  kill is the reference's: an in-process replica closed without drain
+  (``Fleet.kill``), never a rank's process.
 
 The tentpole scenario (``mmlspark-tpu-torch chaos --seed N``):
 
@@ -91,7 +103,39 @@ SCENARIOS: Dict[str, str] = {
                    "survivors absorb the sessions, tokens bit-identical "
                    "to a single server, and the prefix hit rate recovers "
                    "with zero new captures",
+    "fleet_sharded": "the fleet scenario with every replica's model "
+                     "2-D mesh-sharded (data x tensor); same zero-drop "
+                     "+ bit-identical invariants through the kill",
+    "decode_sharded": "the decode scenario with a mesh-sharded model + "
+                      "head-sharded KV arena; failover token-identical "
+                      "and the HBM ledger reconciles PER SHARD",
+    "recommender": "kill a replica mid-scoring with row-sharded embedding "
+                   "tables resident; zero failed requests, scores "
+                   "bit-identical to an unsharded single server, and the "
+                   "HBM ledger's kind=\"table\" lines reconcile to zero "
+                   "on close, with no placement left on any rank",
+    "reshard": "kill a replica MID-RESHARD while the fleet moves to a "
+               "new mesh placement under fire; zero failed requests, "
+               "scores bit-identical to an untouched reference on both "
+               "placements, the survivors finish the reshard, and the "
+               "HBM ledger reconciles to zero on close (no orphan "
+               "params/kv bytes from the dead replica or the old "
+               "placement, no placement left on any rank)",
 }
+
+# the 2-D topology the mesh-bound scenarios run on: tensor=2 model axis,
+# data absorbs the rest of the world's ranks (1x2 on 2 ranks, 2x2 on 4)
+SHARDED_MESH = "data=-1,tensor=2"
+# the scenarios that run on a mesh of ranks (rank 0 leading)
+MESH_SCENARIOS = ("fleet_sharded", "decode_sharded", "recommender",
+                  "reshard")
+# reshard's default target: tensor 2 on ranks 0-1, a sub-mesh of any
+# world. The reference moves onto its whole world (4x2), and XLA's
+# per-row sums do not depend on a device's row count; MKL's and cuBLAS's
+# do (a 2-row request split over data 2 is a 1-row GEMM a rank, which
+# rounds otherwise than the one-device 2-row GEMM), so a data split
+# cannot keep scores_bit_identical_post_reshard
+RESHARD_MESH = "1x2"
 
 # Sites the TRAIN phase draws its schedule from. `trainer.train_step` /
 # `checkpoint.save` raises are kills (the loop restarts); a
@@ -346,10 +390,93 @@ def _serve_phase(seed: int, requests: int,
             "healthz_ok": polls_ok, "healthz_bad": polls_bad}
 
 
+# -- the mesh-bound scenarios' ranks -----------------------------------------
+
+_PLACEMENTS = "mmlspark_tpu_torch.reliability.chaos:_placements"
+
+
+def _mesh_leader(scenario: str):
+    """The channel a mesh-bound scenario leads: this process must be rank
+    0 of a joined channel (inside ``parallel.leader.lead()``, the other
+    ranks in ``leader.follow()``) over an even number of ranks, since
+    :data:`SHARDED_MESH` has a tensor axis of 2. Raises otherwise: the
+    scenario never falls back to one device."""
+    from mmlspark_tpu_torch.parallel import leader
+    how = (f"start it as `python -m mmlspark_tpu_torch.cli chaos "
+           f"--scenario {scenario} --nprocs 2` (rank 0 leads inside "
+           "parallel.leader.lead(), ranks 1..N-1 run "
+           "parallel.leader.follow())")
+    ch = leader.joined()
+    if ch is None:
+        raise ChaosError(f"chaos {scenario} runs on a mesh of ranks, and "
+                         f"this process joined none; {how}")
+    if ch.rank != 0:
+        raise ChaosError(f"chaos {scenario} runs on rank 0, the leader; "
+                         f"this is rank {ch.rank}; {how}")
+    if ch.world < 2 or ch.world % 2:
+        raise ChaosError(f"chaos {scenario} needs an even world of at "
+                         f"least 2 ranks (tensor 2), not {ch.world}; {how}")
+    return ch
+
+
+def _placements(ch, header, tensors, local) -> List[str]:
+    """A rank's placement keys (a channel command)."""
+    return sorted(ch.placements)
+
+
+def _rank_facts(ch, errors: List[str]) -> Dict[str, Any]:
+    """Every rank's kernel launches since the scenario zeroed them, and
+    the placements left on each rank (one channel command each)."""
+    facts: Dict[str, Any] = {"world": ch.world, "launches": None,
+                             "placements_left": None}
+    try:
+        facts["launches"] = [
+            {name: int(n) for name, (n, _) in s["launches"].items()}
+            for s in ch.rank_stats()]
+        facts["placements_left"] = ch.call(_PLACEMENTS, results=True)
+    except Exception as e:
+        errors.append(f"mesh ranks: {type(e).__name__}: {e}")
+    return facts
+
+
+# what ``ledger_reconciles_on_close`` holds on a mesh of ranks, in place
+# of the reference's one process-wide ledger
+_RECONCILED = ("leader_ledger_zero_after_close", "no_placement_on_any_rank")
+
+
+def _no_placement_left(facts: Dict[str, Any]) -> bool:
+    left = facts.get("placements_left")
+    return left is not None and not any(left)
+
+
+def _conclude(verdict: Dict[str, Any], outdir: str, label: str,
+              seed: int) -> Dict[str, Any]:
+    """Write ``verdict`` to ``outdir/chaos_verdict.json`` (atomically) and,
+    when it is red, dump the flight recorder beside it: a red verdict
+    ships its own forensics, the last-N telemetry events, even with
+    events_path unset."""
+    path = os.path.join(outdir, VERDICT_FILE)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(verdict, f, indent=2, sort_keys=True)
+    os.replace(tmp, path)
+    _LOG.info("chaos %sverdict (%s): %s", f"{label} " if label else "",
+              path, "PASS" if verdict["passed"] else "FAIL")
+    if not verdict["passed"]:
+        from mmlspark_tpu_torch.observability import flightrec
+        dumped = flightrec.dump(
+            reason=f"chaos.{label + '.' if label else ''}red.seed{seed}",
+            path=os.path.join(outdir, "chaos_flightrec.jsonl"))
+        if dumped:
+            _LOG.error("chaos: flight recorder dumped to %s", dumped)
+    return verdict
+
+
 # -- fleet scenario ----------------------------------------------------------
 
 def run_fleet_scenario(seed: int, outdir: str, replicas: int = 3,
-                       requests: int = 24) -> Dict[str, Any]:
+                       requests: int = 24,
+                       mesh: str = "") -> Dict[str, Any]:
     """Kill a replica under fire; the fleet must not drop a request.
 
     1. **reference** — the full request stream scored on a single
@@ -395,6 +522,11 @@ def run_fleet_scenario(seed: int, outdir: str, replicas: int = 3,
     serving replica, failover count) is a pure function of ``seed`` —
     two same-seed runs must produce byte-identical schedules, which is
     what the tier-1 smoke test asserts.
+
+    With ``mesh`` (``fleet_sharded``, :data:`SHARDED_MESH`) every
+    replica's copy of the model scores over that mesh of ranks, this
+    process leading them (:func:`_mesh_leader`); the verdict's ``ranks``
+    holds every rank's kernel launches and the placements left on each.
     """
     import numpy as np
 
@@ -408,8 +540,11 @@ def run_fleet_scenario(seed: int, outdir: str, replicas: int = 3,
     os.makedirs(outdir, exist_ok=True)
     errors: List[str] = []
     verdict: Dict[str, Any] = {
-        "seed": seed, "scenario": "fleet",
-        "replicas": replicas, "requests": requests, "mesh": ""}
+        "seed": seed, "scenario": "fleet_sharded" if mesh else "fleet",
+        "replicas": replicas, "requests": requests, "mesh": mesh}
+    ch = _mesh_leader("fleet_sharded") if mesh else None
+    if ch is not None:
+        ch.rank_stats(reset=True)
 
     rng = random.Random(seed ^ 0xF1EE7)
     # the kill lands right after a probe round: the next probe is then a
@@ -422,7 +557,11 @@ def run_fleet_scenario(seed: int, outdir: str, replicas: int = 3,
     kill_at = min(kill_at, max(requests - probe_every, 0))
     kill_idx = rng.randrange(replicas)
 
-    model = TorchModel(inputCol="x", outputCol="y", miniBatchSize=8)
+    # sharded variant: the SAME scenario, but every replica's copy of the
+    # model scores over a 2-D (data x tensor) mesh — the kill and the
+    # failover must not care that each rank holds only a param shard
+    model = TorchModel(inputCol="x", outputCol="y", miniBatchSize=8,
+                       **({"meshSpec": mesh} if mesh else {}))
     model.set_model("mlp_tabular", input_dim=_DIM, hidden=[16],
                     num_classes=3, seed=seed & 0xFFFF)
     stream = loadgen.feature_rows(requests, 2, _DIM, seed)
@@ -502,6 +641,8 @@ def run_fleet_scenario(seed: int, outdir: str, replicas: int = 3,
         stats = fleet.stats()
     finally:
         fleet.close()
+    if ch is not None:
+        verdict["ranks"] = _rank_facts(ch, errors)
 
     identical = all(
         r is not None and np.array_equal(r, ref)
@@ -560,25 +701,440 @@ def run_fleet_scenario(seed: int, outdir: str, replicas: int = 3,
     verdict["errors"] = errors
     verdict["passed"] = all(invariants.values())
 
-    path = os.path.join(outdir, VERDICT_FILE)
-    tmp = path + ".tmp"
-    with open(tmp, "w") as f:
-        json.dump(verdict, f, indent=2, sort_keys=True)
-    os.replace(tmp, path)
-    _LOG.info("chaos fleet verdict (%s): %s", path,
-              "PASS" if verdict["passed"] else "FAIL")
-    if not verdict["passed"]:
-        from mmlspark_tpu_torch.observability import flightrec
-        dumped = flightrec.dump(
-            reason=f"chaos.fleet.red.seed{seed}",
-            path=os.path.join(outdir, "chaos_flightrec.jsonl"))
-        if dumped:
-            _LOG.error("chaos: flight recorder dumped to %s", dumped)
-    return verdict
+    return _conclude(verdict, outdir, "fleet", seed)
+
+
+def run_recommender_scenario(seed: int, outdir: str, replicas: int = 3,
+                             requests: int = 24) -> Dict[str, Any]:
+    """Kill a replica mid-scoring with SHARDED EMBEDDING TABLES resident.
+
+    The fleet scenario's zero-drop + bit-identity contract, on the
+    recommender subsystem: every replica serves a DLRM whose embedding
+    tables are row-sharded over the 2-D ``data x tensor`` mesh of ranks
+    (:data:`SHARDED_MESH`, this process leading them: :func:`_mesh_leader`),
+    scoring a seeded Zipf-id stream drawn from
+    :func:`loadgen.recommender_rows`. At a seeded point mid-stream one
+    seeded replica dies without drain.
+
+    Invariants (verdict JSON, ``outdir/chaos_verdict.json``):
+
+    - ``zero_failed_requests``   — every request eventually scored
+      through the client :class:`RetryPolicy`;
+    - ``scores_bit_identical``   — fleet results == an UNSHARDED
+      single-device single-server reference, row for row, through the
+      kill (the sharded-lookup numerics contract, under failover);
+    - ``failover_observed``      — the kill forced >= 1 failover;
+    - ``tables_charged_per_shard`` — while the fleet serves, the leader's
+      HBM ledger carries the model's ``kind="table"`` bytes at PER-SHARD
+      size (tensor axis = 2 -> half the logical table bytes);
+    - ``ledger_reconciles_on_close`` — after the fleet (and the
+      reference server before it) closes, NO ``{model, kind}`` line
+      survives in the leader's ledger and no placement is left on any
+      rank (restated: the followers' shards are outside that ledger);
+    - ``replicas_stay_probed``   — every probe round answers for every
+      replica;
+    - ``no_unhandled_exceptions``.
+
+    The schedule (kill point, victim, failover count) is a pure function
+    of ``seed`` — the tier-1 smoke test asserts byte-identical replay.
+    """
+    import numpy as np
+
+    from mmlspark_tpu_torch.embed.model import padded_rows
+    from mmlspark_tpu_torch.models.torch_model import TorchModel
+    from mmlspark_tpu_torch.observability import memory as devmem
+    from mmlspark_tpu_torch.reliability.retry import RetryPolicy
+    from mmlspark_tpu_torch.serve.fleet import Fleet
+    from mmlspark_tpu_torch.serve.server import Server
+
+    os.makedirs(outdir, exist_ok=True)
+    errors: List[str] = []
+    dense_dim, slots, embed_dim = 8, 4, 8
+    tables = (("user", 64), ("item", 128))
+    verdict: Dict[str, Any] = {
+        "seed": seed, "scenario": "recommender", "replicas": replicas,
+        "requests": requests, "mesh": SHARDED_MESH,
+        "tables": [list(t) for t in tables]}
+    ch = _mesh_leader("recommender")
+    ch.rank_stats(reset=True)
+
+    rng = random.Random(seed ^ 0x7AB1E5)
+    # kill right after a probe round (see run_fleet_scenario: the WRR
+    # walk then discovers the death by failover, for every seed)
+    probe_every = max(4, replicas + 1)
+    kill_at = -(-rng.randint(requests // 3, (2 * requests) // 3)
+                // probe_every) * probe_every
+    kill_at = min(kill_at, max(requests - probe_every, 0))
+    kill_idx = rng.randrange(replicas)
+
+    model_kw = dict(seed=seed & 0xFFFF, dense_dim=dense_dim,
+                    tables=[list(t) for t in tables],
+                    embed_dim=embed_dim, slots=slots,
+                    bottom=[16], top=[16])
+    stream = loadgen.recommender_rows(
+        requests, dense=dense_dim,
+        tables=tuple((rows, slots) for _, rows in tables), seed=seed)
+
+    ledger = devmem.get_ledger()
+    ledger.reset()
+    # per-rank table residency the ledger must carry while serving:
+    # padded rows x dim x 4 B, halved by the tensor=2 row-sharding
+    expected_shard = sum(padded_rows(rows) * embed_dim * 4
+                         for _, rows in tables) // 2
+
+    # phase 1: UNSHARDED single-server reference — the numerics ground
+    # truth the sharded fleet must match bit-for-bit
+    ref_model = TorchModel(inputCol="x", outputCol="y", miniBatchSize=8)
+    ref_model.set_model("recommender_dlrm", **model_kw)
+    ref_server = Server({"rec": ref_model}, max_batch=4, queue_depth=32)
+    try:
+        reference = [np.asarray(ref_server.submit("rec", x, timeout=30))
+                     for x in stream]
+    finally:
+        ref_server.close()
+    ledger_after_ref = int(ledger.total())
+
+    # phase 2: the same stream through the sharded fleet with a seeded
+    # mid-stream kill; sequential submits keep the WRR walk deterministic
+    model = TorchModel(inputCol="x", outputCol="y", miniBatchSize=8,
+                       meshSpec=SHARDED_MESH)
+    model.set_model("recommender_dlrm", **model_kw)
+    fleet = Fleet({"rec": model}, replicas=replicas,
+                  server_kwargs={"max_batch": 4, "queue_depth": 32})
+    route_log: List[str] = []
+    fleet.router.route_log = route_log
+    client_retry = RetryPolicy(max_attempts=4, base_delay=0.0, jitter=0.0,
+                               name="chaos.recommender.client", seed=seed)
+    results: List[Optional[Any]] = []
+    failed = 0
+    probe_rounds: List[Dict[str, str]] = []
+    table_line_mid = 0
+    try:
+        for i, x in enumerate(stream):
+            if i % probe_every == 0:
+                probe_rounds.append(fleet.router.probe())
+            if i == kill_at:
+                fleet.kill(kill_idx)  # lint: allow-actuate
+            try:
+                results.append(np.asarray(
+                    client_retry.call(fleet.submit, "rec", x)))
+            except Exception as e:
+                failed += 1
+                results.append(None)
+                errors.append(f"request {i}: {type(e).__name__}: {e}")
+        probe_rounds.append(fleet.router.probe())
+        # survivors have re-mirrored their residency since the kill:
+        # the model's table line sits at per-shard bytes, not logical
+        table_line_mid = int(ledger.total(model="rec", kind="table"))
+        stats = fleet.stats()
+    finally:
+        fleet.close()
+    ledger_after_close = int(ledger.total())
+    table_after_close = int(ledger.total(kind="table"))
+    verdict["ranks"] = _rank_facts(ch, errors)
+
+    identical = all(
+        r is not None and np.array_equal(r, ref)
+        for r, ref in zip(results, reference))
+    probed_ok = bool(probe_rounds) and all(
+        len(round_) == replicas for round_ in probe_rounds)
+    failovers = int(stats["failovers"])
+
+    verdict["schedule"] = {
+        "kill_at": kill_at, "kill_replica": f"r{kill_idx}",
+        "route_log": route_log, "failovers": failovers,
+    }
+    verdict["fleet"] = {
+        "served": sum(1 for r in results if r is not None),
+        "failed": failed, "probe_rounds": len(probe_rounds),
+    }
+    verdict["ledger"] = {
+        "table_bytes_serving": table_line_mid,
+        "expected_shard_bytes": expected_shard,
+        "after_reference_close": ledger_after_ref,
+        "table_bytes_after_close": table_after_close,
+        "total_bytes_after_close": ledger_after_close,
+    }
+    invariants = {
+        "zero_failed_requests": failed == 0,
+        "scores_bit_identical": identical,
+        "failover_observed": failovers >= 1,
+        "tables_charged_per_shard": table_line_mid == expected_shard,
+        "ledger_reconciles_on_close": (ledger_after_ref == 0
+                                       and ledger_after_close == 0
+                                       and table_after_close == 0
+                                       and _no_placement_left(
+                                           verdict["ranks"])),
+        "replicas_stay_probed": probed_ok,
+        "no_unhandled_exceptions": not errors,
+    }
+    verdict["invariants"] = invariants
+    verdict["restated"] = {"ledger_reconciles_on_close": list(_RECONCILED)}
+    verdict["errors"] = errors
+    verdict["passed"] = all(invariants.values())
+    return _conclude(verdict, outdir, "recommender", seed)
+
+
+def run_reshard_scenario(seed: int, outdir: str, replicas: int = 3,
+                         requests: int = 24,
+                         mesh_to: str = "") -> Dict[str, Any]:
+    """Kill a replica MID-RESHARD; the elastic mesh loses nothing.
+
+    The robustness half of ``Fleet.reshard``: while the fleet moves every
+    replica from the single-device placement onto ``mesh_to`` (default
+    :data:`RESHARD_MESH`, tensor 2 on ranks 0-1, named under the
+    verdict's ``restated``; this process leads the ranks,
+    :func:`_mesh_leader`) under fire, one
+    seeded replica is killed without drain — timed to land INSIDE the
+    reshard, after the first replica starts draining and before the
+    victim's own turn in the swap order.
+
+    1. **reference** — the full request stream scored on an untouched
+       single :class:`~mmlspark_tpu_torch.serve.server.Server`: the
+       numerics ground truth for BOTH placements (the reshard contract is
+       that placement never moves a bit).
+    2. **fleet under fire** — the same stream through a
+       ``replicas``-wide fleet; at a seeded request the reshard starts
+       in a background thread, a watcher kills the victim the instant
+       the first replica's router weight drops to zero (the reshard's
+       first observable action), and the client keeps submitting through
+       the whole reshard window behind a :class:`RetryPolicy`. The three
+       threads share the leader's command channel, ordered by its lock.
+    3. **post-reshard** — the stream once more, wholly on the new
+       placement.
+
+    Invariants (verdict JSON, ``outdir/chaos_verdict.json``):
+
+    - ``zero_failed_requests``   — no request failed in any phase: not
+      during the swaps, not from the kill, not on the new placement;
+    - ``scores_bit_identical``   — under-fire results == reference, row
+      for row, through drain/swap/kill/failover;
+    - ``scores_bit_identical_post_reshard`` — the resharded fleet still
+      matches the reference bit-for-bit;
+    - ``reshard_survived_kill``  — the survivors all finished
+      (``status="resharded"``), the victim was recorded dead (``died`` /
+      ``skipped_dead``), and the fleet landed on ``mesh_to``;
+    - ``kill_landed_mid_reshard`` — the watcher really fired inside the
+      reshard window;
+    - ``fired_through_reshard``  — requests were served WHILE the
+      reshard was in flight (zero-downtime is a claim about the whole
+      window, not its endpoints);
+    - ``params_charged_while_serving`` / ``ledger_reconciles_on_close``
+      — the leader's HBM ledger carried ``kind="params"`` bytes while
+      serving and holds ZERO bytes of any kind after close, and no
+      placement is left on any rank (restated: the followers' shards are
+      outside that ledger): neither the dead replica nor the replaced
+      old-placement entries leak;
+    - ``victim_probed_dead``     — the router's probe answers ``dead``
+      for the victim (dead replicas answer, never wedge);
+    - ``no_unhandled_exceptions``.
+
+    The schedule (reshard point, victim, per-replica statuses) is a pure
+    function of ``seed`` — the tier-1 smoke test asserts byte-identical
+    replay. The kill triggers off the FIRST replica's drain and the
+    victim is never that replica, so the victim is already dead when the
+    swap order reaches it: ``skipped_dead``, deterministically.
+    """
+    import threading
+    import time as _time
+
+    import numpy as np
+
+    from mmlspark_tpu_torch.models.torch_model import TorchModel
+    from mmlspark_tpu_torch.observability import memory as devmem
+    from mmlspark_tpu_torch.reliability.retry import RetryPolicy
+    from mmlspark_tpu_torch.serve.fleet import Fleet
+    from mmlspark_tpu_torch.serve.server import Server
+
+    os.makedirs(outdir, exist_ok=True)
+    errors: List[str] = []
+    ch = _mesh_leader("reshard")
+    mesh_to = mesh_to or RESHARD_MESH
+    verdict: Dict[str, Any] = {
+        "seed": seed, "scenario": "reshard", "replicas": replicas,
+        "requests": requests, "mesh_to": mesh_to}
+    ch.rank_stats(reset=True)
+
+    rng = random.Random(seed ^ 0x4E5A4D)
+    probe_every = max(4, replicas + 1)
+    reshard_at = rng.randint(requests // 3, (2 * requests) // 3)
+    victim = rng.randrange(1, replicas)
+
+    model = TorchModel(inputCol="x", outputCol="y", miniBatchSize=8)
+    model.set_model("mlp_tabular", input_dim=_DIM, hidden=[16],
+                    num_classes=3, seed=seed & 0xFFFF)
+    stream = loadgen.feature_rows(requests, 2, _DIM, seed)
+
+    ledger = devmem.get_ledger()
+    ledger.reset()
+
+    # phase 1: untouched single-server reference
+    ref_server = Server({"chaos": model}, max_batch=4, queue_depth=32)
+    try:
+        reference = [np.asarray(ref_server.submit("chaos", x, timeout=30))
+                     for x in stream]
+    finally:
+        ref_server.close()
+    ledger_after_ref = int(ledger.total())
+
+    # phase 2: fire through the fleet with a background reshard and a
+    # mid-reshard kill; sequential blocking submits keep the request
+    # order (and so the bit-identity comparison) deterministic
+    fleet = Fleet({"chaos": model}, replicas=replicas,
+                  server_kwargs={"max_batch": 4, "queue_depth": 32})
+    client_retry = RetryPolicy(max_attempts=4, base_delay=0.0, jitter=0.0,
+                               name="chaos.reshard.client", seed=seed)
+    results: List[Optional[Any]] = []
+    post: List[Optional[Any]] = []
+    failed = 0
+    probe_rounds: List[Dict[str, str]] = []
+    reshard_box: Dict[str, Any] = {}
+    kill_box: Dict[str, Any] = {}
+    fired_during = 0
+    params_serving = 0
+
+    def _do_reshard() -> None:
+        try:
+            reshard_box["report"] = fleet.reshard(  # lint: allow-actuate
+                mesh_to, warm_x=stream[0])
+        except Exception as e:
+            reshard_box["err"] = e
+
+    def _watch_and_kill() -> None:
+        # the reshard's first observable action is draining replica 0
+        # (router weight -> 0); the kill fires right then, while the
+        # whole swap sequence is still ahead of the victim
+        handle = fleet.router._handles[fleet.replicas[0].name]
+        deadline = _time.monotonic() + 60
+        while _time.monotonic() < deadline:
+            if handle.weight == 0.0:
+                fleet.kill(victim)  # lint: allow-actuate
+                kill_box["killed"] = fleet.replicas[victim].name
+                return
+            _time.sleep(0.0005)
+
+    reshard_t = threading.Thread(
+        target=_do_reshard, daemon=True, name="mmlspark-tpu-chaos-reshard")
+    watcher_t = threading.Thread(
+        target=_watch_and_kill, daemon=True,
+        name="mmlspark-tpu-chaos-reshard-kill")
+    try:
+        for i, x in enumerate(stream):
+            if i % probe_every == 0:
+                probe_rounds.append(fleet.router.probe())
+            if i == reshard_at:
+                watcher_t.start()
+                reshard_t.start()
+            try:
+                results.append(np.asarray(
+                    client_retry.call(fleet.submit, "chaos", x)))
+            except Exception as e:
+                failed += 1
+                results.append(None)
+                errors.append(f"request {i}: {type(e).__name__}: {e}")
+            if reshard_t.is_alive():
+                fired_during += 1
+        # the reshard (fresh placement and captures per survivor) usually
+        # outlives a short stream: keep healthy traffic flowing until it
+        # lands — zero-downtime is a claim about the WHOLE window
+        spin = itertools.cycle(stream)
+        spin_deadline = _time.monotonic() + 120
+        while reshard_t.is_alive() and _time.monotonic() < spin_deadline:
+            try:
+                client_retry.call(fleet.submit, "chaos", next(spin))
+                fired_during += 1
+            except Exception as e:
+                failed += 1
+                errors.append(f"recovery: {type(e).__name__}: {e}")
+        reshard_t.join(10)
+        watcher_t.join(10)
+        if reshard_t.is_alive():
+            errors.append("reshard wedged: thread still alive")
+        if "err" in reshard_box:
+            e = reshard_box["err"]
+            errors.append(f"reshard raised: {type(e).__name__}: {e}")
+        probe_rounds.append(fleet.router.probe())
+        params_serving = int(ledger.total(kind="params"))
+        # phase 3: the stream once more, wholly on the new placement
+        for i, x in enumerate(stream):
+            try:
+                post.append(np.asarray(
+                    client_retry.call(fleet.submit, "chaos", x)))
+            except Exception as e:
+                failed += 1
+                post.append(None)
+                errors.append(f"post {i}: {type(e).__name__}: {e}")
+    finally:
+        fleet.close()
+    ledger_after_close = int(ledger.total())
+    params_after = int(ledger.total(kind="params"))
+    kv_after = int(ledger.total(kind="kv"))
+    verdict["ranks"] = _rank_facts(ch, errors)
+
+    identical = all(r is not None and np.array_equal(r, ref)
+                    for r, ref in zip(results, reference))
+    identical_post = all(r is not None and np.array_equal(r, ref)
+                         for r, ref in zip(post, reference))
+    report = reshard_box.get("report", {})
+    statuses = [{"replica": r.get("replica"), "status": r.get("status")}
+                for r in report.get("replicas", [])]
+    victim_name = f"r{victim}"
+    survivors_ok = (
+        bool(statuses)
+        and all(s["status"] == "resharded" for s in statuses
+                if s["replica"] != victim_name)
+        and all(s["status"] in ("died", "skipped_dead") for s in statuses
+                if s["replica"] == victim_name)
+        and report.get("mesh_shape") == mesh_to
+        and getattr(fleet, "mesh_shape", "") == mesh_to)
+    victim_dead = (probe_rounds
+                   and probe_rounds[-1].get(victim_name) == "dead")
+
+    verdict["schedule"] = {
+        "reshard_at": reshard_at, "victim": victim_name,
+        "statuses": statuses, "mesh_to": mesh_to,
+        "resharded": report.get("resharded"),
+    }
+    verdict["fleet"] = {
+        "served": sum(1 for r in results if r is not None),
+        "failed": failed, "probe_rounds": len(probe_rounds),
+    }
+    verdict["ledger"] = {
+        "after_reference_close": ledger_after_ref,
+        "params_bytes_serving": params_serving,
+        "params_bytes_after_close": params_after,
+        "kv_bytes_after_close": kv_after,
+        "total_bytes_after_close": ledger_after_close,
+    }
+    invariants = {
+        "zero_failed_requests": failed == 0,
+        "scores_bit_identical": identical,
+        "scores_bit_identical_post_reshard": identical_post,
+        "reshard_survived_kill": survivors_ok,
+        "kill_landed_mid_reshard": "killed" in kill_box,
+        "fired_through_reshard": fired_during > 0,
+        "params_charged_while_serving": params_serving > 0,
+        "ledger_reconciles_on_close": (ledger_after_ref == 0
+                                       and ledger_after_close == 0
+                                       and params_after == 0
+                                       and kv_after == 0
+                                       and _no_placement_left(
+                                           verdict["ranks"])),
+        "victim_probed_dead": bool(victim_dead),
+        "no_unhandled_exceptions": not errors,
+    }
+    verdict["invariants"] = invariants
+    verdict["restated"] = {
+        "ledger_reconciles_on_close": list(_RECONCILED),
+        "mesh_to": ["tensor_2_sub_mesh_keeps_gemm_row_counts"]}
+    verdict["errors"] = errors
+    verdict["passed"] = all(invariants.values())
+    return _conclude(verdict, outdir, "reshard", seed)
 
 
 def run_decode_scenario(seed: int, outdir: str, replicas: int = 2,
-                        requests: int = 5) -> Dict[str, Any]:
+                        requests: int = 5,
+                        mesh: str = "") -> Dict[str, Any]:
     """Kill a replica mid-GENERATION; every sequence still completes.
 
     Generation raises the stakes over the scoring-fleet scenario: a
@@ -624,6 +1180,13 @@ def run_decode_scenario(seed: int, outdir: str, replicas: int = 2,
     - ``prefix_restart_bit_identical`` — resubmitting the killed request
       (the restart) and the surviving sharer both emit token streams
       bit-identical to a prefix-cache-OFF reference server.
+
+    With ``mesh`` (``decode_sharded``, :data:`SHARDED_MESH`) the model
+    decodes over that mesh of ranks, this process leading them, its KV
+    arena head-sharded over ``tensor``: the ledger's ``kind="kv"`` line
+    and ``no_leaked_kv_bytes`` hold the leader's shard of it. The
+    verdict's ``ranks`` holds every rank's kernel launches and the
+    placements left on each.
     """
     import threading
 
@@ -637,8 +1200,11 @@ def run_decode_scenario(seed: int, outdir: str, replicas: int = 2,
     os.makedirs(outdir, exist_ok=True)
     errors: List[str] = []
     verdict: Dict[str, Any] = {
-        "seed": seed, "scenario": "decode",
-        "replicas": replicas, "requests": requests, "mesh": ""}
+        "seed": seed, "scenario": "decode_sharded" if mesh else "decode",
+        "replicas": replicas, "requests": requests, "mesh": mesh}
+    ch = _mesh_leader("decode_sharded") if mesh else None
+    if ch is not None:
+        ch.rank_stats(reset=True)
 
     rng = random.Random(seed ^ 0xDEC0DE)
     kill_req = rng.randint(requests // 3, max(requests // 3,
@@ -657,7 +1223,11 @@ def run_decode_scenario(seed: int, outdir: str, replicas: int = 2,
     mmlconfig.set("generate.max_seq_len", 64)
     mmlconfig.set("generate.max_sequences", 4)
     mmlconfig.set("generate.kv_block_tokens", 8)
-    model = TorchModel().set_model(
+    # sharded variant: a 2-D (data x tensor) mesh-bound model whose KV
+    # arena is head-sharded over the tensor axis — the kill, failover
+    # restart, and shared-prefix ledger invariants must all hold with
+    # every rank holding only its param + KV shard
+    model = TorchModel(**({"meshSpec": mesh} if mesh else {})).set_model(
         "transformer_lm_tiny", seed=seed & 0xFFFF)
 
     reference: List[List[int]] = []
@@ -758,6 +1328,8 @@ def run_decode_scenario(seed: int, outdir: str, replicas: int = 2,
     finally:
         for k, v in prior.items():
             mmlconfig.set(k, v)
+    if ch is not None:
+        verdict["ranks"] = _rank_facts(ch, errors)
 
     finished = [r is not None and r.get("finish_reason")
                 in ("length", "stop") for r in results]
@@ -787,21 +1359,7 @@ def run_decode_scenario(seed: int, outdir: str, replicas: int = 2,
     verdict["errors"] = errors
     verdict["passed"] = all(invariants.values())
 
-    path = os.path.join(outdir, VERDICT_FILE)
-    tmp = path + ".tmp"
-    with open(tmp, "w") as f:
-        json.dump(verdict, f, indent=2, sort_keys=True)
-    os.replace(tmp, path)
-    _LOG.info("chaos decode verdict (%s): %s", path,
-              "PASS" if verdict["passed"] else "FAIL")
-    if not verdict["passed"]:
-        from mmlspark_tpu_torch.observability import flightrec
-        dumped = flightrec.dump(
-            reason=f"chaos.decode.red.seed{seed}",
-            path=os.path.join(outdir, "chaos_flightrec.jsonl"))
-        if dumped:
-            _LOG.error("chaos: flight recorder dumped to %s", dumped)
-    return verdict
+    return _conclude(verdict, outdir, "decode", seed)
 
 
 def _run_shared_prefix_kill(model, rng, seed: int,
@@ -1182,21 +1740,7 @@ def run_fleetprefix_scenario(seed: int, outdir: str, replicas: int = 3,
     verdict["errors"] = errors
     verdict["passed"] = all(invariants.values())
 
-    path = os.path.join(outdir, VERDICT_FILE)
-    tmp = path + ".tmp"
-    with open(tmp, "w") as f:
-        json.dump(verdict, f, indent=2, sort_keys=True)
-    os.replace(tmp, path)
-    _LOG.info("chaos fleetprefix verdict (%s): %s", path,
-              "PASS" if verdict["passed"] else "FAIL")
-    if not verdict["passed"]:
-        from mmlspark_tpu_torch.observability import flightrec
-        dumped = flightrec.dump(
-            reason=f"chaos.fleetprefix.red.seed{seed}",
-            path=os.path.join(outdir, "chaos_flightrec.jsonl"))
-        if dumped:
-            _LOG.error("chaos: flight recorder dumped to %s", dumped)
-    return verdict
+    return _conclude(verdict, outdir, "fleetprefix", seed)
 
 
 # -- host scenario -----------------------------------------------------------
@@ -1547,21 +2091,7 @@ def run_host_scenario(seed: int, outdir: str, replicas: int = 2,
     # restore the prior event sink AFTER the verdict facts are gathered
     mmlconfig.set("observability.events_path", prior_events)
 
-    path = os.path.join(outdir, VERDICT_FILE)
-    tmp = path + ".tmp"
-    with open(tmp, "w") as f:
-        json.dump(verdict, f, indent=2, sort_keys=True)
-    os.replace(tmp, path)
-    _LOG.info("chaos host verdict (%s): %s", path,
-              "PASS" if verdict["passed"] else "FAIL")
-    if not verdict["passed"]:
-        from mmlspark_tpu_torch.observability import flightrec
-        dumped = flightrec.dump(
-            reason=f"chaos.host.red.seed{seed}",
-            path=os.path.join(outdir, "chaos_flightrec.jsonl"))
-        if dumped:
-            _LOG.error("chaos: flight recorder dumped to %s", dumped)
-    return verdict
+    return _conclude(verdict, outdir, "host", seed)
 
 
 # -- autopilot scenario ------------------------------------------------------
@@ -1993,21 +2523,7 @@ def run_autopilot_scenario(seed: int, outdir: str, replicas: int = 3,
     verdict["errors"] = errors
     verdict["passed"] = all(invariants.values())
 
-    path = os.path.join(outdir, VERDICT_FILE)
-    tmp = path + ".tmp"
-    with open(tmp, "w") as f:
-        json.dump(verdict, f, indent=2, sort_keys=True)
-    os.replace(tmp, path)
-    _LOG.info("chaos autopilot verdict (%s): %s", path,
-              "PASS" if verdict["passed"] else "FAIL")
-    if not verdict["passed"]:
-        from mmlspark_tpu_torch.observability import flightrec
-        dumped = flightrec.dump(
-            reason=f"chaos.autopilot.red.seed{seed}",
-            path=os.path.join(outdir, "chaos_flightrec.jsonl"))
-        if dumped:
-            _LOG.error("chaos: flight recorder dumped to %s", dumped)
-    return verdict
+    return _conclude(verdict, outdir, "autopilot", seed)
 
 
 # -- elastic scenario --------------------------------------------------------
@@ -2362,21 +2878,7 @@ def run_elastic_scenario(seed: int, outdir: str, replicas: int = 2,
     # restore the prior event sink AFTER the verdict facts are gathered
     mmlconfig.set("observability.events_path", prior_events)
 
-    path = os.path.join(outdir, VERDICT_FILE)
-    tmp = path + ".tmp"
-    with open(tmp, "w") as f:
-        json.dump(verdict, f, indent=2, sort_keys=True)
-    os.replace(tmp, path)
-    _LOG.info("chaos elastic verdict (%s): %s", path,
-              "PASS" if verdict["passed"] else "FAIL")
-    if not verdict["passed"]:
-        from mmlspark_tpu_torch.observability import flightrec
-        dumped = flightrec.dump(
-            reason=f"chaos.elastic.red.seed{seed}",
-            path=os.path.join(outdir, "chaos_flightrec.jsonl"))
-        if dumped:
-            _LOG.error("chaos: flight recorder dumped to %s", dumped)
-    return verdict
+    return _conclude(verdict, outdir, "elastic", seed)
 
 
 # -- the scenario ------------------------------------------------------------
@@ -2442,29 +2944,15 @@ def run_scenario(seed: int, outdir: str, total_steps: int = 8,
     verdict["errors"] = errors
     verdict["passed"] = all(invariants.values())
 
-    path = os.path.join(outdir, VERDICT_FILE)
-    tmp = path + ".tmp"
-    with open(tmp, "w") as f:
-        json.dump(verdict, f, indent=2, sort_keys=True)
-    os.replace(tmp, path)
-    _LOG.info("chaos verdict (%s): %s", path,
-              "PASS" if verdict["passed"] else "FAIL")
-    if not verdict["passed"]:
-        # a red verdict ships its own forensics: the last-N telemetry
-        # events land next to the verdict even with events_path unset
-        from mmlspark_tpu_torch.observability import flightrec
-        dumped = flightrec.dump(
-            reason=f"chaos.red.seed{seed}",
-            path=os.path.join(outdir, "chaos_flightrec.jsonl"))
-        if dumped:
-            _LOG.error("chaos: flight recorder dumped to %s", dumped)
-    return verdict
+    return _conclude(verdict, outdir, "", seed)
 
 
 def run_named(scenario: str, seed: int, outdir: str, *, replicas: int = 3,
               requests: int = 12, total_steps: int = 8,
               save_every: int = 2) -> Dict[str, Any]:
-    """Run the registered ``scenario`` (``cli chaos`` dispatches here)."""
+    """Run the registered ``scenario`` (``cli chaos`` dispatches here).
+    The :data:`MESH_SCENARIOS` run on rank 0 of a joined channel, inside
+    ``parallel.leader.lead()``, and raise anywhere else."""
     if scenario not in SCENARIOS:
         raise KeyError(f"unknown chaos scenario {scenario!r}; have "
                        f"{sorted(SCENARIOS)}")
@@ -2474,7 +2962,12 @@ def run_named(scenario: str, seed: int, outdir: str, *, replicas: int = 3,
     if scenario == "autopilot":
         return run_autopilot_scenario(seed, outdir, replicas=replicas)
     run = {"fleet": run_fleet_scenario, "decode": run_decode_scenario,
+           "fleet_sharded": run_fleet_scenario,
+           "decode_sharded": run_decode_scenario,
            "fleetprefix": run_fleetprefix_scenario,
            "host": run_host_scenario,
-           "elastic": run_elastic_scenario}[scenario]
-    return run(seed, outdir, replicas=replicas, requests=requests)
+           "elastic": run_elastic_scenario,
+           "recommender": run_recommender_scenario,
+           "reshard": run_reshard_scenario}[scenario]
+    mesh = {"mesh": SHARDED_MESH} if scenario.endswith("_sharded") else {}
+    return run(seed, outdir, replicas=replicas, requests=requests, **mesh)

@@ -92,15 +92,18 @@ def test_scenario_is_deterministic_per_seed(name, runs):
 
 
 def test_unknown_scenario_lists_the_registry_and_exits_2(capsys):
+    """``tests/test_supervisor.py``'s registry tests on the port: an
+    unknown name lists all eleven scenarios and exits 2."""
     from mmlspark_tpu_torch.cli import main
-    assert main(["chaos", "--scenario", "recommender"]) == 2
+    assert main(["chaos", "--scenario", "bogus"]) == 2
     err = capsys.readouterr().err
-    assert "unknown scenario 'recommender'" in err
-    for name in ("train", "fleet", "decode", "fleetprefix", "host",
-                 "autopilot", "elastic"):
-        assert f"  {name}" in err
-    assert sorted(chaos.SCENARIOS) == ["autopilot", "decode", "elastic",
-                                       "fleet", "fleetprefix", "host",
-                                       "train"]
+    assert "unknown scenario 'bogus'" in err
+    names = {"train", "fleet", "decode", "host", "fleet_sharded",
+             "decode_sharded", "autopilot", "elastic", "recommender",
+             "fleetprefix", "reshard"}
+    for name in names:
+        assert f"  {name} " in err
+    assert set(chaos.SCENARIOS) == names == set(jchaos.SCENARIOS)
+    assert all(desc for desc in chaos.SCENARIOS.values())
     with pytest.raises(KeyError, match="unknown chaos scenario"):
-        chaos.run_named("reshard", 0, "unused")
+        chaos.run_named("bogus", 0, "unused")

@@ -10,7 +10,9 @@ tests/test_torch_tooling_card.py``:
   bf16 node keeps its dtype's layout (NHWC) and the card's K2 launch;
 - a ``LocalRepo`` written from the card's state dict loads back through
   ``ModelDownloader.to_torch_model`` and scores bit-equal on the card;
-- the ``train`` and ``fleet`` chaos scenarios green on the card.
+- the ``train`` and ``fleet`` chaos scenarios green on the card, and
+  ``cli chaos --scenario fleet_sharded --nprocs 2`` (two ranks over
+  gloo on the card) exits 0 with a passed verdict.
 """
 import numpy as np
 import pytest
@@ -96,3 +98,28 @@ def test_chaos_scenario_green_on_the_card(card, tmp_path, name, kw):
     from mmlspark_tpu_torch.reliability import chaos
     v = chaos.run_named(name, 0, str(tmp_path / name), **kw)
     assert v["passed"] and all(v["invariants"].values()), v["errors"]
+
+
+@pytest.mark.cuda
+def test_cli_chaos_fleet_sharded_on_two_ranks_of_the_card(card, tmp_path):
+    """The mesh-bound fleet scenario through the CLI: two ranks sharing
+    the card (gloo, picked by the launcher), rank 0 leading; exit 0, the
+    printed verdict all-green, no placement left on either rank."""
+    import json
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = tmp_path / "fleet_sharded"
+    proc = subprocess.run(
+        [sys.executable, "-m", "mmlspark_tpu_torch.cli", "chaos",
+         "--scenario", "fleet_sharded", "--seed", "0", "--nprocs", "2",
+         "--platform", "cuda", "--replicas", "3", "--requests", "12",
+         "--out", str(out)], cwd=repo, capture_output=True, text=True,
+        timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    verdict = json.loads(proc.stdout)
+    assert verdict["passed"] and all(verdict["invariants"].values())
+    assert verdict["mesh"] == "data=-1,tensor=2"
+    assert verdict["ranks"]["world"] == 2
+    assert verdict["ranks"]["placements_left"] == [[], []]
