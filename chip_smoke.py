@@ -70,7 +70,9 @@ Nine paths, each through the entry points a user calls:
   with its tables split by rows over ``tensor`` (the fused lookup, the
   sparse gradient);
 - tools: ``TorchModel`` capturing an inner node of the featurize path's
-  ResNet-50 (K2), the model downloader over a localhost repository, four
+  ResNet-50 (K2), the model downloader over a localhost repository, the
+  pretrained-weight import (a trained flax checkpoint and a torch state
+  dict into a repository, scored by ``ImageFeaturizer`` with K2), four
   chaos scenarios, the four mesh-bound chaos scenarios on two ranks
   through ``python -m mmlspark_tpu_torch.cli chaos --nprocs 2``, and the
   CLI's ``info``, ``check`` and ``top``.
@@ -104,7 +106,7 @@ The script:
    float32 pass with TF32 off;
 5. ``train``: zeroes the counts, runs 3 warm-up steps, one untimed window
    of 40 steps under CUDA's sync-debug mode (it must sync the host only at
-   the metrics-ring reads and the final loss fetch), 5 timed windows of 40
+   the metrics-ring reads and the final loss fetch), 3 timed windows of 40
    steps with the debug mode off (each making just those counted syncs;
    the median window sets train images/s), and one eval step, reads the
    counts (K1 once per step, K2 never), then holds the loss of 60 bf16
@@ -154,7 +156,7 @@ The script:
     tokens (seed 3) are tokenized and hashed into 128 ids over 32,768
     slots, uploaded once into a ``DeviceEpochCache``, and ``textcnn``
     (bf16, adam(1e-3), batch 256) trains 6 epochs; the timed region holds
-    all of it and ends in one fetch (rows/s, step ms; median of 3 runs).
+    all of it and ends in one fetch (rows/s, step ms; median of 2 runs).
     Gates: (a) 20 fp32 steps on the card, TF32 off, within
     ``TEXT_F32_TOL`` (relative, per step) of a CPU run from the same
     params and batch order; (b) K1, K2 and K3 launch 0 times; (c) an epoch
@@ -168,7 +170,7 @@ The script:
 12. ``lm_train``: ``transformer_lm`` at the zoo's width (bf16, random
     weights from seed 0, 64 resident rows of 2048 ids, batch 8,
     adamw(1e-3), next-token cross-entropy): 3 warm-up steps, one window of
-    8 steps under the sync-debug mode, 3 timed windows of 8 (tokens/s, step
+    8 steps under the sync-debug mode, 2 timed windows of 8 (tokens/s, step
     ms, TFLOP/s, MFU), the counts read after them (K3's tensor-core kernel
     6 a step, no other kernel), and K3's plain backward timed at the
     step's shape (its share of the step). Gates: (a) 10 steps at batch 2
@@ -295,13 +297,13 @@ The script:
     native libpng/libjpeg codec, built by g++ at first use, else the
     Python decoder) -> map(uint8 flat + label) -> batch(256, drop) ->
     repeat()`` into ``ResilientTrainLoop.run_dataset``: ResNet-20 (bf16,
-    sgd(0.1, momentum 0.9), K1 in the loss) for 48 steps (16 an epoch),
+    sgd(0.1, momentum 0.9), K1 in the loss) for 32 steps (16 an epoch),
     a ``TrainCheckpointer`` save (module, optimizer, count, step,
     generators, and the pipeline's snapshot beside it) every 5 steps.
     Three fresh children (this script with ``--stream-child``) run in
     deterministic mode (``use_deterministic_algorithms``, deterministic
     cuDNN, ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` set before CUDA starts): A
-    runs all 48 steps; B, started beside A, is SIGKILLed once it reports
+    runs all 32 steps; B, started beside A, is SIGKILLed once it reports
     step 23 (a save may be in flight); C, started beside both, waits with
     its imports and CUDA context up until B is dead and A done, then
     restores B's directory and finishes (its spawn-to-first-step leaves
@@ -317,7 +319,7 @@ The script:
     (d) each child's K1 launches equal its steps (restoring launches
     none), no other kernel; (e) the deep refit resumed mid-epoch and its
     params EQUAL the uninterrupted fit's. Timed here, in the normal mode,
-    3 runs each: ``run_dataset`` rows/s over an epoch (16 steps) with
+    2 runs each: ``run_dataset`` rows/s over an epoch (16 steps) with
     ``save_every`` 0 and 5, the
     JAX bench's ``streaming_input`` host lane (2,048 64x64 BMPs, batch 64,
     4 workers; rows/s and ``vs_baseline`` against ``read_images``), save
@@ -332,7 +334,7 @@ The script:
     on ``cuda:0``: ``transformer_lm`` at the zoo's width (bf16, global
     batch 8 of 2048 ids from a resident epoch split over the data axes,
     adam(1e-3), ``next_token_loss``) at ``tensor=2`` and at ``seq=2``
-    with Ulysses, 3 warm-up and 8 timed steps each (step ms, tokens/s a
+    with Ulysses, 3 warm-up and 4 timed steps each (step ms, tokens/s a
     rank, counted syncs in the window: 0, host copies); the fp32 gate at
     depth 2 (global batch 4, 5 steps, TF32 off) at ``tensor=2``,
     ``seq=2`` Ulysses and ``seq=2`` ring; a checkpoint saved at
@@ -343,7 +345,7 @@ The script:
     twin (TF32 off). Gates: (a) bf16 LM losses within
     ``LM_BF16_TRAIN_TOL`` of the one-rank run, fp32 within
     ``MESH_F32_TOL``; (b) every rank's ``flash_attention_tc`` 6 a step
-    (11 steps), ``flash_attention`` 2 a step under tensor and Ulysses and
+    (7 steps), ``flash_attention`` 2 a step under tensor and Ulysses and
     none under the ring, K1 once a ResNet step, no other kernel; (c) every
     restore equal to the save bit for bit, on the new mesh's shards; (d)
     both ranks' ResNet parameters bit-equal after the epoch (bf16 and
@@ -360,7 +362,7 @@ The script:
     ``mesh.moe``: ``transformer_lm_moe`` at the zoo's width (vocab 32000,
     dim 512, depth 6, 8 heads, 8 experts, top 2, capacity 1.25, L 2048,
     bf16, global batch 8, adam(1e-3), next-token CE + 0.01 x moe_aux) at
-    ``expert=2`` (four cards: ``data=2 x expert=2``), 2 warm-up and 4
+    ``expert=2`` (four cards: ``data=2 x expert=2``), 2 warm-up and 2
     timed steps, and its fp32 twin at depth 2 (batch 4, 3 steps, TF32
     off); gates: bf16 losses within ``MESH_MOE_BF16_TOL`` of one rank's,
     fp32 within ``MESH_F32_TOL`` with the first step's gate indices and
@@ -394,9 +396,9 @@ The script:
     leads, the other ranks follow; one-rank
     references run on rank 0 first. ``transformer_lm`` (bf16, ``hidden``)
     behind a ``Server`` at ``tensor=2`` (four cards: ``data=2 x
-    tensor=2``) under lm_serve's traffic (128 rows of 2048 ids, 8 clients,
-    buckets 1/4/8), rows within ``LM_BF16_MAX``/``LM_BF16_MEAN`` of the
-    one-rank server's, ``flash_attention_tc`` 6 a program call on every
+    tensor=2``) under lm_serve's traffic cut to 64 rows (of 2048 ids, 8
+    clients, buckets 1/4/8), rows within ``LM_BF16_MAX``/``LM_BF16_MEAN`` of
+    the one-rank server's, ``flash_attention_tc`` 6 a program call on every
     rank; the fp32 depth-2 LM (TF32 off): logits of 2 x 512 ids within
     ``MESH_SERVE_F32_TOL`` of one rank's and greedy tokens of 2 prompts
     equal to one rank's lane; the generate lane at the zoo's width
@@ -432,8 +434,10 @@ The script:
     meshed ``ResilientTrainLoop.run_dataset``, each rank streaming its
     half of the files (``FileSource(process_shard=True)``) at 128 rows a
     step: A whole, B (beside A) with both ranks SIGKILLed once rank 0
-    reports step ``MI_KILL_AT``, C resumed from B's directory and each
-    rank's ``data_state-<step>.p<rank>.json``; gates: C's final state on
+    reports step ``MI_KILL_AT``, C (started beside both, waiting with
+    its imports, CUDA context and K1 up until B is dead) resumed from
+    B's directory and each rank's ``data_state-<step>.p<rank>.json``
+    (its spawn-to-first-step leaves the wait out); gates: C's final state on
     each rank BIT-equal to A's, A's ranks bit-equal, K1 once a step on
     every rank and no other kernel. Printed: rows/s a rank beside one
     rank's, spawn-to-first-step ms, K1 launches a rank;
@@ -458,10 +462,24 @@ The script:
     ``http.server``, fetched by ``HttpRepo`` (sha256 checked) and loaded
     by ``ImageFeaturizer.set_model_from_downloader``: 128 images score
     BIT-equal to ``set_model`` with the same state dict; MB and seconds;
-24. ``chaos``: ``reliability/chaos.py``'s ``train``, ``fleet``,
+24. ``pretrained``: (a) the committed trained ResNet-20
+    (``tests/data/pretrained/resnet20_synthetic.msgpack``, read by
+    ``convert.from_flax_msgpack``) published by ``import_pretrained``
+    with the reference test's arguments (bf16 convs) and with
+    ``dtype="float32"``, loaded through ``ModelDownloader`` into
+    ``ImageFeaturizer(cutOutputLayers=1, miniBatchSize=8)`` with TF32 off:
+    ``golden.npz``'s 8 images (32^2 -> K2 -> 32^2) give ``pool`` within
+    2e-2 of the golden table, the float32 model's within 1e-3 (rtol and
+    atol) of the CPU's, the head all 8 labels, K2 once a pass; (b)
+    ResNet-50's seed-0 state dict exported as numpy through
+    ``from_torch_npz`` -> ``validate_params`` -> ``import_pretrained`` ->
+    ``ModelDownloader``: 128 images (256^2 -> K2 -> 224^2, bf16) score
+    BIT-equal to ``set_model`` with the same state; validate, save and
+    load seconds, payload MB and K2's launches printed;
+25. ``chaos``: ``reliability/chaos.py``'s ``train``, ``fleet``,
     ``decode`` and ``host`` scenarios on the card (seed 0, the reference
     tests' sizes), every verdict all-green, seconds and launches each;
-25. ``chaos_mesh``: the mesh-bound scenarios ``fleet_sharded``,
+26. ``chaos_mesh``: the mesh-bound scenarios ``fleet_sharded``,
     ``decode_sharded``, ``recommender`` and ``reshard``, each through
     ``python -m mmlspark_tpu_torch.cli chaos --scenario NAME --seed 0
     --nprocs 2 --platform cuda`` (two ranks sharing the card over gloo,
@@ -472,13 +490,14 @@ The script:
     decode_sharded's prompts of 3-8 ids never reach K3's prefill buckets
     of 512 and more). ``--mesh-only --mesh-cards 4`` runs them after the
     mesh phase on four ranks, one a card, over NCCL;
-26. ``cli``: ``python -m mmlspark_tpu_torch.cli info`` (platform gpu,
+27. ``cli``: ``python -m mmlspark_tpu_torch.cli info`` (platform gpu,
     count 1), ``check mmlspark_tpu_torch`` (exit 0) and ``top --once``
     over two in-process replicas served over HTTP;
-27. prints the kernel table line (each kernel's launches on each of its
+28. prints the kernel table line (each kernel's launches on each of its
     paths), the whole script's seconds, the card's name and power limit,
     and last ``{"ok": true, "device": {...}}``.
 
+Every phase's line carries ``seconds``, the time since the phase began.
 Any failed check raises, so the exit code is nonzero and no result line is
 printed. Without CUDA, or outside a checkout of the repository, it fails
 before printing anything.
@@ -511,7 +530,7 @@ CIFAR_MEAN = (125.3, 123.0, 113.9)
 CIFAR_STD = (63.0, 62.1, 66.7)
 TRAIN_ROWS, TRAIN_BATCH, TRAIN_SHAPE = 4096, 256, (32, 32, 3)
 TRAIN_WARMUP, TRAIN_STEPS, PARITY_STEPS, PARITY_F32_STEPS = 3, 40, 60, 20
-TRAIN_WINDOWS = 5
+TRAIN_WINDOWS = 3
 DEEP_ROWS, DEEP_FEATURES = 65536, 128
 # the zoo's transformer_lm (vocab 32000, dim 512, depth 6, 8 heads, L 2048):
 # 64 rows of ids scored at batch 8; the MoE LM over 16 rows
@@ -525,6 +544,8 @@ VIT_IMAGES, VIT_BATCH = 128, 32
 # (tests/test_golden_metrics.py), fp32 parameters within 1e-4 (norm-wise)
 AUTOML_TRAIN_ROWS, AUTOML_TEST_ROWS = 32561, 16281
 AUTOML_TOL, AUTOML_PARAM_RTOL = 5e-3, 1e-4
+# timed scoring passes of the test rows a learner (their median is kept)
+AUTOML_SCORE_PASSES = 2
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s
 # outside the tensor cores, dense bf16 tensor-core FLOP/s
 PEAK_BYTES_S = 3.35e12
@@ -557,15 +578,15 @@ LM_BF16_MAX, LM_BF16_MEAN, LM_F32_MAX = 1e-1, 1e-2, 1e-3
 MOE_MEAN, MOE_MOVED, MOE_SHARE_MOVED = 1e-2, 0.25, 0.01
 # the JAX bench's text lane (bench.py): 40 steps x batch 256 of reviews, 128
 # hashed ids over 32,768 slots, textcnn trained 6 epochs with adam(1e-3);
-# 3 timed runs; 20 fp32 steps (TF32 off) held against a CPU run
+# 2 timed runs; 20 fp32 steps (TF32 off) held against a CPU run
 TEXT_STEPS, TEXT_BATCH, TEXT_SEQ, TEXT_VOCAB = 40, 256, 128, 1 << 15
-TEXT_EPOCHS, TEXT_RUNS, TEXT_PARITY_STEPS = 6, 3, 20
+TEXT_EPOCHS, TEXT_RUNS, TEXT_PARITY_STEPS = 6, 2, 20
 # lm_train: transformer_lm at the zoo's width, 64 resident rows of ids,
-# batch 8, adamw(1e-3): 3 warm-up steps, 3 timed windows of 8 steps; the
+# batch 8, adamw(1e-3): 3 warm-up steps, 2 timed windows of 8 steps; the
 # bf16 gate at batch 2 over 10 steps against the reference attention; the
 # fp32 gate at depth 2 over 2 rows (batch 2), 5 steps; the MoE LM over 16
 # rows at batch 8, 5 steps
-LM_TRAIN_WARMUP, LM_TRAIN_WINDOW, LM_TRAIN_WINDOWS = 3, 8, 3
+LM_TRAIN_WARMUP, LM_TRAIN_WINDOW, LM_TRAIN_WINDOWS = 3, 8, 2
 LM_GATE_BATCH, LM_GATE_STEPS = 2, 10
 LM_F32_DEPTH, LM_F32_TRAIN_ROWS, LM_F32_STEPS = 2, 2, 5
 MOE_TRAIN_STEPS = 5
@@ -634,28 +655,29 @@ PF_REQUESTS, PF_CLIENTS, PF_KILL_AT, PF_ATTEMPTS = 64, 8, 24, 4
 PF_F32_PROMPTS, PF_LM = 4, {"seed": 0}
 # stream_resume: the train cell's 4,096 images as PNG files, streamed
 # through FileSource -> shuffle(1024, seed 0) -> decode(4 workers) -> map
-# -> batch(256, drop) -> repeat into ResNet-20 with K1 in the loss, 48 steps
+# -> batch(256, drop) -> repeat into ResNet-20 with K1 in the loss, 32 steps
 # (16 an epoch), a checkpoint every 5 steps; child B is SIGKILLed once it
 # reports step 23 or later. The deep cell's DeepClassifier (65,536 x 128,
 # 2 epochs of 256 steps) checkpoints every 100 steps, and child B's fit is
 # stopped by a fault at its 333rd step (mid-epoch 2). A child is killed
 # after 300 s.
-SR_FILES, SR_BATCH, SR_STEPS, SR_SAVE_EVERY, SR_KILL_AT = 4096, 256, 48, 5, 23
+SR_FILES, SR_BATCH, SR_STEPS, SR_SAVE_EVERY, SR_KILL_AT = 4096, 256, 32, 5, 23
 SR_WINDOW, SR_WORKERS, SR_CHILD_TIMEOUT_S = 1024, 4, 300
 SR_DEEP_EVERY, SR_DEEP_FAULT_AT = 100, 333
-# the timed run_dataset runs (3 at save_every 0, 3 at 5): one epoch each
-SR_TIMED_STEPS = 16
+# the timed run_dataset runs (2 at save_every 0, 2 at 5): one epoch each;
+# the streaming_input lane and save/restore are timed as many times
+SR_TIMED_STEPS, SR_TIMED_RUNS = 16, 2
 # mesh: meshed training. On one card two ranks share it over gloo (NCCL
 # refuses two ranks on one device, "Duplicate GPU detected", probed on the
 # card's machine); with --mesh-cards 4 one rank a card over NCCL.
 # transformer_lm at the zoo's width (bf16, global batch 8, adam(1e-3)):
-# 3 warm-up and 8 timed steps a mesh; the fp32 gate at depth 2 (global
+# 3 warm-up and 4 timed steps a mesh; the fp32 gate at depth 2 (global
 # batch 4, 5 steps, TF32 off); ResNet-20 data parallel over the train
 # cell's 4,096 images at global batch 256, one epoch of 16 steps, K1 in
 # the loss; a checkpoint saved on one mesh shape, restored on another and
 # back, 2 steps on each. A launch of the ranks is killed after
 # MESH_CHILD_TIMEOUT_S.
-MESH_LM_BATCH, MESH_LM_WARMUP, MESH_LM_STEPS = 8, 3, 8
+MESH_LM_BATCH, MESH_LM_WARMUP, MESH_LM_STEPS = 8, 3, 4
 MESH_F32_BATCH, MESH_F32_STEPS, MESH_CKPT_STEPS = 4, 5, 2
 MESH_RESNET_STEPS, MESH_CHILD_TIMEOUT_S = 16, 420
 # gates, each the largest relative difference of a per-step loss from the
@@ -676,11 +698,11 @@ MESH_RESNET_STEPS, MESH_CHILD_TIMEOUT_S = 16, 420
 # the CPU 8.9e-7); every step's loss is printed
 MESH_F32_TOL, MESH_UPDATE_TOL = 1e-5, 1e-3
 # the slice-6b-i runs of the mesh phase (module docstring, phase 20): the
-# MoE LM (bf16: 2 warm-up + 4 timed steps at global batch 8; fp32 at
+# MoE LM (bf16: 2 warm-up + 2 timed steps at global batch 8; fp32 at
 # depth 2: 3 steps at batch 4), the pipelined MLP of the JAX bench's
 # fleet_reshard lane (6 steps; the reshard's at 3 and 5) and its
 # recommender lane's DLRM (4 steps of 2048 rows)
-MESH_MOE_BATCH, MESH_MOE_WARMUP, MESH_MOE_STEPS = 8, 2, 4
+MESH_MOE_BATCH, MESH_MOE_WARMUP, MESH_MOE_STEPS = 8, 2, 2
 MESH_MOE_F32_BATCH, MESH_MOE_F32_STEPS = 4, 3
 MESH_PIPE_D, MESH_PIPE_HIDDEN, MESH_PIPE_BATCH = 1024, 2048, 16
 MESH_PIPE_STEPS, MESH_PIPE_LR, MESH_PIPE_MICRO = 6, 1e-4, 2
@@ -700,11 +722,13 @@ MESH_MOE_BF16_TOL = 3e-3
 # the table gradient are exact, the dense towers' sums split otherwise
 # (the JAX test's bound)
 MESH_DLRM_TOL = 2e-6
-# mesh_serve: the generate round's prompts (8 sequences in flight), the
+# mesh_serve: the LM's served rows (lm_serve's traffic, fewer rows), the
+# generate round's prompts (8 sequences in flight), the
 # recommender's served rows and bucket, the fleet's replicas and the
 # fp32 gate's logits bound (sums reordered over the tensor ranks, TF32
 # off; MESH_F32_TOL's bound on one logit)
-MESH_SERVE_GEN_REQUESTS, MESH_SERVE_DLRM_ROWS = 16, 4096
+MESH_SERVE_LM_REQUESTS, MESH_SERVE_GEN_REQUESTS = 64, 8
+MESH_SERVE_DLRM_ROWS = 4096
 MESH_SERVE_DLRM_BUCKET, MESH_SERVE_FLEET_REPLICAS = 256, 2
 MESH_SERVE_F32_LEN, MESH_SERVE_F32_ROWS, MESH_SERVE_F32_NEW = 512, 2, 8
 MESH_SERVE_F32_TOL = 1e-5
@@ -733,7 +757,7 @@ MI_DEEP_BATCH, MI_DEEP_EPOCHS, MI_KILL_AT, MI_CHILD_TIMEOUT_S = 256, 2, 23, 300
 MI_GATED_STEPS, MI_XTOPO_RTOL, MI_XTOPO_AGREE = 16, 2e-2, 62 / 64
 # record (PR 17): train steps under profiling.trace; the rounds of the
 # flight recorder's ring off and on that serve, lm_serve and train add
-RECORD_TRACE_STEPS, RING_ROUNDS = 5, 2
+RECORD_TRACE_STEPS, RING_ROUNDS = 5, 1
 # fp32 operations per output element of the crop-resize-normalize kernel:
 # two row lerps (3 each), one column lerp (3), rint, clamp (2), subtract,
 # multiply
@@ -742,8 +766,25 @@ K2_OPS_PER_ELEMENT = 14
 K1_OPS_PER_ELEMENT = 2
 
 
+# when the running phase of main() began (perf_counter); None outside one
+_PHASE_T0 = [None]
+
+
 def _line(**obj) -> None:
+    """One JSON line; a phase's line carries the seconds since its phase
+    began (``seconds``) unless it names its own."""
+    if "phase" in obj and "seconds" not in obj and _PHASE_T0[0] is not None:
+        obj["seconds"] = time.perf_counter() - _PHASE_T0[0]
     print(json.dumps(obj), flush=True)
+
+
+def _run(phase, *args, **kwargs):
+    """``phase(*args, **kwargs)``, its lines timed from here."""
+    _PHASE_T0[0] = time.perf_counter()
+    try:
+        return phase(*args, **kwargs)
+    finally:
+        _PHASE_T0[0] = None
 
 
 def _check(ok: bool, what: str) -> None:
@@ -2069,7 +2110,7 @@ def phase_automl(torch, kernels, card):
                                       learner2._state[key]),
                        f"{name}: two card fits differ in {key}")
         score_s = []
-        for _ in range(3):
+        for _ in range(AUTOML_SCORE_PASSES):
             t0 = time.perf_counter()
             model.transform(test)
             score_s.append(time.perf_counter() - t0)
@@ -2179,7 +2220,8 @@ def _split_times(model, ctor, train, test) -> dict:
     featurizing the rows on the host (``featurize_s``, a transform of the
     fitted Featurize model) against the learner's own fit on the featurized
     frame (``learner_fit_s``, warm) and the learner model's scoring of the
-    featurized test rows (``learner_score_rows_per_s``, median of 3)."""
+    featurized test rows (``learner_score_rows_per_s``, median of
+    ``AUTOML_SCORE_PASSES``)."""
     from mmlspark_tpu_torch.feature.value_indexer import ValueIndexer
     fitted = model.get("learnerModel")
     label = fitted.labelCol
@@ -2196,7 +2238,7 @@ def _split_times(model, ctor, train, test) -> dict:
     learner_fit_s = time.perf_counter() - t0
     featurized_test = featurizer.transform(test)
     score_s = []
-    for _ in range(3):
+    for _ in range(AUTOML_SCORE_PASSES):
         t0 = time.perf_counter()
         fitted.transform(featurized_test)
         score_s.append(time.perf_counter() - t0)
@@ -4879,8 +4921,8 @@ def _streaming_input_lane(work) -> dict:
     """The JAX bench's streaming_input host lane (bench.py
     config_streaming_input): 2,048 64x64 BMPs, FileSource -> decode(4
     workers) -> batch(64), each batch normalized on the host, against
-    read_images then batching the column; 3 rounds, each lane timed over a
-    full epoch including its ingest."""
+    read_images then batching the column; SR_TIMED_RUNS rounds, each lane
+    timed over a full epoch including its ingest."""
     from mmlspark_tpu_torch.data import FileSource
     from mmlspark_tpu_torch.io.codecs import encode_bmp
     from mmlspark_tpu_torch.io.readers import read_images
@@ -4915,7 +4957,8 @@ def _streaming_input_lane(work) -> dict:
         return time.perf_counter() - t0
     run_fw()
     run_base()
-    rounds = [(timed(run_fw), timed(run_base)) for _ in range(3)]
+    rounds = [(timed(run_fw), timed(run_base))
+              for _ in range(SR_TIMED_RUNS)]
     rows = (n // bs) * bs
     rates = [rows / fw for fw, _ in rounds]
     return dict(rows=rows, batch=bs, decode_workers=workers,
@@ -4926,12 +4969,12 @@ def _streaming_input_lane(work) -> dict:
 
 def _save_restore_ms(torch, trainer, state, init_fn, work, name) -> dict:
     """save (host snapshot, then the background write) and restore of one
-    train state, 3 times each; ms and MB."""
+    train state, SR_TIMED_RUNS times each; ms and MB."""
     import shutil
 
     from mmlspark_tpu_torch.parallel.checkpoint import TrainCheckpointer
     runs = []
-    for i in range(3):
+    for i in range(SR_TIMED_RUNS):
         d = os.path.join(work, f"saverestore_{name}_{i}")
         ckpt = TrainCheckpointer(d)
         torch.cuda.synchronize()
@@ -5013,7 +5056,8 @@ def phase_stream_resume(torch, kernels, card, keep_events=None) -> dict:
     # timed in this process, normal (non-deterministic) mode
     rates = {}
     for every in (0, SR_SAVE_EVERY):
-        runs = [_rows_per_s(torch, spec, every, work) for _ in range(3)]
+        runs = [_rows_per_s(torch, spec, every, work)
+                for _ in range(SR_TIMED_RUNS)]
         rows = [r["rows_per_s"] for r in runs]
         rates[f"save_every_{every}"] = dict(
             rows_per_s_min=min(rows), rows_per_s_max=max(rows),
@@ -5586,6 +5630,14 @@ def mesh_child(spec: dict) -> int:
            "backend": dist.get_backend(), "lm": {}, "f32": {}}
     make_mesh(MeshSpec(data=-1))
     out["spawn_to_mesh_ms"] = (time.time() - spec["spawn_t"]) * 1e3
+    # each run's seconds on this rank, for the phase's breakdown
+    run_s = out["run_s"] = {}
+    t = time.perf_counter()
+
+    def lap(name):
+        nonlocal t
+        run_s[name] = time.perf_counter() - t
+        t = time.perf_counter()
     torch.cuda.reset_peak_memory_stats(card)
     for name, axes, impl in configs["lm"]:
         collectives.reset_host_copies()
@@ -5593,14 +5645,17 @@ def mesh_child(spec: dict) -> int:
                        False, MESH_LM_WARMUP, MESH_LM_STEPS)
         run["host_copies"] = collectives.host_copies()
         out["lm"][name] = run
+        lap(f"lm_{name}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     for name, axes, impl in configs["f32"]:
         out["f32"][name] = _mesh_lm(torch, kernels,
                                     make_mesh(MeshSpec(**axes)), impl, True,
                                     0, MESH_F32_STEPS)
+    lap("lm_f32")
     out["checkpoint"] = _mesh_checkpoint(
         torch, kernels, configs["ckpt"], os.path.join(spec["work"], "ckpt"))
+    lap("checkpoint")
     f32_resnet = _mesh_resnet(torch, kernels,
                               make_mesh(MeshSpec(**configs["resnet"])), True)
     np.savez(os.path.join(spec["work"], f"resnet_f32_rank{rank}.npz"),
@@ -5619,6 +5674,7 @@ def mesh_child(spec: dict) -> int:
              **res.pop("params"))
     out["resnet"] = res
     out["max_allocated_bytes"] = int(torch.cuda.max_memory_allocated(card))
+    lap("resnet")
     # slice 6b-i: the MoE LM over `expert`, the pipelined MLP over `pipe`,
     # the DLRM's tables over `tensor`
     name, axes = configs["moe"]
@@ -5639,6 +5695,7 @@ def mesh_child(spec: dict) -> int:
     np.savez(os.path.join(spec["work"], f"moe_routing_rank{rank}.npz"),
              **moe32.pop("routing"))
     out["moe"] = {"bf16": moe, "f32": moe32, "bf16_tf32_off": moe_nt}
+    lap("moe")
     torch.cuda.empty_cache()
     out["pipe"] = {n: _mesh_pipe(torch, make_mesh(parse_mesh_shape(shape)),
                                  stages)
@@ -5649,6 +5706,7 @@ def mesh_child(spec: dict) -> int:
     np.save(os.path.join(spec["work"], f"dlrm_bags_rank{rank}.npy"),
             dlrm.pop("bags"))
     out["dlrm"] = dlrm
+    lap("pipe_dlrm")
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
     # multi-process inputs: each rank fits its own shard of the deep cell
@@ -5661,6 +5719,7 @@ def mesh_child(spec: dict) -> int:
                      "block": sharding.batch_block(inputs_mesh),
                      "verdict": _mesh_inputs_verdict(torch, inputs_mesh,
                                                      rank)}
+    lap("inputs_deep")
     # serving on the mesh: rank 0 leads, the others follow
     from mmlspark_tpu_torch.parallel import leader
     torch.cuda.empty_cache()
@@ -5670,6 +5729,7 @@ def mesh_child(spec: dict) -> int:
                                        spec["cards"])
     else:
         out["serve"] = {"follower_commands": leader.follow()}
+    lap("serve")
     with open(os.path.join(spec["work"], f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     return 0
@@ -5735,7 +5795,7 @@ def _mesh_serve(torch, kernels, card, ch, cards) -> dict:
 
     # -- the LM behind a Server (bf16, hidden) --
     ids = np.random.default_rng(0).integers(
-        0, LM_VOCAB, (LM_SERVE_REQUESTS, LM_LEN)).astype(np.int32)
+        0, LM_VOCAB, (MESH_SERVE_LM_REQUESTS, LM_LEN)).astype(np.int32)
     one, lat1, wall1, _, _ = serve_lm(
         _lm_scorer("transformer_lm", "hidden", LM_SERVE_BUCKETS[-1]), ids)
     tm = _lm_scorer("transformer_lm", "hidden", LM_SERVE_BUCKETS[-1])
@@ -5752,10 +5812,12 @@ def _mesh_serve(torch, kernels, card, ch, cards) -> dict:
           f"mesh_serve lm: {tc} launches {k3} a rank, want {LM_DEPTH} x "
           f"{replays} program calls")
     out["lm"] = dict(
-        mesh=cfg["lm"], requests=LM_SERVE_REQUESTS, clients=LM_SERVE_CLIENTS,
-        tokens_per_s=LM_SERVE_REQUESTS * LM_LEN / wall,
-        tokens_per_s_per_rank=LM_SERVE_REQUESTS * LM_LEN / wall / len(stats),
-        one_rank_tokens_per_s=LM_SERVE_REQUESTS * LM_LEN / wall1,
+        mesh=cfg["lm"], requests=MESH_SERVE_LM_REQUESTS,
+        clients=LM_SERVE_CLIENTS,
+        tokens_per_s=MESH_SERVE_LM_REQUESTS * LM_LEN / wall,
+        tokens_per_s_per_rank=MESH_SERVE_LM_REQUESTS * LM_LEN / wall
+        / len(stats),
+        one_rank_tokens_per_s=MESH_SERVE_LM_REQUESTS * LM_LEN / wall1,
         p50_ms=_pct_ms(lat, 50), p99_ms=_pct_ms(lat, 99),
         one_rank_p50_ms=_pct_ms(lat1, 50), one_rank_p99_ms=_pct_ms(lat1, 99),
         vs_one_rank=cross, program_calls=replays,
@@ -6073,6 +6135,7 @@ def phase_mesh(torch, kernels, card, cards: int = 1, keep_events=None
                            f"{torch.cuda.device_count()} are visible")
     t_phase = time.perf_counter()
     ref = _mesh_reference(torch, kernels)
+    reference_s = time.perf_counter() - t_phase
     ranks_n = 2 if cards == 1 else cards
     backend = "gloo" if cards == 1 else "nccl"
     work = tempfile.mkdtemp(prefix="chip_smoke_mesh-")
@@ -6106,7 +6169,8 @@ def phase_mesh(torch, kernels, card, cards: int = 1, keep_events=None
             ranks.append(json.load(f))
     out = _mesh_report(kernels, cards, ref, ranks, work,
                        stated=_stated(log),
-                       ranks_s=ranks_s, backend=backend,
+                       ranks_s=ranks_s, reference_s=reference_s,
+                       rank0_run_s=ranks[0]["run_s"], backend=backend,
                        phase_s=time.perf_counter() - t_phase)
     # mesh_inputs: the meshed run_dataset's launches, then its gates
     inputs_work = os.path.join(work, "inputs")
@@ -6612,8 +6676,9 @@ def inputs_child(spec: dict) -> int:
     streaming its own shard of the corpus (``FileSource(process_shard=
     True)``) at ``spec["batch"]`` rows a step and writing its own events
     log. Role A runs uninterrupted, B until its parent SIGKILLs both
-    ranks, C resumes from B's directory. Rank 0 prints a ``mi_step`` line
-    a step; each rank a summary line, and dumps its final state."""
+    ranks, C resumes from B's directory once ``spec["go"]`` exists. Rank
+    0 prints a ``mi_step`` line a step; each rank a summary line, and
+    dumps its final state."""
     t_spawn = float(os.environ.get("SMOKE_SPAWN_T", time.time()))
     import torch
     import torch.distributed as dist
@@ -6628,6 +6693,7 @@ def inputs_child(spec: dict) -> int:
     if device.type == "cuda":      # a CPU rehearsal builds nothing
         torch.cuda.set_device(device)
         kernels.build_all([kernels.FUSED_NORMALIZE])
+    waited_s = _wait_for(spec.get("go"), MI_CHILD_TIMEOUT_S)
     config.set("observability.events_path",
                os.path.join(spec["work"], f"events_{role}-{rank}.jsonl"))
     ckpt_dir = spec["ckpt_a"] if role == "A" else spec["ckpt_b"]
@@ -6668,9 +6734,23 @@ def inputs_child(spec: dict) -> int:
           steps_run=done[0], launches=launches, device=str(device),
           deterministic=torch.are_deterministic_algorithms_enabled(),
           run_dataset_s=run_s,
-          rows_per_s=done[0] * spec["batch"] / run_s,
-          spawn_to_first_step_ms=(marks["first_step_t"] - t_spawn) * 1e3)
+          rows_per_s=done[0] * spec["batch"] / run_s, waited_s=waited_s,
+          spawn_to_first_step_ms=(marks["first_step_t"] - t_spawn
+                                  - waited_s) * 1e3)
     return 0
+
+
+def _wait_for(path, timeout_s: float) -> float:
+    """Seconds spent waiting until ``path`` exists (0 when no path is
+    given); raises past ``timeout_s``."""
+    if not path:
+        return 0.0
+    t0 = time.time()
+    while not os.path.exists(path):
+        if time.time() - t0 > timeout_s:
+            raise RuntimeError(f"no word at {path} in {timeout_s} s")
+        time.sleep(0.05)
+    return time.time() - t0
 
 
 def _group_lines(proc, until=None) -> list:
@@ -6696,9 +6776,10 @@ def _group_lines(proc, until=None) -> list:
 
 
 def _mesh_inputs_stream(torch, cards, work) -> dict:
-    """(b) of mesh_inputs: runs A and B of the meshed run_dataset
-    together, both ranks of B SIGKILLed once rank 0 reports step
-    MI_KILL_AT, then C from B's directory; the gates' facts."""
+    """(b) of mesh_inputs: runs A, B and C of the meshed run_dataset
+    started together, both ranks of B SIGKILLed once rank 0 reports step
+    MI_KILL_AT, then C, waiting until then, from B's directory; the
+    gates' facts."""
     import signal
     backend = "gloo" if cards == 1 else "nccl"
     spec = dict(_stream_spec(work, deep=False, batch=SR_BATCH // 2,
@@ -6712,13 +6793,15 @@ def _mesh_inputs_stream(torch, cards, work) -> dict:
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
     procs = {}
 
-    def launch(role):
+    go = os.path.join(work, "go_C")
+
+    def launch(role, **extra):
         err = open(os.path.join(work, f"launch_{role}.err"), "w")
         procs[role] = subprocess.Popen(
             [sys.executable, "-m", "mmlspark_tpu_torch.cli", "run",
              os.path.abspath(__file__), "--nprocs", "2", "--platform",
-             "cuda", "--", "--inputs-child", json.dumps(dict(spec,
-                                                             role=role))],
+             "cuda", "--", "--inputs-child",
+             json.dumps(dict(spec, role=role, **extra))],
             cwd=root, env=dict(env, SMOKE_SPAWN_T=repr(time.time())),
             start_new_session=True, stdout=subprocess.PIPE, stderr=err,
             text=True)
@@ -6728,6 +6811,7 @@ def _mesh_inputs_stream(torch, cards, work) -> dict:
     try:
         launch("A")
         b = launch("B")
+        c = launch("C", go=go)
         lines["B"] = _group_lines(
             b, until=lambda l: l.get("mi_step", 0) >= spec["kill_at"])
         os.killpg(b.pid, signal.SIGKILL)
@@ -6735,7 +6819,7 @@ def _mesh_inputs_stream(torch, cards, work) -> dict:
         b_steps = _listed_steps(spec["ckpt_b"])
         b_states = sorted(n for n in os.listdir(spec["ckpt_b"])
                           if n.startswith("data_state-"))
-        c = launch("C")
+        open(go, "w").close()
         lines["A"] = _group_lines(procs["A"])
         lines["C"] = _group_lines(c)
         rcs = {r: p.wait() for r, p in procs.items() if r != "B"}
@@ -7019,6 +7103,17 @@ def phase_record(torch, kernels, card, logs) -> dict:
 
 # the node captured at full width: the last bottleneck's output, whose mean
 # over H and W is the ``pool`` layer
+# the pretrained phase: the committed trained ResNet-20 (flax msgpack,
+# 4 synthetic classes) and its golden pool table for 8 images; the
+# golden tolerance is the reference test's (tests/test_convert.py), the
+# float32 model's card features are held to the CPU's at 1e-3 (rtol and
+# atol: fp32 convs summed in other orders, TF32 off)
+PRETRAINED_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "tests", "data", "pretrained")
+PRETRAINED_MSGPACK = os.path.join(PRETRAINED_DIR,
+                                  "resnet20_synthetic.msgpack")
+PRETRAINED_GOLDEN = os.path.join(PRETRAINED_DIR, "golden.npz")
+PRETRAINED_GOLDEN_TOL, PRETRAINED_CPU_TOL = 2e-2, 1e-3
 CAPTURE_NODE = "stage3_block2/out"
 # passes timed per node in the capture phase
 CAPTURE_PASSES = 3
@@ -7043,6 +7138,18 @@ def _featurize_frame(n: int):
     raw = np.random.default_rng(2).integers(
         0, 256, size=(n, SRC, SRC, 3), dtype=np.uint8)
     return Frame.from_dict({"x": raw.reshape(n, -1)}, num_partitions=4), raw
+
+
+def _image_frame(images, prefix: str):
+    """A frame of one IMAGE column ``image`` over uint8 HWC arrays."""
+    from mmlspark_tpu_torch.core.frame import Frame
+    from mmlspark_tpu_torch.core.schema import ColumnSchema, DType, ImageValue
+    imgs = np.empty(len(images), dtype=object)
+    for i, im in enumerate(images):
+        imgs[i] = ImageValue(path=f"mem://{prefix}/{i}",
+                             data=np.ascontiguousarray(im))
+    return Frame.from_dict({"row": np.arange(len(images))}) \
+        .with_column_values(ColumnSchema("image", DType.IMAGE), imgs)
 
 
 def phase_capture(torch, kernels, card) -> dict:
@@ -7119,19 +7226,13 @@ def phase_downloader(torch, kernels, card) -> dict:
     import http.server
     import tempfile
 
-    from mmlspark_tpu_torch.core.frame import Frame
-    from mmlspark_tpu_torch.core.schema import ColumnSchema, DType, ImageValue
     from mmlspark_tpu_torch.image.featurizer import ImageFeaturizer
     from mmlspark_tpu_torch.models import downloader as dl
     from mmlspark_tpu_torch.models.zoo import build_model, init_state
 
     n = BATCH
     _, raw = _featurize_frame(n)
-    imgs = np.empty(n, dtype=object)
-    for i in range(n):
-        imgs[i] = ImageValue(path=f"mem://smoke/{i}", data=raw[i])
-    frame = Frame.from_dict({"row": np.arange(n)}).with_column_values(
-        ColumnSchema("image", DType.IMAGE), imgs)
+    frame = _image_frame(raw, "smoke")
     module = build_model("resnet50", num_classes=1000)["module"]
     state = init_state(module, seed=0)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_repo-") as work:
@@ -7186,6 +7287,164 @@ def phase_downloader(torch, kernels, card) -> dict:
     return launches
 
 
+def phase_pretrained(torch, kernels, card) -> dict:
+    """Pretrained-weight import (``models/convert.py``) into the
+    downloader and the featurizer, K2 on the path.
+
+    (a) The committed trained ResNet-20 (``PRETRAINED_MSGPACK``, a flax
+    msgpack) read by ``from_flax_msgpack`` and published by
+    ``import_pretrained`` into a ``LocalRepo`` twice: with the reference
+    test's arguments (bf16 convs) and with ``dtype="float32"``. Each loads
+    through ``ModelDownloader`` into ``ImageFeaturizer(cutOutputLayers=1,
+    miniBatchSize=8)`` (TF32 off) and scores ``PRETRAINED_GOLDEN``'s 8
+    images on the card: ``pool`` within ``PRETRAINED_GOLDEN_TOL`` of the
+    golden table; the float32 model's within ``PRETRAINED_CPU_TOL`` (rtol
+    and atol) of the same featurizer on the CPU, the bf16 model's within
+    the golden tolerance of it; ``cutOutputLayers=0`` predicts all 8
+    labels; K2 once a pass, no other kernel.
+
+    (b) Full width: ResNet-50's seed-0 state dict exported as numpy,
+    through ``from_torch_npz`` -> ``validate_params`` ->
+    ``import_pretrained`` -> ``ModelDownloader`` -> ``ImageFeaturizer``
+    (bf16): 128 of the featurize images (256^2 -> K2 -> 224^2) score
+    BIT-equal to ``ImageFeaturizer.set_model`` with the same state; K2
+    once, no other kernel."""
+    import tempfile
+
+    from mmlspark_tpu_torch.image.featurizer import ImageFeaturizer
+    from mmlspark_tpu_torch.models import convert
+    from mmlspark_tpu_torch.models import downloader as dl
+    from mmlspark_tpu_torch.models.zoo import build_model, init_state
+    from mmlspark_tpu_torch.utils import config
+
+    golden = np.load(PRETRAINED_GOLDEN)
+    frame = _image_frame(golden["images"], "golden")
+    labels = np.asarray(golden["labels"])
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fixture, launches = {}, {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_pre-") as work:
+            t0 = time.perf_counter()
+            params = convert.from_flax_msgpack(PRETRAINED_MSGPACK)
+            read_s = time.perf_counter() - t0
+            repo = dl.LocalRepo(work)
+            downloader = dl.ModelDownloader(repo)
+
+            def featurize(name, cut):
+                fz = ImageFeaturizer(inputCol="image", outputCol="f",
+                                     cutOutputLayers=cut, miniBatchSize=8)
+                fz.set_model_from_downloader(downloader, name)
+                return np.asarray(fz.transform(frame).column("f"))
+
+            for name, extra in (("resnet20-synthetic", {}),
+                                ("resnet20-synthetic-fp32",
+                                 {"dtype": "float32"})):
+                schema = convert.import_pretrained(
+                    repo, name, "resnet20_cifar", params,
+                    dataset="synthetic-4class", input_mean=[127.5],
+                    input_std=[127.5], num_classes=4, **extra)
+                _check(schema.layerNames == ["pool", "head"]
+                       and schema.inputNode == "pool",
+                       f"{name}: schema {schema}")
+                kernels.reset_launches()
+                feats = featurize(name, 1)
+                logits = featurize(name, 0)
+                launches[name] = _launches(kernels)
+                want = _want(kernels, CROP_RESIZE_NORMALIZE=2)
+                _check(launches[name] == want,
+                       f"{name}: kernels launched {launches[name]}, want "
+                       f"{want} (K2 once a pass)")
+                config.set("runtime.device", "cpu")
+                try:
+                    cpu = featurize(name, 1)
+                finally:
+                    config.unset("runtime.device")
+                _check(feats.shape == (len(labels), 64)
+                       and bool(np.isfinite(feats).all()),
+                       f"{name}: features {feats.shape}")
+                golden_err = float(np.abs(feats - golden["pool"]).max())
+                _check(np.allclose(feats, golden["pool"],
+                                   rtol=PRETRAINED_GOLDEN_TOL,
+                                   atol=PRETRAINED_GOLDEN_TOL),
+                       f"{name}: pool is {golden_err} from the golden table")
+                cpu_tol = (PRETRAINED_CPU_TOL if extra
+                           else PRETRAINED_GOLDEN_TOL)
+                cpu_err = float(np.abs(feats - cpu).max())
+                _check(np.allclose(feats, cpu, rtol=cpu_tol, atol=cpu_tol),
+                       f"{name}: card pool is {cpu_err} from the CPU's "
+                       f"(tolerance {cpu_tol})")
+                pred = np.argmax(logits, axis=-1)
+                correct = int((pred == labels).sum())
+                _check(correct == len(labels),
+                       f"{name}: {correct}/{len(labels)} labels predicted")
+                fixture[name] = dict(
+                    architecture_args=schema.architectureArgs,
+                    payload_mb=schema.size / 1e6, golden_max_abs=golden_err,
+                    golden_tol=PRETRAINED_GOLDEN_TOL, cpu_max_abs=cpu_err,
+                    cpu_tol=cpu_tol, labels=f"{correct}/{len(labels)}",
+                    k2_launches=launches[name][
+                        kernels.CROP_RESIZE_NORMALIZE.name])
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+
+    # (b) ResNet-50's seed-0 state, exported as a torch user would
+    n = BATCH
+    _, raw = _featurize_frame(n)
+    frame = _image_frame(raw, "smoke")
+    module = build_model("resnet50", num_classes=1000)["module"]
+    module.load_state_dict({k: torch.from_numpy(v) for k, v in
+                            init_state(module, seed=0).items()})
+    exported = {k: v.detach().numpy()
+                for k, v in module.state_dict().items()}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pre-") as work:
+        repo = dl.LocalRepo(work)
+        t0 = time.perf_counter()
+        tree = convert.from_torch_npz(exported)
+        convert.validate_params("resnet50", tree, num_classes=1000)
+        validate_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        schema = convert.import_pretrained(repo, "resnet50-imported",
+                                           "resnet50", tree,
+                                           num_classes=1000)
+        save_s = time.perf_counter() - t0
+        got_fz = ImageFeaturizer(inputCol="image", outputCol="f",
+                                 cutOutputLayers=1, miniBatchSize=BATCH,
+                                 computeDtype="bfloat16")
+        t0 = time.perf_counter()
+        got_fz.set_model_from_downloader(dl.ModelDownloader(repo),
+                                         "resnet50-imported")
+        load_s = time.perf_counter() - t0
+    kernels.reset_launches()
+    got = np.asarray(got_fz.transform(frame).column("f"))
+    launches["resnet50"] = _launches(kernels)
+    want_launches = _want(kernels, CROP_RESIZE_NORMALIZE=1)
+    _check(launches["resnet50"] == want_launches,
+           f"resnet50 imported: kernels launched {launches['resnet50']}, "
+           f"want {want_launches}")
+    want_fz = ImageFeaturizer(inputCol="image", outputCol="f",
+                              cutOutputLayers=1, miniBatchSize=BATCH,
+                              computeDtype="bfloat16")
+    want_fz.set_model("resnet50", params=exported, num_classes=1000)
+    want = np.asarray(want_fz.transform(frame).column("f"))
+    _check(got.shape == (n, 2048) and np.array_equal(got, want),
+           "features of the imported ResNet-50 differ from set_model's: "
+           f"max {float(np.abs(got - want).max())}")
+    _line(phase="pretrained", card=_smi(), fixture=fixture,
+          fixture_read_s=read_s, resnet50=dict(
+              images=n, payload_mb=schema.size / 1e6,
+              validate_s=validate_s, save_s=save_s, load_s=load_s,
+              bit_equal=True,
+              k2_launches=launches["resnet50"][
+                  kernels.CROP_RESIZE_NORMALIZE.name]),
+          launches_main_path=launches)
+    return {name: v[kernels.CROP_RESIZE_NORMALIZE.name]
+            for name, v in launches.items()}
+
+
 def phase_chaos(torch, kernels, card) -> dict:
     """The single-process chaos scenarios on the card (``reliability/
     chaos.py``), seed 0, the reference tests' sizes: ``train`` (kill +
@@ -7210,13 +7469,13 @@ def phase_chaos(torch, kernels, card) -> dict:
                    f"chaos {name}: {v['invariants']} {v['errors'][:3]}")
             restated.update({f"{name}.{k}": r for k, r in
                              v.get("restated", {}).items()})
-    _line(phase="chaos", card=_smi(), seconds=seconds,
+    _line(phase="chaos", card=_smi(), scenario_seconds=seconds,
           launches=launches, restated=restated)
     return launches
 
 
 def phase_chaos_mesh(torch, kernels, card, cards: int = 1) -> dict:
-    """The mesh-bound chaos scenarios (module docstring, phase 25), each
+    """The mesh-bound chaos scenarios (module docstring, phase 26), each
     through ``cli chaos --nprocs``: two ranks sharing this card over gloo
     (``cards`` 1) or one rank a card over NCCL. Returns each scenario's
     kernel launches, summed over its ranks."""
@@ -7277,7 +7536,8 @@ def phase_chaos_mesh(torch, kernels, card, cards: int = 1) -> dict:
             restated.update({f"{name}.{k}": r for k, r in
                              v.get("restated", {}).items()})
     _line(phase="chaos_mesh", card=_smi(), ranks=ranks_n, backend=backend,
-          seconds=seconds, launches=launches, rank_launches=by_rank,
+          scenario_seconds=seconds, launches=launches,
+          rank_launches=by_rank,
           restated=restated)
     return launches
 
@@ -7385,7 +7645,8 @@ def main() -> int:
     from mmlspark_tpu_torch.ops import preprocess as tpre
 
     smi = _smi()
-    _line(phase="device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
+    _line(phase="device", seconds=time.time() - _T_MODULE, nvidia_smi=smi,
+          name=torch.cuda.get_device_name(0),
           count=torch.cuda.device_count(), torch=torch.__version__,
           cuda=torch.version.cuda, cudnn=torch.backends.cudnn.version())
 
@@ -7411,50 +7672,53 @@ def main() -> int:
         cards = 1
         if "--mesh-cards" in sys.argv[1:]:
             cards = int(sys.argv[sys.argv.index("--mesh-cards") + 1])
-        mesh = phase_mesh(torch, kernels, card, cards)
+        mesh = _run(phase_mesh, torch, kernels, card, cards)
         _line(mesh_launches=mesh)
-        phase_chaos_mesh(torch, kernels, card, cards)
+        _run(phase_chaos_mesh, torch, kernels, card, cards)
         print(_smi(), flush=True)
         _line(ok=True, device={"platform": "gpu",
                                "kind": torch.cuda.get_device_name(0),
                                "count": torch.cuda.device_count()})
         return 0
-    k1 = phase_kernel_check_k1(torch, tpre, kernels.FUSED_NORMALIZE, card)
-    k2 = phase_kernel_check(torch, tpre, kernels.CROP_RESIZE_NORMALIZE, card)
-    k3 = phase_kernel_check_k3(torch, tatt, kernels, card)
+    k1 = _run(phase_kernel_check_k1, torch, tpre, kernels.FUSED_NORMALIZE,
+              card)
+    k2 = _run(phase_kernel_check, torch, tpre, kernels.CROP_RESIZE_NORMALIZE,
+              card)
+    k3 = _run(phase_kernel_check_k3, torch, tatt, kernels, card)
     profile_dir = None
     if "--profile" in sys.argv[1:]:
         profile_dir = sys.argv[sys.argv.index("--profile") + 1]
-    featurize = phase_featurize(torch, kernels, card, profile_dir)
-    train = phase_train(torch, kernels, card, profile_dir)
-    phase_deep(torch, card)
-    lm, lm32 = phase_lm_score(torch, kernels, card, profile_dir)
-    phase_moe_score(torch, kernels, card)
-    phase_featurize_vit(torch, kernels, card)
-    phase_automl(torch, kernels, card)
-    phase_text(torch, kernels, card, profile_dir)
-    lm_train, lm_train32, moe_train = phase_lm_train(torch, kernels, card,
-                                                     profile_dir)
-    train_large = phase_train_large(torch, kernels, card, profile_dir)
-    serve = phase_serve(torch, kernels, card)
-    lm_serve = phase_lm_serve(torch, kernels, card)
-    generate, generate32, single = phase_generate(torch, kernels, card)
-    fleet = phase_fleet(torch, kernels, card, single)
-    process_fleet = phase_process_fleet(torch, kernels, card, fleet)
+    featurize = _run(phase_featurize, torch, kernels, card, profile_dir)
+    train = _run(phase_train, torch, kernels, card, profile_dir)
+    _run(phase_deep, torch, card)
+    lm, lm32 = _run(phase_lm_score, torch, kernels, card, profile_dir)
+    _run(phase_moe_score, torch, kernels, card)
+    _run(phase_featurize_vit, torch, kernels, card)
+    _run(phase_automl, torch, kernels, card)
+    _run(phase_text, torch, kernels, card, profile_dir)
+    lm_train, lm_train32, moe_train = _run(phase_lm_train, torch, kernels,
+                                           card, profile_dir)
+    train_large = _run(phase_train_large, torch, kernels, card, profile_dir)
+    serve = _run(phase_serve, torch, kernels, card)
+    lm_serve = _run(phase_lm_serve, torch, kernels, card)
+    generate, generate32, single = _run(phase_generate, torch, kernels, card)
+    fleet = _run(phase_fleet, torch, kernels, card, single)
+    process_fleet = _run(phase_process_fleet, torch, kernels, card, fleet)
     import tempfile
     kept = tempfile.mkdtemp(prefix="chip_smoke_events-")
-    stream_resume = phase_stream_resume(torch, kernels, card, kept)
-    mesh = phase_mesh(torch, kernels, card, keep_events=kept)
-    record = phase_record(torch, kernels, card, {
+    stream_resume = _run(phase_stream_resume, torch, kernels, card, kept)
+    mesh = _run(phase_mesh, torch, kernels, card, keep_events=kept)
+    record = _run(phase_record, torch, kernels, card, {
         "stream_resume": os.path.join(kept, "stream_resume_C.jsonl"),
         "mesh_inputs": os.path.join(kept, "mesh_inputs_C-0.jsonl")})
     import shutil
     shutil.rmtree(kept, ignore_errors=True)
-    capture = phase_capture(torch, kernels, card)
-    downloader = phase_downloader(torch, kernels, card)
-    chaos = phase_chaos(torch, kernels, card)
-    chaos_mesh = phase_chaos_mesh(torch, kernels, card)
-    phase_cli(torch, kernels, card)
+    capture = _run(phase_capture, torch, kernels, card)
+    downloader = _run(phase_downloader, torch, kernels, card)
+    pretrained = _run(phase_pretrained, torch, kernels, card)
+    chaos = _run(phase_chaos, torch, kernels, card)
+    chaos_mesh = _run(phase_chaos_mesh, torch, kernels, card)
+    _run(phase_cli, torch, kernels, card)
 
     k1k, k2k = kernels.FUSED_NORMALIZE, kernels.CROP_RESIZE_NORMALIZE
     tc, f32 = kernels.FLASH_ATTENTION_TC, kernels.FLASH_ATTENTION
@@ -7500,6 +7764,8 @@ def main() -> int:
         "launches_by_path": {"featurize": featurize[k2k.name],
                              "capture": capture[k2k.name],
                              "downloader": downloader[k2k.name],
+                             **{f"pretrained_{k}": v
+                                for k, v in pretrained.items()},
                              "serve": serve[k2k.name],
                              "mesh_serve_featurize":
                                  mesh["k2"]["serve_featurize"],
@@ -7507,7 +7773,10 @@ def main() -> int:
                                 for k, v in chaos_mesh.items()}},
         "launches_note": "mesh_serve_featurize: each rank's count over "
                          "two passes of ResNet-50 featurize split over the "
-                         "data ranks (one launch a pass on its rows)",
+                         "data ranks (one launch a pass on its rows). "
+                         "pretrained_resnet20-*: the imported trained "
+                         "ResNet-20's features and logits passes (8 "
+                         "images, 32^2 -> 32^2), one launch each",
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
@@ -7541,9 +7810,9 @@ def main() -> int:
                                 for k, v in chaos_mesh.items()},
                              **{f"mesh_{k}": v
                                 for k, v in mesh["tc"].items()}},
-        "launches_note": "mesh_*: each rank's count over the 11 steps of "
+        "launches_note": "mesh_*: each rank's count over the 7 steps of "
                          "a meshed transformer_lm run (6 a step); "
-                         "mesh_moe_*: over the 6 steps of the MoE LM split "
+                         "mesh_moe_*: over the 4 steps of the MoE LM split "
                          "over expert (6 a step); mesh_serve_lm: each "
                          "rank's over the served batches (6 a program "
                          "call), mesh_serve_generate: over the prefills",

@@ -41,6 +41,13 @@ class MetricTable:
     rows: Any  # (n, len(columns)) array-like
     model_uid: str = ""
 
+    def to_frame(self):
+        """The table as a :class:`Frame`, one column a metric column."""
+        from mmlspark_tpu_torch.core.frame import Frame
+        arr = np.asarray(self.rows)
+        return Frame.from_dict(
+            {c: arr[:, i] for i, c in enumerate(self.columns)})
+
     def log(self, logger=None) -> None:
         from mmlspark_tpu_torch.observability import events
         from mmlspark_tpu_torch.utils.logging import get_logger

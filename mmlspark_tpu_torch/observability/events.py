@@ -68,6 +68,12 @@ def recording_enabled() -> bool:
         or flightrec.active()
 
 
+def events_path() -> str:
+    """The JSON-lines event log's path (``observability.events_path``;
+    empty while the log is off)."""
+    return config.get("observability.events_path")
+
+
 def emit(etype: str, name: str, **fields: Any) -> None:
     """Append one event line and record it in the ring; a no-op while
     both sinks are off. ``fields`` that are not JSON-representable are

@@ -11,6 +11,7 @@ under a lock); hot per-step paths gate on :func:`metrics_enabled`
 from __future__ import annotations
 
 import bisect
+import json
 import re
 import threading
 from typing import Any, Dict, Optional, Sequence, Tuple
@@ -129,6 +130,10 @@ class Gauge:
         with self._lock:
             self._value = float(v)
 
+    def inc(self, n: float = 1.0) -> None:
+        with self._lock:
+            self._value += n
+
     @property
     def value(self) -> float:
         return self._value
@@ -241,6 +246,9 @@ class MetricsRegistry:
                 if m.exemplar is not None:
                     out[name]["exemplar"] = dict(m.exemplar)
         return out
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), sort_keys=True)
 
     def prometheus_text(self) -> str:
         """Prometheus text-format exposition of every registered metric."""

@@ -316,6 +316,58 @@ class DistributedTrainer:
             state["layout"] = self.layout
         return state
 
+    def abstract_state(self, init_fn: Callable[[], torch.nn.Module]
+                       ) -> Tuple[Dict[str, Any], Optional[Dict[str, Any]]]:
+        """(abstract state, shardings) of the train state without
+        allocating it: ``init_fn()`` builds the module on the meta device,
+        and one optimizer step on zero meta gradients creates the state
+        the optimizer keeps (torch builds it at the first step).
+
+        - abstract: ``{"params": {name: tensor}, "opt_state": {name:
+          {key: tensor}}, "step": tensor}``, every tensor on the meta
+          device with the global shape and dtype;
+        - shardings, None without a mesh: under ``"params"`` each
+          parameter's ``ParamSharding`` from the sharding rules, the
+          layout :meth:`init` places each rank's shard by (it also becomes
+          this trainer's :meth:`state_sharding_spec`); under
+          ``"opt_state"`` each state tensor's, as
+          ``optim.state_sharding`` gives it (None: replicated); ``"step"``
+          None."""
+        with torch.device("meta"), warnings.catch_warnings():
+            # an init_fn that loads a state dict copies nothing into meta
+            # parameters, and torch warns once a parameter
+            warnings.filterwarnings("ignore", "for .*: copying from a "
+                                    "non-meta parameter")
+            module = init_fn()
+        params = dict(module.named_parameters())
+        opt = self.optimizer.init(params.values())
+        for p in params.values():
+            p.grad = torch.zeros_like(p)
+        opt.torch.step()
+        by_param = {id(p): n for n, p in params.items()}
+        opt_state = {by_param[id(p)]: {
+            k: torch.empty_like(v, device="meta")
+            for k, v in opt.torch.state[p].items() if torch.is_tensor(v)}
+            for p in params.values()}
+        abstract = {"params": {n: p.detach() for n, p in params.items()},
+                    "opt_state": opt_state,
+                    "step": torch.empty((), dtype=torch.int32,
+                                        device="meta")}
+        if self.mesh is None:
+            return abstract, None
+        from mmlspark_tpu_torch.parallel.optim import state_sharding
+        shardings = sharding.param_shardings(module, self.mesh, self.rules)
+        self._shardings = shardings
+        for n, p in params.items():
+            p._mesh_sharding = shardings[n]
+        return abstract, {
+            "params": dict(shardings),
+            "opt_state": {n: {k: state_sharding(params[n], k, v.shape,
+                                                whole=True)
+                              for k, v in st.items()}
+                          for n, st in opt_state.items()},
+            "step": None}
+
     def state_sharding_spec(self) -> Optional[Dict[str, Any]]:
         """``{name: ParamSharding}`` of the module's parameters on the
         mesh (None before :meth:`init`, or without a mesh)."""

@@ -51,6 +51,11 @@ def fault_site(name: str, payload: Any = None) -> Any:
     return plan.hit(name, payload)
 
 
+def active_plan() -> Optional["FaultPlan"]:
+    """The installed :class:`FaultPlan`, or None."""
+    return _ACTIVE
+
+
 @dataclass
 class FaultSpec:
     """One trigger rule: fire ``action`` on hits ``on_hit`` through

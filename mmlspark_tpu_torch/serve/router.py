@@ -41,6 +41,7 @@ around the breaker and retry wrappers.
 """
 from __future__ import annotations
 
+import http.client
 import threading
 from email.utils import parsedate_to_datetime
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -59,6 +60,11 @@ from mmlspark_tpu_torch.utils import config as mmlconfig
 from mmlspark_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("serve.router")
+
+# What a remote call raises when the replica is gone: a refused or reset
+# socket, a timeout, or a response torn between its headers and its body
+# (``http.client.IncompleteRead``, an ``HTTPException`` and no ``OSError``).
+_TRANSPORT_ERRORS = (OSError, TimeoutError, http.client.HTTPException)
 
 
 class ReplicaUnavailable(ServeError):
@@ -900,7 +906,7 @@ class HttpReplica:
                     f"replica {self.name}: {detail}") from None
             raise ReplicaUnavailable(
                 f"replica {self.name} HTTP {e.code}: {detail}") from None
-        except (urllib.error.URLError, OSError, TimeoutError) as e:
+        except _TRANSPORT_ERRORS as e:
             raise ReplicaUnavailable(
                 f"replica {self.name} unreachable: {e}") from None
         return payload
@@ -916,14 +922,12 @@ class HttpReplica:
 
     def health(self) -> Dict[str, object]:
         import json as _json
-        import urllib.error
         import urllib.request
         try:
             with urllib.request.urlopen(
                     f"{self.addr}/healthz", timeout=self.timeout_s) as resp:
                 body = _json.loads(resp.read().decode("utf-8"))
-        except (urllib.error.URLError, OSError, ValueError,
-                TimeoutError) as e:
+        except _TRANSPORT_ERRORS + (ValueError,) as e:
             logger.debug("healthz %s unreachable: %s", self.name, e)
             return {"live": False, "ready": False, "state": "dead"}
         # pre-split servers answered {"status": "ok"|"draining"} only
@@ -936,14 +940,13 @@ class HttpReplica:
 
     def models(self) -> List[str]:
         import json as _json
-        import urllib.error
         import urllib.request
         try:
             with urllib.request.urlopen(
                     f"{self.addr}/models", timeout=self.timeout_s) as resp:
                 return list(
                     _json.loads(resp.read().decode("utf-8"))["models"])
-        except (urllib.error.URLError, OSError, TimeoutError) as e:
+        except _TRANSPORT_ERRORS as e:
             raise ReplicaUnavailable(
                 f"replica {self.name} unreachable: {e}") from None
 
@@ -964,7 +967,7 @@ class HttpReplica:
                 return False
             raise ReplicaUnavailable(
                 f"replica {self.name} {endpoint} HTTP {e.code}") from None
-        except (urllib.error.URLError, OSError, TimeoutError) as e:
+        except _TRANSPORT_ERRORS as e:
             raise ReplicaUnavailable(
                 f"replica {self.name} unreachable on {endpoint}: {e}"
             ) from None

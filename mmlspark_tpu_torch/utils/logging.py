@@ -37,6 +37,12 @@ def get_logger(name: str = "") -> logging.Logger:
     return logging.getLogger(f"{_ROOT}.{name}" if name else _ROOT)
 
 
+def set_level(level: str) -> None:
+    """Set ``logging.level`` and the port's root logger to ``level``."""
+    config.set("logging.level", level)
+    logging.getLogger(_ROOT).setLevel(level)
+
+
 class MetricLogger:
     """Throttled train-loop metrics: step, loss, examples/sec.
 

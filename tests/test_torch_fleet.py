@@ -392,6 +392,68 @@ def test_http_replica_maps_503_to_overload():
         srv.close(drain=False)
 
 
+def _torn_http_server():
+    """A replica that dies between its response's headers and its body:
+    it reads each request whole, promises a 335-byte JSON body and closes
+    the connection without sending it."""
+    import socketserver
+
+    class Torn(socketserver.StreamRequestHandler):
+        def handle(self):
+            length = 0
+            while True:
+                line = self.rfile.readline()
+                if line in (b"\r\n", b"\n", b""):
+                    break
+                if line.lower().startswith(b"content-length:"):
+                    length = int(line.split(b":", 1)[1])
+            self.rfile.read(length)
+            self.wfile.write(b"HTTP/1.1 200 OK\r\n"
+                             b"Content-Type: application/json\r\n"
+                             b"Content-Length: 335\r\n\r\n")
+
+    srv = socketserver.ThreadingTCPServer(("127.0.0.1", 0), Torn)
+    srv.daemon_threads = True
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, "127.0.0.1:%d" % srv.server_address[1]
+
+
+def test_http_replica_torn_response_fails_over():
+    from mmlspark_tpu_torch.serve.http import serve_http
+    torn_srv, torn_addr = _torn_http_server()
+    with Server({"mlp": make_mlp()}, max_batch=4, max_wait_ms=1.0) as srv:
+        direct = srv.submit("mlp", np.zeros((1, 8), np.float32), timeout=30)
+        httpd, addr = serve_http(srv, port=0)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        try:
+            torn = HttpReplica(torn_addr, name="torn", timeout_s=5.0)
+            with pytest.raises(ReplicaUnavailable):
+                torn.submit("mlp", [[0.0] * 8])
+            with pytest.raises(ReplicaUnavailable):
+                torn.submit_generate("lm", [1, 2, 3], 2)
+            with pytest.raises(ReplicaUnavailable):
+                torn.models()
+            assert torn.health() == {"live": False, "ready": False,
+                                     "state": "dead"}
+            # behind the router, the torn answer is a dead replica: the
+            # request fails over to the live one and no caller sees it
+            r = Router([torn, HttpReplica(addr, name="remote")],
+                       failover_delay_s=0.0)
+            for _ in range(3):
+                np.testing.assert_array_equal(
+                    r.submit("mlp", [[0.0] * 8]), direct)
+            stats = r.stats()
+            assert stats["failovers"] == 1
+            assert stats["replicas"]["torn"]["state"] == "dead"
+            assert stats["replicas"]["remote"]["routed"] == 3
+            r.close()
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            torn_srv.shutdown()
+            torn_srv.server_close()
+
+
 def test_rollout_is_zero_downtime_and_leaves_no_stale_version():
     m1, m2 = make_mlp(seed=0), make_mlp(seed=1)
     x = np.zeros((1, 8), np.float32)

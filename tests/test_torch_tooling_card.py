@@ -10,6 +10,13 @@ tests/test_torch_tooling_card.py``:
   bf16 node keeps its dtype's layout (NHWC) and the card's K2 launch;
 - a ``LocalRepo`` written from the card's state dict loads back through
   ``ModelDownloader.to_torch_model`` and scores bit-equal on the card;
+- the committed trained ResNet-20 (flax msgpack) imported by
+  ``convert.import_pretrained`` (fp32 architecture) and scored through
+  ``ModelDownloader`` and ``ImageFeaturizer`` on the card, K2 in the
+  path: ``pool`` within 2e-2 of the golden table (the reference test's
+  tolerance) and within 1e-3 of the CPU's, all 8 labels predicted;
+- ``DistributedTrainer.abstract_state`` of ResNet-50 leaves the card's
+  allocator where it was;
 - the ``train`` and ``fleet`` chaos scenarios green on the card, and
   ``cli chaos --scenario fleet_sharded --nprocs 2`` (two ranks over
   gloo on the card) exits 0 with a passed verdict.
@@ -88,6 +95,72 @@ def test_downloaded_model_scores_bit_equal_on_the_card(card, tmp_path):
     np.testing.assert_array_equal(
         np.asarray(loaded.transform(frame).column("o")),
         np.asarray(tm.transform(frame).column("o")))
+
+
+@pytest.mark.cuda
+def test_imported_trained_resnet20_scores_golden_on_the_card(card, tmp_path):
+    import os
+    from mmlspark_tpu_torch import kernels
+    from mmlspark_tpu_torch.core.schema import ColumnSchema, DType, ImageValue
+    from mmlspark_tpu_torch.image.featurizer import ImageFeaturizer
+    from mmlspark_tpu_torch.models import convert
+    from mmlspark_tpu_torch.models import downloader as dl
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "data", "pretrained")
+    golden = np.load(os.path.join(fixtures, "golden.npz"))
+    repo = dl.LocalRepo(str(tmp_path))
+    convert.import_pretrained(
+        repo, "r20", "resnet20_cifar", convert.from_flax_msgpack(
+            os.path.join(fixtures, "resnet20_synthetic.msgpack")),
+        dataset="synthetic-4class", input_mean=[127.5], input_std=[127.5],
+        num_classes=4, dtype="float32")
+    images = np.empty(len(golden["images"]), dtype=object)
+    for i, im in enumerate(golden["images"]):
+        images[i] = ImageValue(path=f"mem://{i}",
+                               data=np.ascontiguousarray(im))
+    frame = Frame.from_dict({"i": np.arange(len(images))}).with_column_values(
+        ColumnSchema("image", DType.IMAGE), images)
+
+    def featurize(cut):
+        fz = ImageFeaturizer(cutOutputLayers=cut, miniBatchSize=8)
+        fz.set_model_from_downloader(dl.ModelDownloader(repo), "r20")
+        return np.asarray(fz.transform(frame).column("features"))
+
+    kernels.reset_launches()
+    feats, logits = featurize(1), featurize(0)
+    assert kernels.CROP_RESIZE_NORMALIZE.launches == 2
+    tconfig.set("runtime.device", "cpu")
+    cpu = featurize(1)
+    tconfig.set("runtime.device", "cuda")
+    np.testing.assert_allclose(feats, golden["pool"], rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(feats, cpu, rtol=1e-3, atol=1e-3)
+    assert (np.argmax(logits, axis=-1) == golden["labels"]).all()
+
+
+@pytest.mark.cuda
+def test_abstract_state_allocates_nothing_on_the_card(card):
+    """ResNet-50's train state under adam, abstractly: the card's
+    allocator holds the same bytes before and after, every tensor is on
+    the meta device, and ``init`` then places the same shapes there."""
+    from mmlspark_tpu_torch.models.zoo import build_model
+    from mmlspark_tpu_torch.parallel import optim
+    from mmlspark_tpu_torch.parallel.trainer import DistributedTrainer
+    trainer = DistributedTrainer(lambda m, b, g: None, optim.adam(1e-3),
+                                 device=card)
+
+    def init_fn():
+        return build_model("resnet50", num_classes=1000)["module"]
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    abstract, shardings = trainer.abstract_state(init_fn)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before and shardings is None
+    assert all(t.is_meta for t in abstract["params"].values())
+    state = trainer.init(init_fn)
+    assert {n: tuple(p.shape) for n, p in
+            state["module"].named_parameters()} == {
+        n: tuple(t.shape) for n, t in abstract["params"].items()}
 
 
 @pytest.mark.cuda

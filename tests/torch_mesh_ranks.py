@@ -364,3 +364,58 @@ def vit_train(rank, world, axes, params, images, labels):
     return {"losses": losses, "params": full_params(state["module"]),
             "local_shapes": {n: tuple(p.shape) for n, p in
                              state["module"].named_parameters()}}
+
+
+def abstract_layouts(rank, world, axes, params, opt):
+    """``DistributedTrainer.abstract_state`` of the tiny LM on the mesh of
+    ``axes`` against the trainer's placement: every abstract tensor on the
+    meta device; each parameter's ``ParamSharding`` (spec, shard shape)
+    equal to ``init``'s and its slice of ``params`` equal to the placed
+    shard; after one step, each optimizer state tensor's local shape
+    equal to its abstract sharding's shard shape (the whole shape where
+    replicated). Returns the mismatches."""
+    from mmlspark_tpu_torch.models.zoo.transformer import next_token_loss
+    from mmlspark_tpu_torch.parallel.trainer import DistributedTrainer
+    mesh = _mesh(axes)
+
+    def init_fn():
+        m = _lm_module()
+        m.load_state_dict({k: torch.from_numpy(np.array(v))
+                           for k, v in params.items()})
+        return m
+
+    trainer = DistributedTrainer(
+        lambda m, b, g: next_token_loss(m, b["tokens"]),
+        _optimizer(opt, 1e-2), mesh=mesh, device=_cpu())
+    abstract, shardings = trainer.abstract_state(init_fn)
+    tensors = [*abstract["params"].values(), abstract["step"],
+               *(t for st in abstract["opt_state"].values()
+                 for t in st.values())]
+    all_meta = all(t.device.type == "meta" for t in tensors)
+    state = trainer.init(init_fn)
+    placed = trainer.state_sharding_spec()
+    coord = sharding.coordinate(mesh)
+    params_mismatch = []
+    for name, p in state["module"].named_parameters():
+        sh, want = shardings["params"][name], placed[name]
+        local = np.asarray(params[name])[sh.slices(coord)]
+        if (sh.spec != want.spec or sh.shard_shape() != tuple(p.shape)
+                or tuple(abstract["params"][name].shape) != sh.shape
+                or not np.array_equal(local, p.detach().numpy())):
+            params_mismatch.append(name)
+    tokens = np.random.default_rng(rank).integers(
+        1, LM["vocab"], (4, LM["max_len"])).astype(np.int32)
+    trainer.train_step(state, trainer.put_batch({"tokens": tokens}), 0)
+    opt_mismatch = []
+    named = dict(state["module"].named_parameters())
+    for name, st in abstract["opt_state"].items():
+        live = state["optimizer"].torch.state[named[name]]
+        for key, t in st.items():
+            sh = shardings["opt_state"][name][key]
+            want = sh.shard_shape() if sh is not None else tuple(t.shape)
+            if tuple(live[key].shape) != want:
+                opt_mismatch.append((name, key))
+    return {"all_meta": all_meta, "params_mismatch": params_mismatch,
+            "opt_mismatch": opt_mismatch,
+            "sharded": sum(sh.sharded
+                           for sh in shardings["params"].values())}
