@@ -28,6 +28,7 @@ from mmlspark_tpu_torch.core.serialization import register_stage
 from mmlspark_tpu_torch.image.transformer import ImageTransformer, UnrollImage
 from mmlspark_tpu_torch.models.torch_model import TorchModel
 from mmlspark_tpu_torch.models.zoo import build_model
+from mmlspark_tpu_torch.observability.spans import span
 
 # input frame -> {prep fingerprint: unrolled frame}. Repeat featurization
 # of the SAME frame (transfer-learning fit loops, benchmark trials)
@@ -96,6 +97,14 @@ class ImageFeaturizer(HasInputCol, HasOutputCol, Transformer):
                               **schema.architectureArgs)
 
     def transform(self, frame: Frame) -> Frame:
+        """The frame with ``outputCol`` added. One hot
+        ``transform:ImageFeaturizer`` span; its ``featurize:prep`` covers
+        the variants scan and the unroll (the general path's host resize
+        too), absent on a memo hit."""
+        with span("transform", "ImageFeaturizer", hot=True):
+            return self._transform(frame)
+
+    def _transform(self, frame: Frame) -> Frame:
         if not self.architecture or "params" not in self._get_state():
             raise SchemaError("ImageFeaturizer: call set_model() first")
         spec = build_model(self.architecture, **self.get("architectureArgs"))
@@ -118,48 +127,9 @@ class ImageFeaturizer(HasInputCol, HasOutputCol, Transformer):
         if entry is not None and prep_key in entry:
             unrolled, device_pre = entry[prep_key]
         else:
-            # Fast path — the north-star fusion: when the column holds
-            # uniform uint8 HWC images, skip the host resize entirely. Raw
-            # uint8 crosses host->device (1/4 the bytes of fp32) and
-            # reshape+bilinear-resize+normalize run ON DEVICE as one kernel
-            # launch per batch, ahead of the first conv. One pass collects
-            # (shape, dtype); the result also answers the general path's
-            # wire-format question (binary input decodes to uint8, so only
-            # float IMAGE values force the float32 unroll). The scan (and
-            # everything after it) runs once per frame: the memo key only
-            # needs the input column and target shape.
-            variants = ({(v.data.shape, v.data.dtype)
-                         for p in frame.partitions
-                         for v in p[self.inputCol]}
-                        if in_dtype == DType.IMAGE else set())
-            all_u8 = (in_dtype != DType.IMAGE
-                      or all(dt == np.dtype(np.uint8) for _, dt in variants))
-            fused = (len(variants) == 1 and all_u8
-                     and len(next(iter(variants))[0]) == 3
-                     and next(iter(variants))[0][2] == in_shape[2])
-            device_pre = {}
-            if fused:
-                src_shape = next(iter(variants))[0]
-                unrolled = UnrollImage(inputCol=self.inputCol,
-                                       outputCol=tmp_vec,
-                                       outputDtype="uint8").transform(frame)
-                device_pre = {"srcShape": [int(v) for v in src_shape],
-                              "resize": [int(in_shape[0]), int(in_shape[1])]}
-            else:
-                # General path: ragged sizes / float data / gray images
-                # resize on host (batched by shape group), then unroll.
-                tmp_img = frame.schema.find_unused_name("_resized")
-                resized = ImageTransformer(inputCol=self.inputCol,
-                                           outputCol=tmp_img) \
-                    .resize(in_shape[0], in_shape[1]).transform(frame)
-                # uint8 wire format when the data allows it: 4x less
-                # host->device traffic; TorchModel casts to float on device.
-                # Float image data (user-built ImageValue) keeps the
-                # lossless float32 unroll.
-                unrolled = UnrollImage(
-                    inputCol=tmp_img, outputCol=tmp_vec,
-                    outputDtype="uint8" if all_u8 else "float32") \
-                    .transform(resized).drop(tmp_img)
+            with span("featurize", "prep", hot=True, rows=frame.count()):
+                unrolled, device_pre = self._prepare(frame, in_shape,
+                                                     in_dtype, tmp_vec)
             if entry is None:
                 # single-frame policy (same as models/residency): a NEW
                 # frame evicts other frames' memoized unrolls, bounding
@@ -192,3 +162,50 @@ class ImageFeaturizer(HasInputCol, HasOutputCol, Transformer):
             tm.set_params(inputCol=tmp_vec, outputCol=self.outputCol)
         out = tm.transform(unrolled)
         return out.drop(tmp_vec)
+
+    def _prepare(self, frame: Frame, in_shape, in_dtype, tmp_vec: str):
+        """(the frame with the unrolled wire column ``tmp_vec``, the
+        device preprocess spec: empty when the host resized)."""
+        # Fast path — the north-star fusion: when the column holds
+        # uniform uint8 HWC images, skip the host resize entirely. Raw
+        # uint8 crosses host->device (1/4 the bytes of fp32) and
+        # reshape+bilinear-resize+normalize run ON DEVICE as one kernel
+        # launch per batch, ahead of the first conv. One pass collects
+        # (shape, dtype); the result also answers the general path's
+        # wire-format question (binary input decodes to uint8, so only
+        # float IMAGE values force the float32 unroll). The scan (and
+        # everything after it) runs once per frame: the memo key only
+        # needs the input column and target shape.
+        variants = ({(v.data.shape, v.data.dtype)
+                     for p in frame.partitions
+                     for v in p[self.inputCol]}
+                    if in_dtype == DType.IMAGE else set())
+        all_u8 = (in_dtype != DType.IMAGE
+                  or all(dt == np.dtype(np.uint8) for _, dt in variants))
+        fused = (len(variants) == 1 and all_u8
+                 and len(next(iter(variants))[0]) == 3
+                 and next(iter(variants))[0][2] == in_shape[2])
+        device_pre = {}
+        if fused:
+            src_shape = next(iter(variants))[0]
+            unrolled = UnrollImage(inputCol=self.inputCol,
+                                   outputCol=tmp_vec,
+                                   outputDtype="uint8").transform(frame)
+            device_pre = {"srcShape": [int(v) for v in src_shape],
+                          "resize": [int(in_shape[0]), int(in_shape[1])]}
+        else:
+            # General path: ragged sizes / float data / gray images
+            # resize on host (batched by shape group), then unroll.
+            tmp_img = frame.schema.find_unused_name("_resized")
+            resized = ImageTransformer(inputCol=self.inputCol,
+                                       outputCol=tmp_img) \
+                .resize(in_shape[0], in_shape[1]).transform(frame)
+            # uint8 wire format when the data allows it: 4x less
+            # host->device traffic; TorchModel casts to float on device.
+            # Float image data (user-built ImageValue) keeps the
+            # lossless float32 unroll.
+            unrolled = UnrollImage(
+                inputCol=tmp_img, outputCol=tmp_vec,
+                outputDtype="uint8" if all_u8 else "float32") \
+                .transform(resized).drop(tmp_img)
+        return unrolled, device_pre

@@ -14,6 +14,9 @@ kept as a ``(steps, bs, ...)`` device tensor:
   card out of memory;
 - single-frame: uploading a NEW frame evicts the previous frame's entries,
   bounding residency to one frame's worth.
+
+A miss times ``build()`` in a hot ``score:stack`` span and the upload in
+``score:upload`` (``observability/spans.py``).
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from mmlspark_tpu_torch.observability.spans import span
 from mmlspark_tpu_torch.utils import config as mmlconfig
 
 # frame -> {fingerprint: stacked device tensor (steps, bs, ...)}; consumers
@@ -55,12 +59,14 @@ def resident_batches(frame, fingerprint: Tuple, build: Callable[[], np.ndarray],
     if not force and nbytes_hint is not None \
             and not _fits(nbytes_hint, budget_mb):
         return None
-    host = build()
+    with span("score", "stack", hot=True):
+        host = build()
     if not force and not _fits(host.nbytes, budget_mb):
         return None
     global _TOTAL_UPLOADS
     _TOTAL_UPLOADS += 1
-    dev = torch.from_numpy(host).to(device)
+    with span("score", "upload", hot=True, bytes=host.nbytes):
+        dev = torch.from_numpy(host).to(device)
     if entries is None:
         _CACHE.clear()          # single-frame policy: evict other frames
         entries = _CACHE.setdefault(frame, {})

@@ -63,6 +63,7 @@ from mmlspark_tpu_torch.core.serialization import register_stage
 from mmlspark_tpu_torch.models.convert import from_jax_params
 from mmlspark_tpu_torch.models.zoo import build_model, init_state, node_forward
 from mmlspark_tpu_torch.observability import syncs as obssyncs
+from mmlspark_tpu_torch.observability.spans import span
 from mmlspark_tpu_torch.parallel import mesh as meshlib
 from mmlspark_tpu_torch.parallel.mesh import mesh_shape
 from mmlspark_tpu_torch.utils.config import resolve_device
@@ -433,6 +434,16 @@ class TorchModel(HasInputCol, HasOutputCol, Model):
                  repr(self.get("meshSpec")), self.get("computeDtype")))
 
     def transform(self, frame: Frame) -> Frame:
+        """The frame with ``outputCol`` added. One hot
+        ``transform:TorchModel`` span; inside it ``score:stack`` (the
+        coerced, padded host stack), ``score:upload`` (its copy to the
+        device), ``score:launch`` (the apply loop), ``score:fetch`` (each
+        counted fetch; inside ``score:launch`` where outputs retire in
+        windows) and ``score:emit`` (the output column)."""
+        with span("transform", "TorchModel", hot=True):
+            return self._transform(frame)
+
+    def _transform(self, frame: Frame) -> Frame:
         device = resolve_device()
         spec = self._spec()
         _, apply = self._device_apply(device)
@@ -462,19 +473,21 @@ class TorchModel(HasInputCol, HasOutputCol, Model):
 
         def retire():
             if dev_outs:
-                outs.append(obssyncs.device_get(torch.cat(dev_outs),
-                                                "transform.retire"))
+                outs.append(_fetch(torch.cat(dev_outs), "transform.retire"))
                 dev_outs.clear()
 
         def flush():
             if not pending:
                 return
-            stacked = torch.from_numpy(
-                np.stack([x for x, _ in pending])).to(device)
-            for i, (_, n) in enumerate(pending):
-                dev_outs.append(apply(stacked[i])[:n])
-                if len(dev_outs) >= window:
-                    retire()
+            with span("score", "stack", hot=True):
+                host = np.stack([x for x, _ in pending])
+            with span("score", "upload", hot=True, bytes=host.nbytes):
+                stacked = torch.from_numpy(host).to(device)
+            with span("score", "launch", hot=True, batches=len(pending)):
+                for i, (_, n) in enumerate(pending):
+                    dev_outs.append(apply(stacked[i])[:n])
+                    if len(dev_outs) >= window:
+                        retire()
             pending.clear()
 
         for x, n in self._padded_batches(frame, spec, bs):
@@ -483,7 +496,8 @@ class TorchModel(HasInputCol, HasOutputCol, Model):
                 flush()
         flush()
         retire()
-        return self._emit(frame, outs)
+        with span("score", "emit", hot=True):
+            return self._emit(frame, outs)
 
     def _resident_input(self, frame: Frame, spec, bs: int,
                         device: torch.device):
@@ -523,29 +537,33 @@ class TorchModel(HasInputCol, HasOutputCol, Model):
         from mmlspark_tpu_torch.models import residency
         n_total = frame.count()
         steps = dev.shape[0]
-        first = apply(dev[0])
-        out_bytes = first.numel() * first.element_size() * steps
-        if self.get("deviceCache") == "on" or residency._fits(
-                dev.numel() * dev.element_size() + out_bytes):
-            out = first.new_empty((steps,) + tuple(first.shape))
-            out[0] = first
-            for i in range(1, steps):
-                out[i] = apply(dev[i])
-            host = obssyncs.device_get(out, "transform.resident")
-            host = host.reshape((steps * bs,) + host.shape[2:])
-            return self._emit(frame, [host[:n_total]])
-        window = 32
-        dev_outs = [first[:min(bs, n_total)]]
-        outs: list = []
-        for i in range(1, steps):
-            if len(dev_outs) >= window:
-                outs.append(obssyncs.device_get(torch.cat(dev_outs),
-                                                "transform.retire"))
-                dev_outs = []
-            dev_outs.append(apply(dev[i])[:min(bs, n_total - i * bs)])
-        outs.append(obssyncs.device_get(torch.cat(dev_outs),
-                                        "transform.retire"))
-        return self._emit(frame, outs)
+        with span("score", "launch", hot=True, batches=steps):
+            first = apply(dev[0])
+            out_bytes = first.numel() * first.element_size() * steps
+            whole = self.get("deviceCache") == "on" or residency._fits(
+                dev.numel() * dev.element_size() + out_bytes)
+            if whole:
+                out = first.new_empty((steps,) + tuple(first.shape))
+                out[0] = first
+                for i in range(1, steps):
+                    out[i] = apply(dev[i])
+            else:
+                window = 32
+                dev_outs = [first[:min(bs, n_total)]]
+                outs: list = []
+                for i in range(1, steps):
+                    if len(dev_outs) >= window:
+                        outs.append(_fetch(torch.cat(dev_outs),
+                                           "transform.retire"))
+                        dev_outs = []
+                    dev_outs.append(apply(dev[i])[:min(bs, n_total - i * bs)])
+        if whole:
+            host = _fetch(out, "transform.resident")
+            outs = [host.reshape((steps * bs,) + host.shape[2:])[:n_total]]
+        else:
+            outs.append(_fetch(torch.cat(dev_outs), "transform.retire"))
+        with span("score", "emit", hot=True):
+            return self._emit(frame, outs)
 
     def _transform_sharded(self, frame: Frame, spec, apply: "MeshedApply",
                            bs: int) -> Frame:
@@ -674,6 +692,13 @@ def _mesh_score(ch, header, tensors, local):
             return collectives.all_gather(out, 0,
                                           layout.group(*layout.batch_axes))
     return pl.counted(header.get("prog"), run)
+
+
+def _fetch(x: torch.Tensor, site: str) -> np.ndarray:
+    """A counted fetch of ``x`` in a hot ``score:fetch`` span."""
+    with span("score", "fetch", hot=True,
+              bytes=x.numel() * x.element_size()):
+        return obssyncs.device_get(x, site)
 
 
 def _to_float(x: torch.Tensor) -> torch.Tensor:

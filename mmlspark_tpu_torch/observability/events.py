@@ -38,6 +38,18 @@ def perf() -> float:
     return _clock[1]()
 
 
+def wall_ns() -> int:
+    """:func:`wall` in integer nanoseconds: ``time.time_ns()``, the clock
+    ``torch.profiler`` stamps device activity with, unless a wall clock
+    was injected."""
+    fn = _clock[0]
+    if fn is time.time:
+        return time.time_ns()
+    s = fn()
+    whole = int(s)     # apart from the fraction: a double holds ~16 digits
+    return whole * 1_000_000_000 + int(round((s - whole) * 1e9))
+
+
 def set_clock(wall_fn: Optional[Callable[[], float]] = None,
               perf_fn: Optional[Callable[[], float]] = None) -> None:
     """Inject fake clocks (tests). ``None`` leaves that clock unchanged."""
@@ -57,15 +69,27 @@ def reset_clock() -> None:
 def events_enabled() -> bool:
     """Is the event log on? Per-step hot paths check this before building
     events."""
-    return bool(config.get("observability.events_path"))
+    log = bool(config.get("observability.events_path"))
+    _resync(log, None)
+    return log
 
 
 def recording_enabled() -> bool:
     """Is any event sink live: the JSON-lines log or the flight
     recorder's ring? Cold and incident paths gate on this, so a
     post-mortem timeline exists in runs that never set an events path."""
-    return bool(config.get("observability.events_path")) \
-        or flightrec.active()
+    log = bool(config.get("observability.events_path"))
+    live = log or flightrec.active()
+    _resync(log, live)
+    return live
+
+
+def _resync(log: bool, live: Optional[bool]) -> None:
+    """Refresh the spans' cached sink state when this full read finds it
+    stale (an environment key changed after import)."""
+    from mmlspark_tpu_torch.observability import spans
+    if log != spans._LOG or (live is not None and live != spans._RECORDING):
+        spans.refresh()
 
 
 def events_path() -> str:
@@ -74,12 +98,13 @@ def events_path() -> str:
     return config.get("observability.events_path")
 
 
-def emit(etype: str, name: str, **fields: Any) -> None:
-    """Append one event line and record it in the ring; a no-op while
-    both sinks are off. ``fields`` that are not JSON-representable are
-    written as ``str()``."""
+def emit(etype: str, name: str, *, ring: bool = True,
+         **fields: Any) -> None:
+    """Append one event line and record it in the ring (``ring=False``:
+    the log alone); a no-op while both sinks are off. ``fields`` that are
+    not JSON-representable are written as ``str()``."""
     path = config.get("observability.events_path")
-    ring = flightrec.active()
+    ring = ring and flightrec.active()
     if not (path or ring):
         return
     event = {"ts": round(wall(), 6), "type": etype, "name": name}

@@ -22,6 +22,14 @@ DEFAULT_BUCKETS: Tuple[float, ...] = (
     0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
     1.0, 2.5, 5.0, 10.0)
 
+# bounds of a histogram observed in milliseconds (the serving latencies):
+# DEFAULT_BUCKETS is seconds-scale, and a percentile past its last bound
+# clamps there, so a 76 ms p99 would read 10
+MS_BUCKETS: Tuple[float, ...] = (
+    0.1, 0.2, 0.5, 1.0, 2.0, 5.0, 10.0, 20.0, 30.0, 50.0, 75.0, 100.0,
+    150.0, 200.0, 300.0, 500.0, 750.0, 1000.0, 2000.0, 5000.0, 10000.0,
+    30000.0, 60000.0)
+
 # MFU denominator: the NVIDIA H100 SXM data sheet's dense (no sparsity)
 # bf16 tensor-core peak, in FLOP/s
 H100_SXM_BF16_DENSE_FLOPS = 989e12

@@ -14,7 +14,7 @@ each one is counted:
   ``observability.sync_points.<site>`` (:mod:`metrics`);
 - a ``sync.point`` event (site, kind, the innermost span's name and id)
   when an event sink is live: the log, or the flight recorder's ring,
-  which is on by default.
+  which is on by default (the spans' cached sink state, one read).
 
 Counting is a plain int add under a lock: cheap enough to be
 unconditional.
@@ -54,7 +54,7 @@ def sync_point(site: str, kind: str = "sync") -> None:
         _by_site[key] = _by_site.get(key, 0) + 1
     metrics.counter("observability.sync_points").inc()
     metrics.counter(f"observability.sync_points.{site}").inc()
-    if events.recording_enabled():
+    if spans.recording():
         events.emit("event", "sync.point", site=site, kind=kind,
                     span=cur[0] if cur else None,
                     span_id=cur[1] if cur else None)

@@ -76,6 +76,7 @@ from mmlspark_tpu_torch.parallel import sharding
 from mmlspark_tpu_torch.observability import events as obsevents
 from mmlspark_tpu_torch.observability import metrics as obsmetrics
 from mmlspark_tpu_torch.observability import syncs as obssyncs
+from mmlspark_tpu_torch.observability.spans import span
 from mmlspark_tpu_torch.reliability import watchdog as _watchdog
 from mmlspark_tpu_torch.reliability.faults import fault_site
 from mmlspark_tpu_torch.utils import config as mmlconfig
@@ -446,11 +447,12 @@ class DistributedTrainer:
                 delattr(owner, attr)
                 owner._parameters[attr] = p
 
-    def _sum_grads(self, module: torch.nn.Module) -> None:
+    def _sum_grads(self, module: torch.nn.Module) -> int:
         """Sum each gradient over the ranks that saw other data (one
         flat buffer per group and dtype) and divide by their count: the
-        gradient of the global mean loss."""
+        gradient of the global mean loss. Returns the bytes all-reduced."""
         n = self.layout.n_grad
+        nbytes = 0
         for group, params in self._reduce:
             by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
             for p in params:
@@ -459,6 +461,7 @@ class DistributedTrainer:
             for grads in by_dtype.values():
                 if collectives.size(group) > 1:
                     flat = torch.cat([g.reshape(-1) for g in grads])
+                    nbytes += flat.numel() * flat.element_size()
                     flat = collectives.all_reduce(flat, group)
                     offset = 0
                     for g in grads:
@@ -466,6 +469,7 @@ class DistributedTrainer:
                         offset += g.numel()
                 if n > 1:
                     torch._foreach_div_(grads, float(n))
+        return nbytes
 
     # -- steps -------------------------------------------------------------
     def flush_steps(self) -> int:
@@ -506,8 +510,9 @@ class DistributedTrainer:
             return self._local_forward_backward(module, batch, gen)
         with self.mesh_context():
             loss = self._local_forward_backward(module, batch, gen)
-        self._sum_grads(module)
-        return self._global_mean(loss)
+        with span("train", "allreduce", hot=True) as reduce:
+            reduce.set(bytes=self._sum_grads(module))
+            return self._global_mean(loss)
 
     def _global_mean(self, loss: torch.Tensor) -> torch.Tensor:
         layout = self.layout
@@ -517,16 +522,20 @@ class DistributedTrainer:
     def _local_forward_backward(self, module, batch, gen) -> torch.Tensor:
         accum = self.accum_steps
         if accum == 1:
-            loss = self._loss(module, batch, gen)
-            loss.backward()
+            with span("train", "forward", hot=True):
+                loss = self._loss(module, batch, gen)
+            with span("train", "backward", hot=True):
+                loss.backward()
             return loss.detach()
         micro = {k: v.reshape((accum, v.shape[0] // accum) + v.shape[1:])
                  for k, v in batch.items()}
         total = None
         for i in range(accum):
-            loss = self._loss(module, {k: v[i] for k, v in micro.items()},
-                              gen)
-            loss.backward()       # gradients sum into .grad
+            with span("train", "forward", hot=True):
+                loss = self._loss(module,
+                                  {k: v[i] for k, v in micro.items()}, gen)
+            with span("train", "backward", hot=True):
+                loss.backward()       # gradients sum into .grad
             total = loss.detach() if total is None else total + loss.detach()
         for p in module.parameters():
             if p.grad is not None:
@@ -537,7 +546,15 @@ class DistributedTrainer:
                    rng=None) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
         """One step: forward, backward, optimizer update, ring write. Runs
         asynchronously on a card; returns ``(state, {"loss": device
-        scalar})``."""
+        scalar})``. One hot ``train:step`` span over ``train:forward``,
+        ``train:backward``, ``train:allreduce`` (on a mesh),
+        ``train:update``, ``train:ring`` and, every ``flush_steps``,
+        ``train:flush``: host spans over asynchronous launches, which
+        time the host's enqueue and name the device's gaps."""
+        with span("train", "step", hot=True):
+            return self._train_step(state, batch, rng)
+
+    def _train_step(self, state, batch, rng):
         fault_site("trainer.train_step")
         module, opt = state["module"], state["optimizer"]
         gen = self._generator(rng)
@@ -556,13 +573,15 @@ class DistributedTrainer:
             self._flops_per_step = float(counter.get_total_flops())
         else:
             loss = self._forward_backward(module, batch, gen)
-        opt.step()
-        opt.zero_grad()
-        # the ring slot is computed on the device: no host read
-        slot = torch.remainder(state["step"], flush).long().view(1)
-        self._ring["loss"].index_copy_(0, slot, loss.float().view(1))
-        state["step"].add_(1)
-        self._ring["step"].copy_(state["step"])
+        with span("train", "update", hot=True):
+            opt.step()
+            opt.zero_grad()
+        with span("train", "ring", hot=True):
+            # the ring slot is computed on the device: no host read
+            slot = torch.remainder(state["step"], flush).long().view(1)
+            self._ring["loss"].index_copy_(0, slot, loss.float().view(1))
+            state["step"].add_(1)
+            self._ring["step"].copy_(state["step"])
         self._steps_since_flush += 1
         if self._steps_since_flush >= flush:
             self.flush_metrics()
@@ -575,7 +594,9 @@ class DistributedTrainer:
         first step."""
         if self._ring is None:
             return None
-        self.last_flush = obssyncs.device_get(self._ring, "trainer.flush")
+        with span("train", "flush", hot=True):
+            self.last_flush = obssyncs.device_get(self._ring,
+                                                  "trainer.flush")
         self._steps_since_flush = 0
         return self.last_flush
 

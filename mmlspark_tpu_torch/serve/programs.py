@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 from mmlspark_tpu_torch.kernels import build as kbuild
-from mmlspark_tpu_torch.observability import syncs
+from mmlspark_tpu_torch.observability import spans, syncs
 
 DEVICE_LOCK = threading.RLock()
 
@@ -69,12 +69,14 @@ class EagerProgram:
         """Run on ``operands`` (numpy arrays or scalars, one per spec);
         returns the output as numpy through a counted fetch at site
         ``fetch``, or None when ``fetch`` is None."""
-        args = [_host(x, shape).to(self.device, d)
-                for x, (shape, d) in zip(operands, self.specs)]
+        with spans.span("batch", "copy_in", hot=True):
+            args = [_host(x, shape).to(self.device, d)
+                    for x, (shape, d) in zip(operands, self.specs)]
         with DEVICE_LOCK:
-            out = self.fn(*args)
-            self.replays += 1
-            return syncs.device_get(out, fetch) if fetch else None
+            with spans.span("batch", "replay", hot=True):
+                out = self.fn(*args)
+                self.replays += 1
+            return _fetch(out, fetch)
 
 
 class GraphProgram:
@@ -115,12 +117,14 @@ class GraphProgram:
         the output as numpy through a counted fetch at site ``fetch`` (None
         when ``fetch`` is None)."""
         with DEVICE_LOCK:
-            for buf, x in zip(self.inputs, operands):
-                buf.copy_(_host(x, buf.shape))
-            self.graph.replay()
-            self.replays += 1
-            kbuild.add_launches(self.launches)
-            return syncs.device_get(self.output, fetch) if fetch else None
+            with spans.span("batch", "copy_in", hot=True):
+                for buf, x in zip(self.inputs, operands):
+                    buf.copy_(_host(x, buf.shape))
+            with spans.span("batch", "replay", hot=True):
+                self.graph.replay()
+                self.replays += 1
+                kbuild.add_launches(self.launches)
+            return _fetch(self.output, fetch)
 
 
 class MeshProgram:
@@ -143,17 +147,28 @@ class MeshProgram:
         self.replays = 0
 
     def __call__(self, *operands, fetch: Optional[str] = None):
-        args = [_host(x, shape).to(d).numpy()  # lint: allow-sync (host operands)
-                for x, (shape, d) in zip(operands, self.specs)]
+        with spans.span("batch", "copy_in", hot=True):
+            args = [_host(x, shape).to(d).numpy()  # lint: allow-sync (host operands)
+                    for x, (shape, d) in zip(operands, self.specs)]
         with DEVICE_LOCK:
-            out = self.run(*args, prog=self.key)
-            self.replays += 1
-            return syncs.device_get(out, fetch) if fetch else None
+            with spans.span("batch", "replay", hot=True):
+                out = self.run(*args, prog=self.key)
+                self.replays += 1
+            return _fetch(out, fetch)
 
     def rank_launches(self) -> list:
         """Each rank's kernel launches under this program, in rank order
         (``{kernel: (launches, by variant)}``)."""
         return self.run.rank_launches(self.key)
+
+
+def _fetch(out, site: Optional[str]):
+    """``out`` as numpy through a counted fetch at ``site`` (a hot
+    ``batch:fetch`` span), or None when ``site`` is None."""
+    if not site:
+        return None
+    with spans.span("batch", "fetch", hot=True):
+        return syncs.device_get(out, site)
 
 
 def _host(x, shape) -> torch.Tensor:

@@ -188,7 +188,8 @@ class Server:
         # per-instance latency histogram: the process-wide
         # serving.total_ms aggregates across in-process fleet replicas,
         # but the fleet scraper and stats() need THIS replica's p50/p99
-        self._latency = metrics.Histogram("serving.total_ms")
+        self._latency = metrics.Histogram("serving.total_ms",
+                                          metrics.MS_BUCKETS)
         # generative lanes (serve/generate.py), one per decoder-LM model,
         # created lazily on the first submit_generate
         self._lanes: Dict[str, object] = {}
@@ -542,7 +543,8 @@ class Server:
             wait = self._batcher.wait_s()
             wait = 0.5 if wait is None else min(wait, 0.5)
             try:
-                item = self._queue.get(timeout=wait)
+                with spans.span("serve", "wait", hot=True):
+                    item = self._queue.get(timeout=wait)
             except queue.Empty:
                 item = None          # deadline flush fires below
             if item is _STOP:
@@ -575,9 +577,21 @@ class Server:
     def _flush(self) -> None:
         """Dequeue one head group, cancel expired tickets, pad to a
         bucket, score, resolve futures. Any failure fails THIS group's
-        futures and leaves the executor serving."""
-        t_dequeue = self.clock()
-        group = self._batcher.take()
+        futures and leaves the executor serving. One hot ``serve:batch``
+        span, its stages ``batch:take``, ``batch:pad``, the program's
+        ``batch:copy_in``, ``batch:replay`` and ``batch:fetch``
+        (``serve/programs.py``), and ``batch:respond``."""
+        with spans.span("serve", "batch", hot=True) as batch:
+            with spans.span("batch", "take", hot=True):
+                t_dequeue = self.clock()
+                live = self._cancel_expired(self._batcher.take(), t_dequeue)
+            if live:
+                self._score_group(live, t_dequeue, batch)
+
+    def _cancel_expired(self, group: List[Ticket],
+                        t_dequeue: float) -> List[Ticket]:
+        """``group`` without the tickets whose deadline passed, which are
+        failed with :class:`RequestExpired`."""
         live: List[Ticket] = []
         for t in group:
             if t.expired(t_dequeue):
@@ -592,18 +606,22 @@ class Server:
                     "scoring"))
             else:
                 live.append(t)
-        if not live:
-            return
+        return live
+
+    def _score_group(self, live: List[Ticket], t_dequeue: float,
+                     batch) -> None:
         try:
             rows = sum(t.rows for t in live)
             fault_site("serve.batch", {"model": live[0].model,
                                        "tickets": len(live), "rows": rows})
             bucket = bucket_for(rows, self.buckets)
-            x = np.concatenate([t.x for t in live], axis=0) \
-                if len(live) > 1 else live[0].x
-            if rows < bucket:
-                pad = np.zeros((bucket - rows,) + x.shape[1:], x.dtype)
-                x = np.concatenate([x, pad], axis=0)
+            batch.set(rows=rows, bucket=bucket, tickets=len(live))
+            with spans.span("batch", "pad", hot=True):
+                x = np.concatenate([t.x for t in live], axis=0) \
+                    if len(live) > 1 else live[0].x
+                if rows < bucket:
+                    pad = np.zeros((bucket - rows,) + x.shape[1:], x.dtype)
+                    x = np.concatenate([x, pad], axis=0)
             t_padded = self.clock()
             entry = self.registry.get(live[0].model)
             entry.ensure_apply()
@@ -612,8 +630,9 @@ class Server:
                                        "bucket": bucket})
             out = entry.score(x)
             t_scored = self.clock()
-            self._respond(live, out, bucket, rows,
-                          t_dequeue, t_padded, t_scored)
+            with spans.span("batch", "respond", hot=True):
+                self._respond(live, out, bucket, rows,
+                              t_dequeue, t_padded, t_scored)
         except Exception as e:  # fail the group, keep serving
             logger.error("serve batch failed: %s", e)
             for t in live:
@@ -625,14 +644,16 @@ class Server:
                  rows: int, t_dequeue: float, t_padded: float,
                  t_scored: float) -> None:
         hot = metrics.metrics_enabled()
+        ms = metrics.MS_BUCKETS
         log = events.recording_enabled()
         slow_ms = float(mmlconfig.get("observability.trace_slow_ms") or 0.0)
         pad_s = t_padded - t_dequeue
         compute_s = t_scored - t_padded
         if hot:
             metrics.gauge("serving.batch_occupancy").set(rows / bucket)
-            metrics.histogram("serving.pad_ms").observe(pad_s * 1e3)
-            metrics.histogram("serving.compute_ms").observe(compute_s * 1e3)
+            metrics.histogram("serving.pad_ms", ms).observe(pad_s * 1e3)
+            metrics.histogram("serving.compute_ms", ms).observe(
+                compute_s * 1e3)
         offset = 0
         for t in live:
             res = out[offset:offset + t.rows]
@@ -645,9 +666,9 @@ class Server:
             self._completed.inc()
             if hot:
                 ex = t.trace_id if slow else None
-                metrics.histogram("serving.queue_ms").observe(
+                metrics.histogram("serving.queue_ms", ms).observe(
                     queue_s * 1e3, exemplar=ex)
-                metrics.histogram("serving.total_ms").observe(
+                metrics.histogram("serving.total_ms", ms).observe(
                     total_s * 1e3, exemplar=ex)
                 self._latency.observe(total_s * 1e3, exemplar=ex)
             if log:

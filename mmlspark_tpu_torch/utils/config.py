@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import os
 import threading
-from typing import Any, Dict
+from typing import Any, Callable, Dict, List
 
 _DEFAULTS: Dict[str, Any] = {
     "runtime.device": "cuda",         # torch device of every entry point
@@ -213,6 +213,7 @@ _DEFAULTS: Dict[str, Any] = {
 
 _lock = threading.Lock()
 _overrides: Dict[str, Any] = {}
+_listeners: List[Callable[[str], None]] = []
 
 
 def _env_key(key: str) -> str:
@@ -240,11 +241,24 @@ def set(key: str, value: Any) -> None:  # noqa: A001 - mirrors typesafe API
     so applications can park their own knobs in the same tree."""
     with _lock:
         _overrides[key] = value
+    _changed(key)
 
 
 def unset(key: str) -> None:
     with _lock:
         _overrides.pop(key, None)
+    _changed(key)
+
+
+def on_change(fn: Callable[[str], None]) -> None:
+    """Call ``fn(key)`` after every :func:`set` / :func:`unset` (a module
+    that caches what some keys resolve to, ``observability/spans.py``)."""
+    _listeners.append(fn)
+
+
+def _changed(key: str) -> None:
+    for fn in _listeners:
+        fn(key)
 
 
 def snapshot() -> Dict[str, Any]:

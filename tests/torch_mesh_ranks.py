@@ -419,3 +419,25 @@ def abstract_layouts(rank, world, axes, params, opt):
             "opt_mismatch": opt_mismatch,
             "sharded": sum(sh.sharded
                            for sh in shardings["params"].values())}
+
+
+def step_spans(rank, world, axes):
+    """One data-parallel step of a linear model with the span collector
+    on: this rank's collected spans as (name, parent's name, attrs)."""
+    from mmlspark_tpu_torch.observability import spans
+    from mmlspark_tpu_torch.parallel.trainer import DistributedTrainer
+    trainer = DistributedTrainer(
+        lambda m, b, g: ((m(b["x"]) - b["y"]) ** 2).mean(),
+        _optimizer("sgd", 0.1), mesh=_mesh(axes), device=_cpu())
+    state = trainer.init(lambda: torch.nn.Linear(4, 2))
+    rng = np.random.default_rng(0)
+    batch = trainer.put_batch(
+        {"x": rng.normal(size=(8, 4)).astype(np.float32),
+         "y": rng.normal(size=(8, 2)).astype(np.float32)})
+    spans.collect_start()
+    try:
+        trainer.train_step(state, batch, 0)
+    finally:
+        got, _ = spans.collect_stop()
+    names = {s["span_id"]: s["name"] for s in got}
+    return [(s["name"], names.get(s["parent_id"]), s["attrs"]) for s in got]
