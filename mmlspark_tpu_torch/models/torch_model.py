@@ -44,10 +44,11 @@ when it names CUDA and there is none.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
 from collections.abc import Mapping
-from typing import Any, Dict, Optional
+from typing import Any, Callable, ContextManager, Dict, Optional
 
 import numpy as np
 import torch
@@ -443,7 +444,22 @@ class TorchModel(HasInputCol, HasOutputCol, Model):
         with span("transform", "TorchModel", hot=True):
             return self._transform(frame)
 
-    def _transform(self, frame: Frame) -> Frame:
+    def transform_staged(self, frame: Frame,
+                         stage: Callable[[], ContextManager[np.ndarray]],
+                         source: str) -> Frame:
+        """:meth:`transform` of ``frame`` from a host stack its caller
+        gathered from column ``source``, for a one-device model with
+        ``deviceCache`` not 'off'. ``stage()`` is a context manager that
+        hands over the coerced, tail-padded ``(steps, bs, ...)`` stack
+        that ``_padded_batches`` would give, which the caller has checked
+        against the device budget, and frees it on exit. It is entered
+        only when the frame's resident upload is missing, in
+        ``score:stack``, and left as soon as the upload returns. The same
+        spans as :meth:`transform`."""
+        with span("transform", "TorchModel", hot=True):
+            return self._transform(frame, (stage, source))
+
+    def _transform(self, frame: Frame, staged=None) -> Frame:
         device = resolve_device()
         spec = self._spec()
         _, apply = self._device_apply(device)
@@ -456,8 +472,9 @@ class TorchModel(HasInputCol, HasOutputCol, Model):
                 "deviceCache='on' would materialize an out-of-core frame; "
                 "score it with deviceCache='auto'/'off' (streams), or "
                 "materialize it to an in-memory Frame first if it fits")
-        if self.get("deviceCache") != "off" and frame.count():
-            dev = self._resident_input(frame, spec, bs, device)
+        if staged is not None or (self.get("deviceCache") != "off"
+                                  and frame.count()):
+            dev = self._resident_input(frame, spec, bs, device, staged)
             if dev is not None:
                 return self._transform_resident(frame, apply, dev, bs)
         # Streaming loop. Transfers are batched: ``put_window`` minibatches
@@ -500,16 +517,31 @@ class TorchModel(HasInputCol, HasOutputCol, Model):
             return self._emit(frame, outs)
 
     def _resident_input(self, frame: Frame, spec, bs: int,
-                        device: torch.device):
+                        device: torch.device, staged=None):
         """The frame's coerced input as a device-resident (steps, bs, ...)
         stack shared across transform calls (and across models with the
-        same coercion), or None when over budget with deviceCache='auto'."""
+        same coercion), or None when over budget with deviceCache='auto'.
+        ``staged``: ``transform_staged``'s (stage, source)."""
         from mmlspark_tpu_torch.models import residency
         # everything that shapes the coerced stack is part of the key;
         # the architecture stays OUT — identical-input models share
         fingerprint = (self.inputCol, bs, spec.get("input_dtype"),
                        tuple(spec["input_shape"]),
                        repr(self.get("devicePreprocess")))
+        if staged is not None:
+            stage, source = staged
+            # the model's inputCol is the caller's temporary name, alike
+            # for every column of the frame: the key names the source
+            fingerprint += ("staged", source)
+            with contextlib.ExitStack() as held:
+                def build() -> np.ndarray:
+                    host = held.enter_context(stage())
+                    # a copy to the host device would alias the caller's
+                    # reused stack, so there the resident input is a copy
+                    return host if device.type != "cpu" else host.copy()
+                # leaving the block frees the stack: the upload returned
+                return residency.resident_batches(frame, fingerprint, build,
+                                                  device, force=True)
         # size hint from one coerced row, so an over-budget frame is
         # rejected before build() materializes a full-dataset host copy
         steps = int(np.ceil(frame.count() / bs))

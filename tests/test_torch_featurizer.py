@@ -12,6 +12,10 @@ Tolerances:
 - ragged sizes take the host resize (numpy, the same code in both
   packages) and then the float route: 1e-4.
 """
+import os
+import sys
+import threading
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,10 +34,12 @@ from mmlspark_tpu_torch.core.schema import (
     ColumnSchema, DType, ImageValue, SchemaError,
 )
 from mmlspark_tpu_torch.core.serialization import load_stage, save_stage
+from mmlspark_tpu_torch.image import featurizer as tfeaturizer
 from mmlspark_tpu_torch.image.featurizer import ImageFeaturizer
 from mmlspark_tpu_torch.image.transformer import ImageTransformer
 from mmlspark_tpu_torch.models import residency
 from mmlspark_tpu_torch.models.torch_model import TorchModel
+from mmlspark_tpu_torch.observability import metrics as tmetrics
 from mmlspark_tpu_torch.observability import syncs
 from mmlspark_tpu_torch.utils import config as tconfig
 
@@ -347,3 +353,282 @@ def test_sync_points_are_counted_per_site():
     syncs.synchronize("test.wait", device="cpu")
     assert syncs.total() == 2
     assert syncs.counts() == {"test.fetch": 1, "test.wait": 1}
+
+
+# -- the direct route: one scan, one copy into the reused staging stack --
+
+def _routes():
+    """(featurize.direct_stack, featurize.unroll_route) counts so far."""
+    return (tmetrics.counter("featurize.direct_stack").value,
+            tmetrics.counter("featurize.unroll_route").value)
+
+
+def _counted(fn):
+    """``fn()``'s result and the routes it counted."""
+    before = _routes()
+    out = fn()
+    after = _routes()
+    return out, (after[0] - before[0], after[1] - before[1])
+
+
+def _resident(frame):
+    """The one device-resident input uploaded for ``frame``."""
+    (dev,) = residency._CACHE[frame].values()
+    return dev.numpy()
+
+
+def _features(fz, frame):
+    return np.asarray(fz.transform(frame).column("features"))
+
+
+def _unroll_route(monkeypatch):
+    """Featurizers made in this test take today's route: UnrollImage,
+    then TorchModel's own padded stack."""
+    monkeypatch.setattr(ImageFeaturizer, "_direct",
+                        lambda self, *args: False)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_direct_route_is_bit_identical_to_the_unroll_route(
+        jparams, monkeypatch, dtype):
+    """Seven uint8 images over two partitions, batches of 4 (one pad row):
+    the direct route uploads the very bytes the unroll route uploads, and
+    the features equal its features bit for bit (and JAX's, as the fused
+    tests above bound them)."""
+    images = _u8_images(14, 7, 32, 32)
+    tframe, jframe = _frames(images)
+    fz = ImageFeaturizer(cutOutputLayers=1, miniBatchSize=4,
+                         computeDtype=dtype)
+    fz.set_model("resnet20_cifar", params=jparams, **ARCH)
+    direct, counted = _counted(lambda: _features(fz, tframe))
+    assert counted == (1, 0)
+    direct_input = _resident(tframe)
+    assert tfeaturizer._PREP_CACHE[tframe][("image", (32, 32, 3))][0] is None
+
+    residency.clear()
+    tfeaturizer._PREP_CACHE.clear()
+    _unroll_route(monkeypatch)
+    tframe, _ = _frames(images)
+    old = ImageFeaturizer(cutOutputLayers=1, miniBatchSize=4,
+                          computeDtype=dtype)
+    old.set_model("resnet20_cifar", params=jparams, **ARCH)
+    unrolled, counted = _counted(lambda: _features(old, tframe))
+    assert counted == (0, 1)
+    (unrolled_frame,) = residency._CACHE.keys()
+    np.testing.assert_array_equal(direct_input, _resident(unrolled_frame))
+    assert direct_input.shape == (2, 4, 32 * 32 * 3)
+    np.testing.assert_array_equal(direct, unrolled)
+    want = np.asarray(JImageFeaturizer(cutOutputLayers=1, miniBatchSize=4,
+                                       computeDtype=dtype)
+                      .set_model("resnet20_cifar", params=jparams, **ARCH)
+                      .transform(jframe).column("features"))
+    bound = 1e-4 if dtype == "float32" else 0.05 * np.abs(want).max()
+    assert np.abs(direct - want).max() <= bound
+
+
+def test_a_smaller_frame_after_a_larger_one_reads_no_stale_rows(
+        jparams, monkeypatch):
+    """Nine images fill the staging stack's three batches; five after them
+    take its first two, and the three pad rows of the second are zero,
+    not the larger frame's images."""
+    fz = ImageFeaturizer(cutOutputLayers=1, miniBatchSize=4)
+    fz.set_model("resnet20_cifar", params=jparams, **ARCH)
+    big, _ = _frames(_u8_images(15, 9, 32, 32))
+    small_images = _u8_images(16, 5, 32, 32)
+    small, _ = _frames(small_images)
+    _features(fz, big)
+    got = _features(fz, small)
+    assert fz._staging().buf.shape == (3, 4, 32 * 32 * 3)
+    uploaded = _resident(small).reshape(8, -1)
+    np.testing.assert_array_equal(
+        uploaded[:5], np.stack(small_images).reshape(5, -1))
+    assert not uploaded[5:].any()
+
+    _unroll_route(monkeypatch)
+    small, _ = _frames(small_images)
+    old = ImageFeaturizer(cutOutputLayers=1, miniBatchSize=4)
+    old.set_model("resnet20_cifar", params=jparams, **ARCH)
+    np.testing.assert_array_equal(got, _features(old, small))
+
+
+def test_the_staging_stack_is_reused_across_fresh_frames(jparams):
+    """Two fresh frames of one shape are gathered into one buffer; the
+    memo keeps no unrolled host copy of either."""
+    fz = ImageFeaturizer(cutOutputLayers=1, miniBatchSize=4)
+    fz.set_model("resnet20_cifar", params=jparams, **ARCH)
+    bufs = []
+    for seed in (17, 18):
+        frame, _ = _frames(_u8_images(seed, 6, 32, 32))
+        _, counted = _counted(lambda: _features(fz, frame))
+        assert counted == (1, 0)
+        bufs.append(fz._staging().buf)
+        (memo,) = tfeaturizer._PREP_CACHE[frame].values()
+        assert memo[0] is None
+    assert bufs[0] is bufs[1] and np.shares_memory(bufs[0], bufs[1])
+    # the host device's resident input is a copy: the next gather may not
+    # write into an upload another model still reads
+    assert not np.shares_memory(_resident(frame), bufs[1])
+
+
+def test_a_memo_hit_whose_upload_was_evicted_gathers_the_frame_again(
+        jparams):
+    """The direct route's memo holds no host copy: when the frame's upload
+    is gone, a repeat pass counts no route and skips the prep, and the
+    hand-over gathers the frame again into the staging stack."""
+    fz = ImageFeaturizer(cutOutputLayers=1, miniBatchSize=4)
+    fz.set_model("resnet20_cifar", params=jparams, **ARCH)
+    frame, _ = _frames(_u8_images(19, 6, 32, 32))
+    first = _features(fz, frame)
+    # another model's upload of another frame evicts this frame's
+    other = TorchModel(inputCol="x", outputCol="y").set_model(
+        "mlp_tabular", input_dim=8, hidden=[16], num_classes=3)
+    other.transform(Frame.from_dict({"x": np.ones((3, 8), np.float32)}))
+    assert frame not in residency._CACHE
+    again, counted = _counted(lambda: _features(fz, frame))
+    assert counted == (0, 0) and frame in residency._CACHE
+    np.testing.assert_array_equal(first, again)
+
+
+def test_threads_featurize_their_own_frames_on_one_featurizer(jparams):
+    """More threads than cores, each with a frame of its own, featurize in
+    turn on one featurizer, every call a fresh frame (each evicts the
+    others' memo and upload): every call's features equal the serial
+    answer for its images, so no thread read another's images from the
+    shared staging stack."""
+    fz = ImageFeaturizer(cutOutputLayers=1, miniBatchSize=4)
+    fz.set_model("resnet20_cifar", params=jparams, **ARCH)
+    n = min((os.cpu_count() or 4) + 1, 17)
+    images = {t: _u8_images(30 + t, 5, 32, 32) for t in range(n)}
+    want = {t: _features(fz, _frames(images[t])[0]) for t in range(n)}
+    got = {t: [] for t in range(n)}
+
+    def work(t):
+        for _ in range(2):
+            got[t].append(_features(fz, _frames(images[t])[0]))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=work, args=(t,))
+                   for t in range(n)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    for t in range(n):
+        assert len(got[t]) == 2
+        for feats in got[t]:
+            np.testing.assert_array_equal(feats, want[t])
+
+
+def test_two_image_columns_of_one_frame_each_get_their_own_features(
+        jparams, monkeypatch):
+    """One frame with two uint8 image columns of one shape, featurized in
+    turn by one featurizer and then by a second: each column's features
+    are those the unroll route gives for that column, so neither upload
+    was taken for the other's."""
+    tframe, _ = _frames(_u8_images(24, 6, 32, 32))
+    thumbs = np.empty(6, dtype=object)
+    for i, im in enumerate(_u8_images(25, 6, 32, 32)):
+        thumbs[i] = ImageValue(path=f"mem://t{i}", data=im)
+    tframe = tframe.with_column_values(ColumnSchema("thumb", DType.IMAGE),
+                                       thumbs)
+    fz = ImageFeaturizer(cutOutputLayers=1, miniBatchSize=4)
+    fz.set_model("resnet20_cifar", params=jparams, **ARCH)
+    got = {}
+    for col in ("image", "thumb"):
+        fz.set_params(inputCol=col)
+        got[col], counted = _counted(lambda: _features(fz, tframe))
+        assert counted == (1, 0)
+    other = ImageFeaturizer(cutOutputLayers=1, miniBatchSize=4,
+                            inputCol="thumb")
+    other.set_model("resnet20_cifar", params=jparams, **ARCH)
+    again, counted = _counted(lambda: _features(other, tframe))
+    assert counted == (0, 0)  # the memo of the first featurizer's pass
+    np.testing.assert_array_equal(again, got["thumb"])
+
+    residency.clear()
+    tfeaturizer._PREP_CACHE.clear()
+    _unroll_route(monkeypatch)
+    old = ImageFeaturizer(cutOutputLayers=1, miniBatchSize=4)
+    old.set_model("resnet20_cifar", params=jparams, **ARCH)
+    for col in ("image", "thumb"):
+        old.set_params(inputCol=col)
+        np.testing.assert_array_equal(got[col], _features(old, tframe))
+    assert np.abs(got["image"] - got["thumb"]).max() > 0
+
+
+def test_the_stack_is_held_only_from_the_gather_to_the_upload(
+        jparams, monkeypatch):
+    """The staging stack's lock is free while the frame is scored from
+    its upload, and a repeat pass whose upload is resident never waits
+    for it; a copy of the featurizer has a stack of its own."""
+    fz = ImageFeaturizer(cutOutputLayers=1, miniBatchSize=4)
+    fz.set_model("resnet20_cifar", params=jparams, **ARCH)
+    frame, _ = _frames(_u8_images(26, 6, 32, 32))
+    scoring = TorchModel._transform_resident
+    held = []
+
+    def spy(self, *args):
+        held.append(fz._staging().lock.locked())
+        return scoring(self, *args)
+
+    monkeypatch.setattr(TorchModel, "_transform_resident", spy)
+    first = _features(fz, frame)
+    assert held == [False]
+
+    done = []
+    with fz._staging().lock:
+        th = threading.Thread(target=lambda: done.append(
+            _features(fz, frame)))
+        th.start()
+        th.join(timeout=60)
+        assert not th.is_alive()
+    np.testing.assert_array_equal(done[0], first)
+    assert len(held) == 2  # scored while the test held the stack
+    assert fz.copy()._staging() is not fz._staging()
+
+
+def _route_case(case):
+    """(frame, setup(featurizer)) of one route-choice case."""
+    rng = np.random.default_rng(21)
+    if case == "ragged":
+        images = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+                  for h, w in [(20, 30), (32, 32), (41, 17)]]
+    elif case == "float":
+        images = list(rng.uniform(0, 255, (5, 32, 32, 3)).astype(np.float32))
+    else:
+        images = _u8_images(22, 5, 32, 32)
+    frame, _ = _frames(images)
+
+    def setup(fz):
+        if case == "device_cache_off":
+            # the scoring model of this shape, then deviceCache off on it
+            _features(fz, _frames(_u8_images(23, 2, 32, 32))[0])
+            fz._tm_cache.set_params(deviceCache="off")
+        elif case == "over_budget":
+            # 2 x (2, 4, 3072) B of uint8 stack is over 0.01 MB
+            tconfig.set("runtime.device_cache_mb", 0.01)
+    return frame, setup
+
+
+@pytest.mark.parametrize("case,routes", [
+    ("fused", (1, 0)), ("ragged", (0, 1)), ("float", (0, 1)),
+    ("device_cache_off", (0, 1)), ("over_budget", (0, 1))])
+def test_the_route_is_chosen_from_the_input_and_counted(
+        jparams, case, routes):
+    """Only the fused case that can stay resident takes the direct route;
+    each fresh frame counts its route once, and a memo hit counts
+    neither and gives the same features."""
+    fz = ImageFeaturizer(cutOutputLayers=1, miniBatchSize=4)
+    fz.set_model("resnet20_cifar", params=jparams, **ARCH)
+    frame, setup = _route_case(case)
+    setup(fz)
+    first, counted = _counted(lambda: _features(fz, frame))
+    assert counted == routes
+    again, counted = _counted(lambda: _features(fz, frame))
+    assert counted == (0, 0)
+    np.testing.assert_array_equal(first, again)
