@@ -7,9 +7,10 @@ Run one cell from the root of a checkout::
 
 ``BENCHMARK.json`` at the root names the cells; each cell's configuration
 (``configs/``), traffic mix (``traffic/``), limits (``limits/``) and
-per-layer readers (``metrics/``) are files of their own, found by name.
-The yardstick lives here: the traffic generators, the FLOP and byte counts
-(``counts/``), the trace reduction and the plain reference
-(``reference/``) that decides ``correct``. Nothing here imports JAX or the
-JAX package.
+per-layer readers (``metrics/``) are files of their own, found by name, and
+so are each architecture family's reference (``reference/<family>.py``)
+and FLOP count (``counts/<family>.py``). The yardstick lives here: the
+traffic generators, the FLOP and byte counts (``counts/``), the trace
+reduction and the plain reference (``reference/``) that decides
+``correct``. Nothing here imports JAX or the JAX package.
 """

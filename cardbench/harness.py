@@ -6,7 +6,17 @@ cell's configuration and traffic; ``configs/<config>.json``,
 ``traffic/<traffic>.json`` (which names its lane, ``lanes/<lane>.py``) and
 ``limits/<cell>.json`` hold its numbers; ``metrics/<metric>.py``, or else
 ``metrics/<part before the first dot>.py``, reads each per-layer metric,
-in the cells its ``workloads`` list."""
+in the cells its ``workloads`` list.
+
+A configuration names its architecture's family by ``family`` (its
+``architecture`` where it has none), and a family brings two files of its
+own: ``reference/<family>.py``, the plain reference (``param_specs`` and
+``forward``), and ``counts/<family>.py``, whose ``forward(cfg,
+image_size)`` counts the FLOPs of one image. A ``param_specs`` entry may
+carry a fourth element, the fan-in of a banked weight such as an ``(E, D,
+H)`` expert bank; a configuration's ``aux_loss_weight`` adds that weight
+times the model's auxiliary loss to the training loss of both sides. So a
+new architecture enters by new files and entries alone."""
 import gc
 import importlib.util
 import json
@@ -34,6 +44,21 @@ def load_json(path: Path):
 
 def benchmark() -> Dict:
     return load_json(ROOT / "BENCHMARK.json")
+
+
+def family_module(kind: str, cfg: Dict):
+    """``cardbench.<kind>.<family>``: the module of ``cfg``'s architecture
+    family under ``reference/`` or ``counts/``."""
+    family = cfg.get("family", cfg["architecture"])
+    name = f"cardbench.{kind}.{family}"
+    try:
+        return importlib.import_module(name)
+    except ModuleNotFoundError as e:
+        if e.name != name:
+            raise
+        raise CellError(f"configuration {cfg['name']!r} names family "
+                        f"{family!r}, and cardbench/{kind}/{family}.py "
+                        f"does not exist") from None
 
 
 class Cell:

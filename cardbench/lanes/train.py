@@ -1,9 +1,12 @@
 """Training: ``DistributedTrainer.train_step`` with SGD and momentum over a
 ``DeviceEpochCache`` of seeded uint8 images, normalized inside the loss by
-``make_preprocess_fn`` (K1 on a card). On several ranks (a cell on several
-cards) the trainer and the cache take the launcher's data-parallel mesh:
-each rank holds its block of every global batch, and the gradients are
-all-reduced; the ranks agree to stop at the trainer's ring reads.
+``make_preprocess_fn`` (K1 on a card). The loss is cross-entropy, plus
+the configuration's ``aux_loss_weight`` times ``moe_aux_loss`` (the
+auxiliary losses of the forward's ``MoeMlp``s) where it sets one. On
+several ranks (a cell on several cards) the trainer and the cache take
+the launcher's data-parallel mesh: each rank holds its block of every
+global batch, and the gradients are all-reduced; the ranks agree to stop
+at the trainer's ring reads.
 
 Traffic keys: ``epoch_images``; ``batch`` (the global batch);
 ``lr``; ``momentum``; ``normalize`` {mean, std}; ``warm_steps`` after the
@@ -36,6 +39,7 @@ STILL_LEAF = 1e-3
 
 def run(ctx):
     from mmlspark_tpu_torch.models.zoo import build_model
+    from mmlspark_tpu_torch.models.zoo.moe import moe_aux_loss
     from mmlspark_tpu_torch.ops.preprocess import make_preprocess_fn
     from mmlspark_tpu_torch.parallel.optim import sgd
     from mmlspark_tpu_torch.parallel.trainer import (
@@ -52,9 +56,14 @@ def run(ctx):
     norm = tr["normalize"]
     pre = make_preprocess_fn(shape, norm["mean"], norm["std"])
 
+    aux_weight = cfg.get("aux_loss_weight")
+
     def loss_fn(module, b, g):
         logits = module(pre(b["image"])).float()
-        return F.cross_entropy(logits, b["label"].long())
+        loss = F.cross_entropy(logits, b["label"].long())
+        if aux_weight is None:
+            return loss
+        return loss + aux_weight * moe_aux_loss(module)
 
     module = build_model(cfg["architecture"], **cfg["arch_args"])["module"]
     module.load_state_dict({k: torch.from_numpy(v) for k, v in params.items()},

@@ -8,6 +8,7 @@ import torch
 import torch.nn.functional as F
 
 from cardbench.compare import leaf_norms
+from cardbench.harness import CellError
 from cardbench.reference import module_for
 from cardbench.reference.precision import exact_fp32
 from cardbench.reference.preprocess import crop_resize_normalize, normalize
@@ -30,7 +31,7 @@ def pool_outputs(cfg, params: Dict[str, np.ndarray], pool: np.ndarray,
             idx = indices[s:s + block]
             u8 = torch.from_numpy(pool[idx]).to(device)
             x = crop_resize_normalize(u8, size, mean=mean, std=std)
-            logits, pooled = ref.forward(p, x, cfg, mode)
+            logits, pooled = ref.forward(p, x, cfg, mode)[:2]
             rows = (pooled if layer == "pool" else logits).float().cpu().numpy()
             out.update(zip(idx.tolist(), rows))
     return out
@@ -41,12 +42,26 @@ def train_steps(cfg, params: Dict[str, np.ndarray],
                 momentum: float, mean, std, device: torch.device,
                 mode: str = "fp32", chunk: int = 0) -> Dict[str, List[float]]:
     """SGD with momentum (no dampening, no Nesterov) on cross-entropy over
-    ``batches`` of (uint8 images (B, H, W, C), int labels). Returns each
-    step's loss, each leaf's gradient norm at the first step, and each
-    leaf's change over all the steps, leaves in ``param_specs`` order.
-    ``chunk`` > 0 sums the gradient over row chunks of that size."""
+    ``batches`` of (uint8 images (B, H, W, C), int labels), plus
+    ``cfg["aux_loss_weight"]`` times the auxiliary loss that the family's
+    ``forward`` returns third, where the configuration sets that weight.
+    Returns each step's loss, each leaf's gradient norm at the first step,
+    and each leaf's change over all the steps, leaves in ``param_specs``
+    order. ``chunk`` > 0 sums the loss and the gradient over row chunks of
+    that size, each chunk's cross-entropy summed over its rows and divided
+    by the batch's. The auxiliary loss is a statistic of the whole batch
+    (a router's load over all its tokens, and their capacity) that no sum
+    over chunks gives, so a chunk smaller than a batch is refused where
+    the weight is set: the reference then takes each batch whole."""
     ref = module_for(cfg)
-    names = [n for n, _, _ in ref.param_specs(cfg)]
+    names = [spec[0] for spec in ref.param_specs(cfg)]
+    aux_weight = cfg.get("aux_loss_weight")
+    if aux_weight is not None and chunk and any(
+            chunk < len(lab) for _, lab in batches):
+        raise CellError(
+            f"{cfg['name']}: aux_loss_weight is set, and its auxiliary loss "
+            f"is a statistic of the whole batch that row chunks of "
+            f"{chunk} cannot sum; the reference takes a batch whole")
     p = {k: torch.from_numpy(params[k]).to(device, copy=True)
          .requires_grad_(True) for k in names}
     start = {k: v.detach().clone() for k, v in p.items()}
@@ -62,9 +77,15 @@ def train_steps(cfg, params: Dict[str, np.ndarray],
             total = 0.0
             for s in range(0, n, step):
                 x = normalize(x_all[s:s + step], mean, std)
-                logits, _ = ref.forward(p, x, cfg, mode)
-                loss = F.cross_entropy(logits.float(), y_all[s:s + step],
+                out = ref.forward(p, x, cfg, mode)
+                loss = F.cross_entropy(out[0].float(), y_all[s:s + step],
                                        reduction="sum") / n
+                if aux_weight is not None:
+                    if len(out) < 3:
+                        raise CellError(
+                            f"{cfg['name']}: aux_loss_weight is set, and the "
+                            f"reference's forward returns no auxiliary loss")
+                    loss = loss + aux_weight * out[2]
                 g = torch.autograd.grad(loss, [p[k] for k in names])
                 for acc, gi in zip(grads, g):
                     acc.add_(gi)

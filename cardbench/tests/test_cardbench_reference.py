@@ -40,7 +40,7 @@ def test_reference_shapes_are_the_port_state_dict():
     for cell in ("resnet50.featurize", "vit_b16.train"):
         cfg = Cell(cell).cfg
         port = _port_module(cfg, cfg["image_size"]).state_dict()
-        ref = {n: tuple(s) for n, s, _ in module_for(cfg).param_specs(cfg)}
+        ref = {n: tuple(s) for n, s, *_ in module_for(cfg).param_specs(cfg)}
         assert ref == {k: tuple(v.shape) for k, v in port.items()}
 
 
