@@ -4,6 +4,7 @@
     python3 chip_smoke.py                      # as the chip check runs it
     python3 chip_smoke.py --profile <dir>      # plus profiled warm passes
     python3 chip_smoke.py --mesh-only [--mesh-cards 4]   # mesh, chaos_mesh
+    python3 chip_smoke.py --vmoe-only                    # build, vmoe
 
 Nine paths, each through the entry points a user calls:
 
@@ -187,6 +188,17 @@ The script:
     MFU), K1 once a step and no other kernel; 10 steps' losses within
     ``TL_PARITY_TOL`` of the same trainer fed by K1's plain version (bit
     equality reported);
+13b. ``vmoe``: V-MoE-B/16 (``vmoe_b16``, bf16, 1000 classes, seeded
+    router noise) at vmoe_b16.train's batch of 128 uint8 224x224 images,
+    K1 and the aux loss in the loss: one step with the counts zeroed just
+    before it under CUDA's sync-debug mode (K1 once; in each of the 6
+    routed blocks 6 ``moe_grouped_gemm``, a ``moe_permute``, 2
+    ``moe_unpermute``, a ``moe_unpermute_bwd`` and 2 ``moe_bias_grad``;
+    no sync outside ``observability/syncs.py``), ``VM_STEPS`` timed steps,
+    then each MoE wrapper against its plain version at the cell's shapes
+    (S = 25,216, C = 1,655) within ``VM_TOL``, forward and backward, and
+    the kernels' device ms beside their bound, the plain version's and
+    cuBLAS's. ``--vmoe-only`` runs the build and this phase alone;
 14. ``serve``: a ``Server`` (max_batch 64, buckets 1, 8, 32, 64) over the
     TorchModel ``ImageFeaturizer`` builds for ResNet-50 (``pool``, bf16,
     ``devicePreprocess`` 256^2x3 uint8 -> 224^2; seed 0). Every bucket's
@@ -611,6 +623,15 @@ DEEP_OPT_ROWS = 8192
 TEXT_F32_TOL = 2e-5
 LM_BF16_TRAIN_TOL, LM_F32_TRAIN_TOL = 1e-3, 1e-4
 TL_PARITY_TOL = 1e-3
+
+# the vmoe phase: V-MoE-B/16 (models/zoo/vit.py::vmoe_b16) trained at
+# vmoe_b16.train's batch of 128 224x224 images (S = 25,216 tokens; 32
+# experts of C = 1,655 slots in each routed block), and each MoE kernel of
+# ops/moe.py against its plain version at those shapes. VM_TOL: bf16
+# storage of the pre-activation, activation and outputs on both routes,
+# fp32 sums in another order, so a value may round to the neighbouring
+# bf16 (2^-8 of it); a wrong tile, slot or operand layout reads O(1)
+VM_BATCH, VM_STEPS, VM_TOL = 128, 5, 2e-2
 DEEP_OPT_TOL = 1e-5
 # the serve phases. serve: the featurize path's ResNet-50 scoring model
 # (bf16, pool, K2 resizing 256^2 uint8 to 224^2) behind a Server with
@@ -2818,6 +2839,159 @@ def phase_train_large(torch, kernels, card, profile_dir=None):
     return launches
 
 
+def phase_vmoe(torch, kernels, card):
+    """V-MoE-B/16 on the card. One training step at vmoe_b16.train's batch
+    (K1 in the loss, the train lane's aux loss) with every launch count
+    zeroed just before it and read just after, under CUDA's sync-debug
+    mode: each of the 6 routed blocks launches 6 grouped GEMMs, a gather,
+    a combine, their backward and 2 bias gradients, and nothing outside
+    the counted syncs reads the device. Then VM_STEPS timed steps, and each
+    wrapper of ops/moe.py against its plain version on the same inputs at
+    the cell's shapes, forward and backward, with the kernels' device ms
+    beside their bound, the plain version's and cuBLAS's (``bmm`` on the
+    padded buffer, and the same function in PyTorch: ``baddbmm``, GELU,
+    ``baddbmm``)."""
+    import torch.nn.functional as F
+    from mmlspark_tpu_torch.models.zoo import build_model, init_state
+    from mmlspark_tpu_torch.models.zoo.moe import moe_aux_loss
+    from mmlspark_tpu_torch.observability import syncs
+    from mmlspark_tpu_torch.ops import moe as moe_ops
+    from mmlspark_tpu_torch.ops.preprocess import make_preprocess_fn
+    from mmlspark_tpu_torch.parallel.optim import sgd
+    from mmlspark_tpu_torch.parallel.trainer import DistributedTrainer
+
+    module = build_model("vmoe_b16", num_classes=1000, noise_seed=1)["module"]
+    module.load_state_dict({k: torch.from_numpy(v) for k, v in
+                            init_state(module, seed=0).items()})
+    pre = make_preprocess_fn(TL_SHAPE, (127.5,) * 3, (127.5,) * 3)
+
+    def loss_fn(m, batch, gen):
+        logits = m(pre(batch["image"])).float()
+        return F.cross_entropy(logits, batch["label"].long()) \
+            + 0.01 * moe_aux_loss(m)
+    trainer = DistributedTrainer(loss_fn, sgd(0.01, momentum=0.9))
+    state = trainer.init(lambda: module)
+    rng = np.random.default_rng(7)
+    batch = {"image": torch.from_numpy(rng.integers(
+                 0, 256, (VM_BATCH, math.prod(TL_SHAPE)),
+                 dtype=np.uint8)).to(card),
+             "label": torch.from_numpy(rng.integers(
+                 0, 1000, VM_BATCH).astype(np.int32)).to(card)}
+    t0 = time.perf_counter()
+    state, m = trainer.train_step(state, batch, 1)
+    syncs.device_get(m["loss"], "smoke.first_step")
+    first_s = time.perf_counter() - t0
+    # the main path: counts zeroed just before, read just after
+    kernels.reset_launches()
+    (state, m), hidden, n_sync = _sync_checked(
+        torch, lambda: trainer.train_step(state, batch, 1))
+    launches = _launches(kernels)
+    loss = float(syncs.device_get(m["loss"], "smoke.vmoe"))
+    want = _want(kernels, FUSED_NORMALIZE=1, MOE_GROUPED_GEMM=36,
+                 MOE_PERMUTE=6, MOE_UNPERMUTE=12, MOE_UNPERMUTE_BWD=6,
+                 MOE_BIAS_GRAD=12)
+    _check(launches == want, f"a vmoe_b16 step launched {launches}, "
+                             f"want {want}")
+    _check(not hidden, f"a vmoe_b16 step synchronized at {hidden}")
+    _check(math.isfinite(loss), "vmoe_b16 loss not finite")
+    t0 = time.perf_counter()
+    for _ in range(VM_STEPS):
+        state, m = trainer.train_step(state, batch, 1)
+    syncs.device_get(m["loss"], "smoke.vmoe_timed")
+    step_s = (time.perf_counter() - t0) / VM_STEPS
+    peak = torch.cuda.max_memory_allocated(card)
+    del trainer, state, m, module
+
+    # each wrapper against its plain version at the cell's shapes
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=card).manual_seed(0)
+    E, K, S, D, H = 32, 2, VM_BATCH * 197, 768, 3072
+    C = round(K * S * 1.05 / E)
+    x = torch.randn(S, D, generator=g, device=card, requires_grad=True)
+    gates, gate_idx = torch.topk(torch.softmax(
+        torch.randn(S, E, generator=g, device=card), -1), K, dim=-1)
+    gates.requires_grad_(True)
+    plan = moe_ops.index_plan(gate_idx, E, C)
+    leaves = [torch.randn(E, D, H, generator=g, device=card) / D ** 0.5,
+              0.02 * torch.randn(E, H, generator=g, device=card),
+              torch.randn(E, H, D, generator=g, device=card) / H ** 0.5,
+              0.02 * torch.randn(E, D, generator=g, device=card)]
+    for t in leaves:
+        t.requires_grad_(True)
+    dy = torch.randn(S, D, generator=g, device=card).to(bf16)
+
+    def kernel_route():
+        xe = moe_ops.permute(x, plan, E, bf16)
+        ye = moe_ops.experts(xe.view(E, C, D), *leaves, bf16, bf16)
+        return xe, ye, moe_ops.unpermute(ye.view(E * C, D), gates, plan,
+                                         bf16)
+
+    def plain_route():
+        xe = moe_ops.permute_plain(x, plan.pair_slot, E * C, bf16)
+        ye = moe_ops.experts_plain(xe.view(E, C, D), *leaves, bf16, bf16)
+        return xe, ye, moe_ops.unpermute_plain(ye.view(E * C, D), gates,
+                                               plan.pair_slot, bf16)
+    outs = []
+    for route in (kernel_route, plain_route):
+        xe, ye, y = route()
+        y.backward(dy)
+        outs.append([xe.detach(), ye.detach(), y.detach(), x.grad, gates.grad]
+                    + [t.grad for t in leaves])
+        for t in [x, gates] + leaves:
+            t.grad = None
+    torch.cuda.synchronize()
+    names = ["permute", "experts", "unpermute", "d_x", "d_gates", "d_w_up",
+             "d_b_up", "d_w_down", "d_b_down"]
+    errs = {n: float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max()) for n, a, b in zip(names, *outs)}
+    _check(all(v <= VM_TOL for v in errs.values()),
+           f"MoE kernels against their plain versions: {errs} > {VM_TOL}")
+
+    # device ms a call of one routed block's forward, and forward + backward
+    with torch.no_grad():
+        xe = moe_ops.permute(x, plan, E, bf16)
+        ye = moe_ops.experts(xe.view(E, C, D), *leaves, bf16, bf16)
+        ms = {"permute": _graph_ms(torch, lambda: moe_ops.permute(
+                  x, plan, E, bf16)),
+              "experts_fwd": _graph_ms(torch, lambda: moe_ops.experts(
+                  xe.view(E, C, D), *leaves, bf16, bf16), iters=5),
+              "unpermute": _graph_ms(torch, lambda: moe_ops.unpermute(
+                  ye.view(E * C, D), gates, plan, bf16))}
+        plain_ms = {"experts_fwd": _median_ms(torch, lambda: moe_ops.experts_plain(
+            xe.view(E, C, D), *leaves, bf16, bf16), iters=2, reps=3)}
+        xb, wu, wd = xe.view(E, C, D), leaves[0].to(bf16), leaves[2].to(bf16)
+        bu, bd = leaves[1].to(bf16)[:, None], leaves[3].to(bf16)[:, None]
+        library_ms = {
+            "bmm_up_down": _graph_ms(torch, lambda: torch.bmm(
+                torch.bmm(xb, wu), wd), iters=5),
+            "same_function": _graph_ms(torch, lambda: torch.baddbmm(
+                bd, F.gelu(torch.baddbmm(bu, xb, wu), approximate="tanh"),
+                wd), iters=5)}
+
+    def fwd_bwd():
+        kernel_route()[2].backward(dy)
+    ms["layer_fwd_bwd"] = _median_ms(torch, fwd_bwd, iters=3, reps=3)
+    gemm_flops = 2 * E * C * D * H
+    bound_ms = {"experts_fwd": 2 * gemm_flops / PEAK_BF16_S * 1e3,
+                "layer_fwd_bwd_gemms": 6 * gemm_flops / PEAK_BF16_S * 1e3,
+                "permute": (S * D * 4 + E * C * D * 2) / PEAK_BYTES_S * 1e3,
+                "unpermute": (E * C * D * 2 + S * D * 2) / PEAK_BYTES_S * 1e3}
+    _line(phase="vmoe", card=_smi(), model="vmoe_b16", batch=VM_BATCH,
+          tokens=S, experts=E, top_k=K, capacity=C,
+          first_step_s=first_s, step_ms=step_s * 1e3,
+          images_per_s=VM_BATCH / step_s, loss=loss,
+          memory_peak_bytes=peak, launches_main_path=launches,
+          syncs_outside_counted=hidden, syncs_counted=n_sync,
+          max_rel_err=errs, tolerance=VM_TOL, ms=ms, plain_ms=plain_ms,
+          library_ms=library_ms, bound_ms=bound_ms,
+          experts_fwd_tflops=2 * gemm_flops / ms["experts_fwd"] / 1e9,
+          ptxas={k.name: _ptxas_of(k) for k in (kernels.MOE_GROUPED_GEMM,
+                                                kernels.MOE_PERMUTE)})
+    return {"launches": launches, "errs": errs, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms}
+
+
 def _closed_loop(clients, jobs, call):
     """``call(job)`` for every job, from ``clients`` threads that each take
     every ``clients``-th job in turn and wait for its answer before the
@@ -2874,7 +3048,12 @@ KERNEL_SYMBOLS = {
                         "fused_normalize_scalar_kernel"),
     "crop_resize_normalize": ("crop_resize_normalize_kernel",),
     "flash_attention": ("flash_fwd_kernel",),
-    "flash_attention_tc": ("flash_tc_kernel",)}
+    "flash_attention_tc": ("flash_tc_kernel",),
+    "moe_grouped_gemm": ("moe_grouped_gemm_kernel",),
+    "moe_permute": ("moe_permute_kernel",),
+    "moe_unpermute": ("moe_unpermute_kernel",),
+    "moe_unpermute_bwd": ("moe_unpermute_bwd_kernel",),
+    "moe_bias_grad": ("moe_bias_grad_kernel",)}
 
 
 def _cow_effect(torch, gen, prog) -> dict:
@@ -7668,6 +7847,14 @@ def main() -> int:
         _check(not spills, f"{k.name} spills: {spills}")
 
     card = torch.device("cuda", 0)
+    if "--vmoe-only" in sys.argv[1:]:
+        vmoe = _run(phase_vmoe, torch, kernels, card)
+        _line(vmoe_launches=vmoe["launches"])
+        print(_smi(), flush=True)
+        _line(ok=True, device={"platform": "gpu",
+                               "kind": torch.cuda.get_device_name(0),
+                               "count": torch.cuda.device_count()})
+        return 0
     if "--mesh-only" in sys.argv[1:]:
         cards = 1
         if "--mesh-cards" in sys.argv[1:]:
@@ -7699,6 +7886,7 @@ def main() -> int:
     lm_train, lm_train32, moe_train = _run(phase_lm_train, torch, kernels,
                                            card, profile_dir)
     train_large = _run(phase_train_large, torch, kernels, card, profile_dir)
+    vmoe = _run(phase_vmoe, torch, kernels, card)
     serve = _run(phase_serve, torch, kernels, card)
     lm_serve = _run(phase_lm_serve, torch, kernels, card)
     generate, generate32, single = _run(phase_generate, torch, kernels, card)
@@ -7845,7 +8033,24 @@ def main() -> int:
         "bound_ms": k3["f32"]["bound_ms"], "bound_by": k3["f32"]["bound_by"],
         "library_ms": k3["f32"]["library_ms"],
         "library_note": "F.scaled_dot_product_attention(is_causal=True), "
-                        "f32, TF32 off (B=8, L=2048, H=8, D=64)"}])
+                        "f32, TF32 off (B=8, L=2048, H=8, D=64)"}] + [{
+        "name": k.name, "route": "cuda",
+        "source": f"mmlspark_tpu_torch/kernels/csrc/{k.source.name}",
+        "replaces": None,
+        "replaces_note": "no TPU kernel: the JAX package routes experts by "
+                         "one-hot einsums",
+        "launches": vmoe["launches"][k.name],
+        "launches_by_path": {"vmoe": vmoe["launches"][k.name]},
+        "launches_note": "one vmoe_b16 training step (6 routed blocks)",
+        "max_rel_err": vmoe["errs"], "ms": vmoe["ms"],
+        "plain_ms": vmoe["plain_ms"], "bound_ms": vmoe["bound_ms"],
+        "library_ms": vmoe["library_ms"],
+        "library_note": "torch.bmm on the padded (E, C) buffer, up then "
+                        "down; and baddbmm, GELU, baddbmm (vmoe_b16.train's "
+                        "shapes)"} for k in (
+            kernels.MOE_GROUPED_GEMM, kernels.MOE_PERMUTE,
+            kernels.MOE_UNPERMUTE, kernels.MOE_UNPERMUTE_BWD,
+            kernels.MOE_BIAS_GRAD)])
     _line(phase="total", seconds=time.time() - _T_MODULE)
     print(_smi(), flush=True)
     _line(ok=True, device={"platform": "gpu",

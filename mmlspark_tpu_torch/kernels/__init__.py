@@ -1,10 +1,12 @@
 """The port's hand-written Hopper kernels, one registered ``Kernel`` each.
 
 Every Pallas TPU kernel of the JAX package that a ported path runs gets a
-CUDA C++ counterpart here (``csrc/``), built by :mod:`.build`. Each sits
-behind a wrapper in the module that uses it, beside a plain PyTorch version
-of the same function; the wrapper launches the kernel for a CUDA tensor and
-takes the plain version only for a CPU tensor.
+CUDA C++ counterpart here (``csrc/``), built by :mod:`.build`; so do the
+routed MLP's index dispatch and expert GEMMs, which the JAX package leaves
+to one-hot einsums. Each sits behind a wrapper in the module that uses it,
+beside a plain PyTorch version of the same function; the wrapper launches
+the kernel for a CUDA tensor and takes the plain version only for a CPU
+tensor.
 """
 from __future__ import annotations
 
@@ -42,3 +44,27 @@ FLASH_ATTENTION = Kernel("flash_attention", "flash_attention.cu",
 # the tensor-core route (wgmma, TMA): bf16 with D <= 128; same signature
 FLASH_ATTENTION_TC = Kernel("flash_attention_tc", "flash_attention_wgmma.cu",
                             _K3_ARGTYPES)
+
+# The experts of a routed MLP (mmlspark_tpu_torch/ops/moe.py); no TPU
+# counterpart: the JAX package routes by one-hot einsums.
+# (a, b, c, c2, bias, aux, E, M, N, K, a_mn, b_mn, lda, sae, ldb, sbe, ldc,
+#  sce, epi, stream); the wrapper counts its variants ("up", "down",
+# "d_pre", "d_x", "d_w")
+MOE_GROUPED_GEMM = Kernel(
+    "moe_grouped_gemm", "moe_grouped_gemm.cu",
+    [c_void_p] * 6 + [c_int] * 6 + [c_longlong] * 6 + [c_int, c_void_p])
+# the index dispatch's row moves and the experts' bias gradient, four entry
+# points of one source:
+# (src, slot, dst, S, D, K, stream)
+MOE_PERMUTE = Kernel("moe_permute", "moe_rows.cu",
+                     [c_void_p] * 3 + [c_int] * 3 + [c_void_p])
+# (src, slot, gates, dst, S, D, K, dst_f32, stream); the combine, and the
+# gather's backward (variant "gather_bwd")
+MOE_UNPERMUTE = Kernel("moe_unpermute", "moe_rows.cu",
+                       [c_void_p] * 4 + [c_int] * 4 + [c_void_p])
+# (dy, ye, slot, gates, d_ye, d_gates, S, D, K, stream)
+MOE_UNPERMUTE_BWD = Kernel("moe_unpermute_bwd", "moe_rows.cu",
+                           [c_void_p] * 6 + [c_int] * 3 + [c_void_p])
+# (g, out, E, C, N, stream)
+MOE_BIAS_GRAD = Kernel("moe_bias_grad", "moe_rows.cu",
+                       [c_void_p] * 2 + [c_int] * 3 + [c_void_p])

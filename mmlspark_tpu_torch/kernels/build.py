@@ -116,13 +116,19 @@ def nvcc() -> str:
 def build_all(kernels: Sequence[Kernel] = None) -> Dict[str, str]:
     """Build every kernel whose library is missing, one ``nvcc`` process
     per source, all started together. Returns ``{name: "hit" | "built"}``.
-    Each library is written under a temporary name and renamed into place,
-    so concurrent builds never load a half-written file."""
+    Kernels whose entry points share a source share one build. Each
+    library is written under a temporary name and renamed into place, so
+    concurrent builds never load a half-written file."""
     kernels = list(KERNELS if kernels is None else kernels)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    status, procs = {}, []
+    status, procs, sharing = {}, [], {}
     for k in kernels:
         lib = k.library()
+        if lib in sharing:
+            # another entry point of a source already in this build
+            sharing[lib].append(k)
+            continue
+        sharing[lib] = [k]
         if lib.exists():
             status[k.name] = "hit"
             log = lib.with_suffix(".log")
@@ -149,6 +155,9 @@ def build_all(kernels: Sequence[Kernel] = None) -> Dict[str, str]:
             failures.append(f"{k.source.name}:\n{out.decode(errors='replace')}")
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+    for first, *others in sharing.values():
+        for k in others:
+            k.build_log, status[k.name] = first.build_log, status[first.name]
     return status
 
 

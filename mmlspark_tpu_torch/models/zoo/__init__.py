@@ -7,7 +7,8 @@ architecture registers under the same stable name with the same spec dict
 both packages. ``module`` is an ``nn.Module`` whose parameters are
 allocated but not initialized; :func:`init_state` fills a state dict from a
 seed. Registered: the ResNets, the tabular MLP, TextCNN, the
-transformer LM and its MoE variant, the ViTs and the DLRM recommender.
+transformer LM and its MoE variant, the ViTs and the DLRM recommender, in
+both packages; V-MoE (``vmoe_b16``, ``vmoe_tiny``) in the port alone.
 """
 from __future__ import annotations
 
@@ -18,11 +19,15 @@ import numpy as np
 import torch
 
 _ZOO: Dict[str, Callable] = {}
+# architectures of the port alone, which the JAX package does not register
+_PORT_ONLY: set = set()
 
 
-def register_model(name: str):
+def register_model(name: str, port_only: bool = False):
     def wrap(fn):
         _ZOO[name] = fn
+        if port_only:
+            _PORT_ONLY.add(name)
         return fn
     return wrap
 
@@ -35,6 +40,12 @@ def build_model(name: str, **kwargs):
 
 def available_models() -> List[str]:
     return sorted(_ZOO)
+
+
+def shared_models() -> List[str]:
+    """The architectures the JAX package registers too, under the same
+    names and specs (every one but V-MoE's)."""
+    return sorted(set(_ZOO) - _PORT_ONLY)
 
 
 def resolve_dtype(dtype) -> torch.dtype:
@@ -68,7 +79,9 @@ def init_state(module: torch.nn.Module, seed: int = 0) -> Dict[str, np.ndarray]:
       deviations, ``fan_in`` = every axis but the output one);
     - the MoE ``experts_up``/``experts_down`` (E, D, H)/(E, H, D):
       lecun-normal over the whole array, ``fan_in`` = every axis but the
-      last, as flax's ``variance_scaling`` counts a rank-3 kernel;
+      last, as flax's ``variance_scaling`` counts a rank-3 kernel; a bank
+      whose module sets ``per_expert_fan_in`` (V-MoE's) takes each
+      expert's own fan-in, D for ``experts_up`` and H for ``experts_down``;
     - ``Embed``'s ``embedding`` (V, D): ``variance_scaling(1.0, "fan_in",
       "normal", out_axis=0)``, an untruncated normal of variance 1 / D;
       the DLRM's ``<table>_embedding`` (rows, D): ``normal(D ** -0.5)``,
@@ -80,11 +93,17 @@ def init_state(module: torch.nn.Module, seed: int = 0) -> Dict[str, np.ndarray]:
     need both packages to score the same weights pass the JAX parameters
     through :func:`mmlspark_tpu_torch.models.convert.from_jax_params`."""
     gen = torch.Generator().manual_seed(int(seed))
+    per_expert = {f"{path}.{leaf}" if path else leaf
+                  for path, sub in module.named_modules()
+                  if getattr(sub, "per_expert_fan_in", False)
+                  for leaf in ("experts_up", "experts_down")}
     state = {}
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf in ("experts_up", "experts_down"):
-            value = _truncated_lecun(p.shape, math.prod(p.shape[:-1]), gen)
+            fan_in = p.shape[1] if name in per_expert \
+                else math.prod(p.shape[:-1])
+            value = _truncated_lecun(p.shape, fan_in, gen)
         elif leaf == "embedding" or (leaf.endswith("_embedding")
                                      and leaf != "pos_embedding"
                                      and p.ndim == 2):

@@ -25,6 +25,35 @@ loss, as the JAX package's ``moe_aux_loss`` sums the sown terms.
 
 ``transformer_lm_moe`` is ``TransformerLM`` with the dense MLP of every
 odd block swapped for :class:`MoeMlp`; every block's attention is K3's.
+
+``router="vmoe"`` gives V-MoE's rules instead (Riquelme et al. 2021,
+arXiv:2106.05974, section 2 and appendix A), for ``vit.py::vmoe_b16``:
+
+- the router is a D -> E Dense with no bias; in training its logits take
+  noise of std ``noise_std / E``; the gates are the top K of the softmax
+  of the (noisy) logits, not renormalised;
+- the capacity is ``C = round(K * S * capacity_factor / E)``, the slots as
+  above;
+- the experts carry biases (``experts_up_bias`` (E, H),
+  ``experts_down_bias`` (E, D)) and compute in ``dtype`` with fp32 sums;
+  the output is in ``dtype``, as a dense ``MlpBlock``'s is;
+- ``aux_loss`` is ``(L_imp + L_load) / 2``, each the squared coefficient
+  of variation over experts: of the importance (the sum of each expert's
+  softmax over the tokens), and of the load (the sum over tokens of
+  ``1 - Phi((eta_K - logit_i) / sigma)``, the chance that expert i stays
+  in the top K when its own noise is drawn again; eta_K the K-th largest
+  noisy logit);
+- tokens move by the index dispatch (``ops/moe.py``), with no (S, E, C)
+  tensor; the GShard rules keep the one-hot route.
+
+With ``noise_seed`` set, the block at depth ``layer`` draws its noise from
+a ``torch.Generator`` on the input's device seeded with ``noise_seed *
+65536 + layer``, the same draw at every training forward (comparisons
+repeat it); without it the noise is drawn fresh, as published. An eval
+forward adds none. Each index-routed forward adds its kept and dropped
+(token, choice) pairs to a device counter (:meth:`MoeMlp.device_counters`)
+that the trainer reads at its flush, and opens the hot spans
+``moe:route``, ``moe:permute``, ``moe:experts`` and ``moe:unpermute``.
 """
 from __future__ import annotations
 
@@ -37,6 +66,8 @@ from torch import nn
 
 from mmlspark_tpu_torch.models.zoo import register_model, resolve_dtype
 from mmlspark_tpu_torch.models.zoo.resnet import Dense
+from mmlspark_tpu_torch.observability.spans import span
+from mmlspark_tpu_torch.ops import moe as moe_ops
 from mmlspark_tpu_torch.parallel import collectives
 from mmlspark_tpu_torch.models.zoo.transformer import (
     DecoderBlock, TransformerLM, _lm_spec, gelu,
@@ -49,24 +80,63 @@ class MoeMlp(nn.Module):
     and ``experts_down`` (E, H, D), in the JAX package's layouts.
 
     With ``record_routing`` set, each forward keeps its gate indices, slot
-    positions (S, K) int32 and capacity in ``routing`` (for checks)."""
+    positions (S, K) int32 and capacity in ``routing`` (for checks).
+
+    ``router`` is ``"gshard"`` (the JAX package's rules) or ``"vmoe"``
+    (the module docstring's; then also ``experts_up_bias`` and
+    ``experts_down_bias``, and no ``router.bias``), which routes by the
+    index dispatch. ``noise_std``, ``noise_seed`` and ``layer`` set
+    V-MoE's router noise."""
 
     def __init__(self, dim: int, num_experts: int = 8,
                  expert_hidden: Optional[int] = None, top_k: int = 2,
-                 capacity_factor: float = 1.25, dtype=torch.bfloat16):
+                 capacity_factor: float = 1.25, dtype=torch.bfloat16,
+                 router: str = "gshard",
+                 noise_std: float = 0.0, noise_seed: Optional[int] = None,
+                 layer: int = 0):
         super().__init__()
         hidden = expert_hidden or 4 * dim
+        vmoe = router == "vmoe"
+        if router not in ("gshard", "vmoe"):
+            raise ValueError(f"unknown router rules {router!r}")
+        if vmoe and noise_std <= 0:
+            raise ValueError("V-MoE's load loss needs router noise: "
+                             f"noise_std={noise_std}")
         self.num_experts, self.top_k = num_experts, top_k
         self.capacity_factor = capacity_factor
         self.dtype = resolve_dtype(dtype)
-        self.router = Dense(dim, num_experts, torch.float32)
+        self.rules = router
+        self.noise_std, self.noise_seed, self.layer = noise_std, noise_seed, layer
+        # init_state draws a V-MoE bank by each expert's fan-in (D, H),
+        # the GShard one by flax's fan-in of the whole array (E * D, E * H)
+        self.per_expert_fan_in = vmoe
+        self.router = Dense(dim, num_experts, torch.float32, use_bias=not vmoe)
         self.experts_up = nn.Parameter(torch.empty(num_experts, dim, hidden))
         self.experts_down = nn.Parameter(torch.empty(num_experts, hidden, dim))
+        if vmoe:
+            self.experts_up_bias = nn.Parameter(torch.empty(num_experts, hidden))
+            self.experts_down_bias = nn.Parameter(torch.empty(num_experts, dim))
+        else:
+            self.experts_up_bias = self.experts_down_bias = None
+        # (kept, dropped) pairs since the trainer's last read; not state
+        self.register_buffer("routed_pairs", torch.zeros(2, dtype=torch.int64),
+                             persistent=False)
         self.aux_loss: Optional[torch.Tensor] = None
         self.record_routing = False
         self.routing: Optional[dict] = None
         self._layout = None      # the mesh layout once bound
         self._split = None       # the group the expert compute splits over
+        self._noise_gen: Optional[torch.Generator] = None
+
+    def device_counters(self) -> dict:
+        """``{registry name: device scalar}`` of the pairs kept and dropped
+        since the last read (the index dispatch counts them; none on the
+        one-hot route); the trainer reads them in its flush's one sync and
+        then zeroes them."""
+        if self.rules != "vmoe":
+            return {}
+        return {"moe.routed": self.routed_pairs[0],
+                "moe.dropped": self.routed_pairs[1]}
 
     def bind_mesh(self, layout, shardings) -> dict:
         """Route over the global batch of the tokens split over the data
@@ -127,6 +197,8 @@ class MoeMlp(nn.Module):
         return position, onehot_i[:, 0, :]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rules == "vmoe":
+            return self._forward_index(x)
         B, L, D = x.shape
         E, K = self.num_experts, self.top_k
         S = B * L
@@ -196,6 +268,70 @@ class MoeMlp(nn.Module):
             mean_prob = probs.mean(dim=0)
         self.aux_loss = E * torch.sum(frac_routed * mean_prob)
         return y.reshape(B, L, D)
+
+    # -- the index dispatch (V-MoE's route) -----------------------------
+    def _noise(self, logits: torch.Tensor) -> torch.Tensor:
+        """A unit normal draw of the logits' shape: seeded anew at each
+        forward with ``noise_seed``, else from the global generator."""
+        if self.noise_seed is None:
+            return torch.randn(logits.shape, device=logits.device)
+        gen = self._noise_gen
+        if gen is None or gen.device != logits.device:
+            gen = self._noise_gen = torch.Generator(device=logits.device)
+        gen.manual_seed(int(self.noise_seed) * 65536 + self.layer)
+        return torch.randn(logits.shape, generator=gen, device=logits.device)
+
+    def _vmoe_gates(self, logits: torch.Tensor):
+        """(gates (S, K), expert ids (S, K), aux loss) by V-MoE's rules."""
+        E, K = self.num_experts, self.top_k
+        sigma = self.noise_std / E
+        noisy = logits
+        if self.training:
+            noisy = logits + sigma * self._noise(logits)
+        probs = torch.softmax(noisy, dim=-1)
+        gate_vals, gate_idx = torch.topk(probs, K, dim=-1)
+        # the K-th largest noisy logit; 1 - Phi(z) = erfc(z / sqrt 2) / 2
+        eta = noisy.gather(1, gate_idx[:, K - 1:])
+        stay = 0.5 * torch.erfc((eta - logits) / (sigma * math.sqrt(2.0)))
+        aux = 0.5 * (_cv_squared(probs.sum(dim=0))
+                     + _cv_squared(stay.sum(dim=0)))
+        return gate_vals, gate_idx, aux
+
+    def _forward_index(self, x: torch.Tensor) -> torch.Tensor:
+        if self._layout is not None and self._layout.grad_axes:
+            raise NotImplementedError("the index dispatch routes on one "
+                                      "device")
+        B, L, D = x.shape
+        E, K = self.num_experts, self.top_k
+        S = B * L
+        xf = x.reshape(S, D)
+        with span("moe", "route", hot=True):
+            logits = self.router(xf.float())
+            gates, gate_idx, aux = self._vmoe_gates(logits)
+            C = max(1, round(K * S * self.capacity_factor / E))
+            plan = moe_ops.index_plan(gate_idx, E, C)
+            kept = plan.kept.sum(dtype=torch.int64)
+            self.routed_pairs.add_(torch.stack([kept, K * S - kept]))
+        if self.record_routing:
+            self.routing = {"gate_idx": gate_idx.to(torch.int32).detach(),
+                            "position": plan.position.detach(),
+                            "capacity": C}
+        with span("moe", "permute", hot=True):
+            xe = moe_ops.permute(xf, plan, E, self.dtype)
+        with span("moe", "experts", hot=True):
+            ye = moe_ops.experts(xe.view(E, C, D), self.experts_up,
+                                 self.experts_up_bias, self.experts_down,
+                                 self.experts_down_bias, self.dtype,
+                                 self.dtype)
+        with span("moe", "unpermute", hot=True):
+            y = moe_ops.unpermute(ye.view(E * C, D), gates, plan, self.dtype)
+        self.aux_loss = aux
+        return y.reshape(B, L, D)
+
+
+def _cv_squared(v: torch.Tensor) -> torch.Tensor:
+    """The squared coefficient of variation of ``v`` (population std)."""
+    return v.var(unbiased=False) / v.mean() ** 2
 
 
 def _moe_lm(vocab, dim, depth, heads, max_len, num_experts, top_k,

@@ -95,19 +95,21 @@ class GroupNorm(ChannelsFirst, nn.Module):
 
 class Dense(nn.Module):
     """flax ``nn.Dense(dtype=...)``: weight (out, in), the input, weight
-    and bias cast to ``dtype`` at the op (float32 by default)."""
+    and bias cast to ``dtype`` at the op (float32 by default); with
+    ``use_bias=False`` (flax's ``use_bias``) there is no ``bias``."""
 
     split_heads = None   # the head count of a flax DenseGeneral (h, d) output
 
-    def __init__(self, cin: int, cout: int, dtype=torch.float32):
+    def __init__(self, cin: int, cout: int, dtype=torch.float32,
+                 use_bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(cout, cin))
-        self.bias = nn.Parameter(torch.empty(cout))
+        self.bias = nn.Parameter(torch.empty(cout)) if use_bias else None
         self.dtype = resolve_dtype(dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
-                        self.bias.to(self.dtype))
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
 
     def to_reference_layout(self, args, y: torch.Tensor) -> torch.Tensor:
         if self.split_heads is None:

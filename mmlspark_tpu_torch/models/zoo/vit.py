@@ -18,7 +18,7 @@ when ``force_fp32_for_softmax`` is off.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -78,14 +78,19 @@ class MultiHeadAttention(nn.Module):
 
 
 class EncoderBlock(nn.Module):
+    """Pre-norm block; ``mlp_factory() -> nn.Module`` swaps the dense MLP
+    for another under the same name ``mlp`` (V-MoE's routed one)."""
+
     def __init__(self, dim: int, heads: int, mlp_ratio: int = 4,
                  dtype=torch.bfloat16,
-                 attention_fn: Optional[Callable] = None):
+                 attention_fn: Optional[Callable] = None,
+                 mlp_factory: Optional[Callable[[], nn.Module]] = None):
         super().__init__()
         self.norm1 = LayerNorm(dim)
         self.attn = MultiHeadAttention(dim, heads, dtype, attention_fn)
         self.norm2 = LayerNorm(dim)
-        self.mlp = MlpBlock(dim, dim * mlp_ratio, dtype)
+        self.mlp = (mlp_factory() if mlp_factory is not None
+                    else MlpBlock(dim, dim * mlp_ratio, dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.norm1(x))
@@ -117,10 +122,15 @@ class PatchEmbedding(nn.Module):
 
 
 class ViT(PooledHead):
+    """``moe_layers`` lists the blocks whose MLP ``moe_factory(i)`` builds
+    (V-MoE); the others keep the dense one."""
+
     def __init__(self, patch: int = 16, dim: int = 768, depth: int = 12,
                  heads: int = 12, num_classes: int = 1000,
                  dtype=torch.bfloat16, image_size: int = 224,
-                 attention_fn: Optional[Callable] = None):
+                 attention_fn: Optional[Callable] = None,
+                 moe_layers: Sequence[int] = (),
+                 moe_factory: Optional[Callable[[int], nn.Module]] = None):
         super().__init__()
         self.dtype = resolve_dtype(dtype)
         self.depth = depth
@@ -129,8 +139,10 @@ class ViT(PooledHead):
         self.cls = nn.Parameter(torch.empty(1, 1, dim))
         self.pos_embedding = nn.Parameter(torch.empty(1, tokens, dim))
         for i in range(depth):
+            routed = (lambda i=i: moe_factory(i)) if i in moe_layers else None
             self.add_module(f"block{i}", EncoderBlock(
-                dim, heads, dtype=self.dtype, attention_fn=attention_fn))
+                dim, heads, dtype=self.dtype, attention_fn=attention_fn,
+                mlp_factory=routed))
         self.final_norm = LayerNorm(dim)
         self.head = Dense(dim, num_classes)
 
@@ -170,3 +182,50 @@ def vit_tiny(num_classes: int = 10, image_size: int = 32, patch: int = 4,
         feature_layer="pool", feature_dim=192,
         layer_names=["pool", "head"],
     )
+
+
+def _vmoe(patch, dim, depth, heads, num_classes, image_size, dtype,
+          num_experts, top_k, moe_layers, capacity_factor, noise_std,
+          noise_seed, attention_fn):
+    from mmlspark_tpu_torch.models.zoo.moe import MoeMlp
+
+    def moe(i):
+        return MoeMlp(dim, num_experts=num_experts, expert_hidden=4 * dim,
+                      top_k=top_k, capacity_factor=capacity_factor,
+                      dtype=dtype, router="vmoe", noise_std=noise_std,
+                      noise_seed=noise_seed, layer=i)
+    return dict(
+        module=ViT(patch=patch, dim=dim, depth=depth, heads=heads,
+                   num_classes=num_classes, dtype=dtype,
+                   image_size=image_size, attention_fn=attention_fn,
+                   moe_layers=tuple(moe_layers), moe_factory=moe),
+        input_shape=(image_size, image_size, 3),
+        feature_layer="pool", feature_dim=dim,
+        layer_names=["pool", "head"],
+    )
+
+
+@register_model("vmoe_b16", port_only=True)
+def vmoe_b16(num_classes: int = 1000, image_size: int = 224,
+             dtype=torch.bfloat16, num_experts: int = 32, top_k: int = 2,
+             moe_layers=(1, 3, 5, 7, 9, 11), capacity_factor: float = 1.05,
+             noise_std: float = 1.0, noise_seed=None, attention_fn=None):
+    """V-MoE-B/16 (Riquelme et al. 2021, arXiv:2106.05974): ViT-B/16 whose
+    blocks ``moe_layers`` ("Every-2") route their MLP over ``num_experts``
+    experts of 768 -> 3072 -> 768, ``top_k`` a token, by V-MoE's rules
+    (``moe.py``)."""
+    return _vmoe(16, 768, 12, 12, num_classes, image_size, dtype,
+                 num_experts, top_k, moe_layers, capacity_factor, noise_std,
+                 noise_seed, attention_fn)
+
+
+@register_model("vmoe_tiny", port_only=True)
+def vmoe_tiny(num_classes: int = 10, image_size: int = 32, patch: int = 8,
+              dim: int = 64, depth: int = 4, heads: int = 4,
+              num_experts: int = 8, top_k: int = 2, moe_layers=(1, 3),
+              capacity_factor: float = 1.05, noise_std: float = 1.0,
+              noise_seed=None, dtype=torch.float32, attention_fn=None):
+    """Test-scale V-MoE (fp32 by default)."""
+    return _vmoe(patch, dim, depth, heads, num_classes, image_size, dtype,
+                 num_experts, top_k, moe_layers, capacity_factor, noise_std,
+                 noise_seed, attention_fn)

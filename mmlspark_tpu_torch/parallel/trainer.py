@@ -291,6 +291,9 @@ class DistributedTrainer:
         self._shardings: Optional[Dict[str, sharding.ParamSharding]] = None
         self._gathers: List[tuple] = []
         self._reduce: List[Tuple[Any, List[torch.nn.Parameter]]] = []
+        # (path, module) of the modules that count on the device
+        # (``device_counters()``: the MoE's routed and dropped pairs)
+        self._counted: List[Tuple[str, torch.nn.Module]] = []
 
     # -- state -------------------------------------------------------------
     def init(self, init_fn: Callable[[], torch.nn.Module]) -> Dict[str, Any]:
@@ -308,6 +311,8 @@ class DistributedTrainer:
         module = module.to(self.device).train()
         if self.device.type == "cuda":
             module = module.to(memory_format=torch.channels_last)
+        self._counted = [(path, m) for path, m in module.named_modules()
+                         if callable(getattr(m, "device_counters", None))]
         state = {"module": module,
                  "optimizer": self.optimizer.init(module.parameters()),
                  "step": torch.zeros((), dtype=torch.int32,
@@ -591,12 +596,28 @@ class DistributedTrainer:
         """Read the device metrics ring: ONE counted host sync
         (``trainer.flush``). Returns ``{"loss": (flush_steps,) float32,
         "step": int32}`` (also kept as ``last_flush``), or None before the
-        first step."""
+        first step. The modules' device counters ride on the same read:
+        each adds to the registry's counter of its name and to
+        ``<name>.<module path>``, and is zeroed on the device."""
         if self._ring is None:
             return None
         with span("train", "flush", hot=True):
-            self.last_flush = obssyncs.device_get(self._ring,
-                                                  "trainer.flush")
+            counters = [(f"{name}.{path}", name, value)
+                        for path, m in self._counted
+                        for name, value in m.device_counters().items()]
+            if not counters:
+                self.last_flush = obssyncs.device_get(self._ring,
+                                                      "trainer.flush")
+            else:
+                got = obssyncs.device_get(
+                    {"ring": self._ring,
+                     "counters": torch.stack([c[2] for c in counters])},
+                    "trainer.flush")
+                self.last_flush = got["ring"]
+                for (layer, name, value), n in zip(counters, got["counters"]):
+                    value.zero_()
+                    obsmetrics.counter(name).inc(float(n))
+                    obsmetrics.counter(layer).inc(float(n))
         self._steps_since_flush = 0
         return self.last_flush
 

@@ -41,7 +41,7 @@ from mmlspark_tpu_torch.models import _msgpack
 from mmlspark_tpu_torch.models import convert
 from mmlspark_tpu_torch.models import downloader as dl
 from mmlspark_tpu_torch.models.torch_model import TorchModel
-from mmlspark_tpu_torch.models.zoo import available_models
+from mmlspark_tpu_torch.models.zoo import available_models, shared_models
 from mmlspark_tpu_torch.utils import config as tconfig
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
@@ -295,14 +295,16 @@ def test_validate_params_raises_the_reference_lists():
                            broken, num_classes=4)
 
 
-@pytest.mark.parametrize("architecture", available_models())
+@pytest.mark.parametrize("architecture", shared_models())
 def test_validate_target_equals_the_reference_init(architecture):
     """Every architecture's target (paths, shapes, dtypes), built from the
     meta module, equals the reference's ``jax.eval_shape`` of its init."""
     import jax
     import jax.numpy as jnp
     from mmlspark_tpu.models.zoo import build_model as jbuild
-    assert available_models() == javailable()
+    assert shared_models() == javailable()
+    assert set(available_models()) - set(shared_models()) == {
+        "vmoe_b16", "vmoe_tiny"}
     spec = jbuild(architecture)
     shape = (1,) + tuple(spec["input_shape"])
     dt = jnp.int32 if spec.get("input_dtype") == "int32" else jnp.float32

@@ -32,7 +32,7 @@ from mmlspark_tpu_torch.core.schema import ColumnSchema, DType, ImageValue
 from mmlspark_tpu_torch.image.featurizer import ImageFeaturizer
 from mmlspark_tpu_torch.models import downloader as dl
 from mmlspark_tpu_torch.models.convert import from_jax_params, to_jax_params
-from mmlspark_tpu_torch.models.zoo import available_models, build_model
+from mmlspark_tpu_torch.models.zoo import build_model, shared_models
 from mmlspark_tpu_torch.reliability.breaker import reset_breakers
 from mmlspark_tpu_torch.reliability.faults import FaultPlan, FaultSpec
 from mmlspark_tpu_torch.reliability.retry import RetryPolicy
@@ -139,7 +139,7 @@ SMALL = {
 }
 
 
-@pytest.mark.parametrize("name", available_models())
+@pytest.mark.parametrize("name", shared_models())
 def test_to_jax_params_inverts_from_jax_params(name):
     kw = SMALL.get(name, {})
     spec = jbuild(name, **kw)

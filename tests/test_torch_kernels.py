@@ -95,7 +95,11 @@ def test_every_kernel_is_registered_once_with_a_source():
     assert [k.name for k in KERNELS] == ["fused_normalize",
                                          "crop_resize_normalize",
                                          "flash_attention",
-                                         "flash_attention_tc"]
+                                         "flash_attention_tc",
+                                         "moe_grouped_gemm", "moe_permute",
+                                         "moe_unpermute",
+                                         "moe_unpermute_bwd",
+                                         "moe_bias_grad"]
     for k in KERNELS:
         assert k.source.exists()
         assert k.launches >= 0

@@ -19,7 +19,7 @@ import torch
 from mmlspark_tpu.models.zoo import resnet as jres
 from mmlspark_tpu_torch.models.convert import from_jax_params
 from mmlspark_tpu_torch.models.zoo import (
-    available_models, build_model, init_state, resolve_dtype,
+    available_models, build_model, init_state, resolve_dtype, shared_models,
 )
 from mmlspark_tpu_torch.models.zoo import resnet as tres
 
@@ -140,12 +140,15 @@ def test_zoo_registry_and_specs_match_the_jax_zoo():
     from mmlspark_tpu.models.zoo import available_models as javailable
     from mmlspark_tpu.models.zoo import build_model as jbuild
     # every architecture of the JAX zoo (the DLRM's embed/ since slice 6b)
-    assert available_models() == javailable() == [
+    assert shared_models() == javailable() == [
         "mlp_tabular", "recommender_dlrm", "resnet20_cifar", "resnet50",
         "textcnn", "transformer_lm", "transformer_lm_moe",
         "transformer_lm_moe_tiny", "transformer_lm_tiny", "vit_b16",
         "vit_tiny"]
-    for name in available_models():
+    # V-MoE is the port's alone
+    assert available_models() == sorted(
+        shared_models() + ["vmoe_b16", "vmoe_tiny"])
+    for name in shared_models():
         t, j = build_model(name), jbuild(name)
         for key in ("input_shape", "feature_layer", "feature_dim",
                     "layer_names"):
